@@ -1,0 +1,244 @@
+"""End-to-end federated training entry point of the port — the
+counterpart of ``repro/launch/train.py`` for the paper's SR task.
+
+Composes dataset → cohort sampler → placement → worker pool → round step
+(partial aggregation through the K1 kernel) → synthetic telemetry →
+time-model refit, on the CUDA card::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --task sr --rounds 20
+
+The flags are the reference's.  Those of paths this slice does not port
+(LM archs, checkpoints, mesh/cache/control-plane options, trace export)
+raise ``NotImplementedError`` naming their ROADMAP item when set.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from collections import Counter
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import (EngineConfig, FederatedEngine,
+                              SyntheticTelemetry, UniformSampler, ZipfSampler,
+                              make_placement)
+from repro_torch.core.sampling import PowerOfChoiceSampler
+from repro_torch.data import make_federated_dataset
+from repro_torch.distributed import FailureEvent, WorkerPool
+from repro_torch.fl.strategy import strategy_from_name
+from repro_torch.kernels import ops as kops
+from repro_torch.models.papertasks import make_task_model
+from repro_torch.optim import sgd
+
+__all__ = ["build_engine", "main", "set_deterministic"]
+
+TASKS = ("ic", "sr", "tg", "mlm")
+
+
+def set_deterministic() -> None:
+    """Make the card's results a function of the inputs alone: fixed cuBLAS
+    workspaces (set before the first GEMM), deterministic algorithms, full
+    f32 GEMMs and convolutions.  The bit-identity of losses across
+    pipeline depths rests on it."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    # Deterministic mode also NaN-fills every torch.empty, one extra pass
+    # per allocation; the port reads no memory it has not written.
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _refuse(name: str, value, default, item: str) -> None:
+    if value != default:
+        raise NotImplementedError(f"{name}={value!r} is not ported yet "
+                                  f"(ROADMAP {item})")
+
+
+def build_engine(*, task: str | None = None, arch: str | None = None,
+                 placement: str = "lb", cohort: int = 8,
+                 population: int | None = None, workers: int = 2,
+                 concurrency: int = 2, strategy: str = "fedavg",
+                 steps_cap: int = 8, seed: int = 1337,
+                 ckpt_dir: str | None = None, deadline_rho: float = 0.0,
+                 pipeline_depth: int = 1, sampler: str = "uniform",
+                 zipf_exponent: float = 1.2, grad_clip: float | None = None,
+                 obs=None, device="cuda", **engine_options) -> FederatedEngine:
+    """Compose a runnable engine for a paper task, on ``device``.
+
+    ``engine_options`` are further :class:`EngineConfig` fields — the
+    reference's mesh, device-cache, control-plane and combine options,
+    which raise until they are ported.  Raises before any work when
+    ``device`` is CUDA and no card is present.
+    """
+    device = resolve_device(device)
+    _refuse("arch", arch, None, "M15")
+    _refuse("ckpt_dir", ckpt_dir, None, "M9")
+    if sampler == "online":
+        raise NotImplementedError("sampler='online' is not ported yet "
+                                  "(ROADMAP M17)")
+    strat = strategy_from_name(strategy)
+    task = task or "sr"
+    ds = make_federated_dataset(
+        task, seed=seed, **({"n_clients": population} if population else {}))
+    config = EngineConfig(steps_cap=steps_cap, lanes_per_worker=concurrency,
+                          grad_clip=grad_clip, deadline_rho=deadline_rho,
+                          pipeline_depth=pipeline_depth,
+                          batch_size=ds.spec.batch_size, **engine_options)
+    params, loss_fn = make_task_model(task, seed, device=device)
+    if sampler == "zipf":
+        sampler_obj = ZipfSampler(ds.n_clients, cohort, a=zipf_exponent,
+                                  seed=seed)
+    elif sampler == "poc":
+        sampler_obj = PowerOfChoiceSampler(ds.n_clients, cohort, seed=seed)
+    else:
+        sampler_obj = UniformSampler(ds.n_clients, cohort, seed=seed)
+    return FederatedEngine(
+        dataset=ds, loss_fn=loss_fn, init_params=params,
+        optimizer=sgd(0.05, momentum=0.9, weight_decay=5e-4),
+        placement=make_placement(placement), sampler=sampler_obj,
+        pool=WorkerPool.homogeneous(workers, type_name="a40",
+                                    concurrency=concurrency),
+        telemetry=SyntheticTelemetry(seed=seed), strategy=strat,
+        config=config, obs=obs, device=device)
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description="Pollen FL simulation on the CUDA card (port).  Flags "
+                    "as in repro.launch.train; unported ones raise.")
+    ap.add_argument("--task", choices=TASKS, default=None)
+    ap.add_argument("--arch", default=None, help="not ported (M15)")
+    ap.add_argument("--preset", default="smoke",
+                    help="LM preset, used only with --arch (not ported, M15)")
+    ap.add_argument("--placement", default="lb", choices=["rr", "bb", "lb"])
+    ap.add_argument("--rounds", type=int, default=20)
+    ap.add_argument("--cohort", type=int, default=8)
+    ap.add_argument("--population", type=int, default=None)
+    ap.add_argument("--workers", type=int, default=2)
+    ap.add_argument("--concurrency", type=int, default=2)
+    ap.add_argument("--strategy", default="fedavg",
+                    choices=["fedavg", "fedmedian"])
+    ap.add_argument("--steps-cap", type=int, default=8)
+    ap.add_argument("--grad-clip", type=float, default=None)
+    ap.add_argument("--pipeline-depth", type=int, default=1)
+    ap.add_argument("--device-cache-batches", type=int, default=0)
+    ap.add_argument("--device-cache-mb", type=float, default=0.0)
+    ap.add_argument("--sampler", default="uniform",
+                    choices=["uniform", "zipf", "online", "poc"])
+    ap.add_argument("--zipf-exponent", type=float, default=1.2)
+    ap.add_argument("--population-period", type=float, default=48.0)
+    ap.add_argument("--population-surge", default=None)
+    ap.add_argument("--population-outage", default=None)
+    ap.add_argument("--telemetry", default="synthetic",
+                    choices=["synthetic", "measured"])
+    ap.add_argument("--barrier-policy", default="reuse",
+                    choices=["reuse", "stall"])
+    ap.add_argument("--drift-threshold", type=float, default=0.0)
+    ap.add_argument("--adapt-interval", type=int, default=0)
+    ap.add_argument("--adapt-granularity", default="type",
+                    choices=["type", "worker"])
+    ap.add_argument("--mesh-workers", type=int, default=0)
+    ap.add_argument("--cache-affinity", action="store_true")
+    ap.add_argument("--bucket-mode", default="round",
+                    choices=["round", "worker"])
+    ap.add_argument("--combine-mode", default="flat", choices=["flat", "tree"])
+    ap.add_argument("--combine-compress", default="none",
+                    choices=["none", "int8", "topk"])
+    ap.add_argument("--topk-frac", type=float, default=0.05)
+    ap.add_argument("--hosts", type=int, default=0)
+    ap.add_argument("--trace-out", default=None)
+    ap.add_argument("--trace-rounds", type=int, default=64)
+    ap.add_argument("--flight-rounds", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=1337)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--deadline-rho", type=float, default=0.0)
+    ap.add_argument("--fail-worker", default=None,
+                    help="WID:ROUND — inject a worker failure")
+    ap.add_argument("--join-worker", default=None, help="WID:ROUND")
+    ap.add_argument("--metrics-out", default=None)
+    return ap
+
+
+# Flags whose paths this slice does not port: (dest, default, ROADMAP item).
+# The mesh/cache/control-plane flags are refused by EngineConfig.
+_UNPORTED_FLAGS = (
+    ("resume", False, "M9"),
+    ("population_period", 48.0, "M17"), ("population_surge", None, "M17"),
+    ("population_outage", None, "M17"), ("topk_frac", 0.05, "M13"),
+    ("trace_out", None, "M8 (trace export)"),
+    ("flight_rounds", 0, "M8 (flight recorder)"),
+)
+
+
+def main(argv=None) -> int:
+    args = _build_parser().parse_args(argv)
+    for dest, default, item in _UNPORTED_FLAGS:
+        _refuse("--" + dest.replace("_", "-"), getattr(args, dest), default,
+                item)
+    set_deterministic()
+    engine = build_engine(
+        task=args.task, arch=args.arch, placement=args.placement,
+        cohort=args.cohort, population=args.population,
+        workers=args.workers, concurrency=args.concurrency,
+        strategy=args.strategy, steps_cap=args.steps_cap, seed=args.seed,
+        ckpt_dir=args.ckpt_dir, grad_clip=args.grad_clip,
+        deadline_rho=args.deadline_rho, pipeline_depth=args.pipeline_depth,
+        sampler=args.sampler, zipf_exponent=args.zipf_exponent,
+        device_cache_batches=args.device_cache_batches,
+        device_cache_bytes=int(args.device_cache_mb * 2**20),
+        telemetry_mode=args.telemetry, barrier_policy=args.barrier_policy,
+        drift_threshold=args.drift_threshold,
+        adapt_interval=args.adapt_interval,
+        adapt_granularity=args.adapt_granularity,
+        mesh_workers=args.mesh_workers, cache_affinity=args.cache_affinity,
+        bucket_mode=args.bucket_mode, combine_mode=args.combine_mode,
+        combine_compress=args.combine_compress, hosts=args.hosts)
+    if args.fail_worker:
+        wid, rnd = (int(x) for x in args.fail_worker.split(":"))
+        engine.pool.schedule(FailureEvent(round_idx=rnd, kind="fail",
+                                          wid=wid))
+    if args.join_worker:
+        wid, rnd = (int(x) for x in args.join_worker.split(":"))
+        engine.pool.schedule(FailureEvent(round_idx=rnd, kind="join",
+                                          wid=wid, type_name="a40"))
+    kops.reset_launch_counts()
+    results = engine.run(args.rounds, log_every=1)
+    summary = {
+        "device": str(engine.device),
+        "rounds": len(results),
+        "final_loss": results[-1].loss if results else None,
+        "total_idle_s": sum(r.idle_time for r in results),
+        "mean_useful_fraction": float(np.mean(
+            [r.useful_fraction for r in results])) if results else None,
+        "placement": args.placement,
+        "pipeline_depth": args.pipeline_depth,
+        "mean_overlap_fraction": float(np.mean(
+            [r.overlap_fraction for r in results])) if results else None,
+        "mean_exec_s": float(np.mean(
+            [r.exec_time for r in results])) if results else None,
+        "slo_p50_s": float(np.mean(
+            [r.slo_p50 for r in results])) if results else None,
+        "slo_p99_s": float(np.mean(
+            [r.slo_p99 for r in results])) if results else None,
+        "mean_idle_fraction": float(np.mean(
+            [r.idle_fraction for r in results])) if results else None,
+        "critical_path": dict(Counter(
+            r.critical_path for r in results if r.critical_path)),
+        "kernel_launches": kops.launch_counts(),
+    }
+    print(json.dumps(summary, indent=1))
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump({"summary": summary,
+                       "history": [vars(r) for r in results]}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

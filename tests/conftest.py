@@ -29,3 +29,11 @@ except ImportError:
     mod.strategies = st_mod
     sys.modules["hypothesis"] = mod
     sys.modules["hypothesis.strategies"] = st_mod
+
+
+def pytest_configure(config):
+    # Tests of the PyTorch port that need the CUDA card; they skip (with a
+    # reason) on a machine without one.  Run them on the card with
+    # ``python -m pytest -m cuda tests/test_torch_cuda.py``.
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one)")
