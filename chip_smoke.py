@@ -10,27 +10,43 @@ Phases, one JSON object per line on stdout:
              ``nvidia-smi --query-gpu=name,power.limit`` line is printed on
              its own line as well);
 2. build   — every kernel of the port compiled from ``src/repro_torch/
-             kernels/csrc`` with nvcc (in parallel), with ptxas' report;
-3. check   — each kernel against its plain PyTorch version on the card, at
-             the reference's test shapes, the SR leaf shapes and the flat
-             lane buffer the round folds (f32 bitwise, bf16 within 1 ulp);
-4. timing  — each kernel, its plain version and one library call at the
-             main path's shapes (CUDA events), beside the bytes/ops bound;
+             kernels/csrc`` with nvcc (one process each, in parallel), with
+             ptxas' report;
+3. check   — each kernel against its plain PyTorch version on the card:
+             K1 at the reference's test shapes, the SR leaf shapes and the
+             flat lane buffer the round folds (f32 bitwise, bf16 within 1
+             ulp); K2 at the reference's sweep shapes and weight edges and
+             on the SR flat buffer with its 18-leaf scale table (f32
+             bitwise; ``N+n == 0`` returns ``acc`` bit for bit);
+4. timing  — each kernel, its plain version and, where one exists, one
+             library call at the main path's shapes (CUDA events, best of
+             3 interleaved), beside the bytes/ops bound;
 5. main    — ``build_engine(task="sr")`` at the published SR widths on
              ``cuda``: rounds at pipeline depth 1 and again at depth 0 from
              the same seed, with the launch counts zeroed just before each
              run and read just after; losses must be finite and
              bit-identical, and every round step must have gone through K1;
-6. agree   — a small SR engine on the card against the same engine on the
+6. mesh    — the slice's path, ``build_engine(task="sr", workers=4,
+             mesh_workers=2, combine_mode="tree", combine_compress="int8")``
+             at the published widths, ``MESH_ROUNDS`` rounds at depth 1
+             and again at depth 0:
+             finite losses, bit-identical across depths, K2 launched once
+             per live shard per round, ``combine_bytes`` 2 × 4,245,072 B
+             per round, K1 once per worker program step;
+7. decomp  — the flat combine at ``mesh_workers`` 2 and 4 against the
+             fused path (4 workers), bitwise; ``hosts=1`` against
+             ``hosts=2`` at ``mesh_workers=4`` with ``combine_compress``
+             ``none`` and ``int8``, bitwise; one topk round;
+8. agree   — a small SR engine on the card against the same engine on the
              CPU (rtol 1e-4: GEMM sums are ordered differently);
-7. the ``kernels`` line, then the last line
+9. the ``kernels`` line, then the card line and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no last
 line.  It also fails where no CUDA card is present, and where the repo's
 ``src/`` is missing.  ``--profile-out DIR`` adds a torch.profiler pass over
-two main-path rounds: the trace, per-kernel device time and per-op host
-time, written to DIR.
+two rounds of the main path (``DIR/fused``) and of the mesh path
+(``DIR/mesh``): the trace, per-kernel device time and per-op host time.
 """
 
 from __future__ import annotations
@@ -61,6 +77,12 @@ F32_FLOPS = 67e12
 SR_LEAVES = [(64, 512), (512, 512), (512, 35)]
 SWEEP = [(7,), (33,), (300, 5), (129, 1025), (2, 3, 5, 7), (4096,)]
 EDGES = [(0.0, 0.0), (0.0, 4.0), (7.0, 0.0), (10.0, 3.0)]
+SR_PARAMS = 4_244_992
+# The slice's path: 4 workers x 2 lanes over 2 shards, tree combine, int8.
+MESH = dict(workers=4, mesh_workers=2, combine_mode="tree",
+            combine_compress="int8")
+MESH_ROUNDS = 3
+INT8_PAYLOAD = 4_245_072      # payload_nbytes(SR, "int8"): N + 18*4 + 8
 
 
 def emit(obj) -> None:
@@ -87,14 +109,46 @@ def mem_bw(name: str) -> float:
     return 3.35e12
 
 
+_sleep_cycles_per_ms: list = []
+
+
+def _cycles_per_ms(torch) -> float:
+    """The rate of ``torch.cuda._sleep``'s cycle count, timed once on the
+    card with CUDA events."""
+    if not _sleep_cycles_per_ms:
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles)                # warm
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        torch.cuda.synchronize()
+        _sleep_cycles_per_ms.append(cycles / start.elapsed_time(end))
+    return _sleep_cycles_per_ms[0]
+
+
 def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
-    """Device time of one call, from CUDA events around ``iters`` calls."""
+    """Device time of one call, from CUDA events around ``iters`` calls.
+
+    A call's host side (the wrapper's checks, allocation, the launch) can
+    take longer than its kernels; the card would then wait for the host
+    between calls and the events would time the host.  So the timed calls
+    are queued behind a device-side sleep twice as long as their enqueue
+    took, and the card runs them back to back."""
     import torch
+    rate = _cycles_per_ms(torch)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * enqueue_ms * rate))
     start.record()
     for _ in range(iters):
         fn()
@@ -215,6 +269,101 @@ def phase_timing(torch, n_params: int, lanes: int, device_name: str) -> dict:
     return out
 
 
+def _sr_layout():
+    from repro_torch.kernels.layout import FlatLayout
+    from repro_torch.models.papertasks import make_task_model
+    params, _ = make_task_model("sr", 0)
+    return FlatLayout(params)
+
+
+def _payload(torch, n: int, gen, dev):
+    acc = torch.randn(n, generator=gen).to(dev)
+    g = torch.randn(n, generator=gen).to(dev)
+    q = torch.randint(-127, 128, (n,), generator=gen,
+                      dtype=torch.int8).to(dev)
+    return acc, q, g
+
+
+def phase_check_k2(torch, layout) -> float:
+    """K2 against its plain version; returns the max |err| (f32)."""
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+    cases, max_err = 0, 0.0
+
+    def compare(got, want, acc, tag, edge):
+        nonlocal cases, max_err
+        torch.cuda.synchronize()
+        cases += 1
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        max_err = max(max_err, err)
+        check(torch.equal(got, want), f"K2 {tag} {edge}: max err {err}")
+        if edge[0] + edge[1] == 0.0:
+            check(torch.equal(got, acc), f"K2 {tag}: N+n == 0 changed acc")
+
+    for shape in SWEEP:
+        n = math.prod(shape)
+        acc, q, g = _payload(torch, n, gen, dev)
+        acc, q, g = acc.view(shape), q.view(shape), g.view(shape)
+        for edge in EDGES:
+            got = ops.dequant_merge(acc, q, g, 0.013, *edge)
+            want = ref.dequant_merge_ref(acc, q, g, 0.013, *edge)
+            compare(got, want, acc, shape, edge)
+    # The combine's own call: the SR flat buffer, 18 per-leaf scales.
+    acc, q, g = _payload(torch, layout.n, gen, dev)
+    scales = (torch.rand(len(layout.names), generator=gen) * 0.02).to(dev)
+    offsets = layout.offsets_on(dev)
+    for edge in EDGES:
+        n_old, n_k = (torch.tensor(w, device=dev) for w in edge)
+        got = ops.dequant_merge_flat(acc, q, g, scales, offsets, n_old, n_k)
+        want = ref.dequant_merge_flat_ref(acc, q, g, scales, offsets,
+                                          n_old, n_k)
+        compare(got, want, acc, f"SR flat [{layout.n}]", edge)
+    emit({"phase": "check", "kernel": "dequant_merge", "cases": cases,
+          "f32": "bitwise", "max_abs_err_f32": max_err})
+    return max_err
+
+
+def phase_timing_k2(torch, layout, device_name: str) -> dict:
+    """K2 and its plain version on one shard's SR payload fold."""
+    from repro_torch.kernels import dequant_merge as dm
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    acc, q, g = _payload(torch, layout.n, gen, dev)
+    scales = (torch.rand(len(layout.names), generator=gen) * 0.02).to(dev)
+    offsets = layout.offsets_on(dev)
+    n_old = torch.tensor(6.0, device=dev).reshape(1)
+    n_k = torch.tensor(3.0, device=dev).reshape(1)
+    runs = {"kernel": lambda: dm.dequant_merge_flat(acc, q, g, scales,
+                                                    offsets, n_old, n_k),
+            "plain": lambda: ref.dequant_merge_flat_ref(
+                acc, q, g, scales, offsets, n_old, n_k)}
+    best = {k: math.inf for k in runs}
+    for order in (("kernel", "plain"), ("plain", "kernel"),
+                  ("kernel", "plain")):
+        for k in order:
+            best[k] = min(best[k], time_ms(runs[k]))
+    n = layout.n
+    nbytes = 13 * n                  # acc, g f32 + q int8 read; out written
+    bytes_ms = nbytes / mem_bw(device_name) * 1e3
+    ops_ms = 6 * n / F32_FLOPS * 1e3  # dequant mul+add; 2 mul, add, div
+    out = {"ms": best["kernel"], "plain_ms": best["plain"],
+           "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "shape": [n], "leaves": len(layout.names), "bytes": nbytes,
+           "mem_bw_assumed": mem_bw(device_name)}
+    out["achieved_gbs"] = nbytes / (best["kernel"] * 1e-3) / 1e9
+    out["roofline_share"] = out["bound_ms"] / best["kernel"]
+    emit({"phase": "timing", "kernel": "dequant_merge", **out})
+    return out
+
+
+def _finite_params(torch, eng) -> None:
+    for k, v in eng.params.items():
+        check(bool(torch.isfinite(v).all()), f"param {k} not finite")
+
+
 def run_main_path(torch, depth: int, rounds: int):
     from repro_torch.kernels import ops
     from repro_torch.launch.train import build_engine
@@ -229,8 +378,7 @@ def run_main_path(torch, depth: int, rounds: int):
               "exec_time": r.exec_time, "wall_time": r.wall_time,
               "pack_time": r.pack_time, "overlap": r.overlap_fraction,
               "makespan": r.makespan, "idle_fraction": r.idle_fraction})
-    for k, v in eng.params.items():
-        check(bool(torch.isfinite(v).all()), f"param {k} not finite")
+    _finite_params(torch, eng)
     return eng, res, launches
 
 
@@ -247,7 +395,7 @@ def phase_main(torch, rounds: int):
     check(k0["fedavg_accum"] >= steps0,
           f"K1 launched {k0} times for {steps0} round steps (depth 0)")
     n_params = sum(v.numel() for v in eng1.params.values())
-    check(n_params == 4_244_992, f"SR has {n_params} params, not 4,244,992")
+    check(n_params == SR_PARAMS, f"SR has {n_params} params, not 4,244,992")
     emit({"phase": "main_summary", "rounds": rounds, "losses": l1,
           "bit_identical_depth_0_1": True, "launches_depth1": k1,
           "launches_depth0": k0, "s_steps_total": steps1,
@@ -256,6 +404,125 @@ def phase_main(torch, rounds: int):
           / max(len(res1) - 1, 1),
           "recompiles": res1[-1].recompiles})
     return k1["fedavg_accum"], steps1, res1
+
+
+def run_mesh_path(torch, depth: int, rounds: int):
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_engine
+    eng = build_engine(task="sr", pipeline_depth=depth, **MESH)
+    ops.reset_launch_counts()
+    res = eng.run(rounds)
+    launches = ops.launch_counts()
+    torch.cuda.synchronize()
+    for r in res:
+        emit({"phase": "mesh", "depth": depth, "round": r.round_idx,
+              "loss": r.loss, "s_steps": r.s_steps,
+              "exec_time": r.exec_time, "wall_time": r.wall_time,
+              "pack_time": r.pack_time, "overlap": r.overlap_fraction,
+              "combine_bytes": r.combine_bytes,
+              "residual_norm": r.residual_norm,
+              "padded_steps": r.padded_steps,
+              "critical_path": r.critical_path})
+    _finite_params(torch, eng)
+    return eng, res, launches
+
+
+def phase_mesh(torch, rounds: int):
+    """The slice's path at depths 1 and 0 from the same seed."""
+    eng, res1, k1 = run_mesh_path(torch, 1, rounds)
+    _, res0, k0 = run_mesh_path(torch, 0, rounds)
+    l1, l0 = [r.loss for r in res1], [r.loss for r in res0]
+    check(all(math.isfinite(x) for x in l1), f"non-finite losses {l1}")
+    check(l1 == l0, f"mesh depth 1 and depth 0 losses differ: {l1} vs {l0}")
+    shards = MESH["mesh_workers"]
+    for k in (k1, k0):
+        check(k["dequant_merge"] == shards * rounds,
+              f"K2 launched {k} times, want {shards} per round")
+    # Every worker program runs the round's S steps (bucket_mode="round").
+    steps = MESH["workers"] * sum(r.s_steps for r in res1)
+    check(k1["fedavg_accum"] == steps,
+          f"K1 launched {k1['fedavg_accum']} times for {steps} steps")
+    want = shards * INT8_PAYLOAD
+    check(all(r.combine_bytes == want for r in res1 + res0),
+          f"combine_bytes {[r.combine_bytes for r in res1]} != {want}")
+    emit({"phase": "mesh_summary", "rounds": rounds, "losses": l1,
+          "bit_identical_depth_0_1": True, "launches_depth1": k1,
+          "launches_depth0": k0, "combine_bytes_per_round": want,
+          "mean_exec_s": sum(r.exec_time for r in res1[1:])
+          / max(len(res1) - 1, 1),
+          "compile_stats": eng.compile_stats})
+    return k1, res1
+
+
+def _lane_batch_invariance(torch) -> dict:
+    """Does a lane's result depend on how many lanes share its GEMMs?  The
+    SR worker step at the published widths over 8 lanes at once, against
+    the same lanes in groups of 4, 2 and 1 (bitwise, per group size)."""
+    from repro_torch.fl.round import make_worker_round_step
+    from repro_torch.models.papertasks import make_task_model
+    from repro_torch.optim import sgd
+    dev = torch.device("cuda")
+    params, loss_fn = make_task_model("sr", 1337, device=dev)
+    step = make_worker_round_step(loss_fn, sgd(0.05, momentum=0.9,
+                                               weight_decay=5e-4))
+    gen = torch.Generator().manual_seed(4)
+    L, S, B = 8, 4, 20
+    batch = {"x": torch.randn(L, 1, S, B, 64, generator=gen).to(dev),
+             "y": torch.randint(0, 35, (L, 1, S, B), generator=gen,
+                                dtype=torch.int32).to(dev)}
+    mask = torch.ones(L, 1, S, device=dev)
+    bnd = torch.zeros(L, 1, S, device=dev)
+    bnd[..., 1] = bnd[..., 3] = 1.0
+    wt = bnd * 20.0
+
+    def run(g):
+        outs = [step(params, {k: v[i:i + g].reshape((1, g) + v.shape[2:])
+                              for k, v in batch.items()},
+                     *(m[i:i + g].reshape(1, g, S) for m in (mask, bnd, wt)))
+                for i in range(0, L, g)]
+        return (torch.cat([o[0].flat.reshape(g, -1) for o in outs]),
+                torch.cat([o[2].reshape(-1) for o in outs]))
+
+    theta8, loss8 = run(8)
+    same = {}
+    for g in (4, 2, 1):
+        theta, loss = run(g)
+        same[g] = bool(torch.equal(theta, theta8) and torch.equal(loss, loss8))
+    return same
+
+
+def phase_decomposition(torch):
+    """Bit-identity of the mesh decomposition at the published widths."""
+    from repro_torch.launch.train import build_engine
+
+    same = _lane_batch_invariance(torch)
+    check(same[4] and same[2], f"lane results depend on the lane batch: "
+                               f"{same}")
+
+    def losses(rounds, **kw):
+        res = build_engine(task="sr", workers=4, **kw).run(rounds)
+        return [r.loss for r in res]
+
+    fused = losses(2)
+    flat = {k: losses(2, mesh_workers=k) for k in (2, 4)}
+    for k, ls in flat.items():
+        check(ls == fused, f"flat mesh {k} {ls} != fused {fused}")
+    hosts = {}
+    for compress in ("none", "int8"):
+        runs = [losses(2, mesh_workers=4, combine_mode="tree",
+                       combine_compress=compress, hosts=h) for h in (1, 2)]
+        check(runs[0] == runs[1],
+              f"hosts 1 vs 2 ({compress}): {runs[0]} vs {runs[1]}")
+        hosts[compress] = runs[0]
+    topk = losses(1, mesh_workers=2, combine_mode="tree",
+                  combine_compress="topk")
+    check(all(math.isfinite(x) for x in topk), f"topk losses {topk}")
+    emit({"phase": "decomposition",
+          "lane_batch_bitwise_vs_8": {str(k): v for k, v in same.items()},
+          "fused": fused,
+          "flat_mesh_bitwise": {str(k): True for k in flat},
+          "hosts_1_vs_2_bitwise": {k: True for k in hosts},
+          "hosts_losses": hosts, "topk": topk})
 
 
 def phase_agree(torch):
@@ -289,12 +556,12 @@ def phase_agree(torch):
           "rtol": 1e-4})
 
 
-def phase_profile(torch, out_dir: str) -> None:
+def phase_profile(torch, out_dir: str, label: str, **kw) -> None:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.train import build_engine
-    out = Path(out_dir)
+    out = Path(out_dir) / label
     out.mkdir(parents=True, exist_ok=True)
-    eng = build_engine(task="sr")
+    eng = build_engine(task="sr", **kw)
     eng.run(1)                                   # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -323,11 +590,14 @@ def phase_profile(torch, out_dir: str) -> None:
 
     (out / "kernels.txt").write_text(table(rows))
     (out / "host_ops.txt").write_text(table(host))   # self CPU time
-    emit({"phase": "profile", "rounds": 2, "wall_s": wall,
+    emit({"phase": "profile", "path": label, "rounds": 2, "wall_s": wall,
           "device_busy_s": busy_s, "device_idle_share": 1 - busy_s / wall,
           "host_self_s": sum(r[0] for r in host) / 1e6,
           "top": [{"name": k[:80], "ms": us / 1e3, "count": n}
                   for us, k, n in rows[:12]],
+          "ours": [{"name": k[:80], "ms": us / 1e3, "count": n,
+                    "share": us / 1e6 / busy_s}
+                   for us, k, n in rows if "fedavg" in k or "dequant" in k],
           "top_host": [{"name": k[:60], "ms": us / 1e3, "count": n}
                        for us, k, n in host[:8]]})
 
@@ -346,22 +616,40 @@ def main() -> int:
     set_deterministic()
     smi = phase_probe(torch)
     phase_build()
-    lanes, n_params = 4, 4_244_992       # 2 workers x 2 lanes, SR published
+    name = torch.cuda.get_device_name(0)
+    lanes, n_params = 4, SR_PARAMS       # 2 workers x 2 lanes, SR published
     max_err = phase_check(torch, n_params, lanes)
-    timing = phase_timing(torch, n_params, lanes, torch.cuda.get_device_name(0))
+    layout = _sr_layout()
+    max_err2 = phase_check_k2(torch, layout)
+    timing = phase_timing(torch, n_params, lanes, name)
+    timing2 = phase_timing_k2(torch, layout, name)
     launches, steps, res = phase_main(torch, args.rounds)
+    mesh_launches, mesh_res = phase_mesh(torch, MESH_ROUNDS)
+    phase_decomposition(torch)
     phase_agree(torch)
     if args.profile_out:
-        phase_profile(torch, args.profile_out)
-    emit({"kernels": [{
-        "name": "fedavg_accum", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fedavg_accum.cu",
-        "replaces": "src/repro/kernels/fedavg_accum.py:41",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-        "launches_per_round": launches / len(res)}]})
+        phase_profile(torch, args.profile_out, "fused")
+        phase_profile(torch, args.profile_out, "mesh", **MESH)
+
+    def row(kernel, src, replaces, n, err, t):
+        return {"name": kernel, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}",
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]}
+
+    emit({"kernels": [
+        {**row("fedavg_accum", "fedavg_accum.cu",
+               "src/repro/kernels/fedavg_accum.py:41", launches, max_err,
+               timing),
+         "launches_per_round": launches / len(res),
+         "launches_mesh_path": mesh_launches["fedavg_accum"]},
+        {**row("dequant_merge", "dequant_merge.cu",
+               "src/repro/kernels/dequant_merge.py:46",
+               mesh_launches["dequant_merge"], max_err2, timing2),
+         "launches_per_round": mesh_launches["dequant_merge"] / len(mesh_res),
+         "path": "mesh"}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,126 @@
+"""Compressed cross-shard combine: the wire format and its residual state —
+port of ``repro/compress/combine.py``.
+
+With ``EngineConfig.combine_compress != "none"`` each mesh shard's merged
+partial is compressed before it crosses to the combine root.  What travels
+is its DELTA from the global model (``theta_s - g``), through a per-shard
+error-feedback residual:
+
+    u_t   = (theta_s - g) + e_{t-1}
+    sent  = C(u_t)                      # int8 round or top-k selection
+    e_t   = u_t - dequant(sent)
+
+so the compression error is delayed, never dropped.  The root rebuilds
+``g + dequant(payload)`` inside the combine (K2 for int8).
+
+Residuals live in one :class:`CombineCompressor` per engine and change at
+one site, the consumer's mesh combine, in strict round order.  Saving them
+in a checkpoint is not ported (ROADMAP M9).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.compress.quant import int8_quantize
+from repro_torch.compress.topk import TopKState, topk_compress, topk_k
+from repro_torch.kernels.layout import FlatLayout
+
+__all__ = ["CombineCompressor", "make_encode_step", "payload_nbytes"]
+
+
+def payload_nbytes(like_params: dict, mode: str, frac: float = 0.05) -> int:
+    """Wire bytes of ONE shard's compressed partial: per-leaf payload plus
+    the exact weight and loss f32 scalars.
+
+    * int8: 1 byte/elem + one f32 scale per leaf;
+    * topk: k(leaf) × (4 B idx + 4 B val) per leaf.
+    """
+    sizes = [math.prod(tuple(x.shape)) for x in like_params.values()]
+    if mode == "int8":
+        body = sum(n + 4 for n in sizes)
+    elif mode == "topk":
+        body = sum(topk_k(n, frac) * 8 for n in sizes)
+    else:
+        raise ValueError(f"no payload for mode {mode!r}")
+    return body + 8  # weight + loss f32 scalars
+
+
+def make_encode_step(mode: str, frac: float):
+    """The per-shard encoder
+    ``encode(global_params, theta, residual) -> (payload, new_residual)``.
+
+    ``theta`` is the shard's merged partial, ``residual`` its carried error
+    (f32), both params-shaped.  The payload is ``(int8 tree, scales tree)``
+    or a tree of ``(idx, vals)`` per leaf."""
+    if mode == "int8":
+
+        def encode(global_params, theta, residual):
+            layout = FlatLayout.of(global_params)
+            u = (layout.flatten(theta).float()
+                 - layout.flatten(global_params).float()
+                 + layout.flatten(residual).float())
+            q, scales = int8_quantize(layout.views(u))
+            new_res = u - q.flat.float() * layout.per_element(scales.flat)
+            return (q, scales), layout.views(new_res)
+
+        return encode
+    if mode == "topk":
+
+        def encode(global_params, theta, residual):
+            layout = FlatLayout.of(global_params)
+            delta = (layout.flatten(theta).float()
+                     - layout.flatten(global_params).float())
+            payload, state = topk_compress(layout.views(delta),
+                                           TopKState(residual), frac=frac)
+            return payload, state.error
+
+        return encode
+    raise ValueError(f"no encode step for mode {mode!r}")
+
+
+class CombineCompressor:
+    """Owns the per-shard error-feedback residuals of the compressed
+    combine (consumer-side state, strict round order) and the wire-format
+    byte accounting."""
+
+    def __init__(self, mode: str, like_params: dict, *,
+                 topk_frac: float = 0.05):
+        if mode not in ("int8", "topk"):
+            raise ValueError(f"combine_compress mode must be int8|topk, got "
+                             f"{mode!r}")
+        self.mode = mode
+        self.frac = float(topk_frac)
+        self._layout = FlatLayout.of(like_params)
+        self._device = next(iter(like_params.values())).device
+        self.payload_bytes = payload_nbytes(like_params, mode, self.frac)
+        self._residuals: dict[int, dict] = {}
+
+    def residual(self, shard: int) -> dict:
+        """The shard's carried error tree (zeros on first sight)."""
+        r = self._residuals.get(shard)
+        if r is None:
+            r = self._layout.views(torch.zeros(self._layout.n,
+                                               dtype=torch.float32,
+                                               device=self._device))
+        return r
+
+    def commit(self, updates: dict) -> None:
+        """Adopt this round's new residuals — once per round, after the
+        combine is dispatched, so a failed round leaves the old set."""
+        self._residuals.update(updates)
+
+    def residual_sq_sum(self) -> torch.Tensor:
+        """Sum of squares over every shard's residual, as a device scalar
+        (f64): reading it is the caller's host sync."""
+        total = torch.zeros((), dtype=torch.float64, device=self._device)
+        for tree in self._residuals.values():
+            total = total + self._layout.flatten(tree).double().square().sum()
+        return total
+
+    def residual_norm(self) -> float:
+        """Global L2 norm over every shard's residual (the error-feedback
+        mass still waiting to be sent)."""
+        return float(self.residual_sq_sum().sqrt())

@@ -24,10 +24,19 @@ rewritten for round t+depth+1, which the consumer submits after it has
 synced on round t's loss — by then round t's copies out of that slot, which
 run on the same CUDA stream before round t's compute, are done.
 
+Mesh execution (``EngineConfig.mesh_workers = K >= 2``) is the
+reference's: one program per FL worker over K shards (``wid % K``), each
+worker's ``[1, P, S]`` block copied to its shard's device, every program
+dispatched asynchronously and synced *individually* (a CUDA event per
+worker, waited on one thread per shard), then one combine — flat (the
+fused step's tail on the concatenated lane partials, bitwise equal to the
+fused step), or §3.3's tree (a merge per shard first), optionally with the
+host level (``hosts``) or compressed shard uploads (``combine_compress``;
+K2 folds int8 payloads).  On one card every shard is that card.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: mesh workers, the device batch cache, the control plane,
-compressed and host-hierarchy combines, the gather strategies, and
-checkpoints (ROADMAP M9–M14).
+ignored: the device batch cache, the control plane, the gather strategies,
+checkpoints and the process-per-host harness (ROADMAP M4, M9–M11, M14).
 """
 
 from __future__ import annotations
@@ -41,14 +50,24 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.compress import CombineCompressor, make_encode_step
 from repro_torch.core.aggregation import AGG_IMPLS
 from repro_torch.core.placement import (Assignment, ClientInfo,
                                         LearningBasedPlacement, Placement)
 from repro_torch.data.batching import (PackBuffers, RoundArrays,
                                        build_round_arrays, padding_stats,
-                                       plan_round)
-from repro_torch.fl.round import StepCompileCache, make_round_step
+                                       plan_round, worker_stream_lengths)
+from repro_torch.distributed.sharding import HostShardMap, WorkerShardMap
+from repro_torch.fl.round import (StepCompileCache, make_combine_step,
+                                  make_compressed_combine_step,
+                                  make_host_node_merge_step,
+                                  make_payload_decode_step, make_round_step,
+                                  make_shard_merge_step,
+                                  make_worker_round_step)
 from repro_torch.fl.strategy import FedAvg, Strategy
+from repro_torch.kernels.layout import (FlatLayout, FlatTree, tree_cat,
+                                        tree_stack)
+from repro_torch.launch.mesh import fl_combine_topology
 from repro_torch.obs import NULL_TRACER, critique_round
 
 __all__ = ["s_bucket", "RoundResult", "EngineConfig", "FederatedEngine"]
@@ -75,6 +94,42 @@ def _slo_percentiles(rows) -> tuple[float, float]:
     ts = np.asarray([r[2] for r in rows], dtype=np.float64)
     p50, p99 = np.percentile(ts, [50.0, 99.0])
     return float(p50), float(p99)
+
+
+def _cat_parts(outs):
+    """Concatenate worker/shard ``(theta, n, loss)`` partials along the W
+    dim.  Glue only — no arithmetic, so exactness holds."""
+    return (tree_cat([o[0] for o in outs]),
+            torch.cat([o[1] for o in outs]), torch.cat([o[2] for o in outs]))
+
+
+def _first_lane(theta: FlatTree) -> FlatTree:
+    """Lane ``[0, 0]`` of a ``[W, P, ...]`` flat tree, params-shaped (a
+    merged shard partial is ``[1, 1, ...]``)."""
+    return theta.layout.views(theta.flat[0, 0])
+
+
+def _moved(x, device):
+    """``x`` (a tensor, flat tree, tuple or dict of them) on ``device``."""
+    if isinstance(x, FlatTree):
+        return x if x.flat.device == device else x.layout.views(
+            x.flat.to(device))
+    if torch.is_tensor(x):
+        return x.to(device)
+    if isinstance(x, tuple):
+        return tuple(_moved(v, device) for v in x)
+    return {k: _moved(v, device) for k, v in x.items()}
+
+
+def _stack_payloads(mode: str, payloads: list):
+    """Stack K shard payloads along a new lead dim, as the compressed
+    combine takes them."""
+    if mode == "int8":
+        return (tree_stack([p[0] for p in payloads]),
+                tree_stack([p[1] for p in payloads]))
+    return {name: (torch.stack([p[name][0] for p in payloads]),
+                   torch.stack([p[name][1] for p in payloads]))
+            for name in payloads[0]}
 
 
 def _pinned_zeros(shape, dtype) -> np.ndarray:
@@ -106,15 +161,16 @@ class RoundResult:
     slo_p99: float = 0.0           # tail per-client round time
     idle_fraction: float = 0.0     # idle_time / (makespan * n_workers)
     critical_path: str = ""        # stage bounding this round's wall time
+    combine_bytes: int = 0         # cross-shard combine transfer (mesh path)
+    residual_norm: float = 0.0     # L2 of the error-feedback residuals after
+    #                                this round (compressed combine only)
 
 
-# (field, default, ROADMAP item) of every EngineConfig option this slice
-# refuses: a non-default value raises instead of being ignored.
+# (field, default, ROADMAP item) of every EngineConfig option not ported
+# yet: a non-default value raises instead of being ignored.
 _UNPORTED = (
-    ("mesh_workers", 0, "M12"), ("device_cache_batches", 0, "M11"),
-    ("device_cache_bytes", 0, "M11"), ("cache_affinity", False, "M11/M12"),
-    ("bucket_mode", "round", "M12"), ("combine_mode", "flat", "M12"),
-    ("combine_compress", "none", "M13"), ("hosts", 0, "M14"),
+    ("device_cache_batches", 0, "M11"), ("device_cache_bytes", 0, "M11"),
+    ("cache_affinity", False, "M11"),
     ("telemetry_mode", "synthetic", "M10"), ("barrier_policy", "reuse", "M10"),
     ("drift_threshold", 0.0, "M10"), ("adapt_interval", 0, "M10"),
     ("adapt_granularity", "type", "M10"),
@@ -132,15 +188,21 @@ class EngineConfig:
     deadline_rho: float = 0.0     # >0 enables over-sample + trim
     pipeline_depth: int = 1       # 0 = sync; d >= 1 = prep t+1..t+d during t
     compile_cache_size: int = 8   # LRU cap on distinct round shapes
-    # -- options of the reference that this slice refuses (see _UNPORTED) --
-    mesh_workers: int = 0
+    # -- mesh execution (per-worker programs) and its combine ---------------
+    mesh_workers: int = 0          # 0/1 = one fused program; K >= 2 = one
+    #                                program per worker over K shards
+    bucket_mode: str = "round"     # "round": every worker program runs at
+    #                                the round's S; "worker": at its own
+    combine_mode: str = "flat"     # "flat": one combine over every lane
+    #                                partial; "tree": per-shard merge first
+    combine_compress: str = "none"  # "none" | "int8" | "topk" shard uploads
+    combine_topk_frac: float = 0.05  # fraction of entries topk sends per leaf
+    hosts: int = 0                 # H >= 1: shards merge in H host blocks
+    #                                through the canonical pairwise tree
+    # -- options of the reference not ported yet (see _UNPORTED) ------------
     device_cache_batches: int = 0
     device_cache_bytes: int = 0
     cache_affinity: bool = False
-    bucket_mode: str = "round"
-    combine_mode: str = "flat"
-    combine_compress: str = "none"
-    hosts: int = 0
     telemetry_mode: str = "synthetic"
     barrier_policy: str = "reuse"
     drift_threshold: float = 0.0
@@ -158,14 +220,69 @@ class EngineConfig:
         if self.compile_cache_size < 1:
             raise ValueError("compile_cache_size must be >= 1, got "
                              f"{self.compile_cache_size!r}")
+        self._check_mesh()
         for name, default, item in _UNPORTED:
             value = getattr(self, name)
-            # mesh_workers 0 and 1 both mean the one fused program.
-            if value != default and not (name == "mesh_workers"
-                                         and value == 1):
+            if value != default:
                 raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet (ROADMAP {item}); "
-                    "this slice runs the fused single-program path")
+                    f"{name}={value!r} is not ported yet (ROADMAP {item})")
+
+    def _check_mesh(self) -> None:
+        """The reference's checks of the mesh, bucket, combine and host
+        options (``repro/core/engine.py:310-377``), with its messages."""
+        if not isinstance(self.mesh_workers, int) or self.mesh_workers < 0:
+            raise ValueError("mesh_workers must be an int >= 0, got "
+                             f"{self.mesh_workers!r}")
+        if self.bucket_mode not in ("round", "worker"):
+            raise ValueError("bucket_mode must be 'round' or 'worker', "
+                             f"got {self.bucket_mode!r}")
+        if self.bucket_mode == "worker" and self.mesh_workers < 2:
+            raise ValueError(
+                "bucket_mode='worker' requires mesh_workers >= 2 (the fused "
+                "single-program path has one shared stream length; only the "
+                "per-worker mesh programs can compile at their own S)")
+        if self.combine_mode not in ("flat", "tree"):
+            raise ValueError("combine_mode must be 'flat' or 'tree', "
+                             f"got {self.combine_mode!r}")
+        if self.combine_mode == "tree" and self.mesh_workers < 2:
+            raise ValueError(
+                "combine_mode='tree' requires mesh_workers >= 2 (with one "
+                "shard there is no shard-local partial merge to run before "
+                "the cross-shard combine)")
+        if self.combine_compress not in ("none", "int8", "topk"):
+            raise ValueError("combine_compress must be 'none', 'int8' or "
+                             f"'topk', got {self.combine_compress!r}")
+        if self.combine_compress != "none" and self.combine_mode != "tree":
+            raise ValueError(
+                "combine_compress requires combine_mode='tree' (and hence "
+                "mesh_workers >= 2): only the per-shard merged partials of "
+                "the hierarchical combine have a shard→root upload to "
+                "compress; the flat combine is the exact reference path")
+        if not 0.0 < self.combine_topk_frac <= 1.0:
+            raise ValueError("combine_topk_frac must be in (0, 1], got "
+                             f"{self.combine_topk_frac!r}")
+        if not isinstance(self.hosts, int) or self.hosts < 0:
+            raise ValueError(f"hosts must be an int >= 0, got {self.hosts!r}")
+        if self.hosts >= 1:
+            if self.combine_mode != "tree" or self.mesh_workers < 2:
+                raise ValueError(
+                    "hosts >= 1 requires combine_mode='tree' and "
+                    "mesh_workers >= 2: the host level sits above the "
+                    "shard-local merges of the hierarchical combine — the "
+                    "flat combine and the fused single program have no "
+                    "shard partials to group into host blocks")
+            if self.mesh_workers % self.hosts != 0:
+                raise ValueError(
+                    f"hosts ({self.hosts}) must divide mesh_workers "
+                    f"({self.mesh_workers}): host blocks are equal "
+                    "contiguous shard ranges")
+            blk = self.mesh_workers // self.hosts
+            if self.hosts >= 2 and blk & (blk - 1):
+                raise ValueError(
+                    f"shards-per-host ({blk}) must be a power of two for "
+                    "hosts >= 2 — only aligned pow2 blocks are exact "
+                    "subtrees of the canonical pairwise combine, which is "
+                    "what keeps losses bit-identical across host counts")
 
 
 @dataclass
@@ -176,8 +293,9 @@ class _PreparedRound:
     t: int
     clients: list
     workers: list
-    arrays: RoundArrays
-    device: tuple            # (batches, step_mask, boundary, weight)
+    arrays: RoundArrays | None
+    device: tuple | None     # (batches, step_mask, boundary, weight) on
+    #                          the device — None on the mesh path
     pack_s: float            # host pack time (plan + gather + scatter)
     makespan: float          # simulated round time (prepare time)
     idle_time: float
@@ -187,6 +305,15 @@ class _PreparedRound:
     padded_steps: int = 0
     slo_p50: float = 0.0
     slo_p99: float = 0.0
+    # -- mesh execution (per-worker programs) ---------------------------------
+    worker_programs: list | None = None
+    # [(wid, type_name, shard, device, device_arrays, xs)]
+    combine_masks: tuple | None = None  # full (mask, boundary, weight)
+    worker_times: list | None = None    # consumer-set: [(wid, type, xs, s)]
+    combine_t0: float = 0.0  # consumer-set: cross-shard combine start
+    combine_s: float = 0.0   # combine wall (last worker sync -> loss sync)
+    combine_bytes: int = 0   # consumer-set: cross-shard combine transfer
+    residual_sq: torch.Tensor | None = None  # consumer-set: device scalar
 
 
 class FederatedEngine:
@@ -216,8 +343,13 @@ class FederatedEngine:
         self.device = resolve_device(device)
         self.dataset = dataset
         self.loss_fn = loss_fn
-        self.params = {k: torch.as_tensor(v).to(self.device)
-                       for k, v in init_params.items()}
+        params = {k: torch.as_tensor(v).to(self.device)
+                  for k, v in init_params.items()}
+        # The global model as one flat buffer with per-leaf views: every
+        # round program flattens it for free.
+        self._layout = FlatLayout(params)
+        self.params = params
+        self.device = self.params.flat.device     # "cuda" -> "cuda:0"
         self.optimizer = optimizer
         self.placement = placement
         self.sampler = sampler
@@ -234,20 +366,98 @@ class FederatedEngine:
         self.obs = obs
         self._tracer = obs.tracer if obs is not None else NULL_TRACER
         self._metrics = obs.metrics if obs is not None else None
-        self._round_step = StepCompileCache(
+        size = config.compile_cache_size
+
+        def cache(factory):
+            return StepCompileCache(factory, capacity=size)
+
+        self._round_step = cache(
             lambda: make_round_step(loss_fn, optimizer,
                                     agg_impl=config.agg_impl,
-                                    grad_clip=config.grad_clip),
-            capacity=config.compile_cache_size)
+                                    grad_clip=config.grad_clip))
+        # Mesh execution: one program per worker over K shards (0/1 keep
+        # the one fused program).  On one device every shard resolves to
+        # it and no partial moves; across cards the partials cross to the
+        # engine's device, where the global model and the combine live.
+        self._mesh_shards = (config.mesh_workers
+                             if config.mesh_workers >= 2 else 0)
+        self._shard_devices: list = []
+        self._worker_step = self._combine_step = self._merge_step = None
+        self._host_map = self._host_node_step = self._decode_step = None
+        self._compress = self._encode_step = None
+        self._compressed_combine_step = None
+        self._sync_pool = None
+        # One lane partial on the wire: a params-shaped theta plus its
+        # weight and loss scalars.
+        self._partial_bytes = sum(v.numel() * v.element_size()
+                                  for v in params.values()) + 8
+        if self._mesh_shards:
+            devs, _ = fl_combine_topology(self._mesh_shards, self.device)
+            if any(d != devs[0] for d in devs):
+                self._shard_devices = devs
+            self._worker_step = cache(
+                lambda: make_worker_round_step(loss_fn, optimizer,
+                                               agg_impl=config.agg_impl,
+                                               grad_clip=config.grad_clip))
+            self._combine_step = cache(make_combine_step)
+            if config.combine_mode == "tree":
+                self._merge_step = cache(make_shard_merge_step)
+            if config.hosts >= 1:
+                self._host_map = HostShardMap.build(self._mesh_shards,
+                                                    config.hosts)
+                self._host_node_step = cache(make_host_node_merge_step)
+                if config.combine_compress != "none":
+                    self._decode_step = cache(
+                        lambda: make_payload_decode_step(
+                            config.combine_compress))
+            if config.combine_compress != "none":
+                self._compress = CombineCompressor(
+                    config.combine_compress, self.params,
+                    topk_frac=config.combine_topk_frac)
+                self._encode_step = cache(
+                    lambda: make_encode_step(config.combine_compress,
+                                             config.combine_topk_frac))
+                self._compressed_combine_step = cache(
+                    lambda: make_compressed_combine_step(
+                        config.combine_compress))
+            # Persistent per-shard sync pool (engine lifetime), so thread
+            # churn stays out of the window measured as exec_time.
+            self._sync_pool = ThreadPoolExecutor(
+                max_workers=self._mesh_shards,
+                thread_name_prefix="pollen-sync")
+        self._caches = {
+            "round_step": self._round_step, "worker_step": self._worker_step,
+            "combine_step": self._combine_step,
+            "merge_step": self._merge_step,
+            "host_node_step": self._host_node_step,
+            "decode_step": self._decode_step,
+            "encode_step": self._encode_step,
+            "compressed_combine_step": self._compressed_combine_step}
         if obs is not None:
-            self._round_step.tracer = self._tracer
-            self._round_step.trace_label = "round_step"
+            for label, c in self._caches.items():
+                if c is not None:
+                    c.tracer = self._tracer
+                    c.trace_label = label
 
     # -- helpers -------------------------------------------------------------
     @property
     def compile_stats(self) -> dict:
-        """Counters of the round-step cache (distinct round shapes)."""
-        return self._round_step.stats()
+        """Counters of the step caches (distinct round shapes).  On the
+        mesh path the totals fold in every program's cache, each also
+        broken out under its own name."""
+        stats = self._round_step.stats()
+        for label, c in self._caches.items():
+            if c is None or label == "round_step":
+                continue
+            sub = c.stats()
+            for k in ("compiles", "evictions", "hits", "entries"):
+                stats[k] += sub[k]
+            stats[label] = sub
+        return stats
+
+    @property
+    def _compiles_total(self) -> int:
+        return sum(c.compiles for c in self._caches.values() if c is not None)
 
     def _s_align(self, s_real: int) -> int:
         return s_bucket(s_real, base=self.cfg.s_bucket_base)
@@ -298,11 +508,16 @@ class FederatedEngine:
                 self.placement.observe_type(t, tname, x, t_c)
         return makespan, idle, rows
 
+    @staticmethod
+    def _put(a: np.ndarray, device) -> torch.Tensor:
+        """Start the H2D copy of a packed array (async out of pinned memory
+        on CUDA; on the CPU the tensor shares the pack buffer)."""
+        return torch.from_numpy(a).to(device, non_blocking=True)
+
     def _to_device(self, arrays: RoundArrays) -> tuple:
-        """Start the H2D copies of a packed round (async out of pinned
-        memory on CUDA; on the CPU the tensors share the pack buffers)."""
+        """Start the H2D copies of a packed round."""
         def put(a):
-            return torch.from_numpy(a).to(self.device, non_blocking=True)
+            return self._put(a, self.device)
 
         return ({k: put(v) for k, v in arrays.batches.items()},
                 put(arrays.step_mask), put(arrays.boundary),
@@ -327,23 +542,78 @@ class FederatedEngine:
         plan = plan_round(assignment, workers,
                           lanes_per_worker=self.cfg.lanes_per_worker,
                           steps_cap=self.cfg.steps_cap, min_steps=1)
+        prep = _PreparedRound(t=t, clients=clients, workers=workers,
+                              arrays=None, device=None, pack_s=0.0,
+                              makespan=makespan, idle_time=idle,
+                              slo_p50=slo_p50, slo_p99=slo_p99)
+        if self._mesh_shards:
+            # One program per worker: the round packs once at its full
+            # [W, P, S] size and each worker's block is sliced out for its
+            # own copy; the full masks also go over once, for the combine.
+            S = self._s_align(plan.s_real)
+            if self.cfg.bucket_mode == "worker":
+                worker_S = [self._s_align(int(s))
+                            for s in worker_stream_lengths(plan)]
+            else:
+                worker_S = [S] * plan.W
+            with tr.span("prep.pack", t=t, S=S, W=plan.W):
+                prep.arrays = build_round_arrays(
+                    self.dataset, plan=plan, batch_size=self.cfg.batch_size,
+                    s_align=lambda s: S, buffers=self._pack_buffers)
+                prep.worker_programs = self._pack_worker_programs(
+                    plan, worker_S, prep.arrays, assignment, workers)
+            prep.pack_s = time.perf_counter() - tp0
+            prep.padded_steps = (int(sum(worker_S)) * plan.P
+                                 - plan.n_steps_total)
+            with tr.span("prep.h2d", t=t):
+                a = prep.arrays
+                prep.combine_masks = tuple(
+                    self._put(x, self.device)
+                    for x in (a.step_mask, a.boundary, a.weight))
+            return prep
         with tr.span("prep.pack", t=t):
-            arrays = build_round_arrays(
+            prep.arrays = build_round_arrays(
                 self.dataset, plan=plan, batch_size=self.cfg.batch_size,
                 s_align=self._s_align, buffers=self._pack_buffers)
-        pack_s = time.perf_counter() - tp0
+        prep.pack_s = time.perf_counter() - tp0
+        prep.padded_steps = prep.arrays.step_mask.size - plan.n_steps_total
         with tr.span("prep.h2d", t=t):
-            device = self._to_device(arrays)
-        return _PreparedRound(t=t, clients=clients, workers=workers,
-                              arrays=arrays,
-                              device=device, pack_s=pack_s,
-                              makespan=makespan, idle_time=idle,
-                              padded_steps=(arrays.step_mask.size
-                                            - plan.n_steps_total),
-                              slo_p50=slo_p50, slo_p99=slo_p99)
+            prep.device = self._to_device(prep.arrays)
+        return prep
+
+    def _pack_worker_programs(self, plan, worker_S, arrays, assignment,
+                              workers) -> list:
+        """Producer half of the mesh path: each worker's ``[1, P, S_w]``
+        block, copied to its shard's device.
+
+        ``worker_S[wi]`` is the round's S (``bucket_mode="round"``) or the
+        worker's own bucket (``"worker"``: a short worker skips its
+        trailing padded steps).  A block at the round's S is a contiguous
+        slice of the pinned ring and copies asynchronously; a shorter one
+        is a strided view, which PyTorch stages through pageable memory
+        before the copy (same values, a blocking copy on this thread)."""
+        mesh_map = WorkerShardMap.build(workers, self._mesh_shards,
+                                        devices=self._shard_devices)
+        programs = []
+        for wi, w in enumerate(sorted(workers, key=lambda w: w.wid)):
+            dev = mesh_map.device_for(w.wid) or self.device
+            S_w = worker_S[wi]
+
+            def put(a):
+                return self._put(a[wi:wi + 1, :, :S_w], dev)
+
+            block = ({k: put(v) for k, v in arrays.batches.items()},
+                     put(arrays.step_mask), put(arrays.boundary),
+                     put(arrays.weight))
+            xs = [c.n_batches for c in assignment.per_worker.get(w.wid, [])]
+            programs.append((w.wid, w.type_name, mesh_map.shard_of(w.wid),
+                             dev, block, xs))
+        return programs
 
     def _execute(self, prep: _PreparedRound):
         """Dispatch the round step (async on CUDA); returns its metrics."""
+        if prep.worker_programs is not None:
+            return self._execute_mesh(prep)
         with self._tracer.span("exec.dispatch", t=prep.t):
             batches, step_mask, boundary, weight = prep.device
             new_params, metrics = self._round_step(
@@ -351,11 +621,228 @@ class FederatedEngine:
             self.params = new_params
             return metrics
 
+    @property
+    def params(self) -> FlatTree:
+        """The global model, ``{name: tensor}``: views of one flat buffer.
+        The dict is read-only; assigning a new ``{name: tensor}`` dict
+        replaces the model."""
+        return self._params
+
+    @params.setter
+    def params(self, value: dict) -> None:
+        if not (isinstance(value, FlatTree) and value.layout == self._layout):
+            value = self._layout.views(self._layout.flatten(
+                {k: torch.as_tensor(value[k]).to(self.device)
+                 for k in self._layout.names}))
+        self._params = value
+
+    def _params_on(self, device, cache: dict) -> FlatTree:
+        """The global model on ``device`` (copied once per round)."""
+        if device == self.params.flat.device:
+            return self.params
+        if device not in cache:
+            cache[device] = _moved(self.params, device)
+        return cache[device]
+
+    def _to_root(self, x):
+        """A shard's partial or payload on the engine's device (the combine
+        root); a no-op on one device."""
+        return _moved(x, self.device) if self._shard_devices else x
+
+    def _execute_mesh(self, prep: _PreparedRound):
+        """Mesh consumer half: dispatch every worker's program (async), sync
+        each one INDIVIDUALLY — a CUDA event per worker, waited on one
+        thread per shard — then combine the partials."""
+        tr = self._tracer
+        dispatched = []
+        on_dev: dict = {}
+        for wid, tname, shard, dev, block, xs in prep.worker_programs:
+            params = self._params_on(dev, on_dev)
+            if dev.type == "cuda":
+                with torch.cuda.device(dev):
+                    out = self._worker_step(params, *block)
+                    done = torch.cuda.Event()
+                    done.record()
+            else:
+                out, done = self._worker_step(params, *block), None
+            dispatched.append((wid, tname, shard, xs, out, done))
+        # Each shard's programs run in order on its device, so a worker's
+        # time is the delta from its shard-mate's completion.  Shards sync
+        # on their own threads: blocking on a slow shard from one thread
+        # would charge its time to every worker not yet observed elsewhere.
+        # On one card all programs serialize and the deltas approximate the
+        # target topology.
+        t0 = prep.exec_t0
+        by_shard: dict[int, list] = {}
+        for i, (wid, _, shard, _, _, done) in enumerate(dispatched):
+            by_shard.setdefault(shard, []).append((i, wid, done))
+        meas = [0.0] * len(dispatched)
+
+        def sync_shard(chain):
+            last = t0
+            for i, wid, done in chain:
+                if done is not None:
+                    done.synchronize()
+                now = time.perf_counter()
+                meas[i] = max(now - last, 0.0)
+                if tr.enabled:
+                    tr.add_span("exec.sync", last, now - last,
+                                lane=f"worker{wid}", wid=int(wid), t=prep.t)
+                last = now
+
+        if len(by_shard) > 1:
+            list(self._sync_pool.map(sync_shard, by_shard.values()))
+        else:
+            for chain in by_shard.values():
+                sync_shard(chain)
+        prep.worker_times = [(wid, tname, xs, meas[i]) for i, (
+            wid, tname, _, xs, _, _) in enumerate(dispatched)]
+        # The combine's wall starts here and ends at the loss sync.
+        prep.combine_t0 = time.perf_counter()
+        if self._merge_step is None:
+            # Flat: every lane partial crosses, and the combine is exactly
+            # the fused step's tail on the concatenated [W·P, N] partials.
+            theta_wp, n_wp, lane_losses = _cat_parts(
+                [self._to_root(d[4]) for d in dispatched])
+            prep.combine_bytes = n_wp.numel() * self._partial_bytes
+            return self._combine(prep, theta_wp, n_wp, lane_losses)
+        by_group: dict[int, list] = {}
+        for d in dispatched:
+            by_group.setdefault(d[2], []).append(d[4])
+        merged = {shard: self._merge_shard(outs)
+                  for shard, outs in sorted(by_group.items())}
+        if self._host_map is not None:
+            return self._combine_hosts(prep, merged, on_dev)
+        if self._compress is not None:
+            return self._combine_compressed(prep, merged, on_dev)
+        # Tree: one merged partial per shard crosses to the combine.
+        theta_wp, n_wp, lane_losses = _cat_parts(
+            [self._to_root(m) for m in merged.values()])
+        prep.combine_bytes = len(merged) * self._partial_bytes
+        return self._combine(prep, theta_wp, n_wp, lane_losses)
+
+    def _merge_shard(self, outs: list) -> tuple:
+        """A shard's lane partials merged into one ``[1, 1, ...]`` partial,
+        on the shard's device."""
+        th, n_s, ls_s = _cat_parts(outs)
+        merge = self._merge_step.lookup(tuple(n_s.shape))
+        return merge(th, n_s, ls_s)
+
+    def _combine(self, prep, theta_wp, n_wp, lane_losses):
+        """The cross-shard combine over stacked ``[W, P, ...]`` partials."""
+        step_mask, boundary, weight = prep.combine_masks
+        fn = self._combine_step.lookup(tuple(n_wp.shape)
+                                       + tuple(step_mask.shape))
+        self.params, metrics = fn(self.params, theta_wp, n_wp, lane_losses,
+                                  step_mask, boundary, weight)
+        return metrics
+
+    def _encode(self, shard: int, merged: tuple, on_dev: dict, staged: dict):
+        """Delta-encode a shard's merged partial through its error-feedback
+        residual (on the shard's device); stages the new residual."""
+        theta = _first_lane(merged[0])
+        dev = theta.flat.device
+        encode = self._encode_step.lookup(("encode",))
+        payload, staged[shard] = encode(
+            self._params_on(dev, on_dev), theta,
+            _moved(self._compress.residual(shard), dev))
+        return payload
+
+    def _commit_residuals(self, prep, staged: dict) -> None:
+        """Adopt the round's residuals once the combine is dispatched; the
+        norm stays on the device until the round's loss sync."""
+        self._compress.commit(staged)
+        prep.residual_sq = self._compress.residual_sq_sum()
+
+    def _combine_compressed(self, prep, merged: dict, on_dev: dict):
+        """Compressed combine tail (``combine_compress`` = ``int8``/
+        ``topk``): each shard's merged partial is delta-encoded, only the
+        payloads cross, and the compressed combine folds them (one K2
+        launch per int8 payload).  ``combine_bytes`` counts the compressed
+        wire format; the weight and loss scalars stay exact."""
+        staged: dict = {}
+        payloads, ns, losses = [], [], []
+        for shard, m in merged.items():
+            payloads.append(self._to_root(
+                self._encode(shard, m, on_dev, staged)))
+            ns.append(self._to_root(m[1][0, 0]))
+            losses.append(self._to_root(m[2][0, 0]))
+        prep.combine_bytes = len(payloads) * self._compress.payload_bytes
+        step_mask, boundary, weight = prep.combine_masks
+        fn = self._compressed_combine_step.lookup(
+            (len(payloads),) + tuple(step_mask.shape))
+        self.params, metrics = fn(
+            self.params, _stack_payloads(self._compress.mode, payloads),
+            torch.stack(ns), torch.stack(losses), step_mask, boundary,
+            weight)
+        self._commit_residuals(prep, staged)
+        return metrics
+
+    def _combine_hosts(self, prep, merged: dict, on_dev: dict):
+        """Host-hierarchy combine tail (``hosts >= 1``): the K positional
+        shard slots reduce through the canonical pairwise tree — each host
+        block (an aligned pow2 subtree; dead shards stay ``None`` holes),
+        then the root over one partial per host.  ``combine_bytes`` counts
+        the host→root hop: ``live_hosts * partial_bytes``.
+
+        With ``combine_compress`` on, each shard's partial is still encoded
+        per shard (payloads and residuals do not depend on the host count)
+        and decoded to a dense partial before the pairwise nodes."""
+        hm = self._host_map
+        tr = self._tracer
+        nfn = self._host_node_step.lookup(("node",))
+
+        def node(a, b):
+            return nfn(*a, *b)
+
+        staged: dict = {}
+        slots: list = [None] * hm.n_shards
+        for shard, m in merged.items():
+            theta = _first_lane(m[0])
+            if self._compress is not None:
+                payload = self._encode(shard, m, on_dev, staged)
+                decode = self._decode_step.lookup(("decode",))
+                theta = decode(self._params_on(theta.flat.device, on_dev),
+                               payload)
+            slots[shard] = self._to_root((theta, m[1][0, 0], m[2][0, 0]))
+        host_parts = []
+        for h in range(hm.n_hosts):
+            t0h = time.perf_counter()
+            part = HostShardMap.pairwise_reduce(
+                slots[h * hm.block:(h + 1) * hm.block], node)
+            if part is not None and tr.enabled:
+                tr.add_span("exec.host_merge", t0h,
+                            time.perf_counter() - t0h, lane=f"host{h}",
+                            host=h, t=prep.t)
+            host_parts.append(part)
+        live = sum(1 for p in host_parts if p is not None)
+        if live == 0:
+            raise RuntimeError(f"round {prep.t}: no live shard partials "
+                               "reached the host combine")
+        prep.combine_bytes = live * self._partial_bytes
+        theta, n, loss = HostShardMap.pairwise_reduce(host_parts, node)
+        metrics = self._combine(
+            prep, theta.layout.views(theta.flat.reshape(1, 1, -1)),
+            n.reshape(1, 1), loss.reshape(1, 1))
+        if self._compress is not None:
+            self._commit_residuals(prep, staged)
+        return metrics
+
     def _post_execute(self, prep: _PreparedRound, metrics) -> None:
-        """Consumer hook at the device sync point: measure execution."""
+        """Consumer hook at the device sync point: measure execution, and
+        on the mesh path the combine's share of it."""
         with self._tracer.span("exec.wait", t=prep.t):
             float(metrics.loss)                # device sync point
-        prep.exec_s = time.perf_counter() - prep.exec_t0
+        now = time.perf_counter()
+        prep.exec_s = now - prep.exec_t0
+        if prep.combine_t0 > 0.0:
+            prep.combine_s = max(now - prep.combine_t0, 0.0)
+            if self._tracer.enabled:
+                self._tracer.add_span(
+                    "exec.combine", prep.combine_t0, prep.combine_s,
+                    t=prep.t, mode=self.cfg.combine_mode,
+                    compress=self.cfg.combine_compress,
+                    bytes=int(prep.combine_bytes))
 
     def _finish(self, prep: _PreparedRound, metrics, t0: float) -> RoundResult:
         """Consumer tail: result bookkeeping."""
@@ -371,17 +858,25 @@ class FederatedEngine:
             pack_time=prep.pack_s,
             overlap_fraction=(prep.overlap_s / prep.pack_s
                               if prep.pack_s > 0 else 0.0),
-            recompiles=self._round_step.compiles,
+            recompiles=self._compiles_total,
             exec_time=prep.exec_s, padded_steps=prep.padded_steps,
-            slo_p50=prep.slo_p50, slo_p99=prep.slo_p99)
+            slo_p50=prep.slo_p50, slo_p99=prep.slo_p99,
+            combine_bytes=prep.combine_bytes,
+            residual_norm=(float(prep.residual_sq.sqrt())
+                           if prep.residual_sq is not None else 0.0))
         crit = critique_round(
             round_idx=t, pack_s=prep.pack_s, overlap_s=prep.overlap_s,
-            exec_s=prep.exec_s, makespan=prep.makespan,
-            idle_time=prep.idle_time, n_workers=len(prep.workers))
+            exec_s=prep.exec_s, combine_s=prep.combine_s,
+            makespan=prep.makespan, idle_time=prep.idle_time,
+            n_workers=len(prep.workers),
+            worker_meas=([(w[0], w[3]) for w in prep.worker_times]
+                         if prep.worker_times else None))
         result.idle_fraction = crit.idle_fraction
         result.critical_path = crit.critical_path
         self.history.append(result)
         self.round_idx = t + 1
+        if self._tracer.enabled:
+            self._tracer.counter("combine_bytes", float(prep.combine_bytes))
         if self._metrics is not None:
             m = self._metrics
             m.inc("rounds")

@@ -1,3 +1,4 @@
 from .elastic import FailureEvent, WorkerPool
+from .sharding import HostShardMap, WorkerShardMap
 
-__all__ = ["FailureEvent", "WorkerPool"]
+__all__ = ["FailureEvent", "HostShardMap", "WorkerPool", "WorkerShardMap"]

@@ -29,24 +29,39 @@ steps as a Python loop:
   depend on nothing but the inputs — which is what keeps them bit-identical
   across pipeline depths.
 
-The mesh, gather, compressed-combine and host-merge programs of the
-reference are not ported yet (ROADMAP M5, M12–M14).
+The mesh path decomposes the same round into one
+:func:`make_worker_round_step` program per FL worker (the lane loop over
+that worker's ``[1, P, S, ...]`` block, returning unreduced lane partials)
+plus a combine: :func:`make_combine_step` (the fused step's tail on the
+concatenated partials), or §3.3's hierarchy — a per-shard
+:func:`make_shard_merge_step`, then the combine over one partial per
+shard, or the canonical pairwise tree of :func:`make_host_node_merge_step`
+over host blocks, or the compressed combine
+(:func:`make_compressed_combine_step`, K2 for int8 payloads).  Trees pass
+between these programs as dicts whose leaves are views of one flat buffer
+(:class:`~repro_torch.kernels.layout.FlatTree`), so each program works on
+one flat tensor.  The gather path is not ported yet (ROADMAP M5).
 """
 
 from __future__ import annotations
 
-import math
 from collections import OrderedDict
 from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.core.aggregation import (partial_init, partial_update,
+from repro_torch.core.aggregation import (PartialAggregate, partial_init,
+                                          partial_merge, partial_update,
                                           tree_weighted_mean)
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.layout import FlatLayout
+from repro_torch.kernels.ref import fedavg_accum_ref
 from repro_torch.optim.optimizers import apply_updates, clip_by_global_norm
 
-__all__ = ["make_round_step", "RoundMetrics", "StepCompileCache",
-           "round_shape_key"]
+__all__ = ["make_round_step", "make_worker_round_step", "make_combine_step",
+           "make_shard_merge_step", "make_host_node_merge_step",
+           "make_payload_decode_step", "make_compressed_combine_step",
+           "RoundMetrics", "StepCompileCache", "round_shape_key"]
 
 
 class RoundMetrics(NamedTuple):
@@ -70,35 +85,6 @@ def _tree_select(flag, a, b):
     raise TypeError(f"cannot select over {type(b).__name__}")
 
 
-class _FlatLayout:
-    """A param dict laid out as one flat vector, leaves in sorted-name order
-    (JAX's dict flattening order, so per-leaf sums keep the reference's
-    association)."""
-
-    def __init__(self, params: dict):
-        self.names = sorted(params)
-        self.shapes = [tuple(params[k].shape) for k in self.names]
-        self.sizes = [math.prod(s) for s in self.shapes]
-        dtypes = {params[k].dtype for k in self.names}
-        if len(dtypes) != 1:
-            raise TypeError(f"the round step needs one param dtype, got "
-                            f"{sorted(map(str, dtypes))}")
-
-    def flatten(self, tree: dict, lead: tuple = ()) -> torch.Tensor:
-        """Leaves shaped ``lead + shape`` -> one ``lead + [N]`` tensor."""
-        return torch.cat([tree[k].reshape(lead + (-1,)) for k in self.names],
-                         dim=-1)
-
-    def views(self, flat: torch.Tensor) -> dict:
-        """``[..., N]`` -> ``{name: [..., *shape]}`` views (no copies)."""
-        lead = tuple(flat.shape[:-1])
-        out, off = {}, 0
-        for k, shape, size in zip(self.names, self.shapes, self.sizes):
-            out[k] = flat[..., off:off + size].view(lead + shape)
-            off += size
-        return out
-
-
 def _make_lane_scan(loss_fn, optimizer, *, agg_impl: str = "kernel",
                     grad_clip: float | None = None):
     """All lanes' sequential client streams: S local steps, folding each
@@ -109,7 +95,7 @@ def _make_lane_scan(loss_fn, optimizer, *, agg_impl: str = "kernel",
     """
 
     @torch.no_grad()
-    def lane_scan(layout: _FlatLayout, global_flat, lane_batches, mask,
+    def lane_scan(layout: FlatLayout, global_flat, lane_batches, mask,
                   boundary, weight):
         L, S = mask.shape
         theta0 = global_flat.expand(L, -1)
@@ -168,23 +154,233 @@ def make_round_step(loss_fn, optimizer, *, agg_impl: str = "kernel",
 
     @torch.no_grad()
     def round_step(global_params, batches, step_mask, boundary, weight):
-        W, P = step_mask.shape[:2]
-        L = W * P
-        layout = _FlatLayout(global_params)
+        layout = FlatLayout.of(global_params)
         gflat = layout.flatten(global_params)
-
-        def lanes(x):
-            return x.reshape((L,) + tuple(x.shape[2:]))
-
-        partial, lane_losses = lane_scan(
-            layout, gflat, {k: lanes(v) for k, v in batches.items()},
-            lanes(step_mask), lanes(boundary), lanes(weight))
+        partial, lane_losses = _scan_lanes(lane_scan, layout, gflat, batches,
+                                           step_mask, boundary, weight)
         new_flat, metrics = _reduce_partials(
             {"flat": gflat}, partial.theta, partial.weight, lane_losses,
             step_mask, boundary, weight)
         return layout.views(new_flat["flat"]), metrics
 
     return round_step
+
+
+def _scan_lanes(lane_scan, layout, gflat, batches, step_mask, boundary,
+                weight):
+    """Run ``lane_scan`` over a ``[W, P, S, ...]`` block as ``L = W·P``
+    lanes; returns the lanes' partial (``{"flat": [L, N]}``, ``[L]``) and
+    their loss totals ``[L]``."""
+    W, P = step_mask.shape[:2]
+    L = W * P
+
+    def lanes(x):
+        return x.reshape((L,) + tuple(x.shape[2:]))
+
+    return lane_scan(layout, gflat, {k: lanes(v) for k, v in batches.items()},
+                     lanes(step_mask), lanes(boundary), lanes(weight))
+
+
+def make_worker_round_step(loss_fn, optimizer, *, agg_impl: str = "kernel",
+                           grad_clip: float | None = None):
+    """One FL worker's half of the round (the mesh path): the lane loop
+    over that worker's ``[W_k, P, S, ...]`` block, returning its
+    *unreduced* lane partials.
+
+    ``worker_step(global_params, batches, step_mask, boundary, weight) ->
+    (theta_wp, n_wp, lane_losses)`` with leaves ``[W_k, P, ...]`` (views of
+    one flat buffer), ``[W_k, P]`` and ``[W_k, P]``.  Each lane's numbers
+    are the fused step's: the lane loop is shared, and on the card the
+    batched GEMMs give every lane the same bits for any lane count from 2
+    up (on an H100; ``chip_smoke.py``'s decomposition phase checks it).
+    """
+    lane_scan = _make_lane_scan(loss_fn, optimizer, agg_impl=agg_impl,
+                                grad_clip=grad_clip)
+
+    @torch.no_grad()
+    def worker_step(global_params, batches, step_mask, boundary, weight):
+        W, P = step_mask.shape[:2]
+        layout = FlatLayout.of(global_params)
+        partial, lane_losses = _scan_lanes(
+            lane_scan, layout, layout.flatten(global_params), batches,
+            step_mask, boundary, weight)
+        theta = layout.views(partial.theta["flat"].reshape(W, P, layout.n))
+        return theta, partial.weight.reshape(W, P), lane_losses.reshape(W, P)
+
+    return worker_step
+
+
+def make_combine_step():
+    """The round's server half on the mesh path: reduce the concatenated
+    per-worker lane partials into the new global model + metrics.
+
+    ``combine(global_params, theta_wp, n_wp, lane_losses, step_mask,
+    boundary, weight) -> (new_global, metrics)`` — exactly the fused step's
+    tail (:func:`_reduce_partials`) on the same ``[W·P, N]`` buffer, which
+    is what keeps the flat mesh combine bitwise equal to the fused step."""
+
+    @torch.no_grad()
+    def combine(global_params, theta_wp, n_wp, lane_losses, step_mask,
+                boundary, weight):
+        layout = FlatLayout.of(global_params)
+        W, P = n_wp.shape
+        theta = layout.flatten(theta_wp, lead=(W, P)).reshape(W * P, layout.n)
+        new_flat, metrics = _reduce_partials(
+            {"flat": layout.flatten(global_params)}, {"flat": theta},
+            n_wp.reshape(-1), lane_losses, step_mask, boundary, weight)
+        return layout.views(new_flat["flat"]), metrics
+
+    return combine
+
+
+def make_shard_merge_step():
+    """One mesh shard's half of the hierarchical combine (§3.3's per-node
+    partial merge, ``combine_mode="tree"``).
+
+    ``merge(theta_wp, n_wp, lane_losses) -> (theta, n, loss)`` folds a
+    shard's ``[W_s, P, ...]`` lane partials into one ``[1, 1, ...]``
+    partial by :func:`partial_merge`, left to right in dispatch order, and
+    sums the lane loss totals in the same order.  The grouping
+    re-associates the cross-lane mean: tree losses match the flat combine
+    to float tolerance, not bitwise."""
+
+    @torch.no_grad()
+    def merge(theta_wp, n_wp, lane_losses):
+        layout = FlatLayout.of(theta_wp, lead=n_wp.ndim)
+        flat = layout.flatten(theta_wp, lead=tuple(n_wp.shape))
+        flat = flat.reshape(-1, layout.n)
+        flat_n = n_wp.reshape(-1)
+        flat_loss = lane_losses.reshape(-1)
+        acc = partial_init({"flat": flat[0]})
+        loss_sum = torch.zeros((), dtype=flat_loss.dtype,
+                               device=flat_loss.device)
+        for i in range(flat.shape[0]):
+            acc = partial_merge(acc, PartialAggregate({"flat": flat[i]},
+                                                      flat_n[i]))
+            loss_sum = loss_sum + flat_loss[i]
+        theta = layout.views(acc.theta["flat"].reshape(1, 1, layout.n))
+        return theta, acc.weight.reshape(1, 1), loss_sum.reshape(1, 1)
+
+    return merge
+
+
+def make_host_node_merge_step():
+    """One node of the canonical pairwise combine tree (``hosts >= 1``;
+    see :class:`~repro_torch.distributed.sharding.HostShardMap`).
+
+    ``node(theta_a, n_a, loss_a, theta_b, n_b, loss_b) -> (theta, n,
+    loss)`` merges two params-shaped partials by Eq. 1's weighted mean and
+    adds their loss totals.  Every level of the tree runs this one
+    function, so the result's bits depend on the tree's shape alone."""
+
+    @torch.no_grad()
+    def node(theta_a, n_a, loss_a, theta_b, n_b, loss_b):
+        layout = FlatLayout.of(theta_a)
+        merged = partial_merge(
+            PartialAggregate({"flat": layout.flatten(theta_a)}, n_a),
+            PartialAggregate({"flat": layout.flatten(theta_b)}, n_b))
+        return layout.views(merged.theta["flat"]), merged.weight, \
+            loss_a + loss_b
+
+    return node
+
+
+def _topk_delta(layout: FlatLayout, payload: dict, gf, k=None):
+    """The dense f32 ``[N]`` delta a topk payload carries (shard ``k`` of
+    a stacked payload when ``k`` is given): its ``(idx, vals)`` pairs
+    scattered per leaf."""
+    delta = torch.zeros_like(gf)
+    for name, off, size in zip(layout.names, layout.offsets, layout.sizes):
+        idx, vals = payload[name]
+        if k is not None:
+            idx, vals = idx[k], vals[k]
+        delta[off:off + size].index_put_((idx.long(),), vals)
+    return delta
+
+
+def make_payload_decode_step(mode: str):
+    """Per-shard payload reconstruction for the host-hierarchy combine
+    (``hosts >= 1`` with ``combine_compress != "none"``).
+
+    ``decode(global_params, payload) -> dense f32 params tree`` rebuilds
+    the shard's partial ``g + dequant(payload)`` as a dense tree the
+    pairwise nodes can merge.  Plain PyTorch, as the reference computes it
+    outside any Pallas kernel."""
+    if mode not in ("int8", "topk"):
+        raise ValueError(f"no decode step for mode {mode!r}")
+
+    @torch.no_grad()
+    def decode(global_params, payload):
+        layout = FlatLayout.of(global_params)
+        gf = layout.flatten(global_params).float()
+        if mode == "int8":
+            q, scales = payload
+            delta = (layout.flatten(q).float()
+                     * layout.per_element(layout.scalars().flatten(scales)))
+        else:
+            delta = _topk_delta(layout, payload, gf)
+        return layout.views(gf + delta)
+
+    return decode
+
+
+def make_compressed_combine_step(mode: str):
+    """The cross-shard combine over COMPRESSED shard partials
+    (``EngineConfig.combine_compress = "int8" | "topk"``).
+
+    ``combine(global_params, payload, n_stack, loss_stack, step_mask,
+    boundary, weight) -> (new_global, metrics)`` folds the K shard payloads
+    left to right (dispatch order) into a running Eq. 1 accumulator, each
+    reconstructed as ``g + dequant(payload_k)``:
+
+        acc <- (acc*N + (g + dequant(payload_k))*n_k) / (N + n_k)
+
+    With ``mode="int8"`` each fold is ONE launch of the hand-written K2
+    over the shard's whole flat payload (the plain version only on CPU
+    tensors).  ``topk`` payloads scatter into a dense delta and blend in
+    plain PyTorch, as the reference computes them outside any Pallas
+    kernel.
+
+    ``payload``: leaves stacked ``[K, ...]`` across shards — ``(int8 tree,
+    scales tree)`` for int8, a tree of ``(idx, vals)`` per leaf for topk.
+    ``n_stack``/``loss_stack``: ``[K]`` per-shard weights and loss totals,
+    exact (scalars never compress)."""
+    if mode not in ("int8", "topk"):
+        raise ValueError(f"combine_compress mode must be int8|topk, got "
+                         f"{mode!r}")
+
+    @torch.no_grad()
+    def combine(global_params, payload, n_stack, loss_stack, step_mask,
+                boundary, weight):
+        layout = FlatLayout.of(global_params)
+        g = layout.flatten(global_params)
+        gf = g.float()
+        K = n_stack.shape[0]
+        acc = torch.zeros_like(gf)
+        total_w = torch.zeros((), dtype=torch.float32, device=gf.device)
+        if mode == "int8":
+            q, scales = payload
+            qf = layout.flatten(q, (K,))
+            sf = layout.scalars().flatten(scales, (K,))
+            offsets = layout.offsets_on(gf.device)
+        for k in range(K):
+            n_k = n_stack[k]
+            if mode == "int8":
+                acc = kops.dequant_merge_flat(acc, qf[k], gf, sf[k], offsets,
+                                              total_w, n_k)
+            else:
+                acc = fedavg_accum_ref(
+                    acc, gf + _topk_delta(layout, payload, gf, k), total_w,
+                    n_k)
+            total_w = total_w + n_k
+        new_flat = torch.where(total_w > 0, acc.to(g.dtype), g)
+        n_steps = step_mask.sum()
+        metrics = RoundMetrics(
+            loss=_ordered_sum(loss_stack) / torch.clamp(n_steps, min=1.0),
+            steps=n_steps, clients=boundary.sum(), total_weight=total_w)
+        return layout.views(new_flat), metrics
+
+    return combine
 
 
 def _ordered_sum(v):

@@ -27,7 +27,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "BUILD_DIR", "nvcc_path", "build_all",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = {"fedavg_accum": "fedavg_accum.cu"}
+SOURCES = {"fedavg_accum": "fedavg_accum.cu",
+           "dequant_merge": "dequant_merge.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
               "-Xcompiler", "-fPIC")

@@ -7,9 +7,15 @@ time-model refit, on the CUDA card::
 
     PYTHONPATH=src python -m repro_torch.launch.train --task sr --rounds 20
 
-The flags are the reference's.  Those of paths this slice does not port
-(LM archs, checkpoints, mesh/cache/control-plane options, trace export)
-raise ``NotImplementedError`` naming their ROADMAP item when set.
+and the mesh path — one program per worker, the shard-local tree combine,
+int8 shard uploads folded by the K2 kernel::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --task sr --workers 4 \
+        --mesh-workers 2 --combine-mode tree --combine-compress int8
+
+The flags are the reference's.  Those of paths not ported yet (LM archs,
+checkpoints, device cache, control plane, trace export) raise
+``NotImplementedError`` naming their ROADMAP item when set.
 """
 
 from __future__ import annotations
@@ -67,13 +73,17 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
                  ckpt_dir: str | None = None, deadline_rho: float = 0.0,
                  pipeline_depth: int = 1, sampler: str = "uniform",
                  zipf_exponent: float = 1.2, grad_clip: float | None = None,
+                 mesh_workers: int = 0, bucket_mode: str = "round",
+                 combine_mode: str = "flat", combine_compress: str = "none",
+                 topk_frac: float = 0.05, hosts: int = 0,
                  obs=None, device="cuda", **engine_options) -> FederatedEngine:
     """Compose a runnable engine for a paper task, on ``device``.
 
-    ``engine_options`` are further :class:`EngineConfig` fields — the
-    reference's mesh, device-cache, control-plane and combine options,
-    which raise until they are ported.  Raises before any work when
-    ``device`` is CUDA and no card is present.
+    ``mesh_workers`` .. ``hosts`` select the mesh path and its combine, as
+    in the reference.  ``engine_options`` are further
+    :class:`EngineConfig` fields — the device-cache and control-plane
+    options, which raise until they are ported.  Raises before any work
+    when ``device`` is CUDA and no card is present.
     """
     device = resolve_device(device)
     _refuse("arch", arch, None, "M15")
@@ -88,7 +98,12 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
     config = EngineConfig(steps_cap=steps_cap, lanes_per_worker=concurrency,
                           grad_clip=grad_clip, deadline_rho=deadline_rho,
                           pipeline_depth=pipeline_depth,
-                          batch_size=ds.spec.batch_size, **engine_options)
+                          batch_size=ds.spec.batch_size,
+                          mesh_workers=mesh_workers, bucket_mode=bucket_mode,
+                          combine_mode=combine_mode,
+                          combine_compress=combine_compress,
+                          combine_topk_frac=topk_frac, hosts=hosts,
+                          **engine_options)
     params, loss_fn = make_task_model(task, seed, device=device)
     if sampler == "zipf":
         sampler_obj = ZipfSampler(ds.n_clients, cohort, a=zipf_exponent,
@@ -166,11 +181,11 @@ def _build_parser() -> argparse.ArgumentParser:
 
 
 # Flags whose paths this slice does not port: (dest, default, ROADMAP item).
-# The mesh/cache/control-plane flags are refused by EngineConfig.
+# The device-cache and control-plane flags are refused by EngineConfig.
 _UNPORTED_FLAGS = (
     ("resume", False, "M9"),
     ("population_period", 48.0, "M17"), ("population_surge", None, "M17"),
-    ("population_outage", None, "M17"), ("topk_frac", 0.05, "M13"),
+    ("population_outage", None, "M17"),
     ("trace_out", None, "M8 (trace export)"),
     ("flight_rounds", 0, "M8 (flight recorder)"),
 )
@@ -198,7 +213,8 @@ def main(argv=None) -> int:
         adapt_granularity=args.adapt_granularity,
         mesh_workers=args.mesh_workers, cache_affinity=args.cache_affinity,
         bucket_mode=args.bucket_mode, combine_mode=args.combine_mode,
-        combine_compress=args.combine_compress, hosts=args.hosts)
+        combine_compress=args.combine_compress, topk_frac=args.topk_frac,
+        hosts=args.hosts)
     if args.fail_worker:
         wid, rnd = (int(x) for x in args.fail_worker.split(":"))
         engine.pool.schedule(FailureEvent(round_idx=rnd, kind="fail",
@@ -232,6 +248,20 @@ def main(argv=None) -> int:
             r.critical_path for r in results if r.critical_path)),
         "kernel_launches": kops.launch_counts(),
     }
+    if args.mesh_workers >= 2:
+        summary["mesh_workers"] = args.mesh_workers
+        summary["affinity_swaps"] = 0        # cache affinity: ROADMAP M11
+        summary["bucket_mode"] = args.bucket_mode
+        summary["combine_mode"] = args.combine_mode
+        summary["padded_steps"] = int(sum(r.padded_steps for r in results))
+        summary["combine_bytes_per_round"] = int(np.mean(
+            [r.combine_bytes for r in results])) if results else 0
+        if args.hosts >= 1:
+            summary["hosts"] = args.hosts
+        if args.combine_compress != "none":
+            summary["combine_compress"] = args.combine_compress
+            summary["final_residual_norm"] = (
+                results[-1].residual_norm if results else 0.0)
     print(json.dumps(summary, indent=1))
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:

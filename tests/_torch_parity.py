@@ -5,6 +5,7 @@ numpy inputs."""
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from repro.core import EngineConfig as JConfig
@@ -30,6 +31,17 @@ from repro_torch.optim import sgd as tsgd
 SEED = 1337
 LR, MOMENTUM, WD = 0.05, 0.9, 5e-4
 COHORT, WORKERS, LANES, STEPS_CAP, BATCH = 4, 2, 2, 4, 4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread at these tiny shapes: torch's pool would only
+    fight XLA's (and the other test processes') for the cores.  Import it
+    into a test module to apply it there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def small_dataset():

@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 import _torch_parity as par  # noqa: E402
+from _torch_parity import one_intra_op_thread  # noqa: E402,F401
 from repro.core import placement as jplace  # noqa: E402
 from repro.core import sampling as jsamp  # noqa: E402
 from repro.core import telemetry as jtel  # noqa: E402
@@ -205,6 +206,26 @@ def test_port_losses_bit_identical_across_depths():
     assert runs[0][-1][0] < runs[0][0][0]                 # it trains
 
 
+def test_engine_params_are_read_only_and_reassignable():
+    """``eng.params`` holds views of the flat buffer the rounds read: a leaf
+    set into it would be ignored, so that raises; assigning a whole new
+    dict replaces the model the next round starts from."""
+    ds = par.small_dataset()
+    first = par.to_torch(par.ref_params(1))
+    second = par.to_torch(par.ref_params(2))
+    eng = par.port_engine(ds, first)
+    name = next(iter(first))
+    with pytest.raises(TypeError, match="FlatTree"):
+        eng.params[name] = second[name]
+    with pytest.raises(TypeError, match="FlatTree"):
+        eng.params.update(second)
+    eng.params = second
+    for k, v in second.items():
+        assert torch.equal(eng.params[k], v)
+    swapped = [r.loss for r in eng.run(2)]
+    assert swapped == [r.loss for r in par.port_engine(ds, second).run(2)]
+
+
 def test_tracing_leaves_results_bit_identical():
     from repro_torch.obs import make_observability
     ds = par.small_dataset()
@@ -235,10 +256,10 @@ def test_build_engine_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mesh_workers", 2), ("device_cache_batches", 8), ("bucket_mode", "worker"),
-    ("combine_mode", "tree"), ("combine_compress", "int8"), ("hosts", 1),
-    ("telemetry_mode", "measured"), ("drift_threshold", 0.5),
-    ("adapt_interval", 2)])
+    ("device_cache_batches", 8), ("device_cache_bytes", 1 << 20),
+    ("cache_affinity", True), ("telemetry_mode", "measured"),
+    ("barrier_policy", "stall"), ("drift_threshold", 0.5),
+    ("adapt_interval", 2), ("adapt_granularity", "worker")])
 def test_unported_engine_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP M1"):
         teng.EngineConfig(**{field: value})
@@ -248,7 +269,7 @@ def test_unported_engine_options_raise(field, value):
                                   ["--strategy", "fedmedian"],
                                   ["--sampler", "online"],
                                   ["--trace-out", "t.json"],
-                                  ["--mesh-workers", "2"]])
+                                  ["--device-cache-batches", "8"]])
 def test_unported_cli_flags_raise_before_touching_the_device(argv, monkeypatch):
     monkeypatch.setattr(ttrain, "set_deterministic", lambda: None)
     monkeypatch.setattr(ttrain, "resolve_device", lambda d: torch.device("cpu"))
