@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card: the quickest proof that
-the port still builds, agrees with itself and trains on the GPU.
+the port still builds, agrees with itself, trains and serves on the GPU.
 
     python3 chip_smoke.py [--rounds 4] [--profile-out DIR]
 
@@ -9,37 +9,50 @@ Phases, one JSON object per line on stdout:
 1. probe   — Python, torch, CUDA, nvcc and the card (the raw
              ``nvidia-smi --query-gpu=name,power.limit`` line is printed on
              its own line as well);
-2. build   — every kernel of the port compiled from ``src/repro_torch/
-             kernels/csrc`` with nvcc (one process each, in parallel), with
-             ptxas' report;
+2. build   — every kernel of the port (K1-K4) compiled from
+             ``src/repro_torch/kernels/csrc`` with nvcc (one process each,
+             in parallel), with ptxas' report;
 3. check   — each kernel against its plain PyTorch version on the card:
              K1 at the reference's test shapes, the SR leaf shapes and the
              flat lane buffer the round folds (f32 bitwise, bf16 within 1
              ulp); K2 at the reference's sweep shapes and weight edges and
              on the SR flat buffer with its 18-leaf scale table (f32
-             bitwise; ``N+n == 0`` returns ``acc`` bit for bit);
+             bitwise; ``N+n == 0`` returns ``acc`` bit for bit); K3 and K4
+             over the reference's sweeps in f32 and bf16 and at the serve
+             path's shapes (2e-5 f32, 2e-2 bf16, as tests/test_kernels.py);
 4. timing  — each kernel, its plain version and, where one exists, one
-             library call at the main path's shapes (CUDA events, best of
+             library call at the main paths' shapes (CUDA events, best of
              3 interleaved), beside the bytes/ops bound;
 5. main    — ``build_engine(task="sr")`` at the published SR widths on
              ``cuda``: rounds at pipeline depth 1 and again at depth 0 from
              the same seed, with the launch counts zeroed just before each
              run and read just after; losses must be finite and
              bit-identical, and every round step must have gone through K1;
-6. mesh    — the slice's path, ``build_engine(task="sr", workers=4,
-             mesh_workers=2, combine_mode="tree", combine_compress="int8")``
-             at the published widths, ``MESH_ROUNDS`` rounds at depth 1
-             and again at depth 0:
-             finite losses, bit-identical across depths, K2 launched once
-             per live shard per round, ``combine_bytes`` 2 × 4,245,072 B
-             per round, K1 once per worker program step;
+6. mesh    — ``build_engine(task="sr", workers=4, mesh_workers=2,
+             combine_mode="tree", combine_compress="int8")`` at the
+             published widths, ``MESH_ROUNDS`` rounds at depth 1 and again
+             at depth 0: finite losses, bit-identical across depths, K2
+             launched once per live shard per round, ``combine_bytes`` 2 ×
+             4,245,072 B per round, K1 once per worker program step;
 7. decomp  — the flat combine at ``mesh_workers`` 2 and 4 against the
              fused path (4 workers), bitwise; ``hosts=1`` against
              ``hosts=2`` at ``mesh_workers=4`` with ``combine_compress``
              ``none`` and ``int8``, bitwise; one topk round;
 8. agree   — a small SR engine on the card against the same engine on the
              CPU (rtol 1e-4: GEMM sums are ordered differently);
-9. the ``kernels`` line, then the card line and the last line
+9. serve   — the LM serve path: qwen3-0.6b at its published widths and
+             full depth in bf16 with ``attn_impl="pallas"``, weights from
+             ``init_params(0)``; with the launch counts zeroed just before
+             and read just after: one prefill of 4 × 2,048 tokens (K4
+             exactly 28 launches), 16 greedy decode steps (no K4), and K3
+             through ``rms_norm(impl="pallas")`` on the serve path's own
+             norm inputs; finite logits; then the pallas prefill against
+             the dense one, prefill + decode against a teacher-forced
+             ``forward``, and a 1,000-token prompt (``SERVE_TOL``); a
+             profiled prefill and decode step (device idle share);
+10. agree LM — the reduced qwen3-0.6b serve path on the card against the
+             same on the CPU (``AGREE_LM_TOL``);
+11. the ``kernels`` line, then the card line and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no last
@@ -83,6 +96,29 @@ MESH = dict(workers=4, mesh_workers=2, combine_mode="tree",
             combine_compress="int8")
 MESH_ROUNDS = 3
 INT8_PAYLOAD = 4_245_072      # payload_nbytes(SR, "int8"): N + 18*4 + 8
+# The dense bf16 tensor-core peak of an H100 SXM (for K4's bound).
+BF16_FLOPS = 989e12
+# K3/K4 sweeps of the reference (tests/test_kernels.py:90 and :104-107):
+# rmsnorm shapes; attention (b, s, hq, hkv, d).
+RMS_SWEEP = [(4, 64), (2, 3, 128), (5, 256), (1, 512)]
+ATTN_SWEEP = [(2, 128, 4, 2, 32), (1, 100, 8, 8, 16), (2, 260, 6, 2, 64),
+              (1, 512, 2, 1, 128)]
+# The serve path: qwen3-0.6b at its published widths and full depth, bf16;
+# 4 requests of 2,048 prompt tokens, then 16 greedy decode steps.
+SERVE_ARCH = "qwen3-0.6b"
+SERVE_PARAMS = 596_180_992    # the reference's count (152,064-row embed)
+SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = 4, 2048, 16
+SERVE_MAX_LEN = SERVE_PROMPT + SERVE_DECODE
+RAGGED_PROMPT = 1000          # not a multiple of the reference's kv block
+# bf16 logits of the serve path (std ~0.6, |max| ~3) compared across two
+# routes through 28 layers: each route rounds its activations to bf16
+# (2^-9 relative) at other places, and those differences compound over the
+# layers.  A wrong kernel moves logits by O(1).
+SERVE_TOL = dict(atol=0.1, rtol=0.05)
+# Card vs CPU on the reduced f32 serve path: the same math, GEMM sums and
+# the kernels' sums in another order (the CPU parity tests measured ~3e-6
+# port vs reference).
+AGREE_LM_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 def emit(obj) -> None:
@@ -155,6 +191,17 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _best_of(runs: dict, orders, **kw) -> dict:
+    """Each run's best :func:`time_ms` over the given interleaved orders
+    (a run that is None stays None)."""
+    best = {k: math.inf for k in runs}
+    for order in orders:
+        for k in order:
+            if runs[k] is not None:
+                best[k] = min(best[k], time_ms(runs[k], **kw))
+    return {k: (None if v == math.inf else v) for k, v in best.items()}
 
 
 def phase_probe(torch):
@@ -246,12 +293,9 @@ def phase_timing(torch, n_params: int, lanes: int, device_name: str) -> dict:
     runs = {"kernel": lambda: fa.fedavg_accum_lanes(acc, theta, n_old, n_k),
             "plain": lambda: ref.fedavg_accum_ref(acc, theta, n_old, n_k),
             "library": lambda: torch.lerp(acc, theta, lerp_w)}
-    best = {k: math.inf for k in runs}
-    for order in (("kernel", "plain", "library"),
-                  ("library", "plain", "kernel"),
-                  ("kernel", "plain", "library")):
-        for k in order:
-            best[k] = min(best[k], time_ms(runs[k]))
+    best = _best_of(runs, (("kernel", "plain", "library"),
+                           ("library", "plain", "kernel"),
+                           ("kernel", "plain", "library")))
     elems = lanes * n_params
     nbytes = 3 * elems * acc.element_size()      # 2 reads + 1 write
     bw = mem_bw(device_name)
@@ -272,7 +316,7 @@ def phase_timing(torch, n_params: int, lanes: int, device_name: str) -> dict:
 def _sr_layout():
     from repro_torch.kernels.layout import FlatLayout
     from repro_torch.models.papertasks import make_task_model
-    params, _ = make_task_model("sr", 0)
+    params, _ = make_task_model("sr", 0, device="cpu")
     return FlatLayout(params)
 
 
@@ -339,11 +383,8 @@ def phase_timing_k2(torch, layout, device_name: str) -> dict:
                                                     offsets, n_old, n_k),
             "plain": lambda: ref.dequant_merge_flat_ref(
                 acc, q, g, scales, offsets, n_old, n_k)}
-    best = {k: math.inf for k in runs}
-    for order in (("kernel", "plain"), ("plain", "kernel"),
-                  ("kernel", "plain")):
-        for k in order:
-            best[k] = min(best[k], time_ms(runs[k]))
+    best = _best_of(runs, (("kernel", "plain"), ("plain", "kernel"),
+                           ("kernel", "plain")))
     n = layout.n
     nbytes = 13 * n                  # acc, g f32 + q int8 read; out written
     bytes_ms = nbytes / mem_bw(device_name) * 1e3
@@ -357,6 +398,467 @@ def phase_timing_k2(torch, layout, device_name: str) -> dict:
     out["roofline_share"] = out["bound_ms"] / best["kernel"]
     emit({"phase": "timing", "kernel": "dequant_merge", **out})
     return out
+
+
+def _max_err(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+
+
+def _close(torch, got, want, atol: float, rtol: float) -> bool:
+    """numpy's allclose rule, |got - want| <= atol + rtol * |want|."""
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= atol + rtol * w.abs()).all())
+
+
+def _tol(torch, dtype) -> dict:
+    """tests/test_kernels.py's tolerances: 2e-5 in f32, 2e-2 in bf16."""
+    return dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16 \
+        else dict(atol=2e-5, rtol=2e-5)
+
+
+# K4 at the serve path's own widths (qwen3-0.6b heads, s 2048 or 1000) in
+# bf16.  There a causal output element is only ~0.03-0.05 in the later rows,
+# so the sweep's 2e-2 would let a wrong kernel through.  Two sound
+# implementations differ by at most one bf16 rounding of each output (f32
+# sums that agree to ~1e-6 cross at most one rounding boundary): at most
+# 2^-7 * |x| <= rtol * |x|.  The atol is twice one rounding below |x| = 1
+# (2^-8), for outputs near zero.
+SERVE_ATTN_BF16_TOL = dict(atol=8e-3, rtol=8e-3)
+
+
+def _serve_cfg(impl: str = "pallas"):
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    return replace(get_arch(SERVE_ARCH), attn_impl=impl)
+
+
+def _serve_shapes():
+    """K3's rows at the serve path: the block norms [b*s, d_model] and the
+    q-norm [b*s*n_heads, head_dim]; K4's q and k/v."""
+    cfg = _serve_cfg()
+    rows = SERVE_BATCH * SERVE_PROMPT
+    hd = cfg.resolved_head_dim
+    return {"norm_block": (rows, cfg.d_model),
+            "norm_q": (rows * cfg.n_heads, hd),
+            "q": (SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, hd),
+            "kv": (SERVE_BATCH, SERVE_PROMPT, cfg.n_kv_heads, hd)}
+
+
+def phase_check_k3(torch) -> dict:
+    """K3 against its plain version over the reference's sweep in f32 and
+    bf16, and at the serve path's two norm shapes in bf16."""
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(6)
+    shapes = _serve_shapes()
+    cases = [(shape, dt) for dt in (torch.float32, torch.bfloat16)
+             for shape in RMS_SWEEP]
+    cases += [(shapes["norm_block"], torch.bfloat16),
+              (shapes["norm_q"], torch.bfloat16)]
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for shape, dt in cases:
+        x = torch.randn(shape, generator=gen).to(dt).to(dev)
+        scale = torch.randn(shape[-1:], generator=gen).to(dev)
+        got = ops.rmsnorm(x, scale)
+        want = ref.rmsnorm_ref(x, scale)
+        torch.cuda.synchronize()
+        err = _max_err(torch, got, want)
+        key = str(dt).split(".")[-1]
+        errs[key] = max(errs[key], err)
+        check(got.dtype == dt and got.shape == x.shape,
+              f"K3 {shape} {dt}: got {got.dtype} {tuple(got.shape)}")
+        check(_close(torch, got, want, **_tol(torch, dt)),
+              f"K3 {shape} {dt}: max err {err}")
+    emit({"phase": "check", "kernel": "rmsnorm", "cases": len(cases),
+          "tolerance": {"float32": 2e-5, "bfloat16": 2e-2},
+          "max_abs_err": errs})
+    return errs
+
+
+def phase_check_k4(torch) -> dict:
+    """K4 against its plain version: the reference's sweep (causal) in f32
+    and bf16, the serve shape in f32 and bf16, one ragged causal prompt in
+    bf16, a non-causal case, and a causal query longer than its keys (the
+    zero keys of the reference's padding)."""
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(7)
+    cfg = _serve_cfg()
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    cases = [((b, s, hq_, hkv_, d), s, True, dt)
+             for dt in (torch.float32, torch.bfloat16)
+             for b, s, hq_, hkv_, d in ATTN_SWEEP]
+    serve = (SERVE_BATCH, SERVE_PROMPT, hq, hkv, hd)
+    ragged = (1, RAGGED_PROMPT, hq, hkv, hd)
+    cases += [(serve, SERVE_PROMPT, True, torch.float32),
+              (serve, SERVE_PROMPT, True, torch.bfloat16),
+              (ragged, RAGGED_PROMPT, True, torch.bfloat16),
+              ((2, 256, 4, 2, 64), 256, False, torch.float32),
+              ((1, 300, 4, 2, 64), 200, True, torch.float32)]
+    errs = {"float32": 0.0, "bfloat16": 0.0, "bfloat16_serve_shapes": 0.0}
+    for (b, s, hq_, hkv_, d), t, causal, dt in cases:
+        key = str(dt).split(".")[-1]
+        tol = _tol(torch, dt)
+        if dt == torch.bfloat16 and (b, s, hq_, hkv_, d) in (serve, ragged):
+            key, tol = "bfloat16_serve_shapes", SERVE_ATTN_BF16_TOL
+        q = torch.randn(b, s, hq_, d, generator=gen).to(dt).to(dev)
+        k = torch.randn(b, t, hkv_, d, generator=gen).to(dt).to(dev)
+        v = torch.randn(b, t, hkv_, d, generator=gen).to(dt).to(dev)
+        before = fl.LAUNCHES
+        got = ops.flash_attention(q, k, v, causal=causal)
+        check(fl.LAUNCHES == before + 1, "K4 did not launch")
+        want = ref.flash_attention_bshd_ref(q, k, v, causal=causal,
+                                            t_pad=ops.padded_kv_len(t))
+        torch.cuda.synchronize()
+        err = _max_err(torch, got, want)
+        errs[key] = max(errs[key], err)
+        check(got.dtype == dt and got.shape == q.shape,
+              f"K4 {(b, s, t, hq_, hkv_, d)}: got {got.dtype} "
+              f"{tuple(got.shape)}")
+        check(_close(torch, got, want, **tol),
+              f"K4 {(b, s, t, hq_, hkv_, d)} causal={causal} {dt}: max err "
+              f"{err} over {tol}")
+    emit({"phase": "check", "kernel": "flash_attention", "cases": len(cases),
+          "tolerance": {"float32": 2e-5, "bfloat16": 2e-2,
+                        "bfloat16_serve_shapes": SERVE_ATTN_BF16_TOL},
+          "max_abs_err": errs})
+    return errs
+
+
+def phase_timing_k3(torch, device_name: str) -> dict:
+    """K3, its plain version and F.rms_norm at the serve path's shapes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(8)
+    out = {}
+    for label, shape in (("norm_block", _serve_shapes()["norm_block"]),
+                         ("norm_q", _serve_shapes()["norm_q"])):
+        x = torch.randn(shape, generator=gen).to(torch.bfloat16).to(dev)
+        scale = torch.randn(shape[-1:], generator=gen).to(dev)
+        # The library call takes its weight in x's dtype.
+        scale_lib = scale.to(torch.bfloat16)
+        runs = {"kernel": lambda: rn.rmsnorm_rows(x, scale, 1e-6),
+                "plain": lambda: ref.rmsnorm_ref(x, scale),
+                "library": lambda: F.rms_norm(x, shape[-1:], scale_lib,
+                                              1e-6)}
+        best = _best_of(runs, (("kernel", "plain", "library"),
+                               ("library", "plain", "kernel"),
+                               ("kernel", "plain", "library")))
+        rows, d = shape
+        nbytes = 2 * rows * d * x.element_size() + d * 4
+        bytes_ms = nbytes / mem_bw(device_name) * 1e3
+        ops_ms = 4 * rows * d / F32_FLOPS * 1e3   # square, add, 2 muls
+        out[label] = {"ms": best["kernel"], "plain_ms": best["plain"],
+                      "library_ms": best["library"],
+                      "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": "bytes" if bytes_ms >= ops_ms
+                      else "operations",
+                      "shape": list(shape), "dtype": "bfloat16",
+                      "bytes": nbytes}
+        out[label]["roofline_share"] = out[label]["bound_ms"] / best["kernel"]
+    emit({"phase": "timing", "kernel": "rmsnorm", **out})
+    return out["norm_block"]
+
+
+def phase_timing_k4(torch, device_name: str) -> dict:
+    """K4, its plain version and one F.scaled_dot_product_attention call
+    at the serve shape (causal, GQA, bf16)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(9)
+    shapes = _serve_shapes()
+    q = torch.randn(shapes["q"], generator=gen).to(torch.bfloat16).to(dev)
+    k = torch.randn(shapes["kv"], generator=gen).to(torch.bfloat16).to(dev)
+    v = torch.randn(shapes["kv"], generator=gen).to(torch.bfloat16).to(dev)
+    s = q.shape[1]
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    runs = {"kernel": lambda: fl.flash_attention_bshd(q, k, v, causal=True,
+                                                      t_pad=s),
+            "plain": lambda: ref.flash_attention_bshd_ref(q, k, v,
+                                                          causal=True),
+            "library": library}
+    library_error = None
+    try:                                   # a yardstick only, never the port
+        got = library().transpose(1, 2)
+        err = _max_err(torch, got, runs["kernel"]())
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        runs["library"], library_error, err = None, str(e)[:200], None
+    best = _best_of(runs, (("kernel", "plain", "library"),
+                           ("library", "plain", "kernel"),
+                           ("kernel", "plain", "library")),
+                    iters=5, warmup=1)
+    b, _, hq, d = q.shape
+    flops = 4 * b * hq * (s * (s + 1) // 2) * d   # causal QK^T and PV
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    ops_ms = flops / BF16_FLOPS * 1e3
+    bytes_ms = nbytes / mem_bw(device_name) * 1e3
+    out = {"ms": best["kernel"], "plain_ms": best["plain"],
+           "library_ms": best["library"], "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "shape_q": list(q.shape), "shape_kv": list(k.shape),
+           "dtype": "bfloat16", "flops": flops, "bytes": nbytes,
+           "library_vs_kernel_max_abs_diff": err,
+           "library_error": library_error}
+    out["roofline_share"] = out["bound_ms"] / best["kernel"]
+    out["achieved_tflops"] = flops / (best["kernel"] * 1e-3) / 1e12
+    emit({"phase": "timing", "kernel": "flash_attention", **out})
+    return out
+
+
+def _vocab(logits, cfg):
+    return logits[..., :cfg.vocab_size]
+
+
+def _compare(torch, a, b, tol: dict) -> dict:
+    """Max |a - b|, the allclose verdict at ``tol`` and the greedy (argmax)
+    agreement of two logit tensors."""
+    return {"max_abs_diff": _max_err(torch, a, b),
+            "ref_max_abs": float(b.float().abs().max()),
+            "close": _close(torch, a, b, **tol),
+            "argmax_agree": float((a.argmax(-1) == b.argmax(-1))
+                                  .float().mean())}
+
+
+def _serve_norms(torch, params, tokens, cfg) -> dict:
+    """K3 through ``layers.rms_norm(impl="pallas")`` on the serve path's own
+    norm inputs: layer 0's attention norm of the embedded prompt ([8192,
+    1024]) and its q- and k-norms ([131072, 128], [65536, 128]); each
+    against the model's default ``impl="xla"`` (bf16 tolerance 2e-2)."""
+    from repro_torch.models.layers import rms_norm
+    p = {name: leaf[0] for name, leaf in params["stack"]["p0"].items()}
+    x = params["embed"][tokens]
+    hd = cfg.resolved_head_dim
+    b, s, _ = x.shape
+    h = rms_norm(x, p["attn_norm"], eps=cfg.norm_eps)
+    inputs = {"attn_norm": x,
+              "q_norm": (h @ p["wq"]).reshape(b, s, cfg.n_heads, hd),
+              "k_norm": (h @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)}
+    out = {}
+    for name, t in inputs.items():
+        got = rms_norm(t, p[name], eps=cfg.norm_eps, impl="pallas")
+        want = rms_norm(t, p[name], eps=cfg.norm_eps)
+        torch.cuda.synchronize()
+        check(_close(torch, got, want, atol=2e-2, rtol=2e-2),
+              f"K3 on the serve path's {name}: {_max_err(torch, got, want)}")
+        out[name] = {"rows": got.numel() // got.shape[-1],
+                     "max_abs_err": _max_err(torch, got, want)}
+    return out
+
+
+def _sync_s(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_serve(torch) -> dict:
+    """The serve path: qwen3-0.6b at its published widths and depth, bf16,
+    ``attn_impl="pallas"``: one prefill of 4 x 2,048 tokens, 16 greedy
+    decode steps, with the launch counts zeroed just before and read just
+    after; then its checks against other routes through the model."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    dev = torch.device("cuda")
+    cfg = _serve_cfg()
+    params, init_s = _sync_s(torch, lambda: lm.init_params(0, cfg))
+    n_params = lm.param_count(params)
+    check(n_params == SERVE_PARAMS, f"{SERVE_ARCH}: {n_params} params")
+    gen = torch.Generator().manual_seed(10)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=gen).to(dev)
+    lm.prefill(params, {"tokens": tokens[:, :128]}, cfg, max_len=144)  # warm
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()
+    (logits, cache), prefill_s = _sync_s(
+        torch, lambda: lm.prefill(params, {"tokens": tokens}, cfg,
+                                  max_len=SERVE_MAX_LEN))
+    after_prefill = ops.launch_counts()
+    prefill_peak = torch.cuda.max_memory_allocated()
+    generated, step_logits, step_s = [], [logits], []
+    for i in range(SERVE_DECODE):
+        nxt = step_logits[-1].argmax(-1, keepdim=True)
+        generated.append(nxt)
+        (lg, cache), dt = _sync_s(
+            torch, lambda: lm.decode_step(params, cache, nxt,
+                                          SERVE_PROMPT + i, cfg))
+        step_logits.append(lg)
+        step_s.append(dt)
+    after_decode = ops.launch_counts()
+    norms = _serve_norms(torch, params, tokens, cfg)
+    launches = ops.launch_counts()
+
+    check(after_prefill["flash_attention"] == cfg.n_layers,
+          f"K4 launched {after_prefill['flash_attention']} times in a "
+          f"prefill of {cfg.n_layers} layers")
+    check(after_decode["flash_attention"] == cfg.n_layers,
+          f"K4 launched in decode: {after_decode}")
+    check(launches["rmsnorm"] == len(norms), f"K3 launches {launches}")
+    for i, lg in enumerate(step_logits):
+        check(bool(torch.isfinite(_vocab(lg, cfg)).all()),
+              f"non-finite logits at step {i}")
+        check(bool((lg[:, cfg.vocab_size:] == -1e30).all()),
+              f"vocab pad not masked at step {i}")
+    emit({"phase": "serve", "arch": SERVE_ARCH, "attn_impl": "pallas",
+          "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+          "n_params": n_params, "batch": SERVE_BATCH,
+          "prompt": SERVE_PROMPT, "decode_steps": SERVE_DECODE,
+          "init_params_s": init_s, "prefill_ms": prefill_s * 1e3,
+          "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_s,
+          "decode_ms_per_step": sum(step_s) / len(step_s) * 1e3,
+          "decode_ms_steps": [x * 1e3 for x in step_s],
+          "decode_tokens_per_s": SERVE_BATCH * len(step_s) / sum(step_s),
+          "prefill_peak_bytes": prefill_peak,
+          "launches_prefill": after_prefill,
+          "launches_decode": {k: after_decode[k] - after_prefill[k]
+                              for k in after_decode},
+          "launches_norm_pass": {k: launches[k] - after_decode[k]
+                                 for k in launches},
+          "k3_serve_norms": norms})
+
+    # The same prefill through dense attention.
+    dense_logits, _ = lm.prefill(params, {"tokens": tokens}, _serve_cfg(
+        "dense"), max_len=SERVE_MAX_LEN)
+    vs_dense = _compare(torch, _vocab(logits, cfg), _vocab(dense_logits, cfg),
+                        SERVE_TOL)
+    del dense_logits
+    # Prefill + decode against the teacher-forced forward over the prompt
+    # and the 16 generated tokens.
+    seq = torch.cat([tokens] + generated, dim=1)
+    full = lm.forward(params, {"tokens": seq}, cfg)
+    served = torch.stack([_vocab(lg, cfg) for lg in step_logits], dim=1)
+    vs_forward = _compare(torch, served,
+                          full[:, SERVE_PROMPT - 1:SERVE_PROMPT + SERVE_DECODE],
+                          SERVE_TOL)
+    del full
+    # A ragged prompt: 1,000 is not a multiple of the reference's kv block.
+    ops.reset_launch_counts()
+    ragged, _ = lm.prefill(params, {"tokens": tokens[:, :RAGGED_PROMPT]}, cfg)
+    ragged_k4 = ops.launch_counts()["flash_attention"]
+    ragged_dense, _ = lm.prefill(params, {"tokens": tokens[:, :RAGGED_PROMPT]},
+                                 _serve_cfg("dense"))
+    vs_ragged = _compare(torch, _vocab(ragged, cfg), _vocab(ragged_dense, cfg),
+                         SERVE_TOL)
+    check(ragged_k4 == cfg.n_layers, f"ragged prefill: K4 {ragged_k4}")
+    emit({"phase": "serve_checks", "tolerance": SERVE_TOL,
+          "pallas_vs_dense_prefill": vs_dense,
+          "prefill_decode_vs_forward": vs_forward,
+          "ragged_s": RAGGED_PROMPT, "ragged_pallas_vs_dense": vs_ragged,
+          "ragged_k4_launches": ragged_k4})
+    check(vs_dense["close"], f"pallas vs dense prefill: {vs_dense}")
+    check(vs_forward["close"], f"prefill + decode vs forward: {vs_forward}")
+    check(vs_ragged["close"], f"ragged prefill pallas vs dense: {vs_ragged}")
+    return {"params": params, "tokens": tokens, "launches": launches,
+            "prefill_ms": prefill_s * 1e3,
+            "decode_ms_per_step": sum(step_s) / len(step_s) * 1e3}
+
+
+def _profile_rows(torch, prof):
+    """(device rows, host rows) of a profile, each ``(us, name, count)``,
+    largest first: kernels by self device time (an aten op's entry repeats
+    its kernels', so only kernels count), host ops by self CPU time."""
+    rows, host = [], []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+            if dev_us > 0:
+                rows.append((dev_us, e.key, e.count))
+        elif e.self_cpu_time_total > 0:
+            host.append((e.self_cpu_time_total, e.key, e.count))
+    return sorted(rows, reverse=True), sorted(host, reverse=True)
+
+
+def _device_profile(torch, fn) -> dict:
+    """Wall time, device busy time and kernels of one call of ``fn`` under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows, _ = _profile_rows(torch, prof)
+    busy = sum(r[0] for r in rows) / 1e6
+    k4 = sum(us for us, k, _ in rows if "flash_attention" in k) / 1e6
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3,
+            "device_idle_share": 1 - busy / wall,
+            "kernels_launched": sum(r[2] for r in rows),
+            "k4_ms": k4 * 1e3,
+            "k4_share_of_busy": k4 / busy if busy else None,
+            "top": [{"name": k[:80], "ms": us / 1e3, "count": n}
+                    for us, k, n in rows[:10]]}
+
+
+def phase_serve_profile(torch, serve) -> dict:
+    """Device busy and idle share of one serve prefill and one decode step
+    (torch.profiler).  The profiler slows the host, so the idle share is
+    also given against the same call's unprofiled wall time from the serve
+    phase."""
+    from repro_torch.models import lm
+    cfg = _serve_cfg()
+    params, tokens = serve["params"], serve["tokens"]
+    holder = {}
+
+    def prefill():
+        holder["out"] = lm.prefill(params, {"tokens": tokens}, cfg,
+                                   max_len=SERVE_MAX_LEN)
+
+    pre = _device_profile(torch, prefill)
+    logits, cache = holder["out"]
+    nxt = logits.argmax(-1, keepdim=True)
+    dec = _device_profile(torch, lambda: lm.decode_step(
+        params, cache, nxt, SERVE_PROMPT, cfg))
+    for prof, key in ((pre, "prefill_ms"), (dec, "decode_ms_per_step")):
+        prof["unprofiled_wall_ms"] = serve[key]
+        prof["device_idle_share_unprofiled"] = \
+            1 - prof["device_busy_ms"] / serve[key]
+    out = {"phase": "serve_profile", "prefill": pre, "decode_step": dec}
+    emit(out)
+    return out
+
+
+def phase_agree_lm(torch) -> dict:
+    """The reduced qwen3-0.6b serve path (f32, attn_impl="pallas") on the
+    card against the same on the CPU: prefill and 2 decode steps."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    cfg = replace(get_arch(SERVE_ARCH).reduced(), attn_impl="pallas")
+    gen = torch.Generator().manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 14), generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = lm.init_params(0, cfg, device=dev)
+        lg, cache = lm.prefill(params, {"tokens": tokens[:, :12]}, cfg,
+                               max_len=16, device=dev)
+        steps = [lg]
+        for i in range(2):
+            lg, cache = lm.decode_step(params, cache, tokens[:, 12 + i:13 + i],
+                                       12 + i, cfg, device=dev)
+            steps.append(lg)
+        out[dev] = torch.stack([_vocab(x, cfg).cpu() for x in steps])
+    res = _compare(torch, out["cuda"], out["cpu"], AGREE_LM_TOL)
+    emit({"phase": "agree_lm", "arch": f"{SERVE_ARCH} reduced", **res,
+          "tolerance": AGREE_LM_TOL})
+    check(res["close"], f"card vs CPU serve path: {res}")
+    return res
 
 
 def _finite_params(torch, eng) -> None:
@@ -538,7 +1040,8 @@ def phase_agree(torch):
                                 size_mu=2.5, size_sigma=0.8)
     losses = {}
     for dev in ("cpu", "cuda"):
-        params, loss = make_task_model("sr", 0, width=64, n_blocks=2)
+        params, loss = make_task_model("sr", 0, width=64, n_blocks=2,
+                                       device="cpu")
         eng = FederatedEngine(
             dataset=ds, loss_fn=loss, init_params=params,
             optimizer=sgd(0.05, momentum=0.9, weight_decay=5e-4),
@@ -571,17 +1074,7 @@ def phase_profile(torch, out_dir: str, label: str, **kw) -> None:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     prof.export_chrome_trace(str(out / "trace.json"))
-    rows, host = [], []  # kernels (an aten op's entry repeats its kernels')
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us = getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0))
-            if dev_us > 0:
-                rows.append((dev_us, e.key, e.count))
-        elif e.self_cpu_time_total > 0:
-            host.append((e.self_cpu_time_total, e.key, e.count))
-    rows.sort(reverse=True)
-    host.sort(reverse=True)
+    rows, host = _profile_rows(torch, prof)
     busy_s = sum(r[0] for r in rows) / 1e6
 
     def table(entries):
@@ -621,12 +1114,20 @@ def main() -> int:
     max_err = phase_check(torch, n_params, lanes)
     layout = _sr_layout()
     max_err2 = phase_check_k2(torch, layout)
+    err3 = phase_check_k3(torch)
+    err4 = phase_check_k4(torch)
     timing = phase_timing(torch, n_params, lanes, name)
     timing2 = phase_timing_k2(torch, layout, name)
+    timing3 = phase_timing_k3(torch, name)
+    timing4 = phase_timing_k4(torch, name)
     launches, steps, res = phase_main(torch, args.rounds)
     mesh_launches, mesh_res = phase_mesh(torch, MESH_ROUNDS)
     phase_decomposition(torch)
     phase_agree(torch)
+    serve = phase_serve(torch)
+    phase_serve_profile(torch, serve)
+    del serve["params"]
+    phase_agree_lm(torch)
     if args.profile_out:
         phase_profile(torch, args.profile_out, "fused")
         phase_profile(torch, args.profile_out, "mesh", **MESH)
@@ -649,7 +1150,17 @@ def main() -> int:
                "src/repro/kernels/dequant_merge.py:46",
                mesh_launches["dequant_merge"], max_err2, timing2),
          "launches_per_round": mesh_launches["dequant_merge"] / len(mesh_res),
-         "path": "mesh"}]})
+         "path": "mesh"},
+        {**row("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30",
+               serve["launches"]["rmsnorm"], max(err3.values()), timing3),
+         "path": "serve (layers.rms_norm(impl='pallas') on the serve "
+                 "path's norm inputs; the model keeps 'xla')"},
+        {**row("flash_attention", "flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:89",
+               serve["launches"]["flash_attention"], max(err4.values()),
+               timing4),
+         "launches_per_prefill": serve["launches"]["flash_attention"],
+         "path": "serve (prefill, attn_impl='pallas')"}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

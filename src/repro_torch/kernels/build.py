@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
-``nvcc`` for ``sm_90a`` into ``lib<name>-<digest>.so`` under ``_build/``
+``nvcc`` for ``sm_90a`` (``NVCC_FLAGS`` plus the kernel's own flags in
+``SOURCES``) into ``lib<name>-<digest>.so`` under ``_build/``
 (listed in ``.gitignore``) at first use, then loaded with ``ctypes``.  The
 digest covers the source and the flags, so an edited kernel rebuilds and an
 unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per missing
@@ -27,11 +28,15 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "BUILD_DIR", "nvcc_path", "build_all",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = {"fedavg_accum": "fedavg_accum.cu",
-           "dequant_merge": "dequant_merge.cu"}
+# name -> (source, the kernel's own flags).  K1 and K2 are held bitwise to
+# their plain versions, so nvcc may not contract their multiply-adds; K3 and
+# K4 are held to a tolerance and keep nvcc's default contraction.
+SOURCES = {"fedavg_accum": ("fedavg_accum.cu", ("--fmad=false",)),
+           "dequant_merge": ("dequant_merge.cu", ("--fmad=false",)),
+           "rmsnorm": ("rmsnorm.cu", ()),
+           "flash_attention": ("flash_attention.cu", ())}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -49,9 +54,13 @@ def nvcc_path() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCES[name][1]
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src = (CSRC / SOURCES[name][0]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -73,8 +82,8 @@ def build_all(names=None) -> dict[str, dict]:
                          "cached": True}
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / SOURCES[name])]
+        cmd = [nvcc_path(), *_flags(name), "-o", str(tmp),
+               str(CSRC / SOURCES[name][0])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target, time.perf_counter())

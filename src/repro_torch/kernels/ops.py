@@ -12,6 +12,8 @@ kernel or raises — there is no fallback.
                                                   — a flat [N] buffer of
                                                     several leaves, one
                                                     scale per leaf
+    rmsnorm(x, scale, eps=...)                    — [..., D]
+    flash_attention(q, k, v, causal=...)          — [b, s, h, d] model layout
 """
 
 from __future__ import annotations
@@ -20,20 +22,30 @@ import torch
 
 from repro_torch.kernels import dequant_merge as _dm
 from repro_torch.kernels import fedavg_accum as _fa
+from repro_torch.kernels import flash_attention as _fl
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rn
 
-__all__ = ["fedavg_accum", "dequant_merge", "dequant_merge_flat",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["fedavg_accum", "dequant_merge", "dequant_merge_flat", "rmsnorm",
+           "flash_attention", "padded_kv_len", "launch_counts",
+           "reset_launch_counts"]
+
+_KERNELS = {"fedavg_accum": _fa, "dequant_merge": _dm, "rmsnorm": _rn,
+            "flash_attention": _fl}
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {"fedavg_accum": _fa.LAUNCHES, "dequant_merge": _dm.LAUNCHES}
+    return {name: mod.LAUNCHES for name, mod in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    _fa.LAUNCHES = 0
-    _dm.LAUNCHES = 0
+    for mod in _KERNELS.values():
+        mod.LAUNCHES = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
 
 
 def _lane_vector(w, lanes: int, device) -> torch.Tensor:
@@ -95,3 +107,45 @@ def dequant_merge(acc, q, g, scale, n_old, n_k):
                              _lane_vector(scale, 1, acc.device),
                              [0, acc.numel()], n_old, n_k)
     return out.reshape(acc.shape)
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-6):
+    """RMSNorm over the last dim of ``x`` (any leading shape), as
+    ``repro.kernels.ops.rmsnorm``: f32 math, output in ``x.dtype``."""
+    if x.device.type == "cpu":
+        return ref.rmsnorm_ref(x, scale, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no rmsnorm kernel for device {x.device}")
+    d = x.shape[-1]
+    out = _rn.rmsnorm_rows(x.reshape(-1, d).contiguous(),
+                           scale.to(torch.float32).contiguous(), eps)
+    return out.reshape(x.shape)
+
+
+def padded_kv_len(t: int) -> int:
+    """``t`` padded as the reference wrapper pads it at its default kv block:
+    to a multiple of ``min(256, round_up(t, 128))``."""
+    return _round_up(t, min(256, _round_up(t, 128)))
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Attention in the model layout ``[b, s, h, d]`` in and out, as
+    ``repro.kernels.ops.flash_attention`` at its default blocks.
+
+    The reference wrapper pads ``t`` with zero keys to a multiple of its kv
+    block (``padded_kv_len``); a causal query at or past ``t`` sees those
+    zeros, and non-causal attention on a ``t`` that needs padding raises
+    ``NotImplementedError`` — both kept here.  The CUDA kernel reads the
+    model layout through strides and takes the padded length as an
+    argument, so nothing is copied.
+    """
+    t = k.shape[1]
+    tp = padded_kv_len(t)
+    if tp != t and not causal:
+        raise NotImplementedError("non-causal padding unsupported; pad t to "
+                                  "a block multiple upstream")
+    if q.device.type == "cpu":
+        return ref.flash_attention_bshd_ref(q, k, v, causal=causal, t_pad=tp)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_attention kernel for device {q.device}")
+    return _fl.flash_attention_bshd(q, k, v, causal=causal, t_pad=tp)

@@ -6,10 +6,13 @@ Each mirrors its counterpart in ``repro/kernels/ref.py``.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = ["fedavg_accum_ref", "dequant_merge_ref", "dequant_merge_flat_ref",
-           "lane_weight"]
+           "lane_weight", "rmsnorm_ref", "attention_ref",
+           "flash_attention_bshd_ref"]
 
 
 def lane_weight(w, like: torch.Tensor) -> torch.Tensor:
@@ -65,3 +68,48 @@ def dequant_merge_flat_ref(acc, q, g, scales, offsets, n_old, n_k):
     per_elem = torch.repeat_interleave(scales.to(acc.device), sizes,
                                        output_size=acc.numel())
     return dequant_merge_ref(acc, q, g, per_elem, n_old, n_k)
+
+
+def rmsnorm_ref(x, scale, *, eps: float = 1e-6):
+    """Per row of the last dim: ``x * rsqrt(mean(x^2) + eps) * scale``,
+    computed in f32 and returned in ``x.dtype``."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def attention_ref(q, k, v, *, causal: bool = True):
+    """q [b,hq,s,d]; k,v [b,hkv,t,d] — materialized-softmax GQA oracle.
+
+    Query head ``h`` reads kv head ``h // (hq/hkv)``; the causal mask is
+    ``key <= query`` counted from position 0 of both.  Computed in f32 and
+    returned in ``q.dtype``."""
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.float().reshape(b, hkv, g, s, d)
+    kf = k.float()
+    vf = v.float()
+    scores = torch.einsum("bkgsd,bktd->bkgst", qf, kf) / math.sqrt(d)
+    if causal:
+        mask = (torch.arange(s, device=q.device)[:, None]
+                >= torch.arange(t, device=q.device)[None, :])
+        scores = scores.masked_fill(~mask, -math.inf)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", probs, vf)
+    return out.reshape(b, hq, s, d).to(q.dtype)
+
+
+def flash_attention_bshd_ref(q, k, v, *, causal: bool = True,
+                             t_pad: int | None = None):
+    """:func:`attention_ref` in the model layout (q ``[b,s,hq,d]``, k/v
+    ``[b,t,hkv,d]``) with the keys ``t <= j < t_pad`` as zero vectors: the
+    function the flash-attention kernel computes."""
+    t = k.shape[1]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    if t_pad is not None and t_pad != t:
+        pad = (0, 0, 0, t_pad - t)
+        kt = torch.nn.functional.pad(kt, pad)
+        vt = torch.nn.functional.pad(vt, pad)
+    out = attention_ref(q.transpose(1, 2), kt, vt, causal=causal)
+    return out.transpose(1, 2)

@@ -1,0 +1,81 @@
+"""K3 — RMSNorm over the last dim as a hand-written CUDA kernel.
+
+Replaces ``repro/kernels/rmsnorm.py:30 rmsnorm_2d`` (Pallas, TPU).  The
+kernel lives in ``csrc/rmsnorm.cu``; this module binds it with ctypes,
+checks its inputs and counts its launches.  One warp normalises one row;
+it is bound by device memory (one read and one write per element).  See
+the source for the design.
+
+Use :func:`repro_torch.kernels.ops.rmsnorm`, which routes CPU tensors to
+the plain version :func:`repro_torch.kernels.ref.rmsnorm_ref`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+__all__ = ["rmsnorm_rows", "LAUNCHES"]
+
+# Launches of the CUDA kernel since the last reset (ops.reset_launch_counts).
+LAUNCHES = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_VEC_BYTES = 16
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("rmsnorm")
+    if not getattr(lib, "_pollen_bound", False):
+        vp = ctypes.c_void_p
+        lib.pollen_rmsnorm.argtypes = [vp, vp, vp, ctypes.c_longlong,
+                                       ctypes.c_int, ctypes.c_float,
+                                       ctypes.c_int, ctypes.c_int, vp]
+        lib.pollen_rmsnorm.restype = ctypes.c_int
+        lib.pollen_rmsnorm_error_string.argtypes = [ctypes.c_int]
+        lib.pollen_rmsnorm_error_string.restype = ctypes.c_char_p
+        lib._pollen_bound = True
+    return lib
+
+
+def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    """Normalise every row of ``x`` in one launch.
+
+    x: ``[rows, d]`` contiguous CUDA tensor, f32 or bf16; scale: ``[d]``
+    contiguous f32 on the same device.  Returns a new ``[rows, d]`` tensor
+    of ``x``'s dtype: ``x * rsqrt(mean(x^2) + eps) * scale`` in f32.
+    """
+    global LAUNCHES
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm_rows needs CUDA tensors, got {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {x.dtype}; f32 or bf16")
+    if x.ndim != 2:
+        raise ValueError(f"x must be [rows, d], got {tuple(x.shape)}")
+    rows, d = x.shape
+    if scale.shape != (d,) or scale.dtype != torch.float32:
+        raise ValueError(f"scale must be f32 [{d}], got {tuple(scale.shape)}"
+                         f"/{scale.dtype}")
+    if scale.device != x.device:
+        raise ValueError("all inputs must be on one device")
+    if not (x.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("inputs must be contiguous")
+    if d == 0 or d > 2**31 - 1:
+        raise ValueError(f"row length {d} out of range")
+    out = torch.empty_like(x)
+    vec = int((d * x.element_size()) % _VEC_BYTES == 0 and all(
+        t.data_ptr() % _VEC_BYTES == 0 for t in (x, out)))
+    lib = _lib()
+    rc = lib.pollen_rmsnorm(x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                            rows, d, float(eps), _DTYPES[x.dtype], vec,
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        msg = lib.pollen_rmsnorm_error_string(rc).decode()
+        raise RuntimeError(f"rmsnorm launch failed: {msg} ({rc})")
+    if rows:                              # no rows launches nothing
+        LAUNCHES += 1
+    return out

@@ -1,0 +1,472 @@
+"""The LM stack — port of the dense family of ``repro/models/lm.py``.
+
+Every architecture is: embedding → a *period-structured* stack of blocks →
+final norm → LM head.  A *period* is the smallest repeating pattern of layer
+kinds (dense archs: 1).  Parameters keep the reference's layout — stacked
+per period position with a leading ``n_periods`` dim,
+``{"embed", "stack": {"p<i>": {name: [n_periods, ...]}}, "final_norm",
+["lm_head"]}`` — so weights carry across one to one
+(:func:`repro_torch.models.lm_params_from_numpy`); the stack runs as a
+Python loop over periods where the reference scans.
+
+Ported block kinds: mixer ``attn`` (GQA + RoPE [+ qk-norm]), MLP ``swiglu``
+| ``relu2`` | ``gelu``, and command-r's ``parallel_block``.  A config that
+needs anything else raises ``NotImplementedError`` naming its ROADMAP item:
+MoE (M15, the MoE slice), Mamba mixers (M16), the encoder, cross-attention
+and modality frontends (M15).
+
+Entry points (``cuda`` unless ``device="cpu"`` is passed; without a card and
+without that request they raise):
+
+    init_params(seed, cfg)                        -> params
+    forward(params, batch, cfg)                   -> logits [b, s, V] f32
+    init_cache(cfg, batch, max_len)               -> cache
+    prefill(params, batch, cfg, max_len=)         -> (logits [b, Vp], cache)
+    decode_step(params, cache, tokens, pos, cfg)  -> (logits [b, Vp], cache)
+
+``params`` must already be on the entry point's device; token batches are
+moved there.  Unlike the reference, ``prefill`` writes k/v straight into the
+cache it allocates and ``decode_step`` writes the new token's k/v into
+``cache`` in place (and returns it): the cache is the largest buffer of the
+serve path and is never copied.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import (decode_attention, dense_init,
+                                       gelu_mlp, gqa_attention, norm_init,
+                                       rms_norm, rope, swiglu)
+
+__all__ = ["init_params", "forward", "init_cache", "prefill", "decode_step",
+           "layer_plan", "LayerKind", "param_count"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+# ---------------------------------------------------------------------------
+# layer plan
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class LayerKind:
+    mixer: str          # 'attn' | 'mamba' | 'none'
+    mlp: str            # 'swiglu' | 'relu2' | 'gelu' | 'moe' | 'none'
+    cross: bool = False  # decoder cross-attention (whisper)
+
+
+def _lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(a, b)
+
+
+def layer_plan(cfg: ArchConfig, *, decoder: bool = True) -> list[LayerKind]:
+    """The repeating period of layer kinds for this architecture."""
+    period = 1
+    if cfg.attn_every > 1:
+        period = _lcm(period, cfg.attn_every)
+    if cfg.moe and cfg.moe_every > 1:
+        period = _lcm(period, cfg.moe_every)
+    n_layers = cfg.n_layers
+    if n_layers % period:
+        raise ValueError(f"{cfg.name}: n_layers {n_layers} not divisible by "
+                         f"period {period}")
+    plan = []
+    for l in range(period):
+        if cfg.family == "ssm":
+            mixer = "mamba"
+        elif cfg.attn_every > 1:
+            mixer = "attn" if l % cfg.attn_every == cfg.attn_offset else "mamba"
+        else:
+            mixer = "attn"
+        if cfg.moe and l % cfg.moe_every == cfg.moe_offset:
+            mlp = "moe"
+        elif cfg.d_ff > 0:
+            mlp = cfg.mlp_act
+        else:
+            mlp = "none"
+        cross = decoder and cfg.enc_layers > 0 and mixer == "attn"
+        plan.append(LayerKind(mixer=mixer, mlp=mlp, cross=cross))
+    return plan
+
+
+def _require_ported(cfg: ArchConfig) -> list[LayerKind]:
+    """The layer plan, or ``NotImplementedError`` naming the ROADMAP item
+    of the first part of ``cfg`` the port does not have yet."""
+    if cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend!r} modality frontend is not "
+            f"ported yet (ROADMAP M15, frontend)")
+    if cfg.enc_layers > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder stack is not ported yet (ROADMAP M15, "
+            f"encoder)")
+    plan = layer_plan(cfg)
+    for kind in plan:
+        if kind.mixer == "mamba":
+            raise NotImplementedError(
+                f"{cfg.name}: Mamba-2 mixers are not ported yet (ROADMAP "
+                f"M16, with K5)")
+        if kind.cross:
+            raise NotImplementedError(
+                f"{cfg.name}: cross-attention is not ported yet (ROADMAP "
+                f"M15, cross)")
+        if kind.mlp == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers are not ported yet (ROADMAP M15, "
+                f"the MoE slice)")
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# parameter init
+# ---------------------------------------------------------------------------
+def _attn_shapes(cfg: ArchConfig) -> dict:
+    hd = cfg.resolved_head_dim
+    D = cfg.d_model
+    sh = {
+        "attn_norm": (D,),
+        "wq": (D, cfg.n_heads * hd),
+        "wk": (D, cfg.n_kv_heads * hd),
+        "wv": (D, cfg.n_kv_heads * hd),
+        "wo": (cfg.n_heads * hd, D),
+    }
+    if cfg.qk_norm:
+        sh["q_norm"] = (hd,)
+        sh["k_norm"] = (hd,)
+    if cfg.use_bias:
+        sh.update({"bq": (cfg.n_heads * hd,), "bk": (cfg.n_kv_heads * hd,),
+                   "bv": (cfg.n_kv_heads * hd,), "bo": (D,)})
+    return sh
+
+
+def _mlp_shapes(cfg: ArchConfig, kind: str) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    if kind == "swiglu":
+        return {"mlp_norm": (D,), "w_gate": (D, F), "w_up": (D, F),
+                "w_down": (F, D)}
+    if kind in ("relu2", "gelu"):
+        sh = {"mlp_norm": (D,), "w_up": (D, F), "w_down": (F, D)}
+        if cfg.use_bias:
+            sh.update({"b_up": (F,), "b_down": (D,)})
+        return sh
+    return {}
+
+
+def _block_shapes(cfg: ArchConfig, kind: LayerKind) -> dict:
+    sh = {}
+    if kind.mixer == "attn":
+        sh.update(_attn_shapes(cfg))
+    sh.update(_mlp_shapes(cfg, kind.mlp))
+    if cfg.parallel_block and "mlp_norm" in sh:
+        del sh["mlp_norm"]          # shared input norm (command-r style)
+    return sh
+
+
+def _init_leaf(gen: torch.Generator, name: str, shape, dtype):
+    if "norm" in name:
+        return norm_init(shape)
+    if name.startswith("b") and len(shape) == 1:
+        return torch.zeros(shape, dtype=dtype)
+    return dense_init(gen, shape, dtype)
+
+
+def _init_stack(gen, cfg: ArchConfig, plan, n_periods: int, dtype):
+    stack = {}
+    for i, kind in enumerate(plan):
+        stack[f"p{i}"] = {
+            name: _init_leaf(gen, name, (n_periods,) + tuple(shape), dtype)
+            for name, shape in sorted(_block_shapes(cfg, kind).items())}
+    return stack
+
+
+def init_params(seed: int, cfg: ArchConfig, *, device=None) -> dict:
+    """Random weights for ``cfg`` from a ``torch.Generator`` seeded with
+    ``seed``, drawn on the CPU (so a seed gives the same weights on every
+    machine) and moved to ``device``.  They differ from the reference's
+    ``jax.random`` init by design; the parity tests carry the reference's
+    weights across instead.  Shapes, dtypes and layout are the
+    reference's: matrices in ``cfg.dtype``, norm scales in f32."""
+    plan = _require_ported(cfg)
+    device = resolve_device(device)
+    dtype = _DTYPES[cfg.dtype]
+    n_periods = cfg.n_layers // len(plan)
+    gen = torch.Generator().manual_seed(int(seed))
+    params = {
+        "embed": dense_init(gen, (cfg.padded_vocab, cfg.d_model), dtype,
+                            scale=0.02),
+        "stack": _init_stack(gen, cfg, plan, n_periods, dtype),
+        "final_norm": norm_init((cfg.d_model,)),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab),
+                                       dtype)
+    return _tree_map(lambda x: x.to(device), params)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def param_count(params) -> int:
+    return sum(int(x.numel()) for x in _leaves(params))
+
+
+def _on_device(params, device) -> torch.device:
+    """``device`` resolved; raises unless every parameter lies there."""
+    device = resolve_device(device)
+    for leaf in _leaves(params):
+        if leaf.device.type != device.type:
+            raise ValueError(f"params are on {leaf.device}, the entry point "
+                             f"runs on {device}; pass device= or move them")
+    return device
+
+
+# ---------------------------------------------------------------------------
+# block bodies
+# ---------------------------------------------------------------------------
+def _project_qkv(p, h, cfg: ArchConfig):
+    hd = cfg.resolved_head_dim
+    b, s, _ = h.shape
+    q = h @ p["wq"]
+    k = h @ p["wk"]
+    v = h @ p["wv"]
+    if cfg.use_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
+    return q, k, v
+
+
+def _attn_out(p, attn, cfg: ArchConfig):
+    b, s = attn.shape[:2]
+    out = attn.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim) @ p["wo"]
+    if cfg.use_bias:
+        out = out + p["bo"]
+    return out
+
+
+def _attn_body(p, x, cfg: ArchConfig, *, causal: bool, positions=None,
+               norm_key: str = "attn_norm"):
+    """Full-sequence attention sub-block (forward / prefill)."""
+    h = rms_norm(x, p[norm_key], eps=cfg.norm_eps)
+    q, k, v = _project_qkv(p, h, cfg)
+    if cfg.rope:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        q = rope(q, positions, theta=cfg.rope_theta)
+        k = rope(k, positions, theta=cfg.rope_theta)
+    attn = gqa_attention(q, k, v, causal=causal, impl=cfg.attn_impl,
+                         q_chunk=cfg.attn_q_chunk,
+                         repeat_kv=cfg.attn_repeat_kv)
+    return _attn_out(p, attn, cfg), (k, v)
+
+
+def _mlp_body(p, x, cfg: ArchConfig, kind: str, *, norm_key: str = "mlp_norm"):
+    h = rms_norm(x, p[norm_key], eps=cfg.norm_eps) if norm_key else x
+    if kind == "swiglu":
+        return swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    if kind == "gelu":
+        bias = cfg.use_bias
+        return gelu_mlp(h, p["w_up"], p["b_up"] if bias else None,
+                        p["w_down"], p["b_down"] if bias else None)
+    if kind == "relu2":
+        z = h @ p["w_up"]
+        if cfg.use_bias:
+            z = z + p["b_up"]
+        out = torch.relu(z).square() @ p["w_down"]
+        if cfg.use_bias:
+            out = out + p["b_down"]
+        return out
+    raise ValueError(kind)
+
+
+def _apply_block(p, x, cfg: ArchConfig, kind: LayerKind, *, causal: bool,
+                 positions=None):
+    """One block; returns (x, (k, v)) — the k/v of its attention, or
+    None."""
+    kv = None
+    if cfg.parallel_block and kind.mixer == "attn" and kind.mlp != "none":
+        # command-r: shared norm, attn & mlp in parallel
+        attn_out, kv = _attn_body(p, x, cfg, causal=causal,
+                                  positions=positions)
+        mlp_out = _mlp_body(p, x, cfg, kind.mlp, norm_key="attn_norm")
+        x = x + attn_out + mlp_out
+    else:
+        if kind.mixer == "attn":
+            attn_out, kv = _attn_body(p, x, cfg, causal=causal,
+                                      positions=positions)
+            x = x + attn_out
+        if kind.mlp != "none":
+            x = x + _mlp_body(p, x, cfg, kind.mlp)
+    return x, kv
+
+
+# ---------------------------------------------------------------------------
+# stacks
+# ---------------------------------------------------------------------------
+def _period(stack: dict, key: str, n: int) -> dict:
+    """Period ``n``'s parameters of position ``key`` (views, no copies)."""
+    return {name: leaf[n] for name, leaf in stack[key].items()}
+
+
+def _run_stack(stack, x, cfg: ArchConfig, plan, *, causal: bool,
+               positions=None, cache=None):
+    """The blocks in order, period by period.  With ``cache`` (from
+    :func:`init_cache`), each attention block's k/v fill its first
+    ``s`` slots."""
+    n_periods = cfg.n_layers // len(plan)
+    s = x.shape[1]
+    for n in range(n_periods):
+        for i, kind in enumerate(plan):
+            key = f"p{i}"
+            x, kv = _apply_block(_period(stack, key, n), x, cfg, kind,
+                                 causal=causal, positions=positions)
+            if cache is not None and kv is not None:
+                cache[key]["k"][n, :, :s] = kv[0]
+                cache[key]["v"][n, :, :s] = kv[1]
+    return x
+
+
+def _embed_inputs(params, batch, cfg: ArchConfig, device):
+    """tokens -> (x [b,s,D], positions [1,s])."""
+    tokens = torch.as_tensor(batch["tokens"], device=device).long()
+    x = params["embed"][tokens]                     # [b, s, D]
+    positions = torch.arange(x.shape[1], device=device)[None, :]
+    return x, positions
+
+
+def _lm_head(params, h, cfg: ArchConfig):
+    """f32 logits from ``cfg.dtype`` operands, as the reference's
+    ``preferred_element_type=f32`` (a bf16 matmul would round the logits to
+    bf16).  On the card cuBLAS writes f32 straight from bf16 operands
+    (``out_dtype``), so the [vocab, d] table is never upcast; the CPU has
+    no such op, so there both operands are upcast (products of bf16 values
+    are exact in f32)."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if h.device.type == "cuda" and h.dtype != torch.float32:
+        out = torch.mm(h.reshape(-1, h.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*h.shape[:-1], w.shape[-1])
+    return h.float() @ w.float()
+
+
+def _hidden(params, batch, cfg: ArchConfig, device, *, cache=None):
+    plan = _require_ported(cfg)
+    x, positions = _embed_inputs(params, batch, cfg, device)
+    x = _run_stack(params["stack"], x, cfg, plan, causal=True,
+                   positions=positions, cache=cache)
+    return rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
+
+
+def _mask_vocab_pad(logits, cfg: ArchConfig):
+    if cfg.padded_vocab == cfg.vocab_size:
+        return logits
+    cols = torch.arange(cfg.padded_vocab, device=logits.device)
+    return torch.where(cols < cfg.vocab_size, logits, -1e30)
+
+
+@torch.no_grad()
+def forward(params, batch, cfg: ArchConfig, *, device=None):
+    """Full-sequence f32 logits ``[b, s, vocab_size]`` (pad columns sliced
+    off)."""
+    device = _on_device(params, device)
+    h = _hidden(params, batch, cfg, device)
+    return _lm_head(params, h, cfg)[..., :cfg.vocab_size]
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None):
+    """Zeroed k/v for a batch of sequences of ≤ ``max_len`` tokens:
+    ``{"p<i>": {"k", "v": [n_periods, batch, max_len, n_kv_heads, hd]}}``
+    in ``cfg.dtype``."""
+    plan = _require_ported(cfg)
+    device = resolve_device(device)
+    n_periods = cfg.n_layers // len(plan)
+    shape = (n_periods, batch, max_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    dtype = _DTYPES[cfg.dtype]
+    return {f"p{i}": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                      "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for i, kind in enumerate(plan) if kind.mixer == "attn"}
+
+
+@torch.no_grad()
+def prefill(params, batch, cfg: ArchConfig, *, max_len: int | None = None,
+            device=None):
+    """Process the whole prompt; return (last-position logits ``[b,
+    padded_vocab]`` f32 with pad columns at -1e30, cache).  The cache holds
+    the prompt's k/v in its first ``s`` slots, so :func:`decode_step`
+    continues at ``pos = s``."""
+    device = _on_device(params, device)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max_len or s, device=device)
+    h = _hidden(params, batch, cfg, device, cache=cache)
+    logits = _lm_head(params, h[:, -1:, :], cfg)[:, 0]
+    return _mask_vocab_pad(logits, cfg), cache
+
+
+def _decode_attn_block(p, x_t, c, n: int, cfg: ArchConfig, pos: int):
+    """x_t [b,1,D]; writes this token's k/v into slot ``pos`` of period
+    ``n`` of ``c`` and attends over slots ``<= pos``."""
+    h = rms_norm(x_t, p["attn_norm"], eps=cfg.norm_eps)
+    q, k, v = _project_qkv(p, h, cfg)
+    if cfg.rope:
+        posb = torch.full((x_t.shape[0], 1), pos, device=x_t.device)
+        q = rope(q, posb, theta=cfg.rope_theta)
+        k = rope(k, posb, theta=cfg.rope_theta)
+    kc, vc = c["k"][n], c["v"][n]
+    kc[:, pos:pos + 1] = k
+    vc[:, pos:pos + 1] = v
+    mask = (torch.arange(kc.shape[1], device=x_t.device) <= pos).float()
+    return _attn_out(p, decode_attention(q, kc, vc, mask), cfg)
+
+
+@torch.no_grad()
+def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *, device=None):
+    """One-token decode.  tokens ``[b, 1]``; ``pos`` the slot of the new
+    token (an int).  Returns (logits ``[b, padded_vocab]`` f32 with pad
+    columns at -1e30, cache) — the same cache object, updated in place."""
+    device = _on_device(params, device)
+    plan = _require_ported(cfg)
+    pos = int(pos)
+    tokens = torch.as_tensor(tokens, device=device).long()
+    x = params["embed"][tokens]                     # [b,1,D]
+    stack = params["stack"]
+    for n in range(cfg.n_layers // len(plan)):
+        for i, kind in enumerate(plan):
+            key = f"p{i}"
+            p = _period(stack, key, n)
+            if cfg.parallel_block and kind.mlp != "none":
+                attn_out = _decode_attn_block(p, x, cache[key], n, cfg, pos)
+                mlp_out = _mlp_body(p, x, cfg, kind.mlp, norm_key="attn_norm")
+                x = x + attn_out + mlp_out
+            else:
+                x = x + _decode_attn_block(p, x, cache[key], n, cfg, pos)
+                if kind.mlp != "none":
+                    x = x + _mlp_body(p, x, cfg, kind.mlp)
+    h = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
+    logits = _lm_head(params, h, cfg)[:, 0]
+    return _mask_vocab_pad(logits, cfg), cache

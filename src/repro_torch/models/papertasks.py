@@ -19,6 +19,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.models.layers import dense_init
 
 __all__ = ["TaskModel", "TASK_MODELS", "make_task_model", "sr_init",
@@ -77,8 +78,9 @@ class TaskModel:
 TASK_MODELS = {"sr": TaskModel("sr", sr_init, _sr_loss)}
 
 
-def make_task_model(task: str, seed: int = 1337, *, device="cpu", **kw):
-    """Returns (params, loss_fn) for a ported task, params on ``device``.
+def make_task_model(task: str, seed: int = 1337, *, device=None, **kw):
+    """Returns (params, loss_fn) for a ported task, params on ``device``
+    (``cuda`` unless ``device="cpu"`` is passed).
 
     The weights come from a ``torch.Generator`` seeded with ``seed``; they
     differ from the reference's ``jax.random`` init by design.  Tests that
@@ -89,13 +91,16 @@ def make_task_model(task: str, seed: int = 1337, *, device="cpu", **kw):
         raise NotImplementedError(
             f"task {task!r} is not ported yet (only 'sr'; ROADMAP M3)")
     tm = TASK_MODELS[task]
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
     params = {k: v.to(device) for k, v in tm.init(gen, **kw).items()}
     return params, tm.loss_fn
 
 
-def params_from_numpy(params: dict, device="cpu") -> dict:
-    """``{name: ndarray}`` -> ``{name: Tensor}`` on ``device`` (copied)."""
+def params_from_numpy(params: dict, device=None) -> dict:
+    """``{name: ndarray}`` -> ``{name: Tensor}`` on ``device`` (copied;
+    ``cuda`` unless ``device="cpu"`` is passed)."""
+    device = resolve_device(device)
     return {k: torch.from_numpy(np.array(v, copy=True)).to(device)
             for k, v in params.items()}
 

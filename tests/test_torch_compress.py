@@ -106,7 +106,8 @@ def test_dequant_merge_flat_is_the_per_leaf_fold():
 def test_plain_path_counts_no_launch():
     tops.reset_launch_counts()
     tops.dequant_merge(*_t(*_payload((9,), 6)), 0.1, 1.0, 1.0)
-    assert tops.launch_counts() == {"fedavg_accum": 0, "dequant_merge": 0}
+    assert tops.launch_counts() == {"fedavg_accum": 0, "dequant_merge": 0,
+                                    "rmsnorm": 0, "flash_attention": 0}
 
 
 # -- int8 and top-k -----------------------------------------------------------
@@ -177,7 +178,7 @@ def test_payload_nbytes_matches_the_reference(mode, frac):
 
 def test_payload_nbytes_of_the_published_sr_model():
     from repro_torch.models.papertasks import make_task_model
-    params, _ = make_task_model("sr", 0)
+    params, _ = make_task_model("sr", 0, device="cpu")
     assert tcomp.payload_nbytes(params, "int8") == 4_245_072
 
 

@@ -1,11 +1,14 @@
-"""The port's CUDA kernels and engine on the card.  Every test here is
-marked ``cuda`` and skips on a machine without a card; run them there with
+"""The port's CUDA kernels, engine and serve path on the card.  Every test
+here is marked ``cuda`` and skips on a machine without a card; run them
+there with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 K1 and K2 must match their plain versions bitwise in f32 (both round each
-op on its own); K1 within one bf16 ulp in bf16.  This file imports only
-torch, so it runs where JAX is not installed.
+op on its own); K1 within one bf16 ulp in bf16.  K3 and K4 sum in another
+order than their plain versions: within ``tests/test_kernels.py``'s 2e-5
+in f32 and 2e-2 in bf16.  This file imports only torch, so it runs where
+JAX is not installed.
 """
 
 import numpy as np
@@ -72,7 +75,8 @@ def test_lanes_misaligned_rows_and_counter(dev):
         n_k = torch.tensor([0.0, 0.0, 5.0, 2.0], device=dev)
         got = tops.fedavg_accum(acc, theta, n_old, n_k)
         assert torch.equal(got, tref.fedavg_accum_ref(acc, theta, n_old, n_k))
-    assert tops.launch_counts() == {"fedavg_accum": 2, "dequant_merge": 0}
+    assert tops.launch_counts() == {"fedavg_accum": 2, "dequant_merge": 0,
+                                    "rmsnorm": 0, "flash_attention": 0}
 
 
 def test_launcher_checks_its_inputs(dev):
@@ -178,7 +182,8 @@ def test_mesh_engine_on_card_is_depth_invariant_through_k2(dev):
     mesh = dict(mesh_workers=2, combine_mode="tree", combine_compress="int8")
     (l0, s0, k0), (l1, _, k1) = run(0, **mesh), run(1, **mesh)
     assert l0 == l1 and all(np.isfinite(l0))
-    assert k0 == k1 == {"fedavg_accum": 4 * s0, "dequant_merge": 2 * 3}
+    assert k0 == k1 == {"fedavg_accum": 4 * s0, "dequant_merge": 2 * 3,
+                        "rmsnorm": 0, "flash_attention": 0}
     fused, _, _ = run(1)
     flat, _, _ = run(1, mesh_workers=4)
     assert flat == fused
@@ -220,3 +225,165 @@ def test_engine_on_card_is_depth_invariant_through_the_kernel(dev):
     assert k0 == s0 and k1 == s1                  # one launch per step
     lp, _, kp = run(1, "plain")
     assert lp == l1 and kp == 0
+
+
+# -- K3 and K4 ----------------------------------------------------------------
+RMS_SHAPES = [(4, 64), (2, 3, 128), (5, 256), (1, 512), (8192, 1024),
+              (4, 2048, 16, 128)]
+ATTN = [(2, 128, 4, 2, 32), (1, 100, 8, 8, 16), (2, 260, 6, 2, 64),
+        (1, 512, 2, 1, 128), (1, 1000, 16, 8, 128)]
+
+
+def _close(got, want, dtype):
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= tol + tol * w.abs()).all())
+
+
+@pytest.mark.parametrize("shape", RMS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain(dev, shape, dtype):
+    x = _rand(shape, dtype, dev, 11)
+    scale = _rand(shape[-1:], torch.float32, dev, 12)
+    tops.reset_launch_counts()
+    got = tops.rmsnorm(x, scale)
+    want = tref.rmsnorm_ref(x, scale)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["rmsnorm"] == 1
+    assert got.shape == x.shape and got.dtype == dtype
+    assert _close(got, want, dtype)
+
+
+def test_rmsnorm_kernel_scalar_path_and_checks(dev):
+    """Rows that are no whole number of 16-byte vectors, and a base one
+    element off alignment, take the element-by-element path."""
+    from repro_torch.kernels import rmsnorm as trn
+    for d in (37, 1024):
+        base = _rand((5 * d + 1,), torch.float32, dev, 13)
+        x = base[1:].view(5, d)
+        scale = _rand((d,), torch.float32, dev, 14)
+        assert _close(trn.rmsnorm_rows(x, scale, 1e-6),
+                      tref.rmsnorm_ref(x, scale), torch.float32)
+    x = torch.zeros(4, 8, device=dev)
+    with pytest.raises(TypeError):
+        trn.rmsnorm_rows(x.double(), torch.ones(8, device=dev), 1e-6)
+    with pytest.raises(ValueError, match="scale"):
+        trn.rmsnorm_rows(x, torch.ones(8, device=dev).double(), 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        trn.rmsnorm_rows(torch.zeros(8, 4, device=dev).t(),
+                         torch.ones(8, device=dev), 1e-6)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d", ATTN)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(dev, b, s, hq, hkv, d, dtype):
+    q = _rand((b, s, hq, d), dtype, dev, 15)
+    k = _rand((b, s, hkv, d), dtype, dev, 16)
+    v = _rand((b, s, hkv, d), dtype, dev, 17)
+    tops.reset_launch_counts()
+    got = tops.flash_attention(q, k, v, causal=True)
+    want = tref.flash_attention_bshd_ref(q, k, v, causal=True,
+                                         t_pad=tops.padded_kv_len(s))
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["flash_attention"] == 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("s,t,causal", [(300, 200, True), (64, 200, True),
+                                        (256, 256, False)])
+def test_flash_attention_kernel_padding_semantics(dev, s, t, causal):
+    """Zero keys up to the reference's padded length, seen by causal
+    queries at or past ``t``; full attention without padding."""
+    q = _rand((2, s, 4, 64), torch.float32, dev, 18)
+    k = _rand((2, t, 2, 64), torch.float32, dev, 19)
+    v = _rand((2, t, 2, 64), torch.float32, dev, 20)
+    got = tops.flash_attention(q, k, v, causal=causal)
+    want = tref.flash_attention_bshd_ref(q, k, v, causal=causal,
+                                         t_pad=tops.padded_kv_len(t))
+    assert _close(got, want, torch.float32)
+
+
+def test_flash_attention_kernel_reads_strided_inputs(dev):
+    """q, k, v as views into a fused qkv buffer (the layout through
+    strides, nothing copied) give the same result as contiguous ones."""
+    from repro_torch.kernels import flash_attention as tfl
+    qkv = _rand((2, 96, 4 + 2 + 2, 32), torch.bfloat16, dev, 21)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    assert not q.is_contiguous()
+    got = tfl.flash_attention_bshd(q, k, v, causal=True, t_pad=96)
+    want = tfl.flash_attention_bshd(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=True, t_pad=96)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="head dim"):
+        tfl.flash_attention_bshd(q[..., :24], k[..., :24], v[..., :24],
+                                 causal=True, t_pad=96)
+    with pytest.raises(ValueError, match="dtype"):
+        tfl.flash_attention_bshd(q, k.float(), v, causal=True, t_pad=96)
+    qt = _rand((2, 96, 32, 4), torch.bfloat16, dev, 25).transpose(2, 3)
+    kt = _rand((2, 96, 32, 2), torch.bfloat16, dev, 26).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfl.flash_attention_bshd(qt, kt, kt, causal=True, t_pad=96)
+
+
+def test_model_routes_launch_k3_and_k4(dev):
+    from repro_torch.models.layers import gqa_attention, rms_norm
+    q = _rand((2, 64, 4, 32), torch.bfloat16, dev, 22)
+    k = _rand((2, 64, 2, 32), torch.bfloat16, dev, 23)
+    tops.reset_launch_counts()
+    dense = gqa_attention(q, k, k, impl="dense")
+    got = gqa_attention(q, k, k, impl="pallas")
+    rms_norm(q, torch.ones(32, device=dev), impl="pallas")
+    rms_norm(q, torch.ones(32, device=dev))               # the model default
+    assert tops.launch_counts()["flash_attention"] == 1
+    assert tops.launch_counts()["rmsnorm"] == 1
+    assert _close(got, dense, torch.bfloat16)
+
+
+def test_reduced_serve_path_on_card(dev):
+    """The reduced qwen3-0.6b serve path (f32, attn_impl="pallas"): K4 once
+    per layer in a prefill and never in decode; prefill + decode equals a
+    teacher-forced forward, and the card equals the CPU (1e-4: GEMM sums
+    in another order)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    cfg = replace(get_arch("qwen3-0.6b").reduced(), attn_impl="pallas")
+    g = torch.Generator().manual_seed(24)
+    toks = torch.randint(0, cfg.vocab_size, (2, 14), generator=g)
+    out = {}
+    for d in ("cpu", "cuda"):
+        params = lm.init_params(0, cfg, device=d)
+        tops.reset_launch_counts()
+        lg, cache = lm.prefill(params, {"tokens": toks[:, :12]}, cfg,
+                               max_len=16, device=d)
+        k4_prefill = tops.launch_counts()["flash_attention"]
+        steps = [lg]
+        for i in range(2):
+            lg, cache = lm.decode_step(params, cache, toks[:, 12 + i:13 + i],
+                                       12 + i, cfg, device=d)
+            steps.append(lg)
+        k4_all = tops.launch_counts()["flash_attention"]
+        full = lm.forward(params, {"tokens": toks}, cfg, device=d)
+        served = torch.stack([x[:, :cfg.vocab_size] for x in steps], 1)
+        assert torch.allclose(served, full[:, 11:14], rtol=1e-5, atol=1e-5)
+        if d == "cuda":
+            assert k4_prefill == k4_all == cfg.n_layers
+        out[d] = served.cpu()
+    assert torch.allclose(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)
+
+
+def test_lm_head_writes_f32_logits_from_bf16_on_card(dev):
+    """On the card the head multiplies bf16 operands straight into f32
+    (cuBLAS ``out_dtype``): equal to the upcast f32 product up to the
+    order of the f32 sums (1e-4), far inside one bf16 rounding (~4e-3)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    cfg = replace(get_arch("qwen3-0.6b").reduced(), dtype="bfloat16")
+    params = lm.init_params(0, cfg, device="cuda")
+    h = _rand((2, 3, cfg.d_model), torch.bfloat16, dev, 25)
+    got = lm._lm_head(params, h, cfg)
+    want = h.float() @ params["embed"].T.float()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.allclose(got, want, rtol=1e-4, atol=1e-4)

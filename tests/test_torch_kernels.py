@@ -1,11 +1,14 @@
-"""K1 (the Eq. 1 fold) of the PyTorch port against the JAX reference.
+"""K1 (the Eq. 1 fold), K3 (RMSNorm) and K4 (flash attention) of the
+PyTorch port against the JAX reference.
 
-On the CPU the port's wrapper takes the plain version, which must match
+On the CPU the port's wrappers take the plain versions.  K1's must match
 ``repro.kernels.ref.fedavg_accum_ref`` bitwise in f32 and the Pallas kernel
-(interpret mode, as ``tests/test_kernels.py`` runs it) to rtol 1e-6.  bf16
-uses ``tests/test_kernels.py``'s 2e-2.  The CUDA kernel itself is held
-against the plain version on the card (``tests/test_torch_cuda.py`` and
-``chip_smoke.py``).
+(interpret mode, as ``tests/test_kernels.py`` runs it) to rtol 1e-6.  K3's
+and K4's are held to ``repro.kernels.ref`` and to the Pallas kernels in
+interpret mode over the reference's sweeps at ``tests/test_kernels.py``'s
+tolerances: 2e-5 in f32, 2e-2 in bf16.  The CUDA kernels themselves are
+held against the plain versions on the card (``tests/test_torch_cuda.py``
+and ``chip_smoke.py``).
 """
 
 import numpy as np
@@ -109,10 +112,107 @@ def test_kernel_entry_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tfa.fedavg_accum_lanes(acc, acc, w, w)
     tops.fedavg_accum(acc, acc, w, w)                # plain version
-    assert tops.launch_counts() == {"fedavg_accum": 0, "dequant_merge": 0}
+    assert tops.launch_counts() == {"fedavg_accum": 0, "dequant_merge": 0,
+                                    "rmsnorm": 0, "flash_attention": 0}
 
 
 def test_wrapper_refuses_other_devices():
     acc = torch.zeros(8, device="meta")
     with pytest.raises(ValueError, match="no fedavg_accum kernel"):
         tops.fedavg_accum(acc, acc, 1.0, 1.0)
+
+
+# -- K3 (RMSNorm) -------------------------------------------------------------
+RMS_SHAPES = [(4, 64), (2, 3, 128), (5, 256), (1, 512)]
+ATTN_SWEEP = [(2, 128, 4, 2, 32, 64, 64), (1, 100, 8, 8, 16, 64, 64),
+              (2, 260, 6, 2, 64, 128, 128), (1, 512, 2, 1, 128, 256, 256)]
+KERNEL_TOL = {"f32": dict(rtol=2e-5, atol=2e-5),
+              "bf16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _same(shape, dtype, seed):
+    """One f32 numpy draw, rounded to ``dtype`` in both frameworks."""
+    x = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(x, jd), torch.from_numpy(x).to(td)
+
+
+@pytest.mark.parametrize("shape", RMS_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rmsnorm_plain_matches_reference(shape, dtype):
+    jx, tx = _same(shape, dtype, 10)
+    js, ts = _same(shape[-1:], "f32", 11)
+    got = tops.rmsnorm(tx, ts)                       # CPU -> plain version
+    assert got.shape == shape and got.dtype == DTYPES[dtype][1]
+    np.testing.assert_allclose(_np(got), _np(jref.rmsnorm_ref(jx, js)),
+                               **KERNEL_TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(jops.rmsnorm(jx, js)),
+                               **KERNEL_TOL[dtype])
+
+
+# -- K4 (flash attention) -----------------------------------------------------
+def _qkv(b, s, hq, hkv, d, dtype, seed, t=None):
+    t = s if t is None else t
+    return [_same(shape, dtype, seed + i) for i, shape in enumerate(
+        [(b, s, hq, d), (b, t, hkv, d), (b, t, hkv, d)])]
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,bq,bk", ATTN_SWEEP)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_plain_matches_reference(b, s, hq, hkv, d, bq, bk,
+                                                 dtype):
+    """The reference's sweep (GQA groups 1-3, ragged lengths, head dims
+    16-128) against its oracle and its Pallas kernel in interpret mode."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(b, s, hq, hkv, d, dtype, 20)
+    got = tops.flash_attention(tq, tk, tv, causal=True)
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    oracle = jnp.moveaxis(jref.attention_ref(
+        *(jnp.moveaxis(x, 2, 1) for x in (jq, jk, jv)), causal=True), 1, 2)
+    np.testing.assert_allclose(_np(got), _np(oracle), **KERNEL_TOL[dtype])
+    pallas = jops.flash_attention(jq, jk, jv, causal=True, block_q=bq,
+                                  block_k=bk)
+    np.testing.assert_allclose(_np(got), _np(pallas), **KERNEL_TOL[dtype])
+
+
+@pytest.mark.parametrize("s,t,causal", [(300, 200, True), (256, 256, False),
+                                        (64, 200, True)])
+def test_flash_attention_padding_semantics_match_pallas(s, t, causal):
+    """Queries and keys of other lengths: the reference wrapper pads keys
+    with zeros to its block, which a causal query at or past ``t`` sees;
+    non-causal attention over a block multiple needs no padding."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, s, 4, 2, 64, "f32", 30, t=t)
+    got = tops.flash_attention(tq, tk, tv, causal=causal)
+    want = jops.flash_attention(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(_np(got), _np(want), **KERNEL_TOL["f32"])
+
+
+def test_flash_attention_noncausal_padding_raises_like_the_reference():
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 100, 2, 1, 16, "f32", 40)
+    with pytest.raises(NotImplementedError, match="non-causal padding"):
+        jops.flash_attention(jq, jk, jv, causal=False)
+    with pytest.raises(NotImplementedError, match="non-causal padding"):
+        tops.flash_attention(tq, tk, tv, causal=False)
+
+
+def test_flash_matches_model_layer():
+    """The kernel route is a drop-in for the model's dense attention
+    (``tests/test_kernels.py::test_flash_matches_model_layer``)."""
+    from repro_torch.models.layers import gqa_attention
+    (_, q), (_, k), (_, v) = _qkv(2, 128, 4, 2, 32, "f32", 50)
+    np.testing.assert_allclose(
+        _np(gqa_attention(q, k, v, causal=True, impl="pallas")),
+        _np(gqa_attention(q, k, v, causal=True, impl="dense")),
+        rtol=3e-5, atol=3e-5)
+
+
+def test_new_kernel_entries_refuse_cpu_tensors():
+    from repro_torch.kernels import flash_attention as tfl
+    from repro_torch.kernels import rmsnorm as trn
+    x = torch.zeros(2, 1, 4, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        trn.rmsnorm_rows(x.reshape(8, 16), torch.ones(16), 1e-6)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfl.flash_attention_bshd(x, x, x, causal=True, t_pad=1)
+    meta = torch.zeros(2, 8, device="meta")
+    with pytest.raises(ValueError, match="no rmsnorm kernel"):
+        tops.rmsnorm(meta, torch.ones(8, device="meta"))

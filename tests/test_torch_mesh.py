@@ -97,7 +97,7 @@ def _port_engine(*, depth=1, ref_inputs=False, hetero=False, zipf=False,
         ds, params = _ref_dataset(), _torch(_ref_params())
     else:
         ds = tdataset("sr", **DS_KW)
-        params, _ = tmodel("sr", 0, **SMALL)
+        params, _ = tmodel("sr", 0, device="cpu", **SMALL)
     pool = (TPool.from_specs(_hetero_specs()) if hetero
             else TPool.homogeneous(4, type_name="a40", concurrency=2))
     return TEngine(

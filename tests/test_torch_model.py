@@ -36,7 +36,7 @@ def test_sr_loss_and_grads_match_reference(seed):
         jax.tree.map(jax.numpy.asarray, p_np),
         jax.tree.map(jax.numpy.asarray, batch))
     tp = {k: v.requires_grad_() for k, v in
-          tpt.params_from_numpy(p_np).items()}
+          tpt.params_from_numpy(p_np, device="cpu").items()}
     tl = tpt.TASK_MODELS["sr"].loss_fn(tp, {k: torch.from_numpy(v)
                                             for k, v in batch.items()})
     tl.backward()
@@ -57,12 +57,13 @@ def test_lane_stacked_loss_is_per_lane_loss():
     got = loss_fn(stacked, tb)
     assert got.shape == (3,)
     for i, p in enumerate(lanes):
-        one = loss_fn(tpt.params_from_numpy(p), {k: v[i] for k, v in tb.items()})
+        one = loss_fn(tpt.params_from_numpy(p, device="cpu"),
+                      {k: v[i] for k, v in tb.items()})
         np.testing.assert_allclose(float(got[i]), float(one), rtol=1e-6)
 
 
 def test_full_width_sr_matches_published_size():
-    params, _ = tpt.make_task_model("sr", 1337)
+    params, _ = tpt.make_task_model("sr", 1337, device="cpu")
     ref_shapes = jax.eval_shape(
         lambda k: jpt.make_task_model("sr", k)[0], jax.random.key(0))
     assert {k: tuple(v.shape) for k, v in params.items()} == \
@@ -73,9 +74,9 @@ def test_full_width_sr_matches_published_size():
 
 
 def test_init_is_seeded_truncated_fan_in():
-    a, _ = tpt.make_task_model("sr", 3, **SMALL)
-    b, _ = tpt.make_task_model("sr", 3, **SMALL)
-    c, _ = tpt.make_task_model("sr", 4, **SMALL)
+    a, _ = tpt.make_task_model("sr", 3, device="cpu", **SMALL)
+    b, _ = tpt.make_task_model("sr", 3, device="cpu", **SMALL)
+    c, _ = tpt.make_task_model("sr", 4, device="cpu", **SMALL)
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["stem"], c["stem"])
     w = a["w1_0"]                        # fan_in 64 -> |w| <= 2/sqrt(64)
@@ -97,7 +98,7 @@ def test_init_is_built_from_randn_draws():
 
 def test_numpy_round_trip_is_exact():
     p_np, _ = _ref_params(5)
-    back = tpt.params_to_numpy(tpt.params_from_numpy(p_np))
+    back = tpt.params_to_numpy(tpt.params_from_numpy(p_np, device="cpu"))
     for k in p_np:
         np.testing.assert_array_equal(back[k], p_np[k])
 
