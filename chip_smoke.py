@@ -9,7 +9,7 @@ Phases, one JSON object per line on stdout:
 1. probe   — Python, torch, CUDA, nvcc and the card (the raw
              ``nvidia-smi --query-gpu=name,power.limit`` line is printed on
              its own line as well);
-2. build   — every kernel of the port (K1-K4) compiled from
+2. build   — every kernel of the port (K1-K5) compiled from
              ``src/repro_torch/kernels/csrc`` with nvcc (one process each,
              in parallel), with ptxas' report;
 3. check   — each kernel against its plain PyTorch version on the card:
@@ -20,6 +20,9 @@ Phases, one JSON object per line on stdout:
              bitwise; ``N+n == 0`` returns ``acc`` bit for bit); K3 and K4
              over the reference's sweeps in f32 and bf16 and at the serve
              path's shapes (2e-5 f32, 2e-2 bf16, as tests/test_kernels.py);
+             K5, y and the final state, over the reference's sweep in f32
+             and bf16, at the SSM serve shape in f32 and bf16 and a
+             1,000-row prompt (``SSD_TOL``);
 4. timing  — each kernel, its plain version and, where one exists, one
              library call at the main paths' shapes (CUDA events, best of
              3 interleaved), beside the bytes/ops bound;
@@ -52,7 +55,22 @@ Phases, one JSON object per line on stdout:
              profiled prefill and decode step (device idle share);
 10. agree LM — the reduced qwen3-0.6b serve path on the card against the
              same on the CPU (``AGREE_LM_TOL``);
-11. the ``kernels`` line, then the card line and the last line
+11. serve SSM — mamba2-2.7b at its published widths and full depth in bf16
+             with ``ssd_impl="pallas"``, weights from ``init_params(0)``
+             (2.7 B drawn on the CPU), the same traffic as phase 9, with
+             the launch counts zeroed just before and read just after: K5
+             exactly 64 launches in the prefill and none in decode; finite
+             logits; the pallas prefill against the chunked one (logits and
+             the SSM state of every layer), prefill + decode against
+             ``forward`` and a 1,000-token prompt, in bf16
+             (``SSM_BF16_TOL``) and again with the same weights in f32
+             (``SSM_F32_TOL``), each bf16 prefill's distance from the f32
+             one reported; a
+             profiled prefill and decode step (device idle share, K5's
+             share);
+12. agree SSM — the reduced mamba2-2.7b serve path on the card against the
+             same on the CPU (``AGREE_LM_TOL``);
+13. the ``kernels`` line (K1-K5), then the card line and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no last
@@ -119,6 +137,37 @@ SERVE_TOL = dict(atol=0.1, rtol=0.05)
 # the kernels' sums in another order (the CPU parity tests measured ~3e-6
 # port vs reference).
 AGREE_LM_TOL = dict(atol=1e-4, rtol=1e-4)
+# The SSM serve path: mamba2-2.7b at its published widths and full depth,
+# bf16, ssd_impl="pallas", the same traffic as the qwen3 serve path.
+SSM_ARCH = "mamba2-2.7b"
+SSM_PARAMS = 2_702_624_256    # the reference's count (50,432-row embed)
+# K5 over the reference's sweep (tests/test_kernels.py:139-143): (b, s, h,
+# p, g, n, chunk), then the serve shape and a ragged 1,000-row prompt at
+# mamba2-2.7b's widths (80 heads of 64, one group, state 128, chunk 128).
+SSD_SWEEP = [(2, 64, 4, 16, 2, 32, 16), (1, 100, 8, 32, 1, 64, 32),
+             (2, 128, 4, 64, 4, 16, 128)]
+SSD_SERVE = (SERVE_BATCH, SERVE_PROMPT, 80, 64, 1, 128, 128)
+SSD_RAGGED = (1, RAGGED_PROMPT, 80, 64, 1, 128, 128)
+# K5 against its plain version (the same chunk loop, sums in another
+# order).  f32: outputs reach ~30 on the sweep's draws and the f32 sums
+# agree to ~1e-6 of that, so 1e-4 is tight.  bf16: both round the same f32
+# sums to bf16, so they differ by at most one bf16 step, 2^-7 of the value:
+# rtol 8e-3; atol 1e-3 for outputs near zero.  A wrong kernel (a dropped
+# D x or state term) moves outputs of ~1 by ~0.1.
+SSD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
+           "bfloat16": dict(atol=1e-3, rtol=8e-3)}
+# The SSM serve path's route checks (K5 vs the chunked SSD, prefill +
+# decode vs forward, the ragged prompt), on logits up to ~5.  In f32 (the
+# same weights upcast): two sound routes differ in the f32 roundings of
+# their sums (~1e-7 relative), however those grow over 64 layers: 1e-3
+# leaves them a hundredfold room and catches any real fault.  In bf16 (the
+# served dtype) a rounding moved to the neighbouring bf16 value (2^-9
+# relative) grows through 64 layers of random weights: two sound bf16
+# routes differ by up to 0.30 on logits up to 4.7 (measured on the H100),
+# so bf16 is held at atol 0.5 + rtol 0.05.  Each bf16 prefill's distance
+# from the f32 one is reported beside them.
+SSM_F32_TOL = dict(atol=1e-3, rtol=1e-3)
+SSM_BF16_TOL = dict(atol=0.5, rtol=0.05)
 
 
 def emit(obj) -> None:
@@ -617,6 +666,123 @@ def phase_timing_k4(torch, device_name: str) -> dict:
     return out
 
 
+def _ssd_inputs(torch, shape, dtype, gen, *, model_like: bool):
+    """K5's inputs in the model layout on the card.  The sweep's draws
+    (tests/test_kernels.py: dt = softplus(normal), A_log and D scaled by
+    0.3 and 0.1, B and C by 0.5), or, ``model_like``, the mixer's: dt =
+    softplus(normal/2 + the init's dt_bias row), A_log = log(linspace(1, 16,
+    h)), D = 1, x/B/C of SiLU-sized magnitude."""
+    import torch.nn.functional as F
+    b, s, h, p, g, n, _ = shape
+    x = torch.randn(b, s, h, p, generator=gen)
+    B = torch.randn(b, s, g, n, generator=gen) * 0.5
+    C = torch.randn(b, s, g, n, generator=gen) * 0.5
+    if model_like:
+        x = x * 0.5
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        dt_bias = torch.log(torch.expm1(torch.exp(torch.linspace(lo, hi,
+                                                                 h))))
+        dt = F.softplus(torch.randn(b, s, h, generator=gen) * 0.5 + dt_bias)
+        A_log = torch.log(torch.linspace(1.0, 16.0, h))
+        D = torch.ones(h)
+    else:
+        dt = F.softplus(torch.randn(b, s, h, generator=gen))
+        A_log = torch.randn(h, generator=gen) * 0.3
+        D = torch.randn(h, generator=gen) * 0.1
+    dev = torch.device("cuda")
+    return (x.to(dtype).to(dev), dt.to(dev), A_log.to(dev),
+            B.to(dtype).to(dev), C.to(dtype).to(dev), D.to(dev))
+
+
+def phase_check_k5(torch) -> dict:
+    """K5 against its plain version, y and the final state: the reference's
+    sweep in f32 and bf16, the serve shape in f32 and bf16, and a ragged
+    1,000-row prompt in bf16 (``SSD_TOL``)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd as k5
+    gen = torch.Generator().manual_seed(12)
+    cases = [(shape, dt, False) for dt in (torch.float32, torch.bfloat16)
+             for shape in SSD_SWEEP]
+    cases += [(SSD_SERVE, torch.float32, True),
+              (SSD_SERVE, torch.bfloat16, True),
+              (SSD_RAGGED, torch.bfloat16, True)]
+    errs = {"float32": 0.0, "bfloat16": 0.0, "state": 0.0}
+    magnitude = {"float32": 0.0, "bfloat16": 0.0, "state": 0.0}
+    for shape, dt, model_like in cases:
+        key = str(dt).split(".")[-1]
+        args = _ssd_inputs(torch, shape, dt, gen, model_like=model_like)
+        s, ck = shape[1], shape[6]
+        before = k5.LAUNCHES
+        y, state = ops.ssd(*args, chunk=ck, return_state=True)
+        check(k5.LAUNCHES == before + 1, "K5 did not launch")
+        want_y, want_state = ref.ssd_chunks_ref(*args,
+                                                chunk=ops.ssd_chunk(s, ck))
+        torch.cuda.synchronize()
+        check(y.dtype == dt and y.shape == args[0].shape
+              and state.shape == want_state.shape,
+              f"K5 {shape} {dt}: got {y.dtype} {tuple(y.shape)}")
+        for k, got, want, tol in ((key, y, want_y, SSD_TOL[key]),
+                                  ("state", state, want_state,
+                                   SSD_TOL["float32"])):
+            err = _max_err(torch, got, want)
+            errs[k] = max(errs[k], err)
+            magnitude[k] = max(magnitude[k], float(want.float().abs().max()))
+            check(_close(torch, got, want, **tol),
+                  f"K5 {shape} {dt} {k}: max err {err} over {tol}")
+    emit({"phase": "check", "kernel": "ssd", "cases": len(cases),
+          "tolerance": SSD_TOL, "max_abs_err": errs,
+          "ref_max_abs": magnitude})
+    return errs
+
+
+def _ssd_work(args, chunk: int) -> tuple[int, int]:
+    """(bytes, operations) the chunked SSD needs on these inputs: each input
+    read once, y and the f32 final state written once; C B^T once per group
+    and chunk (its lower triangle), the masked intra-chunk product, C .
+    state for every chunk after the first, and the state update."""
+    x, B = args[0], args[3]
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    nbytes = (sum(t.numel() * t.element_size() for t in args)
+              + x.numel() * x.element_size() + b * h * p * n * 4)
+    q = min(chunk, (s + 7) // 8 * 8)
+    rows = [min(q, s - t0) for t0 in range(0, s, q)]
+    tri = sum(r * (r + 1) // 2 for r in rows)
+    flops = (2 * b * g * tri * n                    # C B^T
+             + 2 * b * h * tri * p                  # (C B^T * L)(x dt)
+             + 2 * b * h * (s - rows[0]) * n * p    # C . state
+             + 2 * b * h * s * p * n)               # the state update
+    return nbytes, flops
+
+
+def phase_timing_k5(torch, device_name: str) -> dict:
+    """K5 and its plain version at the serve shape (bf16, the state
+    returned, as prefill calls it).  No single PyTorch call computes the
+    SSD, so there is no library time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as k5
+    gen = torch.Generator().manual_seed(13)
+    args = _ssd_inputs(torch, SSD_SERVE, torch.bfloat16, gen,
+                       model_like=True)
+    ck = SSD_SERVE[6]
+    runs = {"kernel": lambda: k5.ssd_bshp(*args, chunk=ck, want_state=True),
+            "plain": lambda: ref.ssd_chunks_ref(*args, chunk=ck)}
+    best = _best_of(runs, (("kernel", "plain"), ("plain", "kernel"),
+                           ("kernel", "plain")), iters=5, warmup=1)
+    nbytes, flops = _ssd_work(args, ck)
+    bytes_ms = nbytes / mem_bw(device_name) * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    out = {"ms": best["kernel"], "plain_ms": best["plain"],
+           "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "shape": list(SSD_SERVE), "dtype": "bfloat16", "bytes": nbytes,
+           "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+    out["roofline_share"] = out["bound_ms"] / best["kernel"]
+    out["achieved_tflops"] = flops / (best["kernel"] * 1e-3) / 1e12
+    emit({"phase": "timing", "kernel": "ssd", **out})
+    return out
+
+
 def _vocab(logits, cfg):
     return logits[..., :cfg.vocab_size]
 
@@ -767,6 +933,164 @@ def phase_serve(torch) -> dict:
             "decode_ms_per_step": sum(step_s) / len(step_s) * 1e3}
 
 
+def _ssm_cfg(impl: str = "pallas"):
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    return replace(get_arch(SSM_ARCH), ssd_impl=impl)
+
+
+def _ssm_state(cache):
+    return cache["p0"]["ssm"]
+
+
+def _ssm_route_checks(torch, params, cfg, tokens, generated, main,
+                      tol) -> dict:
+    """The SSM serve path's routes against each other at ``tol``: the K5
+    prefill against the chunked one (logits and the SSM state of every
+    layer), prefill + decode (teacher-forced with ``generated``) against
+    ``forward``, and a 1,000-token prompt through both SSDs.  ``main`` is
+    the already served ``(prefill logits, SSM state, step logits)``, or
+    None to serve them here.  The two prefills' logits are returned under
+    ``pallas_logits`` and ``chunked_logits``."""
+    from dataclasses import replace
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    if main is None:
+        logits, cache = lm.prefill(params, {"tokens": tokens}, cfg,
+                                   max_len=SERVE_MAX_LEN)
+        state, steps = _ssm_state(cache).clone(), [logits]
+        for i, nxt in enumerate(generated):
+            lg, cache = lm.decode_step(params, cache, nxt, SERVE_PROMPT + i,
+                                       cfg)
+            steps.append(lg)
+        del cache
+    else:
+        logits, state, steps = main
+    chunked = replace(cfg, ssd_impl="chunked")
+    c_logits, c_cache = lm.prefill(params, {"tokens": tokens}, chunked,
+                                   max_len=SERVE_MAX_LEN)
+    out = {"pallas_vs_chunked_prefill": _compare(
+               torch, _vocab(logits, cfg), _vocab(c_logits, cfg), tol),
+           "ssm_state_pallas_vs_chunked": {
+               k: v for k, v in _compare(torch, state, _ssm_state(c_cache),
+                                         tol).items() if k != "argmax_agree"},
+           "pallas_logits": _vocab(logits, cfg),
+           "chunked_logits": _vocab(c_logits, cfg)}
+    del c_cache
+    seq = torch.cat([tokens] + generated, dim=1)
+    full = lm.forward(params, {"tokens": seq}, cfg)
+    served = torch.stack([_vocab(lg, cfg) for lg in steps], dim=1)
+    out["prefill_decode_vs_forward"] = _compare(
+        torch, served, full[:, SERVE_PROMPT - 1:SERVE_PROMPT + SERVE_DECODE],
+        tol)
+    del full
+    # A ragged prompt: 1,000 rows are no multiple of the chunk (128).
+    ops.reset_launch_counts()
+    ragged, _ = lm.prefill(params, {"tokens": tokens[:, :RAGGED_PROMPT]}, cfg)
+    out["ragged_k5_launches"] = ops.launch_counts()["ssd"]
+    ragged_c, _ = lm.prefill(params, {"tokens": tokens[:, :RAGGED_PROMPT]},
+                             chunked)
+    out["ragged_s"] = RAGGED_PROMPT
+    out["ragged_pallas_vs_chunked"] = _compare(
+        torch, _vocab(ragged, cfg), _vocab(ragged_c, cfg), tol)
+    return out
+
+
+def phase_serve_ssm(torch) -> dict:
+    """The SSM serve path: mamba2-2.7b at its published widths and depth,
+    bf16, ``ssd_impl="pallas"``, weights from ``init_params(0)``: one
+    prefill of 4 x 2,048 tokens (K5 exactly once per layer) and 16 greedy
+    decode steps (no K5), with the launch counts zeroed just before and read
+    just after; finite logits; then the pallas prefill against the chunked
+    one (logits and every layer's SSM state), prefill + decode against a
+    teacher-forced ``forward`` and a 1,000-token prompt, in bf16
+    (``SSM_BF16_TOL``) and with the same weights in f32 (``SSM_F32_TOL``);
+    each bf16 prefill's distance from the f32 one is reported."""
+    from dataclasses import replace
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    dev = torch.device("cuda")
+    cfg = _ssm_cfg()
+    params, init_s = _sync_s(torch, lambda: lm.init_params(0, cfg))
+    n_params = lm.param_count(params)
+    check(n_params == SSM_PARAMS, f"{SSM_ARCH}: {n_params} params")
+    gen = torch.Generator().manual_seed(14)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=gen).to(dev)
+    lm.prefill(params, {"tokens": tokens[:, :128]}, cfg, max_len=144)  # warm
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    (logits, cache), prefill_s = _sync_s(
+        torch, lambda: lm.prefill(params, {"tokens": tokens}, cfg,
+                                  max_len=SERVE_MAX_LEN))
+    after_prefill = ops.launch_counts()
+    prefill_peak = torch.cuda.max_memory_allocated()
+    prefill_state = _ssm_state(cache).clone()
+    generated, step_logits, step_s = [], [logits], []
+    for i in range(SERVE_DECODE):
+        nxt = step_logits[-1].argmax(-1, keepdim=True)
+        generated.append(nxt)
+        (lg, cache), dt = _sync_s(
+            torch, lambda: lm.decode_step(params, cache, nxt,
+                                          SERVE_PROMPT + i, cfg))
+        step_logits.append(lg)
+        step_s.append(dt)
+    launches = ops.launch_counts()
+    check(after_prefill["ssd"] == cfg.n_layers,
+          f"K5 launched {after_prefill['ssd']} times in a prefill of "
+          f"{cfg.n_layers} layers")
+    check(launches["ssd"] == cfg.n_layers, f"K5 launched in decode: "
+                                           f"{launches}")
+    for i, lg in enumerate(step_logits):
+        check(bool(torch.isfinite(_vocab(lg, cfg)).all()),
+              f"non-finite logits at step {i}")
+        check(bool((lg[:, cfg.vocab_size:] == -1e30).all()),
+              f"vocab pad not masked at step {i}")
+    check(bool(torch.isfinite(_ssm_state(cache)).all()),
+          "non-finite SSM state")
+    emit({"phase": "serve_ssm", "arch": SSM_ARCH, "ssd_impl": "pallas",
+          "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+          "n_params": n_params, "batch": SERVE_BATCH,
+          "prompt": SERVE_PROMPT, "decode_steps": SERVE_DECODE,
+          "init_params_s": init_s, "prefill_ms": prefill_s * 1e3,
+          "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_s,
+          "decode_ms_per_step": sum(step_s) / len(step_s) * 1e3,
+          "decode_ms_steps": [x * 1e3 for x in step_s],
+          "decode_tokens_per_s": SERVE_BATCH * len(step_s) / sum(step_s),
+          "prefill_peak_bytes": prefill_peak,
+          "launches_prefill": after_prefill,
+          "launches_decode": {k: launches[k] - after_prefill[k]
+                              for k in launches}})
+    main = (logits, prefill_state, step_logits)
+    bf16 = _ssm_route_checks(torch, params, cfg, tokens, generated, main,
+                             SSM_BF16_TOL)
+    # The f32 yardstick: the same weights upcast, every route again.
+    params32 = {"embed": params["embed"].float(),
+                "final_norm": params["final_norm"],
+                "stack": {k: {n: t.float() for n, t in v.items()}
+                          for k, v in params["stack"].items()}}
+    f32 = _ssm_route_checks(torch, params32, replace(cfg, dtype="float32"),
+                            tokens, generated, None, SSM_F32_TOL)
+    del params32
+    bf16_vs_f32 = {route: _compare(torch, bf16.pop(f"{route}_logits"),
+                                   f32.pop(f"{route}_logits"),
+                                   SSM_BF16_TOL)
+                   for route in ("pallas", "chunked")}
+    emit({"phase": "serve_ssm_checks", "tolerance": {
+              "bfloat16": SSM_BF16_TOL, "float32": SSM_F32_TOL},
+          "bfloat16": bf16, "float32": f32,
+          "bf16_vs_f32_prefill": bf16_vs_f32})
+    for name, res in (("bf16", bf16), ("f32", f32)):
+        for key, val in res.items():
+            if isinstance(val, dict):
+                check(val["close"], f"SSM serve {name} {key}: {val}")
+        check(res["ragged_k5_launches"] == cfg.n_layers,
+              f"{name} ragged prefill: K5 {res['ragged_k5_launches']}")
+    return {"params": params, "tokens": tokens, "launches": after_prefill,
+            "prefill_ms": prefill_s * 1e3,
+            "decode_ms_per_step": sum(step_s) / len(step_s) * 1e3}
+
+
 def _profile_rows(torch, prof):
     """(device rows, host rows) of a profile, each ``(us, name, count)``,
     largest first: kernels by self device time (an aten op's entry repeats
@@ -783,9 +1107,11 @@ def _profile_rows(torch, prof):
     return sorted(rows, reverse=True), sorted(host, reverse=True)
 
 
-def _device_profile(torch, fn) -> dict:
+def _device_profile(torch, fn, label: str = "k4",
+                    match: str = "flash_attention", top: int = 10) -> dict:
     """Wall time, device busy time and kernels of one call of ``fn`` under
-    torch.profiler."""
+    torch.profiler; ``<label>_ms`` sums the kernels whose name holds
+    ``match``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -796,51 +1122,55 @@ def _device_profile(torch, fn) -> dict:
     wall = time.perf_counter() - t0
     rows, _ = _profile_rows(torch, prof)
     busy = sum(r[0] for r in rows) / 1e6
-    k4 = sum(us for us, k, _ in rows if "flash_attention" in k) / 1e6
+    ours = sum(us for us, k, _ in rows if match in k) / 1e6
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3,
             "device_idle_share": 1 - busy / wall,
             "kernels_launched": sum(r[2] for r in rows),
-            "k4_ms": k4 * 1e3,
-            "k4_share_of_busy": k4 / busy if busy else None,
+            f"{label}_ms": ours * 1e3,
+            f"{label}_share_of_busy": ours / busy if busy else None,
             "top": [{"name": k[:80], "ms": us / 1e3, "count": n}
-                    for us, k, n in rows[:10]]}
+                    for us, k, n in rows[:top]]}
 
 
-def phase_serve_profile(torch, serve) -> dict:
+def phase_serve_profile(torch, serve, cfg=None, *, label: str = "k4",
+                        match: str = "flash_attention",
+                        phase: str = "serve_profile") -> dict:
     """Device busy and idle share of one serve prefill and one decode step
     (torch.profiler).  The profiler slows the host, so the idle share is
     also given against the same call's unprofiled wall time from the serve
     phase."""
     from repro_torch.models import lm
-    cfg = _serve_cfg()
+    cfg = cfg or _serve_cfg()
     params, tokens = serve["params"], serve["tokens"]
+    prompt = tokens.shape[1]
     holder = {}
 
     def prefill():
         holder["out"] = lm.prefill(params, {"tokens": tokens}, cfg,
-                                   max_len=SERVE_MAX_LEN)
+                                   max_len=prompt + SERVE_DECODE)
 
-    pre = _device_profile(torch, prefill)
+    pre = _device_profile(torch, prefill, label, match, top=15)
     logits, cache = holder["out"]
     nxt = logits.argmax(-1, keepdim=True)
     dec = _device_profile(torch, lambda: lm.decode_step(
-        params, cache, nxt, SERVE_PROMPT, cfg))
+        params, cache, nxt, prompt, cfg), label, match)
     for prof, key in ((pre, "prefill_ms"), (dec, "decode_ms_per_step")):
         prof["unprofiled_wall_ms"] = serve[key]
         prof["device_idle_share_unprofiled"] = \
             1 - prof["device_busy_ms"] / serve[key]
-    out = {"phase": "serve_profile", "prefill": pre, "decode_step": dec}
+    out = {"phase": phase, "prefill": pre, "decode_step": dec}
     emit(out)
     return out
 
 
-def phase_agree_lm(torch) -> dict:
-    """The reduced qwen3-0.6b serve path (f32, attn_impl="pallas") on the
-    card against the same on the CPU: prefill and 2 decode steps."""
+def phase_agree_lm(torch, arch: str, **impl) -> dict:
+    """A reduced serve path (f32, with ``impl`` routing it through its
+    kernel) on the card against the same on the CPU: prefill and 2 decode
+    steps."""
     from dataclasses import replace
     from repro_torch.configs import get_arch
     from repro_torch.models import lm
-    cfg = replace(get_arch(SERVE_ARCH).reduced(), attn_impl="pallas")
+    cfg = replace(get_arch(arch).reduced(), **impl)
     gen = torch.Generator().manual_seed(11)
     tokens = torch.randint(0, cfg.vocab_size, (2, 14), generator=gen)
     out = {}
@@ -855,7 +1185,7 @@ def phase_agree_lm(torch) -> dict:
             steps.append(lg)
         out[dev] = torch.stack([_vocab(x, cfg).cpu() for x in steps])
     res = _compare(torch, out["cuda"], out["cpu"], AGREE_LM_TOL)
-    emit({"phase": "agree_lm", "arch": f"{SERVE_ARCH} reduced", **res,
+    emit({"phase": "agree_lm", "arch": f"{arch} reduced", **res,
           "tolerance": AGREE_LM_TOL})
     check(res["close"], f"card vs CPU serve path: {res}")
     return res
@@ -1116,10 +1446,12 @@ def main() -> int:
     max_err2 = phase_check_k2(torch, layout)
     err3 = phase_check_k3(torch)
     err4 = phase_check_k4(torch)
+    err5 = phase_check_k5(torch)
     timing = phase_timing(torch, n_params, lanes, name)
     timing2 = phase_timing_k2(torch, layout, name)
     timing3 = phase_timing_k3(torch, name)
     timing4 = phase_timing_k4(torch, name)
+    timing5 = phase_timing_k5(torch, name)
     launches, steps, res = phase_main(torch, args.rounds)
     mesh_launches, mesh_res = phase_mesh(torch, MESH_ROUNDS)
     phase_decomposition(torch)
@@ -1127,7 +1459,12 @@ def main() -> int:
     serve = phase_serve(torch)
     phase_serve_profile(torch, serve)
     del serve["params"]
-    phase_agree_lm(torch)
+    phase_agree_lm(torch, SERVE_ARCH, attn_impl="pallas")
+    ssm = phase_serve_ssm(torch)
+    phase_serve_profile(torch, ssm, _ssm_cfg(), label="k5", match="ssd_fwd",
+                        phase="serve_ssm_profile")
+    del ssm["params"]
+    phase_agree_lm(torch, SSM_ARCH, ssd_impl="pallas")
     if args.profile_out:
         phase_profile(torch, args.profile_out, "fused")
         phase_profile(torch, args.profile_out, "mesh", **MESH)
@@ -1160,7 +1497,11 @@ def main() -> int:
                serve["launches"]["flash_attention"], max(err4.values()),
                timing4),
          "launches_per_prefill": serve["launches"]["flash_attention"],
-         "path": "serve (prefill, attn_impl='pallas')"}]})
+         "path": "serve (prefill, attn_impl='pallas')"},
+        {**row("ssd", "ssd.cu", "src/repro/kernels/ssd.py:83",
+               ssm["launches"]["ssd"], max(err5.values()), timing5),
+         "launches_per_prefill": ssm["launches"]["ssd"],
+         "path": "serve SSM (mamba2-2.7b prefill, ssd_impl='pallas')"}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

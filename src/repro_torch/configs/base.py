@@ -80,8 +80,8 @@ class ArchConfig:
     attn_repeat_kv: bool = False  # repeat kv to Hq (even TP head sharding)
     moe_impl: str = "einsum"    # 'einsum' | 'scatter'
     moe_seq_chunk: int = 0      # >0: dispatch in seq blocks (caps buffers)
-    ssd_impl: str = "chunked"   # 'chunked' | 'recurrent' | 'pallas' (the
-                                # SSM path is not ported: ROADMAP M16)
+    ssd_impl: str = "chunked"   # 'chunked' | 'recurrent' | 'pallas' (in
+                                # the port 'pallas' = the CUDA kernel K5)
     ssd_chunk: int = 128
     remat: bool = False         # jax.checkpoint around each period body
     loss_chunk: int = 2048      # seq-chunked CE (0 = single shot)

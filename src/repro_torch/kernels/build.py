@@ -29,12 +29,13 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "BUILD_DIR", "nvcc_path", "build_all",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # name -> (source, the kernel's own flags).  K1 and K2 are held bitwise to
-# their plain versions, so nvcc may not contract their multiply-adds; K3 and
-# K4 are held to a tolerance and keep nvcc's default contraction.
+# their plain versions, so nvcc may not contract their multiply-adds; K3-K5
+# are held to a tolerance and keep nvcc's default contraction.
 SOURCES = {"fedavg_accum": ("fedavg_accum.cu", ("--fmad=false",)),
            "dequant_merge": ("dequant_merge.cu", ("--fmad=false",)),
            "rmsnorm": ("rmsnorm.cu", ()),
-           "flash_attention": ("flash_attention.cu", ())}
+           "flash_attention": ("flash_attention.cu", ()),
+           "ssd": ("ssd.cu", ())}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 

@@ -14,6 +14,8 @@ kernel or raises — there is no fallback.
                                                     scale per leaf
     rmsnorm(x, scale, eps=...)                    — [..., D]
     flash_attention(q, k, v, causal=...)          — [b, s, h, d] model layout
+    ssd(x, dt, A_log, B, C, D, chunk=..., return_state=...)
+                                                  — [b, s, h, p] model layout
 """
 
 from __future__ import annotations
@@ -25,13 +27,14 @@ from repro_torch.kernels import fedavg_accum as _fa
 from repro_torch.kernels import flash_attention as _fl
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd as _ssd
 
 __all__ = ["fedavg_accum", "dequant_merge", "dequant_merge_flat", "rmsnorm",
-           "flash_attention", "padded_kv_len", "launch_counts",
-           "reset_launch_counts"]
+           "flash_attention", "padded_kv_len", "ssd", "ssd_chunk",
+           "launch_counts", "reset_launch_counts"]
 
 _KERNELS = {"fedavg_accum": _fa, "dequant_merge": _dm, "rmsnorm": _rn,
-            "flash_attention": _fl}
+            "flash_attention": _fl, "ssd": _ssd}
 
 
 def launch_counts() -> dict[str, int]:
@@ -149,3 +152,37 @@ def flash_attention(q, k, v, *, causal: bool = True):
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for device {q.device}")
     return _fl.flash_attention_bshd(q, k, v, causal=causal, t_pad=tp)
+
+
+def ssd_chunk(s: int, chunk: int = 128) -> int:
+    """The chunk the reference wrapper runs a sequence of ``s`` rows with:
+    ``min(chunk, round_up(s, 8))``."""
+    return min(chunk, _round_up(s, 8))
+
+
+def ssd(x, dt, A_log, B, C, D, *, chunk: int = 128,
+        return_state: bool = False):
+    """Mamba-2's chunked SSD in the model layout, as
+    ``repro.kernels.ops.ssd``: x ``[b, s, h, p]``, dt ``[b, s, h]``, A_log
+    and D ``[h]``, B/C ``[b, s, g, n]``; returns y ``[b, s, h, p]`` in x's
+    dtype (f32 math), and with ``return_state`` also the final state
+    ``[b, h, p, n]`` f32.
+
+    The chunk is the reference wrapper's (:func:`ssd_chunk`), and the
+    ragged tail of ``s`` counts as zero rows, as its padding does.  The
+    CUDA kernel reads the model layout through strides and masks the tail
+    from the true ``s``, so nothing is copied.
+    """
+    s = x.shape[1]
+    if s == 0:
+        raise ValueError("ssd needs at least one row")
+    ck = ssd_chunk(s, chunk)
+    dt = dt.float()
+    A_log, D = A_log.float(), D.float()
+    if x.device.type == "cpu":
+        y, state = ref.ssd_chunks_ref(x, dt, A_log, B, C, D, chunk=ck)
+        return (y, state) if return_state else y
+    if x.device.type != "cuda":
+        raise ValueError(f"no ssd kernel for device {x.device}")
+    return _ssd.ssd_bshp(x, dt, A_log.contiguous(), B, C, D.contiguous(),
+                         chunk=ck, want_state=return_state)

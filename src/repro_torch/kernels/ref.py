@@ -12,7 +12,7 @@ import torch
 
 __all__ = ["fedavg_accum_ref", "dequant_merge_ref", "dequant_merge_flat_ref",
            "lane_weight", "rmsnorm_ref", "attention_ref",
-           "flash_attention_bshd_ref"]
+           "flash_attention_bshd_ref", "ssd_ref", "ssd_chunks_ref"]
 
 
 def lane_weight(w, like: torch.Tensor) -> torch.Tensor:
@@ -113,3 +113,74 @@ def flash_attention_bshd_ref(q, k, v, *, causal: bool = True,
         vt = torch.nn.functional.pad(vt, pad)
     out = attention_ref(q.transpose(1, 2), kt, vt, causal=causal)
     return out.transpose(1, 2)
+
+
+def ssd_ref(x, dt, A_log, B, C, D):
+    """Token-recurrent SSD oracle in the kernel's ``[b, h, s, p]`` layout
+    (dt ``[b, h, s]``, B/C ``[b, g, s, n]``): per token, ``state =
+    exp(dt A) state + dt x (x) B`` and ``y = state . C + D x``, with ``A =
+    -exp(A_log)`` and head ``h`` reading group ``h // (H/G)``.  Computed in
+    f32 and returned in ``x.dtype``."""
+    b, h, s, p = x.shape
+    g, n = B.shape[1], B.shape[3]
+    hpg = h // g
+    A = -torch.exp(A_log.float())
+    Bh = torch.repeat_interleave(B, hpg, dim=1).float()    # [b,h,s,n]
+    Ch = torch.repeat_interleave(C, hpg, dim=1).float()
+    xf, dtf = x.float(), dt.float()
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        a = torch.exp(dtf[:, :, t] * A)                    # [b,h]
+        state = state * a[..., None, None] + torch.einsum(
+            "bh,bhp,bhn->bhpn", dtf[:, :, t], xf[:, :, t], Bh[:, :, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, :, t]))
+    y = torch.stack(ys, dim=2)
+    y = y + xf * D.float()[None, :, None, None]
+    return y.to(x.dtype)
+
+
+def ssd_chunks_ref(x, dt, A_log, B, C, D, *, chunk: int):
+    """The chunked SSD in the model layout (x ``[b, s, h, p]``, dt ``[b, s,
+    h]``, B/C ``[b, s, g, n]``), in the TPU kernel's own order
+    (``repro/kernels/ssd.py:38-80``): for every (batch, head) at once, a
+    loop over chunks of ``chunk`` rows carrying a ``[p, n]`` f32 state --
+
+        la = cumsum(dt A);  y = ((C B^T) * L)(dt x) + exp(la) (C state^T)
+        state = exp(la_Q) state + (exp(la_Q - la) dt x)^T B;  y += D x
+
+    -- the function the CUDA kernel K5 computes.  A last chunk shorter
+    than ``chunk`` is the zero padding of the TPU wrapper (zero rows change
+    nothing).  Returns ``(y [b, s, h, p]`` in ``x.dtype``, the final state
+    ``[b, h, p, n]`` f32)."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    hpg = h // g
+    A = -torch.exp(A_log.float())
+    Df = D.float()
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t0 in range(0, s, chunk):
+        sl = slice(t0, min(t0 + chunk, s))
+        xc = x[:, sl].float()                              # [b,q,h,p]
+        dtc = dt[:, sl].float()                            # [b,q,h]
+        Bc = torch.repeat_interleave(B[:, sl].float(), hpg, dim=2)
+        Cc = torch.repeat_interleave(C[:, sl].float(), hpg, dim=2)
+        q = xc.shape[1]
+        la = torch.cumsum(dtc * A, dim=1)                  # [b,q,h]
+        xbar = xc * dtc[..., None]
+        cb = torch.einsum("bihn,bjhn->bhij", Cc, Bc)       # [b,h,q,q]
+        lah = la.transpose(1, 2)                           # [b,h,q]
+        mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                     device=x.device))
+        ldiff = torch.where(mask, lah[..., :, None] - lah[..., None, :], 0.0)
+        decay = torch.where(mask, torch.exp(ldiff), 0.0)
+        y = torch.einsum("bhij,bjhp->bihp", cb * decay, xbar)
+        y = y + torch.exp(la)[..., None] * torch.einsum(
+            "bihn,bhpn->bihp", Cc, state)
+        la_last = la[:, -1]                                # [b,h]
+        sdec = torch.exp(la_last[:, None, :] - la)         # [b,q,h]
+        state = state * torch.exp(la_last)[..., None, None] + torch.einsum(
+            "bjhp,bjhn->bhpn", sdec[..., None] * xbar, Bc)
+        ys.append(y + xc * Df[None, None, :, None])
+    return torch.cat(ys, dim=1).to(x.dtype), state

@@ -1,5 +1,6 @@
 """Models of the port: the paper's FL-task models (``papertasks``) and the
-LM stack of the architecture zoo (``lm``, dense family so far)."""
+LM stack of the architecture zoo (``lm``: the dense family, and the ssm
+family through the Mamba-2 mixer of ``ssd``)."""
 
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""The LM stack — port of the dense family of ``repro/models/lm.py``.
+"""The LM stack — port of the dense and SSM families of
+``repro/models/lm.py``.
 
 Every architecture is: embedding → a *period-structured* stack of blocks →
 final norm → LM head.  A *period* is the smallest repeating pattern of layer
@@ -9,10 +10,11 @@ per period position with a leading ``n_periods`` dim,
 (:func:`repro_torch.models.lm_params_from_numpy`); the stack runs as a
 Python loop over periods where the reference scans.
 
-Ported block kinds: mixer ``attn`` (GQA + RoPE [+ qk-norm]), MLP ``swiglu``
-| ``relu2`` | ``gelu``, and command-r's ``parallel_block``.  A config that
-needs anything else raises ``NotImplementedError`` naming its ROADMAP item:
-MoE (M15, the MoE slice), Mamba mixers (M16), the encoder, cross-attention
+Ported block kinds: mixer ``attn`` (GQA + RoPE [+ qk-norm]) or ``mamba``
+(the Mamba-2 SSD mixer of :mod:`repro_torch.models.ssd`), MLP ``swiglu`` |
+``relu2`` | ``gelu`` | none, and command-r's ``parallel_block``.  A config
+that needs anything else raises ``NotImplementedError`` naming its ROADMAP
+item: MoE (M15, the MoE slice; so jamba too), the encoder, cross-attention
 and modality frontends (M15).
 
 Entry points (``cuda`` unless ``device="cpu"`` is passed; without a card and
@@ -25,10 +27,10 @@ without that request they raise):
     decode_step(params, cache, tokens, pos, cfg)  -> (logits [b, Vp], cache)
 
 ``params`` must already be on the entry point's device; token batches are
-moved there.  Unlike the reference, ``prefill`` writes k/v straight into the
-cache it allocates and ``decode_step`` writes the new token's k/v into
-``cache`` in place (and returns it): the cache is the largest buffer of the
-serve path and is never copied.
+moved there.  Unlike the reference, ``prefill`` writes k/v (attention) and
+the conv tail and SSM state (Mamba) straight into the cache it allocates,
+and ``decode_step`` updates ``cache`` in place (and returns it): the cache
+is the largest buffer of the serve path and is never copied.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import ssd as ssdlib
 from repro_torch.models.layers import (decode_attention, dense_init,
                                        gelu_mlp, gqa_attention, norm_init,
                                        rms_norm, rope, swiglu)
@@ -107,10 +110,6 @@ def _require_ported(cfg: ArchConfig) -> list[LayerKind]:
             f"encoder)")
     plan = layer_plan(cfg)
     for kind in plan:
-        if kind.mixer == "mamba":
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba-2 mixers are not ported yet (ROADMAP "
-                f"M16, with K5)")
         if kind.cross:
             raise NotImplementedError(
                 f"{cfg.name}: cross-attention is not ported yet (ROADMAP "
@@ -157,10 +156,18 @@ def _mlp_shapes(cfg: ArchConfig, kind: str) -> dict:
     return {}
 
 
+def _mamba_shapes(cfg: ArchConfig) -> dict:
+    return ssdlib.mamba_param_shapes(
+        cfg.d_model, d_inner=cfg.d_inner, head_dim=cfg.ssm_head_dim,
+        n_groups=cfg.ssm_groups, d_state=cfg.ssm_state, conv_k=cfg.ssm_conv)
+
+
 def _block_shapes(cfg: ArchConfig, kind: LayerKind) -> dict:
     sh = {}
     if kind.mixer == "attn":
         sh.update(_attn_shapes(cfg))
+    elif kind.mixer == "mamba":
+        sh.update(_mamba_shapes(cfg))
     sh.update(_mlp_shapes(cfg, kind.mlp))
     if cfg.parallel_block and "mlp_norm" in sh:
         del sh["mlp_norm"]          # shared input norm (command-r style)
@@ -168,10 +175,26 @@ def _block_shapes(cfg: ArchConfig, kind: LayerKind) -> dict:
 
 
 def _init_leaf(gen: torch.Generator, name: str, shape, dtype):
+    """The reference's init of one (stacked) leaf: norm scales 1 and
+    biases 0; the Mamba rows ``A_log = log(linspace(1, 16, h))``, ``dt_bias
+    = softplus^-1`` of dt log-spaced in ``[1e-3, 1e-1]`` and ``D = 1``, all
+    three in f32 whatever ``dtype`` is; the rest drawn by
+    :func:`dense_init`."""
     if "norm" in name:
         return norm_init(shape)
     if name.startswith("b") and len(shape) == 1:
         return torch.zeros(shape, dtype=dtype)
+    f32 = torch.float32
+    if name == "mamba_A":
+        row = torch.log(torch.linspace(1.0, 16.0, shape[-1], dtype=f32))
+        return row.expand(shape).contiguous()
+    if name == "mamba_dt_bias":
+        lo, hi = torch.log(torch.tensor([1e-3, 1e-1], dtype=f32))
+        dt = torch.exp(torch.linspace(float(lo), float(hi), shape[-1],
+                                      dtype=f32))
+        return torch.log(torch.expm1(dt)).expand(shape).contiguous()
+    if name == "mamba_D":
+        return torch.ones(shape, dtype=f32)
     return dense_init(gen, shape, dtype)
 
 
@@ -190,7 +213,8 @@ def init_params(seed: int, cfg: ArchConfig, *, device=None) -> dict:
     machine) and moved to ``device``.  They differ from the reference's
     ``jax.random`` init by design; the parity tests carry the reference's
     weights across instead.  Shapes, dtypes and layout are the
-    reference's: matrices in ``cfg.dtype``, norm scales in f32."""
+    reference's: matrices in ``cfg.dtype``; norm scales and the Mamba
+    per-head rows in f32."""
     plan = _require_ported(cfg)
     device = resolve_device(device)
     dtype = _DTYPES[cfg.dtype]
@@ -301,25 +325,44 @@ def _mlp_body(p, x, cfg: ArchConfig, kind: str, *, norm_key: str = "mlp_norm"):
     raise ValueError(kind)
 
 
+def _mamba_body(p, x, cfg: ArchConfig, *, return_state: bool = False):
+    h = rms_norm(x, p["mamba_norm"], eps=cfg.norm_eps)
+    return ssdlib.mamba2_mixer(
+        p, h, head_dim=cfg.ssm_head_dim, n_groups=cfg.ssm_groups,
+        d_state=cfg.ssm_state, chunk=cfg.ssd_chunk, impl=cfg.ssd_impl,
+        return_state=return_state)
+
+
 def _apply_block(p, x, cfg: ArchConfig, kind: LayerKind, *, causal: bool,
-                 positions=None):
-    """One block; returns (x, (k, v)) — the k/v of its attention, or
-    None."""
-    kv = None
+                 positions=None, collect: bool = False):
+    """One block; returns (x, what it leaves for the cache): ``{"k", "v"}``
+    of its attention, or with ``collect`` ``{"conv", "ssm"}`` of its Mamba
+    mixer, or None."""
+    contrib = None
     if cfg.parallel_block and kind.mixer == "attn" and kind.mlp != "none":
         # command-r: shared norm, attn & mlp in parallel
-        attn_out, kv = _attn_body(p, x, cfg, causal=causal,
-                                  positions=positions)
+        attn_out, (k, v) = _attn_body(p, x, cfg, causal=causal,
+                                      positions=positions)
         mlp_out = _mlp_body(p, x, cfg, kind.mlp, norm_key="attn_norm")
         x = x + attn_out + mlp_out
+        contrib = {"k": k, "v": v}
     else:
         if kind.mixer == "attn":
-            attn_out, kv = _attn_body(p, x, cfg, causal=causal,
-                                      positions=positions)
+            attn_out, (k, v) = _attn_body(p, x, cfg, causal=causal,
+                                          positions=positions)
             x = x + attn_out
+            contrib = {"k": k, "v": v}
+        elif kind.mixer == "mamba":
+            if collect:
+                y, (conv_tail, ssm_state) = _mamba_body(p, x, cfg,
+                                                        return_state=True)
+                contrib = {"conv": conv_tail, "ssm": ssm_state}
+            else:
+                y = _mamba_body(p, x, cfg)
+            x = x + y
         if kind.mlp != "none":
             x = x + _mlp_body(p, x, cfg, kind.mlp)
-    return x, kv
+    return x, contrib
 
 
 # ---------------------------------------------------------------------------
@@ -333,18 +376,24 @@ def _period(stack: dict, key: str, n: int) -> dict:
 def _run_stack(stack, x, cfg: ArchConfig, plan, *, causal: bool,
                positions=None, cache=None):
     """The blocks in order, period by period.  With ``cache`` (from
-    :func:`init_cache`), each attention block's k/v fill its first
-    ``s`` slots."""
+    :func:`init_cache`), each attention block's k/v fill its first ``s``
+    slots and each Mamba block's conv tail and final SSM state its
+    period's entries."""
     n_periods = cfg.n_layers // len(plan)
     s = x.shape[1]
     for n in range(n_periods):
         for i, kind in enumerate(plan):
             key = f"p{i}"
-            x, kv = _apply_block(_period(stack, key, n), x, cfg, kind,
-                                 causal=causal, positions=positions)
-            if cache is not None and kv is not None:
-                cache[key]["k"][n, :, :s] = kv[0]
-                cache[key]["v"][n, :, :s] = kv[1]
+            x, contrib = _apply_block(_period(stack, key, n), x, cfg, kind,
+                                      causal=causal, positions=positions,
+                                      collect=cache is not None)
+            if cache is None or contrib is None:
+                continue
+            for name, val in contrib.items():
+                if name in ("k", "v"):
+                    cache[key][name][n, :, :s] = val
+                else:
+                    cache[key][name][n] = val
     return x
 
 
@@ -398,18 +447,33 @@ def forward(params, batch, cfg: ArchConfig, *, device=None):
 # serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None):
-    """Zeroed k/v for a batch of sequences of ≤ ``max_len`` tokens:
-    ``{"p<i>": {"k", "v": [n_periods, batch, max_len, n_kv_heads, hd]}}``
-    in ``cfg.dtype``."""
+    """The zeroed serving cache for a batch of sequences of ≤ ``max_len``
+    tokens, per period position: an attention block's ``{"k", "v":
+    [n_periods, batch, max_len, n_kv_heads, hd]}`` in ``cfg.dtype``; a
+    Mamba block's ``{"conv": [n_periods, batch, conv_k - 1, conv_dim]}`` in
+    ``cfg.dtype`` and ``{"ssm": [n_periods, batch, heads, head_dim,
+    state]}`` in f32."""
     plan = _require_ported(cfg)
     device = resolve_device(device)
     n_periods = cfg.n_layers // len(plan)
     shape = (n_periods, batch, max_len, cfg.n_kv_heads,
              cfg.resolved_head_dim)
     dtype = _DTYPES[cfg.dtype]
-    return {f"p{i}": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                      "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for i, kind in enumerate(plan) if kind.mixer == "attn"}
+    cache = {}
+    for i, kind in enumerate(plan):
+        if kind.mixer == "attn":
+            cache[f"p{i}"] = {
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+        elif kind.mixer == "mamba":
+            mc = ssdlib.mamba2_init_cache(
+                batch, d_inner=cfg.d_inner, head_dim=cfg.ssm_head_dim,
+                n_groups=cfg.ssm_groups, d_state=cfg.ssm_state,
+                conv_k=cfg.ssm_conv, dtype=dtype, device=device)
+            cache[f"p{i}"] = {
+                name: leaf[None].expand((n_periods,) + leaf.shape).clone()
+                for name, leaf in mc._asdict().items()}
+    return cache
 
 
 @torch.no_grad()
@@ -417,8 +481,9 @@ def prefill(params, batch, cfg: ArchConfig, *, max_len: int | None = None,
             device=None):
     """Process the whole prompt; return (last-position logits ``[b,
     padded_vocab]`` f32 with pad columns at -1e30, cache).  The cache holds
-    the prompt's k/v in its first ``s`` slots, so :func:`decode_step`
-    continues at ``pos = s``."""
+    the prompt's k/v in its first ``s`` slots and each Mamba block's conv
+    tail and SSM state after the prompt, so :func:`decode_step` continues
+    at ``pos = s``."""
     device = _on_device(params, device)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -444,6 +509,19 @@ def _decode_attn_block(p, x_t, c, n: int, cfg: ArchConfig, pos: int):
     return _attn_out(p, decode_attention(q, kc, vc, mask), cfg)
 
 
+def _decode_mamba_block(p, x_t, c, n: int, cfg: ArchConfig):
+    """x_t [b,1,D]; advances period ``n``'s conv window and SSM state in
+    ``c`` by this token, in place."""
+    h = rms_norm(x_t, p["mamba_norm"], eps=cfg.norm_eps)
+    y, mc = ssdlib.mamba2_decode_step(
+        p, h[:, 0], ssdlib.MambaCache(conv=c["conv"][n], ssm=c["ssm"][n]),
+        head_dim=cfg.ssm_head_dim, n_groups=cfg.ssm_groups,
+        d_state=cfg.ssm_state)
+    c["conv"][n].copy_(mc.conv)
+    c["ssm"][n].copy_(mc.ssm)
+    return y[:, None, :]
+
+
 @torch.no_grad()
 def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *, device=None):
     """One-token decode.  tokens ``[b, 1]``; ``pos`` the slot of the new
@@ -459,12 +537,16 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *, device=None):
         for i, kind in enumerate(plan):
             key = f"p{i}"
             p = _period(stack, key, n)
-            if cfg.parallel_block and kind.mlp != "none":
+            if cfg.parallel_block and kind.mixer == "attn" \
+                    and kind.mlp != "none":
                 attn_out = _decode_attn_block(p, x, cache[key], n, cfg, pos)
                 mlp_out = _mlp_body(p, x, cfg, kind.mlp, norm_key="attn_norm")
                 x = x + attn_out + mlp_out
             else:
-                x = x + _decode_attn_block(p, x, cache[key], n, cfg, pos)
+                if kind.mixer == "attn":
+                    x = x + _decode_attn_block(p, x, cache[key], n, cfg, pos)
+                elif kind.mixer == "mamba":
+                    x = x + _decode_mamba_block(p, x, cache[key], n, cfg)
                 if kind.mlp != "none":
                     x = x + _mlp_body(p, x, cfg, kind.mlp)
     h = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)

@@ -107,7 +107,8 @@ def test_plain_path_counts_no_launch():
     tops.reset_launch_counts()
     tops.dequant_merge(*_t(*_payload((9,), 6)), 0.1, 1.0, 1.0)
     assert tops.launch_counts() == {"fedavg_accum": 0, "dequant_merge": 0,
-                                    "rmsnorm": 0, "flash_attention": 0}
+                                    "rmsnorm": 0, "flash_attention": 0,
+                                    "ssd": 0}
 
 
 # -- int8 and top-k -----------------------------------------------------------

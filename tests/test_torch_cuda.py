@@ -7,8 +7,12 @@ there with
 K1 and K2 must match their plain versions bitwise in f32 (both round each
 op on its own); K1 within one bf16 ulp in bf16.  K3 and K4 sum in another
 order than their plain versions: within ``tests/test_kernels.py``'s 2e-5
-in f32 and 2e-2 in bf16.  This file imports only torch, so it runs where
-JAX is not installed.
+in f32 and 2e-2 in bf16.  K5 (the chunked SSD) runs its plain version's
+algorithm with the sums in another order: 1e-4 (atol and rtol) in f32 on
+outputs up to ~30; in bf16 the f32 results round to bf16, so two sound
+versions differ by at most one bf16 step, 2^-7 of the value: rtol 8e-3,
+atol 1e-3.  This file imports only torch, so it runs where JAX is not
+installed.
 """
 
 import numpy as np
@@ -76,7 +80,7 @@ def test_lanes_misaligned_rows_and_counter(dev):
         got = tops.fedavg_accum(acc, theta, n_old, n_k)
         assert torch.equal(got, tref.fedavg_accum_ref(acc, theta, n_old, n_k))
     assert tops.launch_counts() == {"fedavg_accum": 2, "dequant_merge": 0,
-                                    "rmsnorm": 0, "flash_attention": 0}
+                                    "rmsnorm": 0, "flash_attention": 0, "ssd": 0}
 
 
 def test_launcher_checks_its_inputs(dev):
@@ -183,7 +187,7 @@ def test_mesh_engine_on_card_is_depth_invariant_through_k2(dev):
     (l0, s0, k0), (l1, _, k1) = run(0, **mesh), run(1, **mesh)
     assert l0 == l1 and all(np.isfinite(l0))
     assert k0 == k1 == {"fedavg_accum": 4 * s0, "dequant_merge": 2 * 3,
-                        "rmsnorm": 0, "flash_attention": 0}
+                        "rmsnorm": 0, "flash_attention": 0, "ssd": 0}
     fused, _, _ = run(1)
     flat, _, _ = run(1, mesh_workers=4)
     assert flat == fused
@@ -387,3 +391,141 @@ def test_lm_head_writes_f32_logits_from_bf16_on_card(dev):
     want = h.float() @ params["embed"].T.float()
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+# -- K5 -----------------------------------------------------------------------
+# (b, s, h, p, g, n, chunk): tests/test_kernels.py's sweep; s = 100 at the
+# wrapper's own chunk (round_up(100, 8) = 104, no multiple of 16); a ragged
+# prompt and the serve shape at mamba2-2.7b's widths.
+SSD = [(2, 64, 4, 16, 2, 32, 16), (1, 100, 8, 32, 1, 64, 32),
+       (2, 128, 4, 64, 4, 16, 128), (1, 100, 8, 32, 1, 64, 128),
+       (1, 1000, 80, 64, 1, 128, 128), (4, 2048, 80, 64, 1, 128, 128)]
+SSD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=8e-3, atol=1e-3)}
+
+
+def _ssd_inputs(b, s, h, p, g, n, dtype, dev, seed):
+    """The sweep's draws (dt = softplus(normal), A_log and D scaled by 0.3
+    and 0.1, B and C by 0.5), in the model layout on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, s, h, p, generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen))
+    A_log = torch.randn(h, generator=gen) * 0.3
+    B = torch.randn(b, s, g, n, generator=gen) * 0.5
+    C = torch.randn(b, s, g, n, generator=gen) * 0.5
+    D = torch.randn(h, generator=gen) * 0.1
+    return (x.to(dtype).to(dev), dt.to(dev), A_log.to(dev),
+            B.to(dtype).to(dev), C.to(dtype).to(dev), D.to(dev))
+
+
+def _close_tol(got, want, rtol, atol):
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= atol + rtol * w.abs()).all())
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,ck", SSD)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain(dev, b, s, h, p, g, n, ck, dtype):
+    """y and the final state against the plain chunk loop."""
+    args = _ssd_inputs(b, s, h, p, g, n, dtype, dev, 31)
+    tops.reset_launch_counts()
+    y, state = tops.ssd(*args, chunk=ck, return_state=True)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["ssd"] == 1
+    want_y, want_state = tref.ssd_chunks_ref(*args,
+                                             chunk=tops.ssd_chunk(s, ck))
+    assert y.shape == (b, s, h, p) and y.dtype == dtype
+    assert state.shape == (b, h, p, n) and state.dtype == torch.float32
+    assert _close_tol(y, want_y, **SSD_TOL[dtype])
+    assert _close_tol(state, want_state, **SSD_TOL[torch.float32])
+    assert torch.equal(tops.ssd(*args, chunk=ck), y)   # without the state
+
+
+def test_ssd_kernel_reads_strided_inputs(dev):
+    """x, B and C as views into one conv-output buffer, as the mixer hands
+    them over (nothing copied), equal the contiguous ones; the wrapper
+    refuses what the kernel does not take."""
+    from repro_torch.kernels import ssd as tssd
+    b, s, h, p, g, n = 2, 70, 4, 32, 2, 16
+    xbc = _rand((b, s, h * p + 2 * g * n), torch.bfloat16, dev, 32)
+    x = xbc[..., :h * p].view(b, s, h, p)
+    B = xbc[..., h * p:h * p + g * n].view(b, s, g, n)
+    C = xbc[..., h * p + g * n:].view(b, s, g, n)
+    assert not x.is_contiguous()
+    _, dt, A_log, _, _, D = _ssd_inputs(b, s, h, p, g, n, torch.bfloat16,
+                                        dev, 33)
+    got = tssd.ssd_bshp(x, dt, A_log, B, C, D, chunk=32, want_state=True)
+    want = tssd.ssd_bshp(x.contiguous(), dt, A_log, B.contiguous(),
+                         C.contiguous(), D, chunk=32, want_state=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="f32"):
+        tssd.ssd_bshp(x, dt.bfloat16(), A_log, B, C, D, chunk=32)
+    with pytest.raises(ValueError, match="out of range"):
+        tssd.ssd_bshp(x, dt, A_log, B, C, D, chunk=256)
+    with pytest.raises(ValueError, match="dtype"):
+        tssd.ssd_bshp(x, dt, A_log, B.float(), C, D, chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        tssd.ssd_bshp(x.transpose(2, 3).contiguous().transpose(2, 3), dt,
+                      A_log, B, C, D, chunk=32)
+
+
+def test_mamba_mixer_routes_launch_k5(dev):
+    """impl="pallas" launches K5 once a call and agrees with "chunked"."""
+    from repro_torch.models.ssd import mamba2_mixer
+    g = torch.Generator().manual_seed(34)
+    d, di, hd, ng, n = 64, 128, 16, 1, 16
+    h = di // hd
+    p = {"mamba_in": torch.randn(d, 2 * di + 2 * ng * n + h, generator=g)
+         / d ** 0.5, "mamba_conv": torch.randn(4, di + 2 * ng * n,
+                                               generator=g) * 0.5,
+         "mamba_A": torch.log(torch.linspace(1, 16, h)),
+         "mamba_dt_bias": torch.full((h,), -2.0), "mamba_D": torch.ones(h),
+         "mamba_gnorm": torch.ones(di),
+         "mamba_out": torch.randn(di, d, generator=g) / di ** 0.5}
+    p = {k: v.to(dev) for k, v in p.items()}
+    x = _rand((2, 50, d), torch.float32, dev, 35)
+    kw = dict(head_dim=hd, n_groups=ng, d_state=n, chunk=16,
+              return_state=True)
+    tops.reset_launch_counts()
+    out, (tail, st) = mamba2_mixer(p, x, impl="pallas", **kw)
+    assert tops.launch_counts()["ssd"] == 1
+    want, (wtail, wst) = mamba2_mixer(p, x, impl="chunked", **kw)
+    assert torch.allclose(out, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(tail, wtail)
+    assert torch.allclose(st, wst, rtol=1e-4, atol=1e-4)
+
+
+def test_reduced_mamba_serve_path_on_card(dev):
+    """The reduced mamba2-2.7b serve path (f32, ssd_impl="pallas"): K5 once
+    per layer in a prefill and never in decode; prefill + decode equals a
+    teacher-forced forward, and the card equals the CPU (1e-4: GEMM sums in
+    another order)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    cfg = replace(get_arch("mamba2-2.7b").reduced(), ssd_impl="pallas")
+    g = torch.Generator().manual_seed(36)
+    toks = torch.randint(0, cfg.vocab_size, (2, 14), generator=g)
+    out = {}
+    for d in ("cpu", "cuda"):
+        params = lm.init_params(0, cfg, device=d)
+        tops.reset_launch_counts()
+        lg, cache = lm.prefill(params, {"tokens": toks[:, :12]}, cfg,
+                               max_len=16, device=d)
+        k5_prefill = tops.launch_counts()["ssd"]
+        steps = [lg]
+        for i in range(2):
+            lg, cache = lm.decode_step(params, cache, toks[:, 12 + i:13 + i],
+                                       12 + i, cfg, device=d)
+            steps.append(lg)
+        k5_all = tops.launch_counts()["ssd"]
+        full = lm.forward(params, {"tokens": toks}, cfg, device=d)
+        served = torch.stack([x[:, :cfg.vocab_size] for x in steps], 1)
+        assert torch.allclose(served, full[:, 11:14], rtol=1e-5, atol=1e-5)
+        if d == "cuda":
+            assert k5_prefill == k5_all == cfg.n_layers
+        out[d] = (served.cpu(), cache["p0"]["ssm"].cpu())
+    assert torch.allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                          atol=1e-4)
+    assert torch.allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                          atol=1e-4)

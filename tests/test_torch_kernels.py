@@ -113,7 +113,8 @@ def test_kernel_entry_refuses_cpu_tensors():
         tfa.fedavg_accum_lanes(acc, acc, w, w)
     tops.fedavg_accum(acc, acc, w, w)                # plain version
     assert tops.launch_counts() == {"fedavg_accum": 0, "dequant_merge": 0,
-                                    "rmsnorm": 0, "flash_attention": 0}
+                                    "rmsnorm": 0, "flash_attention": 0,
+                                    "ssd": 0}
 
 
 def test_wrapper_refuses_other_devices():

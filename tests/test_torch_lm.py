@@ -41,8 +41,8 @@ from repro_torch.models import lm as tlm  # noqa: E402
 
 DENSE = ["qwen3-0.6b", "minitron-4b", "internlm2-1.8b", "command-r-plus-104b"]
 UNPORTED = {"granite-moe-3b-a800m": "MoE", "qwen3-moe-235b-a22b": "MoE",
-            "internvl2-26b": "frontend", "jamba-v0.1-52b": "M16",
-            "whisper-base": "frontend", "mamba2-2.7b": "M16"}
+            "internvl2-26b": "frontend", "jamba-v0.1-52b": "MoE",
+            "whisper-base": "frontend"}
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -417,4 +417,5 @@ def test_norm_kernel_route_counts_no_launch_on_cpu():
     tlm.prefill(params, {"tokens": _tokens(cfg)}, cfg, device="cpu")
     tlayers.rms_norm(torch.ones(2, 8), torch.ones(8), impl="pallas")
     assert tops.launch_counts() == {"fedavg_accum": 0, "dequant_merge": 0,
-                                    "rmsnorm": 0, "flash_attention": 0}
+                                    "rmsnorm": 0, "flash_attention": 0,
+                                    "ssd": 0}
