@@ -11,7 +11,9 @@ Phases, one JSON object per line on stdout:
              its own line as well);
 2. build   — every kernel of the port (K1-K5) compiled from
              ``src/repro_torch/kernels/csrc`` with nvcc (one process each,
-             in parallel), with ptxas' report;
+             in parallel), with ptxas' report; ``cuobjdump -sass`` counts
+             K4's ``HGMMA`` and ``UTMALDG`` instructions, and the run fails
+             if either is 0;
 3. check   — each kernel against its plain PyTorch version on the card:
              K1 at the reference's test shapes, the SR leaf shapes and the
              flat lane buffer the round folds (f32 bitwise, bf16 within 1
@@ -19,7 +21,11 @@ Phases, one JSON object per line on stdout:
              on the SR flat buffer with its 18-leaf scale table (f32
              bitwise; ``N+n == 0`` returns ``acc`` bit for bit); K3 and K4
              over the reference's sweeps in f32 and bf16 and at the serve
-             path's shapes (2e-5 f32, 2e-2 bf16, as tests/test_kernels.py);
+             path's shapes (2e-5 f32, 2e-2 bf16, as tests/test_kernels.py),
+             K4 also on its wgmma route's bf16 cases (d 64 and 128, ragged
+             s and t, GQA groups 1-8, non-causal, fused q/k/v views), each
+             case on the route its dtype and head dim name, and a
+             misaligned bf16 input must raise;
              K5, y and the final state, over the reference's sweep in f32
              and bf16, at the SSM serve shape in f32 and bf16 and a
              1,000-row prompt (``SSD_TOL``);
@@ -49,7 +55,8 @@ Phases, one JSON object per line on stdout:
              and read just after: one prefill of 4 × 2,048 tokens (K4
              exactly 28 launches), 16 greedy decode steps (no K4), and K3
              through ``rms_norm(impl="pallas")`` on the serve path's own
-             norm inputs; finite logits; then the pallas prefill against
+             norm inputs; K4's 28 prefill launches all on the wgmma route;
+             finite logits; then the pallas prefill against
              the dense one, prefill + decode against a teacher-forced
              ``forward``, and a 1,000-token prompt (``SERVE_TOL``); a
              profiled prefill and decode step (device idle share);
@@ -269,16 +276,34 @@ def phase_probe(torch):
     return smi
 
 
-def phase_build():
+def sass_counts(lib: str) -> dict:
+    """Tensor-core (``HGMMA``) and TMA-load (``UTMALDG``) instructions in a
+    library's SASS, from ``cuobjdump -sass`` beside nvcc."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", lib], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return {op: sum(op in ln for ln in sass.splitlines())
+            for op in ("HGMMA", "UTMALDG")}
+
+
+def phase_build() -> dict:
+    """Builds K1-K5; returns K4's SASS counts, which must show wgmma and
+    TMA loads."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     info = build.build_all()
+    sass = sass_counts(info["flash_attention"]["path"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {name: {"seconds": v["seconds"], "cached": v["cached"],
                              "ptxas": [ln.strip() for ln in
                                        v["log"].splitlines()
                                        if "registers" in ln or "spill" in ln]}
-                      for name, v in info.items()}})
+                      for name, v in info.items()},
+          "flash_attention_sass": sass})
+    check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
+          f"K4's library has no wgmma or no TMA load: {sass}")
+    return sass
 
 
 def _bf16_ulps(torch, a, b) -> int:
@@ -525,39 +550,69 @@ def phase_check_k3(torch) -> dict:
     return errs
 
 
+def _fused_qkv(torch, b, s, hq, hkv, d, dt, gen, dev):
+    """q, k and v as strided views of one ``[b, s, hq + 2 hkv, d]`` buffer
+    (a fused projection's output), nothing copied."""
+    qkv = torch.randn(b, s, hq + 2 * hkv, d, generator=gen).to(dt).to(dev)
+    return qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+
+
 def phase_check_k4(torch) -> dict:
     """K4 against its plain version: the reference's sweep (causal) in f32
     and bf16, the serve shape in f32 and bf16, one ragged causal prompt in
-    bf16, a non-causal case, and a causal query longer than its keys (the
-    zero keys of the reference's padding)."""
+    bf16, non-causal cases, causal queries longer than their keys (the
+    zero keys of the reference's padding), and the wgmma route's bf16 cases
+    (d 64 and 128, GQA groups 1, 2, 4 and 8, q/k/v as views of one fused
+    buffer).  Every case must take the route its dtype and head dim name,
+    and a bf16 input TMA cannot address must raise without a launch."""
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import ops, ref
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(7)
     cfg = _serve_cfg()
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    cases = [((b, s, hq_, hkv_, d), s, True, dt)
-             for dt in (torch.float32, torch.bfloat16)
+    bf16 = torch.bfloat16
+    # (shape (b, s, hq, hkv, d), t, causal, dtype, fused q/k/v views)
+    cases = [((b, s, hq_, hkv_, d), s, True, dt, False)
+             for dt in (torch.float32, bf16)
              for b, s, hq_, hkv_, d in ATTN_SWEEP]
     serve = (SERVE_BATCH, SERVE_PROMPT, hq, hkv, hd)
     ragged = (1, RAGGED_PROMPT, hq, hkv, hd)
-    cases += [(serve, SERVE_PROMPT, True, torch.float32),
-              (serve, SERVE_PROMPT, True, torch.bfloat16),
-              (ragged, RAGGED_PROMPT, True, torch.bfloat16),
-              ((2, 256, 4, 2, 64), 256, False, torch.float32),
-              ((1, 300, 4, 2, 64), 200, True, torch.float32)]
+    cases += [(serve, SERVE_PROMPT, True, torch.float32, False),
+              (serve, SERVE_PROMPT, True, bf16, False),
+              (ragged, RAGGED_PROMPT, True, bf16, False),
+              ((2, 256, 4, 2, 64), 256, False, torch.float32, False),
+              ((1, 300, 4, 2, 64), 200, True, torch.float32, False),
+              # the wgmma route: ragged with t < s, GQA groups 1 and 8,
+              # non-causal, d 64 and 128, fused views
+              ((1, 300, 4, 2, 64), 200, True, bf16, False),
+              ((1, 300, 4, 2, 128), 200, True, bf16, False),
+              ((1, 260, 4, 4, 128), 260, True, bf16, False),
+              ((1, 384, 8, 1, 128), 384, True, bf16, False),
+              ((2, 256, 4, 2, 64), 256, False, bf16, False),
+              ((1, 256, 8, 2, 128), 256, False, bf16, False),
+              ((2, 300, 16, 8, 128), 300, True, bf16, True),
+              ((2, 200, 6, 2, 64), 200, True, bf16, True)]
     errs = {"float32": 0.0, "bfloat16": 0.0, "bfloat16_serve_shapes": 0.0}
-    for (b, s, hq_, hkv_, d), t, causal, dt in cases:
+    routes = {"simt": 0, "wgmma": 0}
+    for (b, s, hq_, hkv_, d), t, causal, dt, fused in cases:
         key = str(dt).split(".")[-1]
         tol = _tol(torch, dt)
-        if dt == torch.bfloat16 and (b, s, hq_, hkv_, d) in (serve, ragged):
+        if dt == bf16 and (b, s, hq_, hkv_, d) in (serve, ragged):
             key, tol = "bfloat16_serve_shapes", SERVE_ATTN_BF16_TOL
-        q = torch.randn(b, s, hq_, d, generator=gen).to(dt).to(dev)
-        k = torch.randn(b, t, hkv_, d, generator=gen).to(dt).to(dev)
-        v = torch.randn(b, t, hkv_, d, generator=gen).to(dt).to(dev)
-        before = fl.LAUNCHES
+        if fused:
+            q, k, v = _fused_qkv(torch, b, s, hq_, hkv_, d, dt, gen, dev)
+        else:
+            q = torch.randn(b, s, hq_, d, generator=gen).to(dt).to(dev)
+            k = torch.randn(b, t, hkv_, d, generator=gen).to(dt).to(dev)
+            v = torch.randn(b, t, hkv_, d, generator=gen).to(dt).to(dev)
+        path = fl.route(dt, d)
+        before = dict(fl.ROUTE_LAUNCHES)
         got = ops.flash_attention(q, k, v, causal=causal)
-        check(fl.LAUNCHES == before + 1, "K4 did not launch")
+        check(fl.ROUTE_LAUNCHES[path] == before[path] + 1,
+              f"K4 {(b, s, t, hq_, hkv_, d)} {dt} did not launch the "
+              f"{path} kernel")
+        routes[path] += 1
         want = ref.flash_attention_bshd_ref(q, k, v, causal=causal,
                                             t_pad=ops.padded_kv_len(t))
         torch.cuda.synchronize()
@@ -569,10 +624,22 @@ def phase_check_k4(torch) -> dict:
         check(_close(torch, got, want, **tol),
               f"K4 {(b, s, t, hq_, hkv_, d)} causal={causal} {dt}: max err "
               f"{err} over {tol}")
+    # A head stride of 129 elements (258 bytes) is no TMA stride.
+    odd = torch.randn(1, 128, 2, 129, generator=gen).to(bf16).to(dev)
+    odd = odd[..., :128]
+    before = fl.LAUNCHES
+    try:
+        ops.flash_attention(odd, odd[:, :, :1], odd[:, :, :1], causal=True)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised and fl.LAUNCHES == before,
+          "a bf16 input with a misaligned stride did not raise")
     emit({"phase": "check", "kernel": "flash_attention", "cases": len(cases),
+          "routes": routes,
           "tolerance": {"float32": 2e-5, "bfloat16": 2e-2,
                         "bfloat16_serve_shapes": SERVE_ATTN_BF16_TOL},
-          "max_abs_err": errs})
+          "max_abs_err": errs, "misaligned_bf16_raises": raised})
     return errs
 
 
@@ -610,7 +677,7 @@ def phase_timing_k3(torch, device_name: str) -> dict:
                       "bytes": nbytes}
         out[label]["roofline_share"] = out[label]["bound_ms"] / best["kernel"]
     emit({"phase": "timing", "kernel": "rmsnorm", **out})
-    return out["norm_block"]
+    return out
 
 
 def phase_timing_k4(torch, device_name: str) -> dict:
@@ -637,6 +704,8 @@ def phase_timing_k4(torch, device_name: str) -> dict:
             "plain": lambda: ref.flash_attention_bshd_ref(q, k, v,
                                                           causal=True),
             "library": library}
+    orders = (("kernel", "plain", "library"), ("library", "plain", "kernel"),
+              ("kernel", "plain", "library"))
     library_error = None
     try:                                   # a yardstick only, never the port
         got = library().transpose(1, 2)
@@ -644,10 +713,17 @@ def phase_timing_k4(torch, device_name: str) -> dict:
         torch.cuda.synchronize()
     except RuntimeError as e:
         runs["library"], library_error, err = None, str(e)[:200], None
-    best = _best_of(runs, (("kernel", "plain", "library"),
-                           ("library", "plain", "kernel"),
-                           ("kernel", "plain", "library")),
-                    iters=5, warmup=1)
+    # set_deterministic() keeps SDPA off its fastest backend: the yardstick
+    # is SDPA as fast as it runs, so time it with deterministic algorithms
+    # off, and also as this script's settings leave it.
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:
+        best = _best_of(runs, orders, iters=5, warmup=1)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    best_det = _best_of({"library": runs["library"]}, (("library",),),
+                        iters=5, warmup=1)
     b, _, hq, d = q.shape
     flops = 4 * b * hq * (s * (s + 1) // 2) * d   # causal QK^T and PV
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
@@ -658,6 +734,7 @@ def phase_timing_k4(torch, device_name: str) -> dict:
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
            "shape_q": list(q.shape), "shape_kv": list(k.shape),
            "dtype": "bfloat16", "flops": flops, "bytes": nbytes,
+           "library_ms_deterministic": best_det["library"],
            "library_vs_kernel_max_abs_diff": err,
            "library_error": library_error}
     out["roofline_share"] = out["bound_ms"] / best["kernel"]
@@ -836,6 +913,7 @@ def phase_serve(torch) -> dict:
     ``attn_impl="pallas"``: one prefill of 4 x 2,048 tokens, 16 greedy
     decode steps, with the launch counts zeroed just before and read just
     after; then its checks against other routes through the model."""
+    from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     dev = torch.device("cuda")
@@ -854,6 +932,7 @@ def phase_serve(torch) -> dict:
         torch, lambda: lm.prefill(params, {"tokens": tokens}, cfg,
                                   max_len=SERVE_MAX_LEN))
     after_prefill = ops.launch_counts()
+    routes_prefill = dict(fl.ROUTE_LAUNCHES)
     prefill_peak = torch.cuda.max_memory_allocated()
     generated, step_logits, step_s = [], [logits], []
     for i in range(SERVE_DECODE):
@@ -865,6 +944,8 @@ def phase_serve(torch) -> dict:
         step_logits.append(lg)
         step_s.append(dt)
     after_decode = ops.launch_counts()
+    routes_decode = {k: n - routes_prefill[k]
+                     for k, n in fl.ROUTE_LAUNCHES.items()}
     norms = _serve_norms(torch, params, tokens, cfg)
     launches = ops.launch_counts()
 
@@ -873,6 +954,10 @@ def phase_serve(torch) -> dict:
           f"prefill of {cfg.n_layers} layers")
     check(after_decode["flash_attention"] == cfg.n_layers,
           f"K4 launched in decode: {after_decode}")
+    check(routes_prefill == {"simt": 0, "wgmma": cfg.n_layers},
+          f"K4's prefill launches by route: {routes_prefill}")
+    check(routes_decode == {"simt": 0, "wgmma": 0},
+          f"K4's decode launches by route: {routes_decode}")
     check(launches["rmsnorm"] == len(norms), f"K3 launches {launches}")
     for i, lg in enumerate(step_logits):
         check(bool(torch.isfinite(_vocab(lg, cfg)).all()),
@@ -890,6 +975,8 @@ def phase_serve(torch) -> dict:
           "decode_tokens_per_s": SERVE_BATCH * len(step_s) / sum(step_s),
           "prefill_peak_bytes": prefill_peak,
           "launches_prefill": after_prefill,
+          "k4_routes_prefill": routes_prefill,
+          "k4_routes_decode": routes_decode,
           "launches_decode": {k: after_decode[k] - after_prefill[k]
                               for k in after_decode},
           "launches_norm_pass": {k: launches[k] - after_decode[k]
@@ -929,6 +1016,7 @@ def phase_serve(torch) -> dict:
     check(vs_forward["close"], f"prefill + decode vs forward: {vs_forward}")
     check(vs_ragged["close"], f"ragged prefill pallas vs dense: {vs_ragged}")
     return {"params": params, "tokens": tokens, "launches": launches,
+            "k4_routes_prefill": routes_prefill,
             "prefill_ms": prefill_s * 1e3,
             "decode_ms_per_step": sum(step_s) / len(step_s) * 1e3}
 
@@ -1438,7 +1526,7 @@ def main() -> int:
         return 2
     set_deterministic()
     smi = phase_probe(torch)
-    phase_build()
+    sass = phase_build()
     name = torch.cuda.get_device_name(0)
     lanes, n_params = 4, SR_PARAMS       # 2 workers x 2 lanes, SR published
     max_err = phase_check(torch, n_params, lanes)
@@ -1489,7 +1577,10 @@ def main() -> int:
          "launches_per_round": mesh_launches["dequant_merge"] / len(mesh_res),
          "path": "mesh"},
         {**row("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30",
-               serve["launches"]["rmsnorm"], max(err3.values()), timing3),
+               serve["launches"]["rmsnorm"], max(err3.values()),
+               timing3["norm_block"]),
+         "norm_q": {k: timing3["norm_q"][k] for k in
+                    ("shape", "ms", "plain_ms", "library_ms", "bound_ms")},
          "path": "serve (layers.rms_norm(impl='pallas') on the serve "
                  "path's norm inputs; the model keeps 'xla')"},
         {**row("flash_attention", "flash_attention.cu",
@@ -1497,6 +1588,7 @@ def main() -> int:
                serve["launches"]["flash_attention"], max(err4.values()),
                timing4),
          "launches_per_prefill": serve["launches"]["flash_attention"],
+         "launches_by_route": serve["k4_routes_prefill"], "sass": sass,
          "path": "serve (prefill, attn_impl='pallas')"},
         {**row("ssd", "ssd.cu", "src/repro/kernels/ssd.py:83",
                ssm["launches"]["ssd"], max(err5.values()), timing5),

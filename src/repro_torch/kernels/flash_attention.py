@@ -2,11 +2,16 @@
 hand-written CUDA kernel.
 
 Replaces ``repro/kernels/flash_attention.py:89 flash_attention_bhsd``
-(Pallas, TPU).  The kernel lives in ``csrc/flash_attention.cu``; this
-module binds it with ctypes, checks its inputs and counts its launches.  It
-reads the model layout ``[b, s, h, d]`` through strides (no transposes, no
-padded copies).  It is bound by operations at the serve shapes; this first
-version runs SIMT f32 FMAs.  See the source for the design.
+(Pallas, TPU).  The kernels live in ``csrc/flash_attention.cu``; this
+module binds them with ctypes, checks their inputs and counts their
+launches.  They read the model layout ``[b, s, h, d]`` through strides (no
+transposes, no padded copies).  K4 is bound by operations at the serve
+shapes.  Two routes, chosen by :func:`route` from the dtype and head dim
+before any launch: bf16 at d = 64 and 128 takes the ``"wgmma"`` kernel
+(tensor cores fed by TMA, P rounded to bf16 before P·V); f32 (``wgmma``
+would be TF32) and bf16 at d = 16 and 32 take the ``"simt"`` kernel (f32
+FMAs).  A bf16 input that the ``wgmma`` route cannot address raises; it does
+not move to the other route.  See the source for the designs.
 
 Use :func:`repro_torch.kernels.ops.flash_attention`, which routes CPU
 tensors to the plain version and applies the reference wrapper's padding
@@ -22,13 +27,41 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["flash_attention_bshd", "LAUNCHES", "HEAD_DIMS"]
+__all__ = ["flash_attention_bshd", "route", "LAUNCHES", "ROUTE_LAUNCHES",
+           "HEAD_DIMS", "WGMMA_HEAD_DIMS"]
 
-# Launches of the CUDA kernel since the last reset (ops.reset_launch_counts).
+# Launches of the CUDA kernels since the last reset (ops.reset_launch_counts):
+# all routes, and by route.
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"simt": 0, "wgmma": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)       # the kernel is compiled for these
+HEAD_DIMS = (16, 32, 64, 128)       # the kernels are compiled for these
+WGMMA_HEAD_DIMS = (64, 128)         # bf16 at these takes the wgmma kernel
+_TMA_ALIGN = 16                     # bytes: TMA's rule for bases and strides
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel a call of this dtype and head dim launches: ``"wgmma"``
+    for bf16 at d in :data:`WGMMA_HEAD_DIMS`, else ``"simt"`` (the rule of
+    ``pollen_flash_attention_route`` in the source)."""
+    return "wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS \
+        else "simt"
+
+
+def _check_tma(**tensors) -> None:
+    """The wgmma route reads through TMA: every base address and every
+    stride of a dim longer than 1 must be a multiple of 16 bytes."""
+    for name, x in tensors.items():
+        if x.data_ptr() % _TMA_ALIGN:
+            raise ValueError(f"wgmma route: {name} does not start on a "
+                             f"{_TMA_ALIGN}-byte boundary")
+        for dim in range(3):
+            if x.shape[dim] > 1 and x.stride(dim) * x.element_size() \
+                    % _TMA_ALIGN:
+                raise ValueError(
+                    f"wgmma route: {name}'s stride {x.stride(dim)} (dim "
+                    f"{dim}) is not a multiple of {_TMA_ALIGN} bytes")
 
 
 def _lib() -> ctypes.CDLL:
@@ -40,6 +73,8 @@ def _lib() -> ctypes.CDLL:
         lib.pollen_flash_attention.restype = ctypes.c_int
         lib.pollen_flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.pollen_flash_attention_error_string.restype = ctypes.c_char_p
+        lib.pollen_flash_attention_route.argtypes = [i, i]
+        lib.pollen_flash_attention_route.restype = i
         lib._pollen_bound = True
     return lib
 
@@ -53,7 +88,8 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     free); ``d`` in :data:`HEAD_DIMS`; ``hq`` a multiple of ``hkv``.  Keys
     ``t <= j < t_pad`` count as zero vectors (the reference wrapper's zero
     padding); a causal query ``i`` sees keys ``j <= i``.  Returns a new
-    contiguous ``[b, s, hq, d]`` tensor of ``q``'s dtype.
+    contiguous ``[b, s, hq, d]`` tensor of ``q``'s dtype.  On the ``wgmma``
+    route every base and stride must be a multiple of 16 bytes.
     """
     global LAUNCHES
     if q.device.type != "cuda":
@@ -82,6 +118,9 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("all inputs must be on one device")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("the head dim of q, k, v must be contiguous")
+    path = route(q.dtype, d)
+    if path == "wgmma" and b and s:
+        _check_tma(q=q, k=k, v=v)
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     lib = _lib()
     rc = lib.pollen_flash_attention(
@@ -94,4 +133,5 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention launch failed: {msg} ({rc})")
     if b and s:                           # an empty batch launches nothing
         LAUNCHES += 1
+        ROUTE_LAUNCHES[path] += 1
     return out

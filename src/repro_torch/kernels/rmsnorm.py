@@ -2,9 +2,12 @@
 
 Replaces ``repro/kernels/rmsnorm.py:30 rmsnorm_2d`` (Pallas, TPU).  The
 kernel lives in ``csrc/rmsnorm.cu``; this module binds it with ctypes,
-checks its inputs and counts its launches.  One warp normalises one row;
-it is bound by device memory (one read and one write per element).  See
-the source for the design.
+checks its inputs and counts its launches.  It is bound by device memory
+(one read and one write per element).  Rows of whole 16-byte vectors up to
+d = 1024 in bf16 (512 in f32) are held in registers by ``min(32,
+next_pow2(vectors))`` lanes each, so a warp takes several short rows;
+longer rows take a warp each (:func:`geometry`).  See the source for the
+design.
 
 Use :func:`repro_torch.kernels.ops.rmsnorm`, which routes CPU tensors to
 the plain version :func:`repro_torch.kernels.ref.rmsnorm_ref`.
@@ -18,13 +21,37 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["rmsnorm_rows", "LAUNCHES"]
+__all__ = ["rmsnorm_rows", "geometry", "LAUNCHES"]
 
 # Launches of the CUDA kernel since the last reset (ops.reset_launch_counts).
 LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VEC_BYTES = 16
+_MAX_VECS = 4           # vectors a lane holds on the register path
+PATHS = ("elements", "loop", "registers")
+
+
+def geometry(d: int, itemsize: int, vec: bool) -> dict:
+    """How the kernel lays a row of ``d`` elements of ``itemsize`` bytes
+    over lanes (``pollen_rmsnorm_geometry`` in the source): its ``path``,
+    ``lanes_per_row``, ``rows_per_warp`` and ``vectors_per_lane``.  ``vec``
+    says whether rows are whole, aligned 16-byte vectors."""
+    if not vec:
+        return {"path": "elements", "lanes_per_row": 32, "rows_per_warp": 1,
+                "vectors_per_lane": 0}
+    n_vec = d // (_VEC_BYTES // itemsize)
+    lanes = 1
+    while lanes < n_vec and lanes < 32:
+        lanes *= 2
+    vecs = 1
+    while vecs * lanes < n_vec:
+        vecs *= 2
+    if vecs > _MAX_VECS:
+        return {"path": "loop", "lanes_per_row": 32, "rows_per_warp": 1,
+                "vectors_per_lane": 0}
+    return {"path": "registers", "lanes_per_row": lanes,
+            "rows_per_warp": 32 // lanes, "vectors_per_lane": vecs}
 
 
 def _lib() -> ctypes.CDLL:
@@ -37,6 +64,8 @@ def _lib() -> ctypes.CDLL:
         lib.pollen_rmsnorm.restype = ctypes.c_int
         lib.pollen_rmsnorm_error_string.argtypes = [ctypes.c_int]
         lib.pollen_rmsnorm_error_string.restype = ctypes.c_char_p
+        lib.pollen_rmsnorm_geometry.argtypes = [ctypes.c_int] * 3 + [vp]
+        lib.pollen_rmsnorm_geometry.restype = None
         lib._pollen_bound = True
     return lib
 

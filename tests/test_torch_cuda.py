@@ -330,6 +330,103 @@ def test_flash_attention_kernel_reads_strided_inputs(dev):
         tfl.flash_attention_bshd(qt, kt, kt, causal=True, t_pad=96)
 
 
+# bf16 cases of K4's wgmma route (d 64 and 128): ragged s with t < s, GQA
+# groups 1, 2 and 8, non-causal, and q/k/v as views of one fused buffer.
+WGMMA = [((1, 300, 4, 2, 64), 200, True, False),
+         ((1, 300, 4, 2, 128), 200, True, False),
+         ((1, 260, 4, 4, 128), 260, True, False),
+         ((1, 384, 8, 1, 128), 384, True, False),
+         ((2, 256, 4, 2, 64), 256, False, False),
+         ((1, 256, 8, 2, 128), 256, False, False),
+         ((2, 300, 16, 8, 128), 300, True, True),
+         ((2, 200, 6, 2, 64), 200, True, True)]
+
+
+@pytest.mark.parametrize("shape,t,causal,fused", WGMMA)
+def test_flash_attention_wgmma_route_matches_plain(dev, shape, t, causal,
+                                                   fused):
+    from repro_torch.kernels import flash_attention as tfl
+    b, s, hq, hkv, d = shape
+    if fused:
+        qkv = _rand((b, s, hq + 2 * hkv, d), torch.bfloat16, dev, 27)
+        q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+    else:
+        q = _rand((b, s, hq, d), torch.bfloat16, dev, 28)
+        k = _rand((b, t, hkv, d), torch.bfloat16, dev, 29)
+        v = _rand((b, t, hkv, d), torch.bfloat16, dev, 30)
+    tops.reset_launch_counts()
+    got = tops.flash_attention(q, k, v, causal=causal)
+    want = tref.flash_attention_bshd_ref(q, k, v, causal=causal,
+                                         t_pad=tops.padded_kv_len(t))
+    torch.cuda.synchronize()
+    assert tfl.ROUTE_LAUNCHES == {"simt": 0, "wgmma": 1}
+    assert tops.launch_counts()["flash_attention"] == 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert _close(got, want, torch.bfloat16)
+
+
+def test_flash_attention_route_by_dtype_and_head_dim_on_card(dev):
+    """The library's own route rule equals the wrapper's, and each call
+    counts under the route it took: f32 and bf16 at d 16/32 on the SIMT
+    kernel, bf16 at d 64/128 on the wgmma kernel."""
+    from repro_torch.kernels import flash_attention as tfl
+    lib = tfl._lib()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for d in tfl.HEAD_DIMS:
+            want = tfl.route(dtype, d)
+            assert lib.pollen_flash_attention_route(code, d) == \
+                (want == "wgmma")
+            q = _rand((1, 64, 2, d), dtype, dev, 31)
+            tops.reset_launch_counts()
+            tops.flash_attention(q, q[:, :, :1], q[:, :, :1], causal=True)
+            torch.cuda.synchronize()
+            assert tfl.ROUTE_LAUNCHES[want] == 1
+            assert sum(tfl.ROUTE_LAUNCHES.values()) == 1
+
+
+def test_flash_attention_wgmma_route_refuses_misaligned_strides(dev):
+    """A bf16 input whose stride or base TMA cannot address raises, and
+    nothing launches: it does not move to the SIMT kernel."""
+    from repro_torch.kernels import flash_attention as tfl
+    wide = _rand((1, 128, 2, 129), torch.bfloat16, dev, 32)[..., :128]
+    ok = _rand((1, 128, 1, 128), torch.bfloat16, dev, 33)
+    shifted = _rand((1 * 128 * 2 * 64 + 1,), torch.bfloat16, dev, 34)[1:]
+    shifted = shifted.view(1, 128, 2, 64)
+    tops.reset_launch_counts()
+    with pytest.raises(ValueError, match="stride"):
+        tfl.flash_attention_bshd(wide, ok, ok, causal=True, t_pad=128)
+    with pytest.raises(ValueError, match="boundary"):
+        tfl.flash_attention_bshd(shifted, shifted[:, :, :1],
+                                 shifted[:, :, :1], causal=True, t_pad=128)
+    assert tfl.LAUNCHES == 0
+    assert tfl.ROUTE_LAUNCHES == {"simt": 0, "wgmma": 0}
+
+
+@pytest.mark.parametrize("rows,d,dtype", [
+    (37, 64, torch.bfloat16), (37, 128, torch.bfloat16),
+    (1001, 64, torch.float32), (1001, 128, torch.float32),
+    (99_999, 128, torch.bfloat16), (3, 1024, torch.bfloat16),
+    (5, 96, torch.bfloat16)])
+def test_rmsnorm_kernel_sub_warp_rows(dev, rows, d, dtype):
+    """Rows shared by a warp (d 64 and 128), rows not a multiple of the
+    rows a block takes, and a grid-stride walk longer than the grid; the
+    library's geometry equals the wrapper's."""
+    import ctypes
+    from repro_torch.kernels import rmsnorm as trn
+    x = _rand((rows, d), dtype, dev, 35)
+    scale = _rand((d,), torch.float32, dev, 36)
+    tops.reset_launch_counts()
+    got = trn.rmsnorm_rows(x, scale, 1e-6)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["rmsnorm"] == 1
+    assert _close(got, tref.rmsnorm_ref(x, scale), dtype)
+    g = (ctypes.c_int * 3)()
+    trn._lib().pollen_rmsnorm_geometry(d, int(dtype == torch.bfloat16), 1, g)
+    want = trn.geometry(d, x.element_size(), True)
+    assert (trn.PATHS[g[0]], g[1], g[2]) == (
+        want["path"], want["lanes_per_row"], want["vectors_per_lane"])
+
+
 def test_model_routes_launch_k3_and_k4(dev):
     from repro_torch.models.layers import gqa_attention, rms_norm
     q = _rand((2, 64, 4, 32), torch.bfloat16, dev, 22)

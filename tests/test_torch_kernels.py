@@ -11,6 +11,8 @@ held against the plain versions on the card (``tests/test_torch_cuda.py``
 and ``chip_smoke.py``).
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -217,3 +219,130 @@ def test_new_kernel_entries_refuse_cpu_tensors():
     meta = torch.zeros(2, 8, device="meta")
     with pytest.raises(ValueError, match="no rmsnorm kernel"):
         tops.rmsnorm(meta, torch.ones(8, device="meta"))
+
+
+# -- K4's wgmma route: its numerics in its tile order ---------------------------
+def _wgmma_route_emulation(q, k, v, *, causal, t_pad):
+    """The bf16 wgmma kernel's arithmetic, step by step, on the CPU: q tiles
+    of 128 rows, keys in steps of 64 up to the q tile's causal end (zero
+    keys up to ``t_pad``); S in f32 from the bf16 operands; the online
+    softmax in f32 on scores scaled by log2(e)/sqrt(d), masked at -1e30,
+    ``l`` summed from the f32 ``p``; ``p`` rounded to bf16 before P·V,
+    accumulated in f32; the output divided by ``l`` (where ``l > 0``) and
+    rounded to bf16."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    qf = q.float().transpose(1, 2)                                # [b,hq,s,d]
+    kf, vf = (torch.nn.functional.pad(
+        x.float().transpose(1, 2), (0, 0, 0, t_pad - t)).repeat_interleave(
+            hq // hkv, dim=1) for x in (k, v))                    # [b,hq,tp,d]
+    scale = math.log2(math.e) / math.sqrt(d)
+    neg = -1e30
+    out = torch.empty(b, hq, s, d)
+    for q0 in range(0, s, 128):
+        rows = torch.arange(q0, min(q0 + 128, s))
+        m = torch.full((b, hq, len(rows)), neg)
+        l = torch.zeros(b, hq, len(rows))
+        o = torch.zeros(b, hq, len(rows), d)
+        k_end = min(q0 + 128, t_pad) if causal else t_pad
+        for k0 in range(0, -(-k_end // 128) * 128, 64):
+            keys = torch.arange(k0, k0 + 64)
+            x = (qf[:, :, rows] @ torch.nn.functional.pad(
+                kf[:, :, k0:k0 + 64], (0, 0, 0, max(0, k0 + 64 - t_pad)))
+                .transpose(-1, -2)) * scale
+            bad = keys[None, :] >= t_pad
+            if causal:
+                bad = bad | (keys[None, :] > rows[:, None])
+            x = x.masked_fill(bad, neg)
+            m_new = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(x <= neg, 0.0, torch.exp2(x - m_new[..., None]))
+            l = l * alpha + p.sum(-1)
+            vt = torch.nn.functional.pad(vf[:, :, k0:k0 + 64],
+                                         (0, 0, 0, max(0, k0 + 64 - t_pad)))
+            o = o * alpha[..., None] + p.bfloat16().float() @ vt
+            m = m_new
+        out[:, :, rows] = o / torch.where(l > 0, l, 1.0)[..., None]
+    return out.transpose(1, 2).bfloat16()
+
+
+# bf16 cases the wgmma route takes (d 64 and 128): the reference's sweep at
+# those dims, GQA groups 1, 2 and 8, ragged s with t < s, non-causal.
+WGMMA_CASES = [((2, 260, 6, 2, 64), 260, True), ((1, 512, 2, 1, 128), 512, True),
+               ((1, 300, 4, 2, 64), 200, True), ((1, 100, 8, 8, 128), 100, True),
+               ((1, 160, 8, 1, 64), 160, True), ((2, 256, 4, 2, 64), 256, False)]
+
+
+@pytest.mark.parametrize("shape,t,causal", WGMMA_CASES)
+def test_wgmma_route_numerics_match_reference(shape, t, causal):
+    """Rounding P to bf16 before P·V (new against the Pallas kernel, which
+    multiplies f32 p by v; the reference's dense and chunked attention round
+    P to the input type too) keeps the route within the reference's bf16
+    tolerance of its oracle and of its Pallas kernel in interpret mode."""
+    b, s, hq, hkv, d = shape
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(b, s, hq, hkv, d, "bf16", 60, t=t)
+    got = _wgmma_route_emulation(tq, tk, tv, causal=causal,
+                                 t_pad=tops.padded_kv_len(t))
+    pallas = jops.flash_attention(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(_np(got), _np(pallas), **KERNEL_TOL["bf16"])
+    if t == s:
+        oracle = jnp.moveaxis(jref.attention_ref(
+            *(jnp.moveaxis(x, 2, 1) for x in (jq, jk, jv)), causal=causal),
+            1, 2)
+        np.testing.assert_allclose(_np(got), _np(oracle), **KERNEL_TOL["bf16"])
+
+
+@pytest.mark.parametrize("s", [1000, 2048])
+def test_wgmma_route_numerics_hold_the_serve_tolerance(s):
+    """At the serve path's head width and lengths the outputs are ~0.03, and
+    the card holds K4 to atol/rtol 8e-3 there (``SERVE_ATTN_BF16_TOL`` in
+    chip_smoke.py): the bf16 P stays within it against the plain version."""
+    (_, q), (_, k), (_, v) = _qkv(1, s, 2, 1, 128, "bf16", 70)
+    tp = tops.padded_kv_len(s)
+    got = _wgmma_route_emulation(q, k, v, causal=True, t_pad=tp)
+    want = tref.flash_attention_bshd_ref(q, k, v, causal=True, t_pad=tp)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=8e-3, atol=8e-3)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_route_by_dtype_and_head_dim(dtype, d):
+    """bf16 at d 64 and 128 takes the wgmma kernel; f32 (wgmma would be
+    TF32) and bf16 at d 16 and 32 the SIMT kernel."""
+    from repro_torch.kernels import flash_attention as tfl
+    want = "wgmma" if dtype == "bf16" and d in (64, 128) else "simt"
+    assert tfl.route(DTYPES[dtype][1], d) == want
+
+
+# (shape, dtype) -> (path, lanes per row, rows per warp, vectors a lane):
+# the reference's sweep, the serve path's norms, and d 64 to 4096.
+RMS_GEOMETRY = [
+    ((4, 64), "f32", ("registers", 16, 2, 1)),
+    ((2, 3, 128), "f32", ("registers", 32, 1, 1)),
+    ((5, 256), "f32", ("registers", 32, 1, 2)),
+    ((1, 512), "f32", ("registers", 32, 1, 4)),
+    ((4, 64), "bf16", ("registers", 8, 4, 1)),
+    ((2, 3, 128), "bf16", ("registers", 16, 2, 1)),
+    ((5, 256), "bf16", ("registers", 32, 1, 1)),
+    ((1, 512), "bf16", ("registers", 32, 1, 2)),
+    ((8192, 1024), "bf16", ("registers", 32, 1, 4)),
+    ((131072, 128), "bf16", ("registers", 16, 2, 1)),
+    ((3, 1024), "f32", ("loop", 32, 1, 0)),
+    ((3, 4096), "bf16", ("loop", 32, 1, 0)),
+    ((3, 4096), "f32", ("loop", 32, 1, 0)),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,want", RMS_GEOMETRY)
+def test_rmsnorm_launch_geometry(shape, dtype, want):
+    """K3 holds a row in registers over min(32, next_pow2(vectors)) lanes,
+    so short rows share a warp; long rows keep a warp each."""
+    from repro_torch.kernels import rmsnorm as trn
+    itemsize = 4 if dtype == "f32" else 2
+    g = trn.geometry(shape[-1], itemsize, True)
+    assert (g["path"], g["lanes_per_row"], g["rows_per_warp"],
+            g["vectors_per_lane"]) == want
+    if g["path"] == "registers":
+        per_lane = 16 // itemsize * g["vectors_per_lane"]
+        assert per_lane * g["lanes_per_row"] >= shape[-1]
+    assert trn.geometry(37, itemsize, False)["path"] == "elements"
