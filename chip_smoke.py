@@ -12,8 +12,8 @@ Phases, one JSON object per line on stdout:
 2. build   — every kernel of the port (K1-K5) compiled from
              ``src/repro_torch/kernels/csrc`` with nvcc (one process each,
              in parallel), with ptxas' report; ``cuobjdump -sass`` counts
-             K4's ``HGMMA`` and ``UTMALDG`` instructions, and the run fails
-             if either is 0;
+             K4's ``HGMMA`` and ``UTMALDG`` instructions and K5's
+             ``HGMMA``, and the run fails if any of those is 0;
 3. check   — each kernel against its plain PyTorch version on the card:
              K1 at the reference's test shapes, the SR leaf shapes and the
              flat lane buffer the round folds (f32 bitwise, bf16 within 1
@@ -28,7 +28,10 @@ Phases, one JSON object per line on stdout:
              misaligned bf16 input must raise;
              K5, y and the final state, over the reference's sweep in f32
              and bf16, at the SSM serve shape in f32 and bf16 and a
-             1,000-row prompt (``SSD_TOL``);
+             1,000-row prompt, and on its wgmma route's bf16 cases (p 64:
+             chunks shorter than 128, GQA groups, n 16 and 40, a prompt
+             shorter than a chunk), each case on the route its dtype and
+             widths name (``SSD_TOL``);
 4. timing  — each kernel, its plain version and, where one exists, one
              library call at the main paths' shapes (CUDA events, best of
              3 interleaved), beside the bytes/ops bound;
@@ -66,7 +69,8 @@ Phases, one JSON object per line on stdout:
              with ``ssd_impl="pallas"``, weights from ``init_params(0)``
              (2.7 B drawn on the CPU), the same traffic as phase 9, with
              the launch counts zeroed just before and read just after: K5
-             exactly 64 launches in the prefill and none in decode; finite
+             exactly 64 launches in the prefill, all on its wgmma route,
+             and none in decode; finite
              logits; the pallas prefill against the chunked one (logits and
              the SSM state of every layer), prefill + decode against
              ``forward`` and a 1,000-token prompt, in bf16
@@ -155,6 +159,12 @@ SSD_SWEEP = [(2, 64, 4, 16, 2, 32, 16), (1, 100, 8, 32, 1, 64, 32),
              (2, 128, 4, 64, 4, 16, 128)]
 SSD_SERVE = (SERVE_BATCH, SERVE_PROMPT, 80, 64, 1, 128, 128)
 SSD_RAGGED = (1, RAGGED_PROMPT, 80, 64, 1, 128, 128)
+# K5's wgmma route (bf16 at p 64) beyond those: a chunk of 32 padded to 128
+# rows, GQA groups with n 64, a prompt shorter than one chunk, jamba's n 16,
+# and n 40 (zero-padded to 64 columns) at chunk 16.
+SSD_WGMMA = [(1, 100, 8, 64, 1, 128, 32), (2, 300, 4, 64, 2, 64, 128),
+             (1, 50, 4, 64, 1, 128, 128), (2, 512, 8, 64, 1, 16, 128),
+             (1, 70, 3, 64, 1, 40, 16)]
 # K5 against its plain version (the same chunk loop, sums in another
 # order).  f32: outputs reach ~30 on the sweep's draws and the f32 sums
 # agree to ~1e-6 of that, so 1e-4 is tight.  bf16: both round the same f32
@@ -287,23 +297,25 @@ def sass_counts(lib: str) -> dict:
             for op in ("HGMMA", "UTMALDG")}
 
 
-def phase_build() -> dict:
+def phase_build() -> tuple[dict, dict]:
     """Builds K1-K5; returns K4's SASS counts, which must show wgmma and
-    TMA loads."""
+    TMA loads, and K5's, which must show wgmma."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     info = build.build_all()
     sass = sass_counts(info["flash_attention"]["path"])
+    sass5 = sass_counts(info["ssd"]["path"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {name: {"seconds": v["seconds"], "cached": v["cached"],
                              "ptxas": [ln.strip() for ln in
                                        v["log"].splitlines()
                                        if "registers" in ln or "spill" in ln]}
                       for name, v in info.items()},
-          "flash_attention_sass": sass})
+          "flash_attention_sass": sass, "ssd_sass": sass5})
     check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
           f"K4's library has no wgmma or no TMA load: {sass}")
-    return sass
+    check(sass5["HGMMA"] > 0, f"K5's library has no wgmma: {sass5}")
+    return sass, sass5
 
 
 def _bf16_ulps(torch, a, b) -> int:
@@ -773,8 +785,10 @@ def _ssd_inputs(torch, shape, dtype, gen, *, model_like: bool):
 
 def phase_check_k5(torch) -> dict:
     """K5 against its plain version, y and the final state: the reference's
-    sweep in f32 and bf16, the serve shape in f32 and bf16, and a ragged
-    1,000-row prompt in bf16 (``SSD_TOL``)."""
+    sweep in f32 and bf16, the serve shape in f32 and bf16, a ragged
+    1,000-row prompt in bf16, and the wgmma route's cases in bf16
+    (``SSD_TOL``).  Every case must take the route its dtype and widths
+    name."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd as k5
     gen = torch.Generator().manual_seed(12)
@@ -783,15 +797,24 @@ def phase_check_k5(torch) -> dict:
     cases += [(SSD_SERVE, torch.float32, True),
               (SSD_SERVE, torch.bfloat16, True),
               (SSD_RAGGED, torch.bfloat16, True)]
+    cases += [(shape, torch.bfloat16, True) for shape in SSD_WGMMA]
     errs = {"float32": 0.0, "bfloat16": 0.0, "state": 0.0}
     magnitude = {"float32": 0.0, "bfloat16": 0.0, "state": 0.0}
+    routes = {"simt": 0, "wgmma": 0}
+    case_routes = []
     for shape, dt, model_like in cases:
         key = str(dt).split(".")[-1]
         args = _ssd_inputs(torch, shape, dt, gen, model_like=model_like)
         s, ck = shape[1], shape[6]
+        path = k5.route(dt, shape[3], shape[5], ck)
         before = k5.LAUNCHES
+        before_route = dict(k5.ROUTE_LAUNCHES)
         y, state = ops.ssd(*args, chunk=ck, return_state=True)
         check(k5.LAUNCHES == before + 1, "K5 did not launch")
+        check(k5.ROUTE_LAUNCHES[path] == before_route[path] + 1,
+              f"K5 {shape} {dt}: did not take the {path} route")
+        routes[path] += 1
+        case_routes.append([list(shape), key, path])
         want_y, want_state = ref.ssd_chunks_ref(*args,
                                                 chunk=ops.ssd_chunk(s, ck))
         torch.cuda.synchronize()
@@ -808,7 +831,8 @@ def phase_check_k5(torch) -> dict:
                   f"K5 {shape} {dt} {k}: max err {err} over {tol}")
     emit({"phase": "check", "kernel": "ssd", "cases": len(cases),
           "tolerance": SSD_TOL, "max_abs_err": errs,
-          "ref_max_abs": magnitude})
+          "ref_max_abs": magnitude, "routes": routes,
+          "case_routes": case_routes})
     return errs
 
 
@@ -1096,6 +1120,7 @@ def phase_serve_ssm(torch) -> dict:
     each bf16 prefill's distance from the f32 one is reported."""
     from dataclasses import replace
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd as k5
     from repro_torch.models import lm
     dev = torch.device("cuda")
     cfg = _ssm_cfg()
@@ -1112,6 +1137,7 @@ def phase_serve_ssm(torch) -> dict:
         torch, lambda: lm.prefill(params, {"tokens": tokens}, cfg,
                                   max_len=SERVE_MAX_LEN))
     after_prefill = ops.launch_counts()
+    routes_prefill = dict(k5.ROUTE_LAUNCHES)
     prefill_peak = torch.cuda.max_memory_allocated()
     prefill_state = _ssm_state(cache).clone()
     generated, step_logits, step_s = [], [logits], []
@@ -1124,6 +1150,12 @@ def phase_serve_ssm(torch) -> dict:
         step_logits.append(lg)
         step_s.append(dt)
     launches = ops.launch_counts()
+    routes_decode = {k: n - routes_prefill[k]
+                     for k, n in k5.ROUTE_LAUNCHES.items()}
+    check(routes_prefill == {"simt": 0, "wgmma": cfg.n_layers},
+          f"K5's prefill launches by route: {routes_prefill}")
+    check(routes_decode == {"simt": 0, "wgmma": 0},
+          f"K5's decode launches by route: {routes_decode}")
     check(after_prefill["ssd"] == cfg.n_layers,
           f"K5 launched {after_prefill['ssd']} times in a prefill of "
           f"{cfg.n_layers} layers")
@@ -1148,7 +1180,9 @@ def phase_serve_ssm(torch) -> dict:
           "prefill_peak_bytes": prefill_peak,
           "launches_prefill": after_prefill,
           "launches_decode": {k: launches[k] - after_prefill[k]
-                              for k in launches}})
+                              for k in launches},
+          "k5_routes_prefill": routes_prefill,
+          "k5_routes_decode": routes_decode})
     main = (logits, prefill_state, step_logits)
     bf16 = _ssm_route_checks(torch, params, cfg, tokens, generated, main,
                              SSM_BF16_TOL)
@@ -1175,6 +1209,7 @@ def phase_serve_ssm(torch) -> dict:
         check(res["ragged_k5_launches"] == cfg.n_layers,
               f"{name} ragged prefill: K5 {res['ragged_k5_launches']}")
     return {"params": params, "tokens": tokens, "launches": after_prefill,
+            "k5_routes_prefill": routes_prefill,
             "prefill_ms": prefill_s * 1e3,
             "decode_ms_per_step": sum(step_s) / len(step_s) * 1e3}
 
@@ -1526,7 +1561,7 @@ def main() -> int:
         return 2
     set_deterministic()
     smi = phase_probe(torch)
-    sass = phase_build()
+    sass, sass5 = phase_build()
     name = torch.cuda.get_device_name(0)
     lanes, n_params = 4, SR_PARAMS       # 2 workers x 2 lanes, SR published
     max_err = phase_check(torch, n_params, lanes)
@@ -1593,6 +1628,7 @@ def main() -> int:
         {**row("ssd", "ssd.cu", "src/repro/kernels/ssd.py:83",
                ssm["launches"]["ssd"], max(err5.values()), timing5),
          "launches_per_prefill": ssm["launches"]["ssd"],
+         "launches_by_route": ssm["k5_routes_prefill"], "sass": sass5,
          "path": "serve SSM (mamba2-2.7b prefill, ssd_impl='pallas')"}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 ``nvcc`` for ``sm_90a`` (``NVCC_FLAGS`` plus the kernel's own flags in
 ``SOURCES``) into ``lib<name>-<digest>.so`` under ``_build/``
 (listed in ``.gitignore``) at first use, then loaded with ``ctypes``.  The
-digest covers the source and the flags, so an edited kernel rebuilds and an
-unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per missing
-library and waits for all of them, so several kernels build in parallel.
+digest covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited kernel rebuilds and an unchanged one is reused.
+:func:`build_all` starts one ``nvcc`` per missing library and waits for
+all of them, so several kernels build in parallel.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc``.
@@ -60,7 +61,8 @@ def _flags(name: str) -> tuple:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / SOURCES[name][0]).read_bytes()
+    src = (CSRC / SOURCES[name][0]).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -24,7 +24,9 @@
 //       and issue the next row's loads before this row's reduction;
 //   * the loop kernel (one warp per row, the row read twice through L1) for
 //     longer rows, and element by element for rows that are no whole number
-//     of vectors or start off 16-byte alignment.
+//     of vectors, or where x, out or the scale starts off 16-byte alignment
+//     (the wrapper's vector_ok decides; a misaligned scale, such as a view
+//     into a packed flat tree, takes the element path and is not copied).
 //
 // Plain C interface, loaded with ctypes; the launcher returns
 // cudaGetLastError() so a refused launch surfaces in the caller.

@@ -27,8 +27,8 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["flash_attention_bshd", "route", "LAUNCHES", "ROUTE_LAUNCHES",
-           "HEAD_DIMS", "WGMMA_HEAD_DIMS"]
+__all__ = ["flash_attention_bshd", "route", "check_tma", "LAUNCHES",
+           "ROUTE_LAUNCHES", "HEAD_DIMS", "WGMMA_HEAD_DIMS"]
 
 # Launches of the CUDA kernels since the last reset (ops.reset_launch_counts):
 # all routes, and by route.
@@ -49,9 +49,10 @@ def route(dtype: torch.dtype, d: int) -> str:
         else "simt"
 
 
-def _check_tma(**tensors) -> None:
-    """The wgmma route reads through TMA: every base address and every
-    stride of a dim longer than 1 must be a multiple of 16 bytes."""
+def check_tma(**tensors) -> None:
+    """The wgmma routes (K4's and K5's) read through TMA: every base
+    address and every stride of a dim longer than 1 must be a multiple of
+    16 bytes."""
     for name, x in tensors.items():
         if x.data_ptr() % _TMA_ALIGN:
             raise ValueError(f"wgmma route: {name} does not start on a "
@@ -120,7 +121,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("the head dim of q, k, v must be contiguous")
     path = route(q.dtype, d)
     if path == "wgmma" and b and s:
-        _check_tma(q=q, k=k, v=v)
+        check_tma(q=q, k=k, v=v)
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     lib = _lib()
     rc = lib.pollen_flash_attention(

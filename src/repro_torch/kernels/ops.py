@@ -46,6 +46,7 @@ def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.LAUNCHES = 0
     _fl.ROUTE_LAUNCHES.update(dict.fromkeys(_fl.ROUTE_LAUNCHES, 0))
+    _ssd.ROUTE_LAUNCHES.update(dict.fromkeys(_ssd.ROUTE_LAUNCHES, 0))
 
 
 def _round_up(x: int, m: int) -> int:

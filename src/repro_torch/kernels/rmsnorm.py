@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["rmsnorm_rows", "geometry", "LAUNCHES"]
+__all__ = ["rmsnorm_rows", "geometry", "vector_ok", "LAUNCHES"]
 
 # Launches of the CUDA kernel since the last reset (ops.reset_launch_counts).
 LAUNCHES = 0
@@ -52,6 +52,16 @@ def geometry(d: int, itemsize: int, vec: bool) -> dict:
                 "vectors_per_lane": 0}
     return {"path": "registers", "lanes_per_row": lanes,
             "rows_per_warp": 32 // lanes, "vectors_per_lane": vecs}
+
+
+def vector_ok(x: torch.Tensor, out: torch.Tensor,
+              scale: torch.Tensor) -> bool:
+    """Whether the vector and register paths may run: a row is whole
+    16-byte vectors and ``x``, ``out`` and ``scale`` all start on a 16-byte
+    boundary (the register path reads ``scale`` as ``float4``s).  Otherwise
+    the kernel takes its element path; nothing is copied."""
+    return (x.shape[-1] * x.element_size()) % _VEC_BYTES == 0 and all(
+        t.data_ptr() % _VEC_BYTES == 0 for t in (x, out, scale))
 
 
 def _lib() -> ctypes.CDLL:
@@ -96,8 +106,7 @@ def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor,
     if d == 0 or d > 2**31 - 1:
         raise ValueError(f"row length {d} out of range")
     out = torch.empty_like(x)
-    vec = int((d * x.element_size()) % _VEC_BYTES == 0 and all(
-        t.data_ptr() % _VEC_BYTES == 0 for t in (x, out)))
+    vec = int(vector_ok(x, out, scale))
     lib = _lib()
     rc = lib.pollen_rmsnorm(x.data_ptr(), scale.data_ptr(), out.data_ptr(),
                             rows, d, float(eps), _DTYPES[x.dtype], vec,

@@ -1,13 +1,19 @@
 """K5 — Mamba-2's chunked SSD as a hand-written CUDA kernel.
 
-Replaces ``repro/kernels/ssd.py:83 ssd_bhsp`` (Pallas, TPU).  The kernel
-lives in ``csrc/ssd.cu``; this module binds it with ctypes, checks its
-inputs and counts its launches.  One block runs one (batch, head) over
-every chunk with the ``[p, n]`` state in registers; it reads the model
-layout (``x [b, s, h, p]``, ``B``/``C`` ``[b, s, g, n]``) through strides
-and masks the ragged tail from the true ``s``, so nothing is transposed or
-padded.  It is bound by device memory at the serve shape; this first
-version runs SIMT f32 FMAs.  See the source for the design.
+Replaces ``repro/kernels/ssd.py:83 ssd_bhsp`` (Pallas, TPU).  The kernels
+live in ``csrc/ssd.cu``; this module binds them with ctypes, checks their
+inputs and counts their launches.  One block runs one (batch, head) over
+every chunk with the ``[p, n]`` state on chip; it reads the model layout
+(``x [b, s, h, p]``, ``B``/``C`` ``[b, s, g, n]``) through strides and
+masks the ragged tail from the true ``s``, so nothing is transposed or
+padded in memory.  Two routes, chosen by :func:`route` before any launch:
+bf16 at head dim 64 (any state width that is whole 16-byte rows, any
+chunk) takes the ``"wgmma"`` kernel (tensor-core products from bf16
+operands, the f32 operands as hi + lo bf16 pairs, chunk tiles loaded by
+TMA one chunk ahead); f32 (``wgmma`` would be TF32) and bf16 at
+other head dims take the ``"simt"`` kernel (f32 FMAs).  A bf16 input that
+the ``wgmma`` route cannot address raises; it does not move to the other
+route.  See the source for the designs.
 
 Use :func:`repro_torch.kernels.ops.ssd`, which routes CPU tensors to the
 plain version :func:`repro_torch.kernels.ref.ssd_chunks_ref`.
@@ -20,14 +26,30 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import check_tma
 
-__all__ = ["ssd_bshp", "LAUNCHES"]
+__all__ = ["ssd_bshp", "route", "LAUNCHES", "ROUTE_LAUNCHES"]
 
-# Launches of the CUDA kernel since the last reset (ops.reset_launch_counts).
+# Launches of the CUDA kernels since the last reset (ops.reset_launch_counts):
+# all routes, and by route.
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"simt": 0, "wgmma": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
+WGMMA_HEAD_DIM = 64                 # bf16 at this head dim takes wgmma
+
+
+def route(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
+    """The kernel a call of this dtype, head dim ``p``, state width ``n``
+    and chunk launches: ``"wgmma"`` for bf16 at ``p`` = 64 with ``n`` a
+    multiple of 8 (whole 16-byte rows), else ``"simt"`` (the rule of
+    ``pollen_ssd_route`` in the source).  Every chunk up to
+    :data:`MAX_CHUNK` takes the route its dtype and widths name: the
+    ``wgmma`` kernel pads a chunk to 128 rows with zeros."""
+    del chunk
+    return "wgmma" if (dtype == torch.bfloat16 and p == WGMMA_HEAD_DIM
+                       and n % 8 == 0) else "simt"
 
 
 def _lib() -> ctypes.CDLL:
@@ -38,6 +60,8 @@ def _lib() -> ctypes.CDLL:
         lib.pollen_ssd.restype = ctypes.c_int
         lib.pollen_ssd_error_string.argtypes = [ctypes.c_int]
         lib.pollen_ssd_error_string.restype = ctypes.c_char_p
+        lib.pollen_ssd_route.argtypes = [i] * 4
+        lib.pollen_ssd_route.restype = i
         lib._pollen_bound = True
     return lib
 
@@ -53,7 +77,9 @@ def ssd_bshp(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     ``chunk <= 128``; ``h`` a multiple of ``g``.  Chunks start at multiples
     of ``chunk``, and rows at or past ``s`` count as zeros.  Returns ``y``, a
     new contiguous ``[b, s, h, p]`` tensor of x's dtype, and with
-    ``want_state`` also the final state, ``[b, h, p, n]`` f32.
+    ``want_state`` also the final state, ``[b, h, p, n]`` f32.  On the
+    ``wgmma`` route every base and stride of x, B and C must be a multiple
+    of 16 bytes.
     """
     global LAUNCHES
     if x.device.type != "cuda":
@@ -92,6 +118,9 @@ def ssd_bshp(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         raise ValueError("all inputs must be on one device")
     if any(t.stride(-1) != 1 for t in (x, B, C)):
         raise ValueError("the last dim of x, B and C must be contiguous")
+    path = route(x.dtype, p, n, chunk)
+    if path == "wgmma" and b:
+        check_tma(x=x, B=B, C=C)
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     state = (torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
              if want_state else None)
@@ -108,4 +137,5 @@ def ssd_bshp(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         raise RuntimeError(f"ssd launch failed: {msg} ({rc})")
     if b:                                 # an empty batch launches nothing
         LAUNCHES += 1
+        ROUTE_LAUNCHES[path] += 1
     return (y, state) if want_state else y

@@ -278,6 +278,26 @@ def test_rmsnorm_kernel_scalar_path_and_checks(dev):
                          torch.ones(8, device=dev), 1e-6)
 
 
+@pytest.mark.parametrize("rows,d,dtype", [
+    (1, 32, torch.bfloat16), (1, 32, torch.float32),
+    (8192, 1024, torch.bfloat16), (8192, 1024, torch.float32)])
+def test_rmsnorm_kernel_misaligned_scale(dev, rows, d, dtype):
+    """A scale one f32 off a 16-byte boundary (a view into a packed flat
+    tree) takes the element path and equals the plain version, as the
+    reference's kernel does for any scale."""
+    from repro_torch.kernels import rmsnorm as trn
+    x = _rand((rows, d), dtype, dev, 37)
+    for scale in (torch.ones(d + 1, device=dev)[1:],
+                  _rand((d + 1,), torch.float32, dev, 38)[1:]):
+        assert scale.data_ptr() % 16 == 4
+        assert not trn.vector_ok(x, x, scale)
+        tops.reset_launch_counts()
+        got = tops.rmsnorm(x, scale)
+        torch.cuda.synchronize()
+        assert tops.launch_counts()["rmsnorm"] == 1
+        assert _close(got, tref.rmsnorm_ref(x, scale), dtype)
+
+
 @pytest.mark.parametrize("b,s,hq,hkv,d", ATTN)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(dev, b, s, hq, hkv, d, dtype):
@@ -515,6 +535,24 @@ def _ssd_inputs(b, s, h, p, g, n, dtype, dev, seed):
             B.to(dtype).to(dev), C.to(dtype).to(dev), D.to(dev))
 
 
+def _ssd_model_inputs(b, s, h, p, g, n, dtype, dev, seed):
+    """The mixer's magnitudes at mamba2-2.7b's widths (chip_smoke.py's
+    model-like draws): dt = softplus(normal/2 + the init's dt_bias row),
+    A_log = log(linspace(1, 16, h)), D = 1, x of SiLU-sized magnitude."""
+    import math
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, s, h, p, generator=gen) * 0.5
+    B = torch.randn(b, s, g, n, generator=gen) * 0.5
+    C = torch.randn(b, s, g, n, generator=gen) * 0.5
+    dt_bias = torch.log(torch.expm1(torch.exp(torch.linspace(
+        math.log(1e-3), math.log(1e-1), h))))
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=gen) * 0.5 + dt_bias)
+    A_log = torch.log(torch.linspace(1.0, 16.0, h))
+    return (x.to(dtype).to(dev), dt.to(dev), A_log.to(dev),
+            B.to(dtype).to(dev), C.to(dtype).to(dev), torch.ones(h).to(dev))
+
+
 def _close_tol(got, want, rtol, atol):
     g, w = got.float(), want.float()
     return bool(((g - w).abs() <= atol + rtol * w.abs()).all())
@@ -564,6 +602,92 @@ def test_ssd_kernel_reads_strided_inputs(dev):
     with pytest.raises(ValueError, match="contiguous"):
         tssd.ssd_bshp(x.transpose(2, 3).contiguous().transpose(2, 3), dt,
                       A_log, B, C, D, chunk=32)
+
+
+# K5's wgmma route (bf16 at p 64): the sweep's p-64 case, a chunk of 32
+# padded to 128 rows, GQA groups, a prompt shorter than one chunk, the
+# ragged prompt and the serve shape at mamba2-2.7b's widths, jamba's n 16,
+# and an n of 40 (zero-padded to 64 columns) at chunk 16.
+SSD_WGMMA = [(2, 128, 4, 64, 4, 16, 128), (1, 100, 8, 64, 1, 128, 32),
+             (2, 300, 4, 64, 2, 64, 128), (1, 50, 4, 64, 1, 128, 128),
+             (1, 1000, 80, 64, 1, 128, 128), (4, 2048, 80, 64, 1, 128, 128),
+             (2, 512, 8, 64, 1, 16, 128), (1, 70, 3, 64, 1, 40, 16)]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,ck", SSD + SSD_WGMMA)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_routes_match_plain(dev, b, s, h, p, g, n, ck, dtype):
+    """Each case launches the route its dtype and widths name (read from
+    ROUTE_LAUNCHES), within the tolerances against the plain chunk loop;
+    without the state it gives the same y.  At mamba2-2.7b's widths (80
+    heads) the inputs have the mixer's magnitudes, as on the serve path."""
+    from repro_torch.kernels import ssd as tssd
+    draw = _ssd_model_inputs if h == 80 else _ssd_inputs
+    args = draw(b, s, h, p, g, n, dtype, dev, 39)
+    want_route = tssd.route(dtype, p, n, ck)
+    tops.reset_launch_counts()
+    y, state = tops.ssd(*args, chunk=ck, return_state=True)
+    torch.cuda.synchronize()
+    assert tssd.ROUTE_LAUNCHES == {"simt": 0, "wgmma": 0, want_route: 1}
+    want_y, want_state = tref.ssd_chunks_ref(*args,
+                                             chunk=tops.ssd_chunk(s, ck))
+    assert _close_tol(y, want_y, **SSD_TOL[dtype])
+    assert _close_tol(state, want_state, **SSD_TOL[torch.float32])
+    assert torch.equal(tops.ssd(*args, chunk=ck), y)
+    assert tssd.ROUTE_LAUNCHES[want_route] == 2
+
+
+def test_ssd_route_by_dtype_and_widths_on_card(dev):
+    """The library's own route rule equals the wrapper's."""
+    from repro_torch.kernels import ssd as tssd
+    lib = tssd._lib()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for p, n in ((16, 32), (32, 64), (64, 16), (64, 40), (64, 128),
+                     (64, 12)):
+            for ck in (16, 104, 128):
+                assert lib.pollen_ssd_route(code, p, n, ck) == \
+                    (tssd.route(dtype, p, n, ck) == "wgmma")
+
+
+def test_ssd_wgmma_route_reads_strided_inputs(dev):
+    """On the wgmma route, x, B and C as views into one conv-output buffer
+    (the mixer's layout) equal the contiguous ones, bit for bit."""
+    from repro_torch.kernels import ssd as tssd
+    b, s, h, p, g, n = 2, 150, 4, 64, 1, 128
+    xbc = _rand((b, s, h * p + 2 * g * n), torch.bfloat16, dev, 40)
+    x = xbc[..., :h * p].view(b, s, h, p)
+    B = xbc[..., h * p:h * p + g * n].view(b, s, g, n)
+    C = xbc[..., h * p + g * n:].view(b, s, g, n)
+    assert not x.is_contiguous()
+    _, dt, A_log, _, _, D = _ssd_inputs(b, s, h, p, g, n, torch.bfloat16,
+                                        dev, 41)
+    tops.reset_launch_counts()
+    got = tssd.ssd_bshp(x, dt, A_log, B, C, D, chunk=128, want_state=True)
+    want = tssd.ssd_bshp(x.contiguous(), dt, A_log, B.contiguous(),
+                         C.contiguous(), D, chunk=128, want_state=True)
+    torch.cuda.synchronize()
+    assert tssd.ROUTE_LAUNCHES == {"simt": 0, "wgmma": 2}
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_ssd_wgmma_route_refuses_misaligned_strides(dev):
+    """A bf16 input whose base or stride the 16-byte copies cannot address
+    raises, and nothing launches: it does not move to the SIMT kernel."""
+    from repro_torch.kernels import ssd as tssd
+    b, s, h, p, g, n = 1, 64, 2, 64, 1, 16
+    x, dt, A_log, B, C, D = _ssd_inputs(b, s, h, p, g, n, torch.bfloat16,
+                                        dev, 42)
+    wide = _rand((b, s, h * p + 4), torch.bfloat16, dev, 43)
+    x_wide = wide[..., :h * p].view(b, s, h, p)      # row stride 264 bf16
+    shifted = _rand((b * s * h * p + 1,), torch.bfloat16, dev, 44)[1:]
+    x_shifted = shifted.view(b, s, h, p)             # base 2 bytes off
+    tops.reset_launch_counts()
+    with pytest.raises(ValueError, match="stride"):
+        tssd.ssd_bshp(x_wide, dt, A_log, B, C, D, chunk=64)
+    with pytest.raises(ValueError, match="boundary"):
+        tssd.ssd_bshp(x_shifted, dt, A_log, B, C, D, chunk=64)
+    assert tssd.LAUNCHES == 0
+    assert tssd.ROUTE_LAUNCHES == {"simt": 0, "wgmma": 0}
 
 
 def test_mamba_mixer_routes_launch_k5(dev):

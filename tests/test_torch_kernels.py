@@ -153,6 +153,29 @@ def test_rmsnorm_plain_matches_reference(shape, dtype):
                                **KERNEL_TOL[dtype])
 
 
+@pytest.mark.parametrize("which", ["x", "out", "scale"])
+@pytest.mark.parametrize("offset", [0, 4, 8, 12])
+def test_rmsnorm_vector_paths_need_all_three_aligned(which, offset):
+    """K3's vector and register paths run only where x, out and the scale
+    all start on a 16-byte boundary (the register path reads the scale as
+    float4s); a row that is no whole number of vectors never takes them."""
+    from repro_torch.kernels import rmsnorm as trn
+    d = 32
+
+    def at(k):
+        """A [d] f32 view whose base is k bytes past a 16-byte boundary."""
+        base = torch.zeros(d + 4)
+        skip = (k - base.data_ptr()) % 16 // 4
+        return base[skip:skip + d]
+
+    views = {name: at(offset if name == which else 0)
+             for name in ("x", "out", "scale")}
+    assert views[which].data_ptr() % 16 == offset
+    x, out = views["x"].view(1, d), views["out"].view(1, d)
+    assert trn.vector_ok(x, out, views["scale"]) == (offset == 0)
+    assert not trn.vector_ok(x[:, :30], out[:, :30], views["scale"][:30])
+
+
 # -- K4 (flash attention) -----------------------------------------------------
 def _qkv(b, s, hq, hkv, d, dtype, seed, t=None):
     t = s if t is None else t

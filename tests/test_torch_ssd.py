@@ -136,6 +136,117 @@ def test_ssd_chunk_is_the_reference_wrappers():
         tops.ssd(*(a.to("meta") for a in t))
 
 
+# -- K5's wgmma route: its rounding, emulated ---------------------------------
+# (b, s, h, p, g, n, chunk): the sweep, a ragged 1,000-row prompt at
+# mamba2-2.7b's widths with 8 heads, and jamba's widths (p 64, n 16).
+WGMMA_SSD = SWEEP + [(1, 1000, 8, 64, 1, 128, 128), (1, 300, 8, 64, 2, 16, 128)]
+# K5 on the card against its plain version (chip_smoke.py's SSD_TOL): y
+# within one bf16 step (rtol 8e-3, atol 1e-3), the f32 state within 1e-4.
+ROUTE_TOL = {"y": dict(rtol=8e-3, atol=1e-3), "state": dict(rtol=1e-4,
+                                                            atol=1e-4)}
+
+
+def _bf16_pair(v):
+    """``v`` as hi + lo bf16 values: hi = bf16(v), lo = bf16(v - hi)."""
+    hi = v.bfloat16().float()
+    return hi, (v - hi).bfloat16().float()
+
+
+def _wgmma_route_emulation(x, dt, A_log, B, C, D, *, chunk,
+                           single=frozenset()):
+    """The bf16 tensor-core route of K5 step by step in plain torch, rounding
+    where the kernel rounds: C B^T from the bf16 inputs with f32 sums; W =
+    C B^T exp(la_i - la_j) dt_j in f32, then as a hi + lo bf16 pair against
+    bf16 x; the f32 state as a hi + lo pair against bf16 C; V = exp(la_last
+    - la_j) dt_j x_j as a pair against bf16 B; every product summed in f32.
+    The operands named in ``single`` ("w", "state", "v") are rounded to
+    bf16 once instead.  Returns ``(y`` in x's dtype, the final state f32)."""
+    def parts(name, v):
+        return (v.bfloat16().float(),) if name in single else _bf16_pair(v)
+
+    b, s, h, p = x.shape
+    hpg = h // B.shape[2]
+    A = -torch.exp(A_log.float())
+    xf = x.float()
+    Bh = torch.repeat_interleave(B.float(), hpg, dim=2)
+    Ch = torch.repeat_interleave(C.float(), hpg, dim=2)
+    state = torch.zeros((b, h, p, B.shape[3]))
+    ys = []
+    for t0 in range(0, s, chunk):
+        sl = slice(t0, min(t0 + chunk, s))
+        xc, dtc, Bc, Cc = xf[:, sl], dt[:, sl].float(), Bh[:, sl], Ch[:, sl]
+        q = xc.shape[1]
+        la = torch.cumsum(dtc * A, dim=1)                  # [b,q,h]
+        lah = la.transpose(1, 2)
+        mask = torch.tril(torch.ones((q, q), dtype=torch.bool))
+        ldiff = torch.where(mask, lah[..., :, None] - lah[..., None, :], 0.0)
+        w = torch.where(mask, torch.einsum("bihn,bjhn->bhij", Cc, Bc)
+                        * torch.exp(ldiff)
+                        * dtc.transpose(1, 2)[..., None, :], 0.0)
+        y = torch.exp(la)[..., None] * sum(
+            torch.einsum("bihn,bhpn->bihp", Cc, part)
+            for part in parts("state", state))
+        y = y + sum(torch.einsum("bhij,bjhp->bihp", part, xc)
+                    for part in parts("w", w))
+        ys.append(y + xc * D.float()[None, None, :, None])
+        la_last = la[:, -1]
+        v = (torch.exp(la_last[:, None] - la) * dtc)[..., None] * xc
+        state = state * torch.exp(la_last)[..., None, None] + sum(
+            torch.einsum("bjhp,bjhn->bhpn", part, Bc)
+            for part in parts("v", v))
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+def _close_at(got, want, rtol, atol):
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= atol + rtol * w.abs()).all())
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,ck", WGMMA_SSD)
+def test_wgmma_route_numerics_match_reference(b, s, h, p, g, n, ck):
+    """Rounding W, the state and V to bf16 pairs (new against the Pallas
+    kernel, which multiplies f32 operands) keeps y within one bf16 step of
+    the plain version and the state within 1e-4, the card's tolerances;
+    y also within the reference's bf16 tolerance of its Pallas kernel in
+    interpret mode."""
+    j, t = _ssd_inputs(b, s, h, p, g, n, seed=7 * s + n, dtype="bfloat16")
+    ck = tops.ssd_chunk(s, ck)
+    got_y, got_state = _wgmma_route_emulation(*t, chunk=ck)
+    want_y, want_state = tref.ssd_chunks_ref(*t, chunk=ck)
+    assert got_y.dtype == torch.bfloat16
+    assert _close_at(got_y, want_y, **ROUTE_TOL["y"])
+    assert _close_at(got_state, want_state, **ROUTE_TOL["state"])
+    np.testing.assert_allclose(_np(got_y), _np(jops.ssd(*j, chunk=ck)),
+                               **KTOL["bfloat16"])
+
+
+@pytest.mark.parametrize("single,key", [("w", "y"), ("state", "y"),
+                                        ("v", "state")])
+def test_wgmma_route_needs_each_bf16_pair(single, key):
+    """Why the route pays two wgmmas per f32 operand: with one bf16
+    rounding of W or of the state (in C S^T) instead of a hi + lo pair, y
+    misses its tolerance; with one of V, the final state misses 1e-4."""
+    b, s, h, p, g, n, ck = SWEEP[1]                  # 4 chunks carry a state
+    _, t = _ssd_inputs(b, s, h, p, g, n, seed=7 * s + n, dtype="bfloat16")
+    got = dict(zip(("y", "state"), _wgmma_route_emulation(
+        *t, chunk=ck, single={single})))
+    want = dict(zip(("y", "state"), tref.ssd_chunks_ref(*t, chunk=ck)))
+    assert not _close_at(got[key], want[key], **ROUTE_TOL[key])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,n", [(16, 32), (32, 64), (64, 16), (64, 64),
+                                 (64, 128), (64, 12)])
+def test_ssd_route_by_dtype_and_widths(dtype, p, n):
+    """bf16 at head dim 64 with whole 16-byte state rows (mamba2-2.7b's n
+    128, jamba's n 16) takes the wgmma kernel at every chunk; f32 (wgmma
+    would be TF32) and bf16 at other widths the SIMT kernel."""
+    from repro_torch.kernels import ssd as k5
+    want = "wgmma" if dtype == torch.bfloat16 and p == 64 and n % 8 == 0 \
+        else "simt"
+    assert {k5.route(dtype, p, n, ck) for ck in (8, 32, 104, 128)} == {want}
+
+
 # -- models/ssd.py ------------------------------------------------------------
 def test_ssd_recurrent_matches_reference():
     j, t = _ssd_inputs(2, 20, 4, 16, 2, 8, seed=11)
