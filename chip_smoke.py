@@ -81,7 +81,37 @@ Phases, one JSON object per line on stdout:
              share);
 12. agree SSM — the reduced mamba2-2.7b serve path on the card against the
              same on the CPU (``AGREE_LM_TOL``);
-13. the ``kernels`` line (K1-K5), then the card line and the last line
+13. train LM — federated LM training through the CLI,
+             ``main(["--arch", A, "--preset", "fl100m", ...])`` for
+             qwen3-0.6b (3 rounds) and mamba2-2.7b (2 rounds) at depth 1,
+             then depth 0, from the same seed, the launch counts zeroed
+             just before each run and read just after: finite losses,
+             bit-identical across depths, K1 exactly once per lane-loop
+             step; ``exec_time`` per round;
+14. train LM mesh — the same qwen3 with ``--workers 4 --mesh-workers 2
+             --combine-mode tree --combine-compress int8``, 2 rounds at
+             depths 1 and 0: bit-identical losses, K2 once per live shard
+             per round over the LM's leaf table, K1 once per worker-program
+             step, ``combine_bytes_per_round`` 2 × the int8 payload;
+15. train LM full width — qwen3-0.6b at its published widths (596,180,992
+             params from ``init_params(0)``) in f32 through
+             ``build_engine(lm_cfg=..., preset="fl100m")``: batches of 8 ×
+             256 tokens, cohort 4 on 1 worker × 2 lanes, ``steps_cap`` 4
+             (no padded step), 2 rounds at depths 1 and 0 (cut to size:
+             f32 where bf16 is published, 2 lanes, 2 rounds): finite,
+             bit-identical losses, K1 once per step over ``[2,
+             596,180,992]`` f32, peak device memory, ``exec_time`` and its
+             time per real lane step, a profiled round (device busy, idle
+             share, top kernels, K1's share); then K1 at that shape
+             against its plain version (bitwise) and timed with
+             ``torch.lerp`` beside the bound, and K2 on the fl100m
+             payload's fold (bitwise, timed);
+16. agree train — a reduced qwen3-0.6b training engine, 2 rounds on the
+             card against the same on the CPU: losses within
+             ``AGREE_TRAIN_RTOL``, the final params leaf by leaf within
+             ``AGREE_TRAIN_PARAMS``, and the initial params outside it;
+17. the ``kernels`` line (K1-K5; K1's and K2's launches on the LM training
+   paths beside the main ones), then the card line and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no last
@@ -185,6 +215,27 @@ SSD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
 # from the f32 one is reported beside them.
 SSM_F32_TOL = dict(atol=1e-3, rtol=1e-3)
 SSM_BF16_TOL = dict(atol=0.5, rtol=0.05)
+# Federated LM training (--arch, f32 as the reference trains): the
+# reference's fl100m preset through the CLI (qwen3 for 3 rounds, mamba2 for
+# 2, its default cohort 8 over 2 workers x 2 lanes), the mesh path with
+# int8 shard uploads (4 workers over 2 shards), and qwen3-0.6b at its
+# published widths through the same builder at the fl100m preset's "lm"
+# batches of 8 x 256 tokens, cohort 4 on 1 worker x 2 lanes, 4 local steps
+# a client: 2 clients a lane fill the S = 8 bucket with no padded step.
+LM_TRAIN = (("qwen3-0.6b", 3), ("mamba2-2.7b", 2))
+LM_MESH_ARGS = ["--workers", "4", "--mesh-workers", "2", "--combine-mode",
+                "tree", "--combine-compress", "int8"]
+LM_MESH_ROUNDS = 2
+FULL = dict(preset="fl100m", cohort=4, workers=1, concurrency=2,
+            steps_cap=4, seed=0)
+FULL_ROUNDS = 2
+# Card vs CPU on a reduced LM engine: the same math, GEMM and reduction
+# sums in another order, over 2 rounds of SGD.  The final params are held
+# leaf by leaf at the tolerance the CPU tests hold the port's engine to
+# against the reference's; the initial params must fail that check (a
+# round that left them unchanged could not pass).
+AGREE_TRAIN_RTOL = 1e-6
+AGREE_TRAIN_PARAMS = dict(rtol=1e-4, atol=1e-6)
 
 
 def emit(obj) -> None:
@@ -1315,7 +1366,8 @@ def phase_agree_lm(torch, arch: str, **impl) -> dict:
 
 
 def _finite_params(torch, eng) -> None:
-    for k, v in eng.params.items():
+    from repro_torch.kernels.layout import flatten_tree
+    for k, v in flatten_tree(eng.params).items():
         check(bool(torch.isfinite(v).all()), f"param {k} not finite")
 
 
@@ -1548,6 +1600,329 @@ def phase_profile(torch, out_dir: str, label: str, **kw) -> None:
                        for us, k, n in host[:8]]})
 
 
+def _lm_shapes(cfg) -> dict:
+    """``{path: shape}`` of an LM config's parameters (nothing drawn)."""
+    from repro_torch.kernels.layout import flatten_tree
+    from repro_torch.models import lm
+    return flatten_tree(lm.param_shapes(cfg))
+
+
+def _lm_cli(torch, argv: list, depth: int):
+    """One run of the training CLI (``repro_torch.launch.train.main``) at
+    ``depth``: its summary, per-round history and the launch counts,
+    zeroed just before the run and read just after."""
+    import contextlib
+    import gc
+    import io
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "metrics.json"
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = train.main(argv + ["--pipeline-depth", str(depth),
+                                    "--metrics-out", str(path)])
+        launches = ops.launch_counts()
+        rec = json.loads(path.read_text())
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(rc == 0, f"{argv}: exit {rc}")
+    check(rec["summary"]["kernel_launches"] == launches,
+          f"{argv}: the summary's launches {rec['summary']} != {launches}")
+    return rec["summary"], rec["history"], launches
+
+
+def _mean_exec(hist) -> float:
+    """Mean ``exec_time`` of the rounds after the first (round 0 pays for
+    first-call allocations)."""
+    later = [h["exec_time"] for h in hist[1:]] or [hist[0]["exec_time"]]
+    return sum(later) / len(later)
+
+
+def phase_train_lm(torch) -> dict:
+    """``--arch ... --preset fl100m`` through the CLI at depths 1 and 0:
+    finite losses, bit-identical across depths, K1 once per lane-loop
+    step."""
+    from repro_torch.launch.train import lm_config
+    out = {}
+    for arch, rounds in LM_TRAIN:
+        argv = ["--arch", arch, "--preset", "fl100m", "--rounds", str(rounds)]
+        runs = {}
+        for depth in (1, 0):
+            _, hist, launches = _lm_cli(torch, argv, depth)
+            losses = [h["loss"] for h in hist]
+            steps = sum(h["s_steps"] for h in hist)
+            for h in hist:
+                emit({"phase": "train_lm", "arch": arch, "depth": depth,
+                      "round": h["round_idx"], "loss": h["loss"],
+                      "s_steps": h["s_steps"], "exec_time": h["exec_time"],
+                      "wall_time": h["wall_time"],
+                      "pack_time": h["pack_time"],
+                      "overlap": h["overlap_fraction"]})
+            check(len(losses) == rounds
+                  and all(math.isfinite(x) for x in losses),
+                  f"{arch} fl100m depth {depth}: losses {losses}")
+            check(launches["fedavg_accum"] == steps > 0,
+                  f"{arch} fl100m depth {depth}: K1 launched "
+                  f"{launches['fedavg_accum']} times for {steps} steps")
+            runs[depth] = (losses, launches, hist)
+        check(runs[1][0] == runs[0][0],
+              f"{arch}: depth 1 and 0 losses differ: {runs[1][0]} vs "
+              f"{runs[0][0]}")
+        cfg, seq_len, batch = lm_config(arch, "fl100m")
+        shapes = _lm_shapes(cfg)
+        hist = runs[1][2]
+        out[arch] = {"launches": runs[1][1]["fedavg_accum"],
+                     "launches_depth0": runs[0][1]["fedavg_accum"],
+                     "mean_exec_s": _mean_exec(hist)}
+        emit({"phase": "train_lm_summary", "arch": arch, "preset": "fl100m",
+              "rounds": rounds, "losses": runs[1][0],
+              "bit_identical_depth_0_1": True,
+              "n_params": sum(math.prod(s) for s in shapes.values()),
+              "n_leaves": len(shapes), "seq_len": seq_len, "batch": batch,
+              "lanes": 4, "s_steps": [h["s_steps"] for h in hist],
+              "exec_time": [h["exec_time"] for h in hist],
+              "launches_depth1": runs[1][1], "launches_depth0": runs[0][1],
+              **out[arch]})
+    return out
+
+
+def phase_train_lm_mesh(torch) -> dict:
+    """The fl100m qwen3 on the mesh path (4 workers over 2 shards, tree
+    combine, int8 uploads) at depths 1 and 0: bit-identical losses, K2
+    once per live shard per round over the LM's leaf table, K1 once per
+    worker-program step."""
+    from repro_torch.launch.train import lm_config
+    argv = (["--arch", SERVE_ARCH, "--preset", "fl100m", "--rounds",
+             str(LM_MESH_ROUNDS)] + LM_MESH_ARGS)
+    shapes = _lm_shapes(lm_config(SERVE_ARCH, "fl100m")[0])
+    payload = sum(math.prod(s) for s in shapes.values()) + 4 * len(shapes) \
+        + 8                                  # int8 body, scales, 2 scalars
+    shards, workers = 2, 4
+    runs = {}
+    for depth in (1, 0):
+        summary, hist, launches = _lm_cli(torch, argv, depth)
+        for h in hist:
+            emit({"phase": "train_lm_mesh", "depth": depth,
+                  "round": h["round_idx"], "loss": h["loss"],
+                  "s_steps": h["s_steps"], "exec_time": h["exec_time"],
+                  "wall_time": h["wall_time"],
+                  "combine_bytes": h["combine_bytes"],
+                  "residual_norm": h["residual_norm"]})
+        losses = [h["loss"] for h in hist]
+        check(all(math.isfinite(x) for x in losses),
+              f"LM mesh depth {depth}: losses {losses}")
+        check(launches["dequant_merge"] == shards * LM_MESH_ROUNDS,
+              f"LM mesh: K2 launched {launches}, want {shards} a round")
+        steps = workers * sum(h["s_steps"] for h in hist)
+        check(launches["fedavg_accum"] == steps,
+              f"LM mesh: K1 launched {launches['fedavg_accum']} times for "
+              f"{steps} worker-program steps")
+        check(summary["combine_bytes_per_round"] == shards * payload,
+              f"LM mesh: combine_bytes {summary['combine_bytes_per_round']}"
+              f" != {shards} x {payload}")
+        runs[depth] = (losses, launches, hist, summary)
+    check(runs[1][0] == runs[0][0], f"LM mesh: depth 1 and 0 losses "
+                                    f"differ: {runs[1][0]} vs {runs[0][0]}")
+    hist = runs[1][2]
+    out = {"launches": runs[1][1], "mean_exec_s": _mean_exec(hist),
+           "combine_bytes_per_round": runs[1][3]["combine_bytes_per_round"]}
+    emit({"phase": "train_lm_mesh_summary", "arch": SERVE_ARCH,
+          "preset": "fl100m", "rounds": LM_MESH_ROUNDS, "losses": runs[1][0],
+          "bit_identical_depth_0_1": True, "leaves": len(shapes),
+          "payload_bytes": payload,
+          "exec_time": [h["exec_time"] for h in hist],
+          "launches_depth0": runs[0][1], **out})
+    return out
+
+
+def phase_train_full(torch) -> dict:
+    """qwen3-0.6b at its published widths in f32 through ``build_engine``
+    (``lm_cfg``): 2 rounds at depths 1 and 0, bit-identical losses, K1
+    once per step over the ``[2, 596,180,992]`` lane buffer; peak memory,
+    ``exec_time``, and a profiled third round at depth 1."""
+    import gc
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.layout import flatten_tree
+    from repro_torch.launch.train import PRESETS, build_engine
+    cfg = replace(get_arch(SERVE_ARCH), dtype="float32")
+    lanes = FULL["workers"] * FULL["concurrency"]
+    runs, prof = {}, None
+    for depth in (1, 0):
+        t0 = time.perf_counter()
+        eng = build_engine(lm_cfg=cfg, pipeline_depth=depth, **FULL)
+        build_s = time.perf_counter() - t0
+        n = sum(v.numel() for v in flatten_tree(eng.params).values())
+        check(n == SERVE_PARAMS, f"qwen3-0.6b has {n} params")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res = eng.run(FULL_ROUNDS)
+        launches = ops.launch_counts()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        for r in res:
+            emit({"phase": "train_full", "depth": depth,
+                  "round": r.round_idx, "loss": r.loss, "s_steps": r.s_steps,
+                  "padded_steps": r.padded_steps,
+                  "exec_time": r.exec_time, "wall_time": r.wall_time,
+                  "pack_time": r.pack_time, "overlap": r.overlap_fraction})
+        losses = [r.loss for r in res]
+        steps = sum(r.s_steps for r in res)
+        real = lanes * steps - sum(r.padded_steps for r in res)
+        check(all(math.isfinite(x) for x in losses),
+              f"full width depth {depth}: losses {losses}")
+        check(launches["fedavg_accum"] == steps,
+              f"full width: K1 launched {launches['fedavg_accum']} times "
+              f"for {steps} steps")
+        _finite_params(torch, eng)
+        if depth == 1:
+            prof = _device_profile(torch, lambda: eng.run(1), label="k1",
+                                   match="fedavg", top=12)
+            emit({"phase": "train_full_profile", "rounds": 1, **prof})
+        runs[depth] = {"losses": losses, "launches": launches["fedavg_accum"],
+                       "steps": steps, "real_lane_steps": real,
+                       "peak_bytes": peak,
+                       "exec_time": [r.exec_time for r in res],
+                       "wall_time": [r.wall_time for r in res],
+                       "build_s": build_s}
+        del eng, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(runs[1]["losses"] == runs[0]["losses"],
+          f"full width: depth 1 and 0 losses differ: {runs[1]['losses']} "
+          f"vs {runs[0]['losses']}")
+    out = {"launches": runs[1]["launches"], "k1_shape": [lanes, SERVE_PARAMS],
+           "peak_gb": runs[1]["peak_bytes"] / 1e9,
+           "mean_exec_s": sum(runs[1]["exec_time"]) / FULL_ROUNDS,
+           "exec_s_per_real_lane_step": (sum(runs[1]["exec_time"])
+                                         / runs[1]["real_lane_steps"]),
+           "device_idle_share": prof["device_idle_share"],
+           "k1_share_of_busy": prof["k1_share_of_busy"]}
+    emit({"phase": "train_full_summary", "arch": SERVE_ARCH,
+          "n_params": SERVE_PARAMS, "dtype": "float32", **FULL,
+          "seq_len": PRESETS[FULL["preset"]]["seq_len"],
+          "batch": PRESETS[FULL["preset"]]["batch_size"],
+          "rounds": FULL_ROUNDS, "bit_identical_depth_0_1": True,
+          "reduced": {"dtype": "float32 (published: bfloat16)",
+                      "lanes": lanes, "rounds": FULL_ROUNDS},
+          "depth1": runs[1], "depth0": runs[0], **out})
+    return out
+
+
+def phase_lm_fold(torch, device_name: str) -> dict:
+    """K1 at the full-width round's own call, ``[2, 596,180,992]`` f32
+    with per-lane weights: bitwise against its plain version, then timed
+    with it and ``torch.lerp`` beside the bytes bound.  Inputs are drawn
+    on the card (9.5 GB)."""
+    from repro_torch.kernels import fedavg_accum as fa
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lanes, n = FULL["workers"] * FULL["concurrency"], SERVE_PARAMS
+    acc = torch.randn(lanes, n, generator=gen, device=dev)
+    theta = torch.randn(lanes, n, generator=gen, device=dev)
+    n_old = torch.tensor([0.0, 7.0], device=dev)
+    n_k = torch.tensor([4.0, 2.0], device=dev)
+    got = fa.fedavg_accum_lanes(acc, theta, n_old, n_k)
+    want = ref.fedavg_accum_ref(acc, theta, n_old, n_k)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"K1 at [{lanes}, {n}]: max err {err}")
+    del got, want
+    lerp_w = (n_k / (n_old + n_k))[:, None]
+    runs = {"kernel": lambda: fa.fedavg_accum_lanes(acc, theta, n_old, n_k),
+            "plain": lambda: ref.fedavg_accum_ref(acc, theta, n_old, n_k),
+            "library": lambda: torch.lerp(acc, theta, lerp_w)}
+    best = _best_of(runs, (("kernel", "plain", "library"),
+                           ("library", "plain", "kernel"),
+                           ("kernel", "plain", "library")), iters=10)
+    elems = lanes * n
+    nbytes = 3 * elems * 4                        # 2 reads + 1 write
+    bytes_ms = nbytes / mem_bw(device_name) * 1e3
+    ops_ms = 4 * elems / F32_FLOPS * 1e3
+    out = {"shape": [lanes, n], "max_abs_err": err, "ms": best["kernel"],
+           "plain_ms": best["plain"], "library_ms": best["library"],
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": nbytes}
+    out["roofline_share"] = out["bound_ms"] / best["kernel"]
+    emit({"phase": "timing", "kernel": "fedavg_accum",
+          "path": "train LM full width", **out})
+    del acc, theta
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_k2_lm(torch, device_name: str) -> dict:
+    """K2 on one shard's fold of the fl100m qwen3 payload, over the LM's
+    leaf table: bitwise against its plain version at the weight edges,
+    then timed."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.layout import FlatLayout
+    from repro_torch.launch.train import lm_config
+    shapes = _lm_shapes(lm_config(SERVE_ARCH, "fl100m")[0])
+    layout = FlatLayout({k: torch.empty(s, device="meta")
+                         for k, s in shapes.items()})
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(6)
+    acc, q, g = _payload(torch, layout.n, gen, dev)
+    scales = (torch.rand(len(layout.names), generator=gen) * 0.02).to(dev)
+    offsets = layout.offsets_on(dev)
+    for edge in EDGES:
+        n_old, n_k = (torch.tensor(w, device=dev) for w in edge)
+        got = ops.dequant_merge_flat(acc, q, g, scales, offsets, n_old, n_k)
+        want = ref.dequant_merge_flat_ref(acc, q, g, scales, offsets,
+                                          n_old, n_k)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K2 LM payload {edge}: max err "
+                                      f"{float((got - want).abs().max())}")
+    del acc, q, g, got, want
+    return phase_timing_k2(torch, layout, device_name)
+
+
+def _worst_ratio(got: dict, want: dict, rtol: float, atol: float) -> float:
+    """max over leaves of ``|got - want| / (atol + rtol·|want|)``: the check
+    holds where it is at most 1."""
+    return max(float(((got[k].cpu() - w).abs() / (atol + rtol * w.abs()))
+                     .max()) for k, w in want.items())
+
+
+def phase_agree_train(torch) -> dict:
+    """A reduced qwen3-0.6b training engine, 2 rounds on the card against
+    the same on the CPU: the losses, and the final params leaf by leaf;
+    the initial params are the control that the params check must
+    refuse."""
+    from repro_torch.kernels.layout import flatten_tree
+    from repro_torch.launch.train import build_engine
+    losses, final = {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = build_engine(arch=SERVE_ARCH, preset="smoke", device=dev,
+                           cohort=4, steps_cap=2, population=64)
+        if dev == "cpu":
+            init = {k: v.clone() for k, v in flatten_tree(eng.params).items()}
+        losses[dev] = [r.loss for r in eng.run(2)]
+        final[dev] = flatten_tree(eng.params)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    check(set(final["cuda"]) == set(final["cpu"]), "card vs CPU leaves")
+    params = _worst_ratio(final["cuda"], final["cpu"], **AGREE_TRAIN_PARAMS)
+    control = _worst_ratio(init, final["cpu"], **AGREE_TRAIN_PARAMS)
+    emit({"phase": "agree_train", "arch": f"{SERVE_ARCH} reduced",
+          "losses": losses, "max_rel_diff": rel, "rtol": AGREE_TRAIN_RTOL,
+          "params_tol": AGREE_TRAIN_PARAMS, "params_worst_ratio": params,
+          "init_params_worst_ratio": control})
+    check(rel <= AGREE_TRAIN_RTOL,
+          f"card vs CPU LM training losses differ by {rel}: {losses}")
+    check(params <= 1.0, f"card vs CPU LM params: {params}x the tolerance")
+    check(control > 1.0, f"the untrained params pass the params check "
+                         f"({control}x the tolerance)")
+    return {"max_rel_diff": rel, "params_worst_ratio": params}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=4)
@@ -1588,6 +1963,13 @@ def main() -> int:
                         phase="serve_ssm_profile")
     del ssm["params"]
     phase_agree_lm(torch, SSM_ARCH, ssd_impl="pallas")
+    train_lm = phase_train_lm(torch)
+    train_mesh = phase_train_lm_mesh(torch)
+    torch.cuda.empty_cache()
+    train_full = phase_train_full(torch)
+    lm_fold = phase_lm_fold(torch, name)
+    k2_lm = phase_k2_lm(torch, name)
+    phase_agree_train(torch)
     if args.profile_out:
         phase_profile(torch, args.profile_out, "fused")
         phase_profile(torch, args.profile_out, "mesh", **MESH)
@@ -1605,11 +1987,21 @@ def main() -> int:
                "src/repro/kernels/fedavg_accum.py:41", launches, max_err,
                timing),
          "launches_per_round": launches / len(res),
-         "launches_mesh_path": mesh_launches["fedavg_accum"]},
+         "launches_mesh_path": mesh_launches["fedavg_accum"],
+         "launches_train_lm": {a: v["launches"]
+                               for a, v in train_lm.items()},
+         "launches_train_lm_mesh": train_mesh["launches"]["fedavg_accum"],
+         "launches_train_full": train_full["launches"],
+         "train_full_fold": {k: lm_fold[k] for k in (
+             "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_by", "max_abs_err")}},
         {**row("dequant_merge", "dequant_merge.cu",
                "src/repro/kernels/dequant_merge.py:46",
                mesh_launches["dequant_merge"], max_err2, timing2),
          "launches_per_round": mesh_launches["dequant_merge"] / len(mesh_res),
+         "launches_train_lm_mesh": train_mesh["launches"]["dequant_merge"],
+         "lm_payload": {k: k2_lm[k] for k in (
+             "shape", "leaves", "ms", "plain_ms", "bound_ms", "bound_by")},
          "path": "mesh"},
         {**row("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30",
                serve["launches"]["rmsnorm"], max(err3.values()),

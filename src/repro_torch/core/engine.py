@@ -65,8 +65,9 @@ from repro_torch.fl.round import (StepCompileCache, make_combine_step,
                                   make_shard_merge_step,
                                   make_worker_round_step)
 from repro_torch.fl.strategy import FedAvg, Strategy
-from repro_torch.kernels.layout import (FlatLayout, FlatTree, tree_cat,
-                                        tree_stack)
+from repro_torch.kernels.layout import (FlatLayout, FlatTree, flatten_tree,
+                                        tree_cat, tree_stack,
+                                        unflatten_tree)
 from repro_torch.launch.mesh import fl_combine_topology
 from repro_torch.obs import NULL_TRACER, critique_round
 
@@ -183,6 +184,7 @@ class EngineConfig:
     steps_cap: int | None = 64
     s_bucket_base: int = 8
     batch_size: int | None = None
+    seq_len: int | None = None    # token rows per batch (LM tasks)
     agg_impl: str = "kernel"      # "kernel" (K1) | "plain" (reference XLA)
     grad_clip: float | None = None
     deadline_rho: float = 0.0     # >0 enables over-sample + trim
@@ -322,8 +324,10 @@ class FederatedEngine:
     (CUDA unless ``device="cpu"`` is passed).
 
     ``loss_fn`` follows the round step's contract: lane-stacked params and
-    batch in, per-lane losses out.  ``init_params`` may hold tensors or
-    numpy arrays; they are copied to ``device``.
+    batch in, per-lane losses out; the params it gets are flat
+    ``{path: tensor}`` (:func:`~repro_torch.kernels.layout.flatten_tree`).
+    ``init_params`` may hold tensors or numpy arrays, flat or nested (the
+    LM's tree); they are copied to ``device``.
     """
 
     def __init__(self, *, dataset, loss_fn, init_params, optimizer,
@@ -343,13 +347,16 @@ class FederatedEngine:
         self.device = resolve_device(device)
         self.dataset = dataset
         self.loss_fn = loss_fn
+        # A nested tree runs as its flat {path: leaf} dict; ``params``
+        # hands it back nested.
+        self._nested = any(isinstance(v, dict) for v in init_params.values())
         params = {k: torch.as_tensor(v).to(self.device)
-                  for k, v in init_params.items()}
+                  for k, v in flatten_tree(init_params).items()}
         # The global model as one flat buffer with per-leaf views: every
         # round program flattens it for free.
         self._layout = FlatLayout(params)
         self.params = params
-        self.device = self.params.flat.device     # "cuda" -> "cuda:0"
+        self.device = self._params.flat.device    # "cuda" -> "cuda:0"
         self.optimizer = optimizer
         self.placement = placement
         self.sampler = sampler
@@ -412,7 +419,7 @@ class FederatedEngine:
                             config.combine_compress))
             if config.combine_compress != "none":
                 self._compress = CombineCompressor(
-                    config.combine_compress, self.params,
+                    config.combine_compress, self._params,
                     topk_frac=config.combine_topk_frac)
                 self._encode_step = cache(
                     lambda: make_encode_step(config.combine_compress,
@@ -559,7 +566,8 @@ class FederatedEngine:
             with tr.span("prep.pack", t=t, S=S, W=plan.W):
                 prep.arrays = build_round_arrays(
                     self.dataset, plan=plan, batch_size=self.cfg.batch_size,
-                    s_align=lambda s: S, buffers=self._pack_buffers)
+                    seq_len=self.cfg.seq_len, s_align=lambda s: S,
+                    buffers=self._pack_buffers)
                 prep.worker_programs = self._pack_worker_programs(
                     plan, worker_S, prep.arrays, assignment, workers)
             prep.pack_s = time.perf_counter() - tp0
@@ -574,7 +582,8 @@ class FederatedEngine:
         with tr.span("prep.pack", t=t):
             prep.arrays = build_round_arrays(
                 self.dataset, plan=plan, batch_size=self.cfg.batch_size,
-                s_align=self._s_align, buffers=self._pack_buffers)
+                seq_len=self.cfg.seq_len, s_align=self._s_align,
+                buffers=self._pack_buffers)
         prep.pack_s = time.perf_counter() - tp0
         prep.padded_steps = prep.arrays.step_mask.size - plan.n_steps_total
         with tr.span("prep.h2d", t=t):
@@ -616,21 +625,23 @@ class FederatedEngine:
             return self._execute_mesh(prep)
         with self._tracer.span("exec.dispatch", t=prep.t):
             batches, step_mask, boundary, weight = prep.device
-            new_params, metrics = self._round_step(
-                self.params, batches, step_mask, boundary, weight)
-            self.params = new_params
+            self._params, metrics = self._round_step(
+                self._params, batches, step_mask, boundary, weight)
             return metrics
 
     @property
-    def params(self) -> FlatTree:
-        """The global model, ``{name: tensor}``: views of one flat buffer.
-        The dict is read-only; assigning a new ``{name: tensor}`` dict
-        replaces the model."""
+    def params(self) -> dict:
+        """The global model in the form it was given: ``{name: tensor}``
+        or the nested tree, its leaves views of one flat buffer.  The dicts
+        are read-only; assigning a new tree replaces the model."""
+        if self._nested:
+            return unflatten_tree(self._params)
         return self._params
 
     @params.setter
     def params(self, value: dict) -> None:
         if not (isinstance(value, FlatTree) and value.layout == self._layout):
+            value = flatten_tree(value)
             value = self._layout.views(self._layout.flatten(
                 {k: torch.as_tensor(value[k]).to(self.device)
                  for k in self._layout.names}))
@@ -638,10 +649,10 @@ class FederatedEngine:
 
     def _params_on(self, device, cache: dict) -> FlatTree:
         """The global model on ``device`` (copied once per round)."""
-        if device == self.params.flat.device:
-            return self.params
+        if device == self._params.flat.device:
+            return self._params
         if device not in cache:
-            cache[device] = _moved(self.params, device)
+            cache[device] = _moved(self._params, device)
         return cache[device]
 
     def _to_root(self, x):
@@ -733,8 +744,8 @@ class FederatedEngine:
         step_mask, boundary, weight = prep.combine_masks
         fn = self._combine_step.lookup(tuple(n_wp.shape)
                                        + tuple(step_mask.shape))
-        self.params, metrics = fn(self.params, theta_wp, n_wp, lane_losses,
-                                  step_mask, boundary, weight)
+        self._params, metrics = fn(self._params, theta_wp, n_wp, lane_losses,
+                                   step_mask, boundary, weight)
         return metrics
 
     def _encode(self, shard: int, merged: tuple, on_dev: dict, staged: dict):
@@ -771,8 +782,8 @@ class FederatedEngine:
         step_mask, boundary, weight = prep.combine_masks
         fn = self._compressed_combine_step.lookup(
             (len(payloads),) + tuple(step_mask.shape))
-        self.params, metrics = fn(
-            self.params, _stack_payloads(self._compress.mode, payloads),
+        self._params, metrics = fn(
+            self._params, _stack_payloads(self._compress.mode, payloads),
             torch.stack(ns), torch.stack(losses), step_mask, boundary,
             weight)
         self._commit_residuals(prep, staged)

@@ -7,8 +7,11 @@ is drawn from a numpy generator seeded per (client, batch), where the
 reference uses ``jax.random.fold_in``: the values differ from the
 reference's by design, the distribution is the same (standard-normal
 features shifted by ``2·dir[y]``, labels from the client's Dirichlet class
-mix).  Token tasks (TG/MLM, and the LM archs) are not ported yet
-(ROADMAP M3/M15).
+mix; tokens ``(base // 4 + offset) % vocab_size`` with ``base`` uniform in
+``[0, vocab_size)`` and the reference's per-client ``offset``, a
+non-IID unigram skew).  The ``"lm"`` task feeds the LM archs' federated
+training; TG and MLM have token datasets too, but their models are not
+ported yet (``models/papertasks.py``, ROADMAP M3).
 
 The engine takes any dataset whose ``gather_batches`` returns numpy, so the
 parity tests hand it the reference's dataset object.
@@ -116,12 +119,21 @@ class FederatedDataset:
         return max(1, int(self.n_samples(cid)) // bs)
 
     # -- deterministic content ---------------------------------------------
-    def _batch(self, cid: int, batch_idx: int, bs: int) -> dict:
-        if self.spec.kind == "tokens":
-            raise NotImplementedError("token datasets are not ported yet "
-                                      "(ROADMAP M3/M15)")
+    def _token_offset(self, cids):
+        """Host-side (int64-safe) client vocab offset for the tokens tasks,
+        the reference's formula."""
+        return (np.asarray(cids, dtype=np.int64) * 2_654_435_761) % max(
+            self.vocab_size // 4, 1)
+
+    def _batch(self, cid: int, batch_idx: int, bs: int, sl: int) -> dict:
         rng = np.random.default_rng(
             [self.seed, cid % (2 ** 31 - 1), batch_idx])
+        if self.spec.kind == "tokens":
+            # Client-specific unigram skew: a client-biased slice of the
+            # vocab (non-IID token distribution).
+            base = rng.integers(0, self.vocab_size, (bs, sl), dtype=np.int64)
+            tokens = (base // 4 + self._token_offset(cid)) % self.vocab_size
+            return {"tokens": tokens.astype(np.int32)}
         x = rng.standard_normal((bs, self.input_dim), dtype=np.float32)
         if self._class_logits is None:
             return {"x": x}
@@ -146,11 +158,13 @@ class FederatedDataset:
         if cids.shape != bis.shape or cids.ndim != 1:
             raise ValueError("cids and batch_idxs must be equal-length 1-D")
         bs = batch_size or self.spec.batch_size
+        sl = seq_len or self.seq_len
         if cids.shape[0] == 0:
-            sample = self._batch(0, 0, bs)
+            sample = self._batch(0, 0, bs, sl)
             return {k: np.zeros((0,) + v.shape, v.dtype)
                     for k, v in sample.items()}
-        rows = [self._batch(int(c), int(b), bs) for c, b in zip(cids, bis)]
+        rows = [self._batch(int(c), int(b), bs, sl)
+                for c, b in zip(cids, bis)]
         return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
 
 

@@ -18,18 +18,19 @@ import math
 
 import torch
 
-__all__ = ["FlatLayout", "FlatTree", "tree_cat", "tree_stack"]
+__all__ = ["FlatLayout", "FlatTree", "ReadOnlyTree", "flatten_tree",
+           "unflatten_tree", "tree_cat", "tree_stack"]
+
+SEP = "/"
 
 
-class FlatTree(dict):
-    """``{name: view}`` over one flat ``lead + [N]`` buffer (``.flat``),
-    laid out by ``.layout``.
-
-    Read-only: a program reads ``.flat``, so a leaf set into the dict would
-    be silently ignored.  Build a new tree with :meth:`FlatLayout.views`
+class ReadOnlyTree(dict):
+    """A dict of views of a flat buffer that refuses to be changed: the
+    buffer is what programs read, so a leaf set into the dict would be
+    silently ignored.  Build a new tree with :meth:`FlatLayout.views`
     instead (or write into a leaf's view in place)."""
 
-    __slots__ = ("flat", "layout")
+    __slots__ = ()
 
     def _read_only(self, *args, **kwargs):
         raise TypeError("a FlatTree's leaves are views of its .flat buffer "
@@ -38,6 +39,44 @@ class FlatTree(dict):
 
     __setitem__ = __delitem__ = __ior__ = _read_only
     update = pop = popitem = setdefault = clear = _read_only
+
+
+class FlatTree(ReadOnlyTree):
+    """``{name: view}`` over one flat ``lead + [N]`` buffer (``.flat``),
+    laid out by ``.layout``; read-only (:class:`ReadOnlyTree`)."""
+
+    __slots__ = ("flat", "layout")
+
+
+def flatten_tree(tree: dict) -> dict:
+    """A nested param dict as ``{path: leaf}``, each path its keys joined
+    with ``/``; a dict without nested dicts comes back as it is."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            for sub, leaf in flatten_tree(v).items():
+                out[f"{k}{SEP}{sub}"] = leaf
+        else:
+            out[k] = v
+    return out
+
+
+def unflatten_tree(flat: dict) -> ReadOnlyTree:
+    """Inverse of :func:`flatten_tree` (the same leaf objects, no copies),
+    every level a :class:`ReadOnlyTree`."""
+    out: dict = {}
+    for path, leaf in flat.items():
+        *parents, name = path.split(SEP)
+        node = out
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[name] = leaf
+    return _frozen(out)
+
+
+def _frozen(tree: dict) -> ReadOnlyTree:
+    return ReadOnlyTree((k, _frozen(v) if isinstance(v, dict) else v)
+                        for k, v in tree.items())
 
 
 class FlatLayout:

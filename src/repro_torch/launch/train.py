@@ -1,11 +1,14 @@
 """End-to-end federated training entry point of the port — the
-counterpart of ``repro/launch/train.py`` for the paper's SR task.
+counterpart of ``repro/launch/train.py`` for the paper's SR task and the
+LM archs whose forward the port has (dense and ssm families).
 
 Composes dataset → cohort sampler → placement → worker pool → round step
 (partial aggregation through the K1 kernel) → synthetic telemetry →
 time-model refit, on the CUDA card::
 
     PYTHONPATH=src python -m repro_torch.launch.train --task sr --rounds 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+        --preset fl100m --rounds 3
 
 and the mesh path — one program per worker, the shard-local tree combine,
 int8 shard uploads folded by the K2 kernel::
@@ -13,9 +16,10 @@ int8 shard uploads folded by the K2 kernel::
     PYTHONPATH=src python -m repro_torch.launch.train --task sr --workers 4 \
         --mesh-workers 2 --combine-mode tree --combine-compress int8
 
-The flags are the reference's.  Those of paths not ported yet (LM archs,
-checkpoints, device cache, control plane, trace export) raise
-``NotImplementedError`` naming their ROADMAP item when set.
+The flags are the reference's.  Those of paths not ported yet
+(checkpoints, device cache, control plane, trace export; archs with MoE,
+an encoder or a frontend) raise ``NotImplementedError`` naming their
+ROADMAP item when set.
 """
 
 from __future__ import annotations
@@ -24,25 +28,41 @@ import argparse
 import json
 import os
 from collections import Counter
+from dataclasses import replace
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs import ArchConfig, get_arch
 from repro_torch.core import (EngineConfig, FederatedEngine,
                               SyntheticTelemetry, UniformSampler, ZipfSampler,
                               make_placement)
 from repro_torch.core.sampling import PowerOfChoiceSampler
 from repro_torch.data import make_federated_dataset
+from repro_torch.data.federated import TASK_DISTRIBUTIONS
 from repro_torch.distributed import FailureEvent, WorkerPool
 from repro_torch.fl.strategy import strategy_from_name
 from repro_torch.kernels import ops as kops
+from repro_torch.models import lm, make_lane_loss_fn
 from repro_torch.models.papertasks import make_task_model
 from repro_torch.optim import sgd
 
-__all__ = ["build_engine", "main", "set_deterministic"]
+__all__ = ["build_engine", "lm_config", "main", "set_deterministic",
+           "PRESETS"]
 
 TASKS = ("ic", "sr", "tg", "mlm")
+
+# LM presets, the reference's: "smoke" for tests and examples (the reduced
+# config itself); "fl100m" the ~100 M-param end-to-end config.
+PRESETS = {
+    "smoke": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                  head_dim=16, d_ff=128, vocab_size=512, seq_len=32,
+                  batch_size=4),
+    "fl100m": dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
+                   head_dim=64, d_ff=2048, vocab_size=32_000, seq_len=256,
+                   batch_size=8),
+}
 
 
 def set_deterministic() -> None:
@@ -65,7 +85,21 @@ def _refuse(name: str, value, default, item: str) -> None:
                                   f"(ROADMAP {item})")
 
 
+def lm_config(arch: str, preset: str = "smoke"
+              ) -> tuple[ArchConfig, int, int]:
+    """``(cfg, seq_len, batch_size)`` that the reference's ``build_engine``
+    trains ``arch`` at under ``preset``: the arch's ``reduced()`` config
+    (f32), then the preset's widths unless ``smoke``."""
+    p = dict(PRESETS[preset])
+    seq_len, batch_size = p.pop("seq_len"), p.pop("batch_size")
+    cfg = get_arch(arch).reduced()
+    if preset != "smoke":          # smoke == reduced()
+        cfg = replace(cfg, **p)
+    return cfg, seq_len, batch_size
+
+
 def build_engine(*, task: str | None = None, arch: str | None = None,
+                 preset: str = "smoke", lm_cfg: ArchConfig | None = None,
                  placement: str = "lb", cohort: int = 8,
                  population: int | None = None, workers: int = 2,
                  concurrency: int = 2, strategy: str = "fedavg",
@@ -77,34 +111,58 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
                  combine_mode: str = "flat", combine_compress: str = "none",
                  topk_frac: float = 0.05, hosts: int = 0,
                  obs=None, device="cuda", **engine_options) -> FederatedEngine:
-    """Compose a runnable engine for a paper task, on ``device``.
+    """Compose a runnable engine for a paper task or an LM arch preset, on
+    ``device``.
 
+    ``arch`` + ``preset`` train the arch at :func:`lm_config`'s config on
+    the ``"lm"`` token dataset with ``sgd(0.05, momentum=0.9)``, as the
+    reference does; ``lm_cfg`` trains that config instead (any widths,
+    the published ones included) at the preset's ``seq_len`` and
+    ``batch_size``.  The weights come from ``lm.init_params(seed, cfg)``.
     ``mesh_workers`` .. ``hosts`` select the mesh path and its combine, as
     in the reference.  ``engine_options`` are further
     :class:`EngineConfig` fields — the device-cache and control-plane
-    options, which raise until they are ported.  Raises before any work
-    when ``device`` is CUDA and no card is present.
+    options, which raise until they are ported.  Refuses an unported arch
+    (MoE, encoder, frontend: ROADMAP M15c), and a CUDA ``device`` without
+    a card, before any work.
     """
-    device = resolve_device(device)
-    _refuse("arch", arch, None, "M15")
     _refuse("ckpt_dir", ckpt_dir, None, "M9")
     if sampler == "online":
         raise NotImplementedError("sampler='online' is not ported yet "
                                   "(ROADMAP M17)")
     strat = strategy_from_name(strategy)
-    task = task or "sr"
-    ds = make_federated_dataset(
-        task, seed=seed, **({"n_clients": population} if population else {}))
+    if lm_cfg is None and arch is not None:
+        lm_cfg = lm_config(arch, preset)[0]
+    if lm_cfg is not None:
+        lm.require_ported(lm_cfg)
+        seq_len = PRESETS[preset]["seq_len"]
+        batch_size = PRESETS[preset]["batch_size"]
+    else:
+        task = task or "sr"
+        seq_len, batch_size = None, TASK_DISTRIBUTIONS[task].batch_size
     config = EngineConfig(steps_cap=steps_cap, lanes_per_worker=concurrency,
                           grad_clip=grad_clip, deadline_rho=deadline_rho,
                           pipeline_depth=pipeline_depth,
-                          batch_size=ds.spec.batch_size,
+                          batch_size=batch_size, seq_len=seq_len,
                           mesh_workers=mesh_workers, bucket_mode=bucket_mode,
                           combine_mode=combine_mode,
                           combine_compress=combine_compress,
                           combine_topk_frac=topk_frac, hosts=hosts,
                           **engine_options)
-    params, loss_fn = make_task_model(task, seed, device=device)
+    device = resolve_device(device)
+    if lm_cfg is not None:
+        ds = make_federated_dataset(
+            "lm", seed=seed, vocab_size=lm_cfg.vocab_size, seq_len=seq_len,
+            batch_size=batch_size, n_clients=population or 4096)
+        params = lm.init_params(seed, lm_cfg, device=device)
+        loss_fn = make_lane_loss_fn(lm_cfg)
+        optimizer = sgd(0.05, momentum=0.9)
+    else:
+        ds = make_federated_dataset(
+            task, seed=seed,
+            **({"n_clients": population} if population else {}))
+        params, loss_fn = make_task_model(task, seed, device=device)
+        optimizer = sgd(0.05, momentum=0.9, weight_decay=5e-4)
     if sampler == "zipf":
         sampler_obj = ZipfSampler(ds.n_clients, cohort, a=zipf_exponent,
                                   seed=seed)
@@ -114,8 +172,8 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
         sampler_obj = UniformSampler(ds.n_clients, cohort, seed=seed)
     return FederatedEngine(
         dataset=ds, loss_fn=loss_fn, init_params=params,
-        optimizer=sgd(0.05, momentum=0.9, weight_decay=5e-4),
-        placement=make_placement(placement), sampler=sampler_obj,
+        optimizer=optimizer, placement=make_placement(placement),
+        sampler=sampler_obj,
         pool=WorkerPool.homogeneous(workers, type_name="a40",
                                     concurrency=concurrency),
         telemetry=SyntheticTelemetry(seed=seed), strategy=strat,
@@ -127,9 +185,11 @@ def _build_parser() -> argparse.ArgumentParser:
         description="Pollen FL simulation on the CUDA card (port).  Flags "
                     "as in repro.launch.train; unported ones raise.")
     ap.add_argument("--task", choices=TASKS, default=None)
-    ap.add_argument("--arch", default=None, help="not ported (M15)")
-    ap.add_argument("--preset", default="smoke",
-                    help="LM preset, used only with --arch (not ported, M15)")
+    ap.add_argument("--arch", default=None,
+                    help="an LM arch (dense or ssm family; MoE, encoder "
+                         "and frontend archs raise, M15c)")
+    ap.add_argument("--preset", choices=list(PRESETS), default="smoke",
+                    help="LM preset, used only with --arch")
     ap.add_argument("--placement", default="lb", choices=["rr", "bb", "lb"])
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--cohort", type=int, default=8)
@@ -198,7 +258,8 @@ def main(argv=None) -> int:
                 item)
     set_deterministic()
     engine = build_engine(
-        task=args.task, arch=args.arch, placement=args.placement,
+        task=args.task, arch=args.arch, preset=args.preset,
+        placement=args.placement,
         cohort=args.cohort, population=args.population,
         workers=args.workers, concurrency=args.concurrency,
         strategy=args.strategy, steps_cap=args.steps_cap, seed=args.seed,

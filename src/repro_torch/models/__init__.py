@@ -1,6 +1,7 @@
 """Models of the port: the paper's FL-task models (``papertasks``) and the
 LM stack of the architecture zoo (``lm``: the dense family, and the ssm
-family through the Mamba-2 mixer of ``ssd``)."""
+family through the Mamba-2 mixer of ``ssd``), with the loss functions the
+federated round trains them through."""
 
 from __future__ import annotations
 
@@ -9,16 +10,59 @@ import torch
 
 from repro_torch import resolve_device
 
+from repro_torch.kernels.layout import unflatten_tree
+
 from .lm import (LayerKind, decode_step, forward, init_cache, init_params,
-                 layer_plan, param_count, prefill)
+                 layer_plan, loss_fn, param_count, prefill)
 from .papertasks import (TASK_MODELS, TaskModel, make_task_model,
                          params_from_numpy, params_to_numpy)
 
 __all__ = ["TASK_MODELS", "TaskModel", "make_task_model", "params_from_numpy",
            "params_to_numpy", "init_params", "forward", "init_cache",
            "prefill", "decode_step", "layer_plan", "LayerKind",
-           "param_count", "make_batch_spec", "lm_params_from_numpy",
-           "lm_params_to_numpy"]
+           "param_count", "loss_fn", "make_loss_fn", "make_lane_loss_fn",
+           "make_batch_spec", "lm_params_from_numpy", "lm_params_to_numpy"]
+
+
+def _device_of(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.device
+
+
+def make_loss_fn(cfg):
+    """Bind the arch config: ``loss(params, batch)`` of one model (the
+    nested tree) -> scalar, as ``repro.models.make_loss_fn``.  It runs
+    where the params lie."""
+
+    def _loss(params, batch):
+        return loss_fn(params, batch, cfg, device=_device_of(params))
+
+    return _loss
+
+
+def make_lane_loss_fn(cfg):
+    """The LM loss in the round step's contract: lane-stacked flat params
+    ``{path: [L, ...]}`` (paths as :func:`~repro_torch.kernels.layout
+    .flatten_tree` joins them) and a batch ``{k: [L, b, ...]}`` -> per-lane
+    losses ``[L]``, on the params' device.
+
+    A loop over lanes, each through :func:`make_loss_fn`'s loss on its own
+    slice, so each lane's numbers do not depend on how many lanes share
+    the call (the fused and mesh paths run one lane in different company).
+    ``unbind`` hands every lane its slices, and its backward stacks the
+    lanes' gradients into one ``[L, ...]`` tensor per leaf."""
+    one = make_loss_fn(cfg)
+
+    def _lane_loss(params, batch):
+        lanes = {k: v.unbind(0) for k, v in params.items()}
+        n_lanes = len(next(iter(lanes.values())))
+        return torch.stack([
+            one(unflatten_tree({k: v[i] for k, v in lanes.items()}),
+                {k: v[i] for k, v in batch.items()})
+            for i in range(n_lanes)])
+
+    return _lane_loss
 
 
 def make_batch_spec(cfg, *, batch: int, seq_len: int):

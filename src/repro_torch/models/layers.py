@@ -12,7 +12,7 @@ has the reference's three implementations (the ``attn_impl`` knob):
                 plain version on CPU tensors.
 
 ``rms_norm(impl="pallas")`` likewise goes to K3.  The MoE layers wait for
-the MoE slice (ROADMAP M15).
+the MoE slice (ROADMAP M15c).
 """
 
 from __future__ import annotations

@@ -14,17 +14,21 @@ Ported block kinds: mixer ``attn`` (GQA + RoPE [+ qk-norm]) or ``mamba``
 (the Mamba-2 SSD mixer of :mod:`repro_torch.models.ssd`), MLP ``swiglu`` |
 ``relu2`` | ``gelu`` | none, and command-r's ``parallel_block``.  A config
 that needs anything else raises ``NotImplementedError`` naming its ROADMAP
-item: MoE (M15, the MoE slice; so jamba too), the encoder, cross-attention
-and modality frontends (M15).
+item, M15c: MoE (so jamba too), the encoder, cross-attention and modality
+frontends.
 
 Entry points (``cuda`` unless ``device="cpu"`` is passed; without a card and
 without that request they raise):
 
     init_params(seed, cfg)                        -> params
     forward(params, batch, cfg)                   -> logits [b, s, V] f32
+    loss_fn(params, batch, cfg)                   -> next-token CE, scalar
     init_cache(cfg, batch, max_len)               -> cache
     prefill(params, batch, cfg, max_len=)         -> (logits [b, Vp], cache)
     decode_step(params, cache, tokens, pos, cfg)  -> (logits [b, Vp], cache)
+
+``loss_fn`` is differentiable (the federated round trains through it); the
+serve entry points run under ``torch.no_grad``.
 
 ``params`` must already be on the entry point's device; token batches are
 moved there.  Unlike the reference, ``prefill`` writes k/v (attention) and
@@ -39,6 +43,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -47,8 +52,9 @@ from repro_torch.models.layers import (decode_attention, dense_init,
                                        gelu_mlp, gqa_attention, norm_init,
                                        rms_norm, rope, swiglu)
 
-__all__ = ["init_params", "forward", "init_cache", "prefill", "decode_step",
-           "layer_plan", "LayerKind", "param_count"]
+__all__ = ["init_params", "param_shapes", "forward", "loss_fn", "init_cache",
+           "prefill", "decode_step", "layer_plan", "LayerKind", "param_count",
+           "require_ported"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -97,27 +103,26 @@ def layer_plan(cfg: ArchConfig, *, decoder: bool = True) -> list[LayerKind]:
     return plan
 
 
-def _require_ported(cfg: ArchConfig) -> list[LayerKind]:
+def require_ported(cfg: ArchConfig) -> list[LayerKind]:
     """The layer plan, or ``NotImplementedError`` naming the ROADMAP item
-    of the first part of ``cfg`` the port does not have yet."""
+    of the first part of ``cfg`` the port does not have yet (M15c)."""
     if cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend!r} modality frontend is not "
-            f"ported yet (ROADMAP M15, frontend)")
+            f"ported yet (ROADMAP M15c)")
     if cfg.enc_layers > 0:
         raise NotImplementedError(
-            f"{cfg.name}: the encoder stack is not ported yet (ROADMAP M15, "
-            f"encoder)")
+            f"{cfg.name}: the encoder stack is not ported yet (ROADMAP "
+            f"M15c)")
     plan = layer_plan(cfg)
     for kind in plan:
         if kind.cross:
             raise NotImplementedError(
                 f"{cfg.name}: cross-attention is not ported yet (ROADMAP "
-                f"M15, cross)")
+                f"M15c)")
         if kind.mlp == "moe":
             raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet (ROADMAP M15, "
-                f"the MoE slice)")
+                f"{cfg.name}: MoE layers are not ported yet (ROADMAP M15c)")
     return plan
 
 
@@ -198,13 +203,22 @@ def _init_leaf(gen: torch.Generator, name: str, shape, dtype):
     return dense_init(gen, shape, dtype)
 
 
-def _init_stack(gen, cfg: ArchConfig, plan, n_periods: int, dtype):
-    stack = {}
-    for i, kind in enumerate(plan):
-        stack[f"p{i}"] = {
-            name: _init_leaf(gen, name, (n_periods,) + tuple(shape), dtype)
-            for name, shape in sorted(_block_shapes(cfg, kind).items())}
-    return stack
+def param_shapes(cfg: ArchConfig) -> dict:
+    """The shape of every parameter of ``cfg``, in :func:`init_params`'s
+    tree and draw order (no weights drawn)."""
+    plan = require_ported(cfg)
+    n_periods = cfg.n_layers // len(plan)
+    shapes = {
+        "embed": (cfg.padded_vocab, cfg.d_model),
+        "stack": {f"p{i}": {name: (n_periods,) + tuple(shape)
+                            for name, shape in sorted(
+                                _block_shapes(cfg, kind).items())}
+                  for i, kind in enumerate(plan)},
+        "final_norm": (cfg.d_model,),
+    }
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (cfg.d_model, cfg.padded_vocab)
+    return shapes
 
 
 def init_params(seed: int, cfg: ArchConfig, *, device=None) -> dict:
@@ -215,20 +229,19 @@ def init_params(seed: int, cfg: ArchConfig, *, device=None) -> dict:
     weights across instead.  Shapes, dtypes and layout are the
     reference's: matrices in ``cfg.dtype``; norm scales and the Mamba
     per-head rows in f32."""
-    plan = _require_ported(cfg)
+    shapes = param_shapes(cfg)
     device = resolve_device(device)
     dtype = _DTYPES[cfg.dtype]
-    n_periods = cfg.n_layers // len(plan)
     gen = torch.Generator().manual_seed(int(seed))
     params = {
-        "embed": dense_init(gen, (cfg.padded_vocab, cfg.d_model), dtype,
-                            scale=0.02),
-        "stack": _init_stack(gen, cfg, plan, n_periods, dtype),
-        "final_norm": norm_init((cfg.d_model,)),
+        "embed": dense_init(gen, shapes["embed"], dtype, scale=0.02),
+        "stack": {key: {name: _init_leaf(gen, name, shape, dtype)
+                        for name, shape in leaves.items()}
+                  for key, leaves in shapes["stack"].items()},
+        "final_norm": norm_init(shapes["final_norm"]),
     }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab),
-                                       dtype)
+    if "lm_head" in shapes:
+        params["lm_head"] = dense_init(gen, shapes["lm_head"], dtype)
     return _tree_map(lambda x: x.to(device), params)
 
 
@@ -369,31 +382,54 @@ def _apply_block(p, x, cfg: ArchConfig, kind: LayerKind, *, causal: bool,
 # stacks
 # ---------------------------------------------------------------------------
 def _period(stack: dict, key: str, n: int) -> dict:
-    """Period ``n``'s parameters of position ``key`` (views, no copies)."""
+    """Period ``n``'s parameters of position ``key`` (views, no copies):
+    ``stack[key]`` maps names to stacked leaves or to their unbound
+    periods."""
     return {name: leaf[n] for name, leaf in stack[key].items()}
+
+
+def _period_blocks(periods, n: int, x, cfg: ArchConfig, plan, *,
+                   causal: bool, positions=None, cache=None):
+    """Period ``n``'s blocks.  With ``cache``, each attention block's k/v
+    fill its first ``s`` slots and each Mamba block's conv tail and final
+    SSM state its period's entries."""
+    s = x.shape[1]
+    for i, kind in enumerate(plan):
+        key = f"p{i}"
+        x, contrib = _apply_block(_period(periods, key, n), x, cfg, kind,
+                                  causal=causal, positions=positions,
+                                  collect=cache is not None)
+        if cache is None or contrib is None:
+            continue
+        for name, val in contrib.items():
+            if name in ("k", "v"):
+                cache[key][name][n, :, :s] = val
+            else:
+                cache[key][name][n] = val
+    return x
 
 
 def _run_stack(stack, x, cfg: ArchConfig, plan, *, causal: bool,
                positions=None, cache=None):
-    """The blocks in order, period by period.  With ``cache`` (from
-    :func:`init_cache`), each attention block's k/v fill its first ``s``
-    slots and each Mamba block's conv tail and final SSM state its
-    period's entries."""
-    n_periods = cfg.n_layers // len(plan)
-    s = x.shape[1]
-    for n in range(n_periods):
-        for i, kind in enumerate(plan):
-            key = f"p{i}"
-            x, contrib = _apply_block(_period(stack, key, n), x, cfg, kind,
-                                      causal=causal, positions=positions,
-                                      collect=cache is not None)
-            if cache is None or contrib is None:
-                continue
-            for name, val in contrib.items():
-                if name in ("k", "v"):
-                    cache[key][name][n, :, :s] = val
-                else:
-                    cache[key][name][n] = val
+    """The blocks in order, period by period, filling ``cache`` (from
+    :func:`init_cache`) when one is given.  Without one, ``cfg.remat``
+    recomputes each period in backward (``torch.utils.checkpoint``), as
+    the reference's ``jax.checkpoint`` around its period body: the same
+    values, less memory."""
+    # Each stacked leaf unbound once: the backward of that one view stacks
+    # the periods' gradients in a single pass, where indexing ``leaf[n]``
+    # per period would add up ``n_periods`` zero-padded full-size
+    # gradients.
+    periods = {key: {name: leaf.unbind(0) for name, leaf in p.items()}
+               for key, p in stack.items()}
+    for n in range(cfg.n_layers // len(plan)):
+        if cache is None and cfg.remat:
+            x = checkpoint(_period_blocks, periods, n, x, cfg, plan,
+                           causal=causal, positions=positions,
+                           use_reentrant=False)
+        else:
+            x = _period_blocks(periods, n, x, cfg, plan, causal=causal,
+                               positions=positions, cache=cache)
     return x
 
 
@@ -420,7 +456,7 @@ def _lm_head(params, h, cfg: ArchConfig):
 
 
 def _hidden(params, batch, cfg: ArchConfig, device, *, cache=None):
-    plan = _require_ported(cfg)
+    plan = require_ported(cfg)
     x, positions = _embed_inputs(params, batch, cfg, device)
     x = _run_stack(params["stack"], x, cfg, plan, causal=True,
                    positions=positions, cache=cache)
@@ -443,6 +479,49 @@ def forward(params, batch, cfg: ArchConfig, *, device=None):
     return _lm_head(params, h, cfg)[..., :cfg.vocab_size]
 
 
+def _chunk_ce(hc, labels, mask, params, cfg: ArchConfig):
+    """Summed masked CE of one sequence chunk: ``hc [b, c, D]``, labels and
+    mask ``[b, c]``.  The vocab pad is masked to -1e30 before the
+    log-sum-exp, as in the reference."""
+    logits = _mask_vocab_pad(_lm_head(params, hc, cfg), cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    return ((lse - gold) * mask).sum()
+
+
+def loss_fn(params, batch, cfg: ArchConfig, *, device=None):
+    """Next-token cross-entropy (f32 scalar), differentiable: the
+    counterpart of ``repro.models.lm.loss_fn``.
+
+    ``h`` at position i predicts token i+1.  The CE is taken over sequence
+    chunks of ``cfg.loss_chunk`` positions (0: one chunk), the ragged tail
+    padded and masked, so the ``[b, s, vocab]`` logits never exist at
+    once; each chunk's logits are recomputed in backward
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
+    does.  The sum is divided by the number of predicted tokens.  The
+    ported families have no MoE, so the auxiliary loss is 0."""
+    device = _on_device(params, device)
+    h = _hidden(params, batch, cfg, device)
+    tokens = torch.as_tensor(batch["tokens"], device=device).long()
+    h_pred = h[:, :-1]                              # [b, s-1, D]
+    labels = tokens[:, 1:]                          # [b, s-1]
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=device)
+    n = labels.shape[1]
+    chunk = min(cfg.loss_chunk, n) if cfg.loss_chunk else n
+    pad = (-n) % chunk
+    if pad:
+        h_pred = torch.nn.functional.pad(h_pred, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    for c in range(0, n + pad, chunk):
+        total = total + checkpoint(
+            _chunk_ce, h_pred[:, c:c + chunk], labels[:, c:c + chunk],
+            mask[:, c:c + chunk], params, cfg, use_reentrant=False)
+    aux = 0.0                                       # no MoE layer (M15c)
+    return total / torch.clamp(mask.sum(), min=1.0) + cfg.moe_aux_weight * aux
+
+
 # ---------------------------------------------------------------------------
 # serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
@@ -453,7 +532,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None):
     Mamba block's ``{"conv": [n_periods, batch, conv_k - 1, conv_dim]}`` in
     ``cfg.dtype`` and ``{"ssm": [n_periods, batch, heads, head_dim,
     state]}`` in f32."""
-    plan = _require_ported(cfg)
+    plan = require_ported(cfg)
     device = resolve_device(device)
     n_periods = cfg.n_layers // len(plan)
     shape = (n_periods, batch, max_len, cfg.n_kv_heads,
@@ -528,7 +607,7 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *, device=None):
     token (an int).  Returns (logits ``[b, padded_vocab]`` f32 with pad
     columns at -1e30, cache) — the same cache object, updated in place."""
     device = _on_device(params, device)
-    plan = _require_ported(cfg)
+    plan = require_ported(cfg)
     pos = int(pos)
     tokens = torch.as_tensor(tokens, device=device).long()
     x = params["embed"][tokens]                     # [b,1,D]

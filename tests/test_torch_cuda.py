@@ -750,3 +750,49 @@ def test_reduced_mamba_serve_path_on_card(dev):
                           atol=1e-4)
     assert torch.allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4,
                           atol=1e-4)
+
+
+# -- federated LM training (--arch) -------------------------------------------
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-2.7b"])
+def test_lm_rounds_on_card_track_the_cpu(dev, arch):
+    """Two rounds of a reduced arch's federated training on the card
+    against the same on the CPU: losses within rtol 1e-6 and the final
+    params leaf by leaf within rtol 1e-4 + atol 1e-6 (GEMM sums in another
+    order), where the initial params fall outside that tolerance; and
+    bit-identical across pipeline depths on the card."""
+    from repro_torch.kernels.layout import flatten_tree
+    from repro_torch.launch.train import build_engine
+
+    def run(device, depth=1):
+        eng = build_engine(arch=arch, device=device, cohort=4, steps_cap=2,
+                           pipeline_depth=depth, population=64)
+        init = {k: v.cpu().clone()
+                for k, v in flatten_tree(eng.params).items()}
+        losses = [r.loss for r in eng.run(2)]
+        final = {k: v.cpu() for k, v in flatten_tree(eng.params).items()}
+        return losses, init, final
+
+    card, _, card_params = run("cuda")
+    cpu, init, cpu_params = run("cpu")
+    np.testing.assert_allclose(card, cpu, rtol=1e-6)
+    assert set(card_params) == set(cpu_params)
+    for k, v in cpu_params.items():
+        assert torch.allclose(card_params[k], v, rtol=1e-4, atol=1e-6), k
+    assert not all(torch.allclose(init[k], v, rtol=1e-4, atol=1e-6)
+                   for k, v in cpu_params.items())
+    assert run("cuda", depth=0)[0] == card
+
+
+def test_k1_launches_once_per_lm_lane_step(dev):
+    """The LM round folds every lane's flat params with one K1 launch a
+    local step, fused and on each mesh worker's program."""
+    from repro_torch.launch.train import build_engine
+    for mesh in (0, 2):
+        eng = build_engine(arch="qwen3-0.6b", device="cuda", cohort=4,
+                           steps_cap=2, population=64, mesh_workers=mesh)
+        tops.reset_launch_counts()
+        res = eng.run(2)
+        torch.cuda.synchronize()
+        programs = 2 if mesh else 1               # 2 workers
+        assert tops.launch_counts()["fedavg_accum"] == \
+            programs * sum(r.s_steps for r in res)

@@ -265,7 +265,9 @@ def test_unported_engine_options_raise(field, value):
         teng.EngineConfig(**{field: value})
 
 
-@pytest.mark.parametrize("argv", [["--ckpt-dir", "x"], ["--arch", "qwen3-0.6b"],
+@pytest.mark.parametrize("argv", [["--ckpt-dir", "x"],
+                                  ["--arch", "qwen3-moe-235b-a22b"],
+                                  ["--arch", "whisper-base"],
                                   ["--strategy", "fedmedian"],
                                   ["--sampler", "online"],
                                   ["--trace-out", "t.json"],
