@@ -21,7 +21,8 @@ Phases, one JSON object per line on stdout:
              on the SR flat buffer with its 18-leaf scale table (f32
              bitwise; ``N+n == 0`` returns ``acc`` bit for bit); K3 and K4
              over the reference's sweeps in f32 and bf16 and at the serve
-             path's shapes (2e-5 f32, 2e-2 bf16, as tests/test_kernels.py),
+             path's shapes (2e-5 f32, 2e-2 bf16, as tests/test_kernels.py;
+             K4 at the qwen3 and granite-moe serve shapes, 8e-3 in bf16),
              K4 also on its wgmma route's bf16 cases (d 64 and 128, ragged
              s and t, GQA groups 1-8, non-causal, fused q/k/v views), each
              case on the route its dtype and head dim name, and a
@@ -34,7 +35,9 @@ Phases, one JSON object per line on stdout:
              widths name (``SSD_TOL``);
 4. timing  — each kernel, its plain version and, where one exists, one
              library call at the main paths' shapes (CUDA events, best of
-             3 interleaved), beside the bytes/ops bound;
+             3 interleaved), beside the bytes/ops bound; K4 at both serve
+             shapes (qwen3: 16 heads of 128; granite-moe: 24 of 64, group
+             3);
 5. main    — ``build_engine(task="sr")`` at the published SR widths on
              ``cuda``: rounds at pipeline depth 1 and again at depth 0 from
              the same seed, with the launch counts zeroed just before each
@@ -81,19 +84,40 @@ Phases, one JSON object per line on stdout:
              share);
 12. agree SSM — the reduced mamba2-2.7b serve path on the card against the
              same on the CPU (``AGREE_LM_TOL``);
-13. train LM — federated LM training through the CLI,
+13. serve MoE — granite-moe-3b-a800m at its published widths and full
+             depth in bf16 (3,299,182,080 params from ``init_params(0)``,
+             drawn on the CPU) with ``attn_impl="pallas"`` and
+             ``moe_impl="scatter"``, the same traffic as phase 9, the
+             launch counts zeroed just before and read just after: K4
+             exactly 32 launches in the prefill, all on its wgmma route,
+             and none in decode; finite logits; the prefill's dropped-slot
+             share at capacity factor 1.25, per layer and in all; the
+             pallas prefill against the dense one, a dropless prefill +
+             decode against a dropless ``forward``, and a 1,000-token
+             prompt, in bf16 (``MOE_BF16_TOL``) and with the weights
+             upcast to f32 (``MOE_F32_TOL`` on tokens clear of routing
+             near-ties), each with the count of (token, layer) routing
+             decisions that differ; a profiled prefill and decode step
+             (device idle share, K4's and the dispatch passes' shares);
+14. agree MoE — the reduced granite-moe, qwen3-moe (scatter) and jamba
+             (K5 and MoE in one stack) serve paths on the card against the
+             same on the CPU (``AGREE_LM_TOL``);
+15. train LM — federated LM training through the CLI,
              ``main(["--arch", A, "--preset", "fl100m", ...])`` for
-             qwen3-0.6b (3 rounds) and mamba2-2.7b (2 rounds) at depth 1,
+             qwen3-0.6b (3 rounds), mamba2-2.7b and granite-moe-3b-a800m
+             (2 rounds each; granite: 12 layers of 4 experts top-2, 2,048
+             wide, 269,998,848 params, the einsum dispatch) at depth 1,
              then depth 0, from the same seed, the launch counts zeroed
              just before each run and read just after: finite losses,
              bit-identical across depths, K1 exactly once per lane-loop
-             step; ``exec_time`` per round;
-14. train LM mesh — the same qwen3 with ``--workers 4 --mesh-workers 2
+             step; ``exec_time`` per round and the run's peak memory; the
+             granite loss holds its load-balance term;
+16. train LM mesh — the same qwen3 with ``--workers 4 --mesh-workers 2
              --combine-mode tree --combine-compress int8``, 2 rounds at
              depths 1 and 0: bit-identical losses, K2 once per live shard
              per round over the LM's leaf table, K1 once per worker-program
              step, ``combine_bytes_per_round`` 2 × the int8 payload;
-15. train LM full width — qwen3-0.6b at its published widths (596,180,992
+17. train LM full width — qwen3-0.6b at its published widths (596,180,992
              params from ``init_params(0)``) in f32 through
              ``build_engine(lm_cfg=..., preset="fl100m")``: batches of 8 ×
              256 tokens, cohort 4 on 1 worker × 2 lanes, ``steps_cap`` 4
@@ -106,12 +130,13 @@ Phases, one JSON object per line on stdout:
              against its plain version (bitwise) and timed with
              ``torch.lerp`` beside the bound, and K2 on the fl100m
              payload's fold (bitwise, timed);
-16. agree train — a reduced qwen3-0.6b training engine, 2 rounds on the
+18. agree train — a reduced qwen3-0.6b training engine, 2 rounds on the
              card against the same on the CPU: losses within
              ``AGREE_TRAIN_RTOL``, the final params leaf by leaf within
              ``AGREE_TRAIN_PARAMS``, and the initial params outside it;
-17. the ``kernels`` line (K1-K5; K1's and K2's launches on the LM training
-   paths beside the main ones), then the card line and the last line
+19. the ``kernels`` line (K1-K5; K1's and K2's launches on the LM training
+   paths beside the main ones, K4's on the MoE serve path and its timing
+   at that shape), then the card line and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no last
@@ -215,14 +240,43 @@ SSD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
 # from the f32 one is reported beside them.
 SSM_F32_TOL = dict(atol=1e-3, rtol=1e-3)
 SSM_BF16_TOL = dict(atol=0.5, rtol=0.05)
+# The MoE serve path: granite-moe-3b-a800m at its published widths and full
+# depth in bf16 with attn_impl="pallas", the same traffic as the qwen3 serve
+# path.  Cut to size: moe_impl="scatter", the reference's own knob (qwen3-moe
+# and jamba set it), which computes the same function: at T = 8,192 tokens
+# the default "einsum" would build a [8192, 8, 40, 2048] one-hot (10.7 GB in
+# bf16) and ~16 PFLOP of dispatch products a layer.  No width is cut.
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_PARAMS = 3_299_182_080    # the reference's count (49,408-row embed)
+# A routing decision is discontinuous: where a token's k-th and (k+1)-th
+# router probabilities nearly tie, two sound routes (sums in other orders)
+# may pick another expert for it and move its output by O(gate x expert
+# output), not by roundings.  Each route check reports the (token, layer)
+# decisions that differ.  In f32 (the weights upcast) two sound routes
+# differ by f32 roundings (~1e-7 relative) grown over 32 layers: the
+# logits are held at SSM_F32_TOL on the compared tokens whose gap exceeds
+# MOE_F32_TIE_GAP at every layer in both routes.  In bf16 the router logits
+# carry 8 significant bits, so nearly every token ties within bf16 noise
+# at one of 32 layers: all compared tokens are held, at SSM_BF16_TOL (bf16
+# roundings grown through 32 random-weight layers, and near-tie flips).
+MOE_F32_TOL = SSM_F32_TOL
+MOE_BF16_TOL = SSM_BF16_TOL
+MOE_F32_TIE_GAP = 1e-5
+# Kernel-name fragments of the MoE dispatch passes in a profile: the
+# router's top-k sort and the scatter's index sort, the position cumsum,
+# the one-hot, and the scatter-add and gather of the token rows.
+MOE_DISPATCH_KERNELS = {"moe_sort": ("sort", "Sort"),
+                        "moe_cumsum": ("scan", "Scan"),
+                        "moe_scatter_gather": ("scatter", "index", "Index",
+                                               "gather")}
 # Federated LM training (--arch, f32 as the reference trains): the
-# reference's fl100m preset through the CLI (qwen3 for 3 rounds, mamba2 for
-# 2, its default cohort 8 over 2 workers x 2 lanes), the mesh path with
+# reference's fl100m preset through the CLI (qwen3 for 3 rounds, mamba2 and
+# granite-moe for 2, its default cohort 8 over 2 workers x 2 lanes), the mesh path with
 # int8 shard uploads (4 workers over 2 shards), and qwen3-0.6b at its
 # published widths through the same builder at the fl100m preset's "lm"
 # batches of 8 x 256 tokens, cohort 4 on 1 worker x 2 lanes, 4 local steps
 # a client: 2 clients a lane fill the S = 8 bucket with no padded step.
-LM_TRAIN = (("qwen3-0.6b", 3), ("mamba2-2.7b", 2))
+LM_TRAIN = (("qwen3-0.6b", 3), ("mamba2-2.7b", 2), (MOE_ARCH, 2))
 LM_MESH_ARGS = ["--workers", "4", "--mesh-workers", "2", "--combine-mode",
                 "tree", "--combine-compress", "int8"]
 LM_MESH_ROUNDS = 2
@@ -622,8 +676,8 @@ def _fused_qkv(torch, b, s, hq, hkv, d, dt, gen, dev):
 
 def phase_check_k4(torch) -> dict:
     """K4 against its plain version: the reference's sweep (causal) in f32
-    and bf16, the serve shape in f32 and bf16, one ragged causal prompt in
-    bf16, non-causal cases, causal queries longer than their keys (the
+    and bf16, the qwen3 and granite-moe serve shapes in f32 and bf16, one
+    ragged causal prompt in bf16, non-causal cases, causal queries longer than their keys (the
     zero keys of the reference's padding), and the wgmma route's bf16 cases
     (d 64 and 128, GQA groups 1, 2, 4 and 8, q/k/v as views of one fused
     buffer).  Every case must take the route its dtype and head dim name,
@@ -641,9 +695,15 @@ def phase_check_k4(torch) -> dict:
              for b, s, hq_, hkv_, d in ATTN_SWEEP]
     serve = (SERVE_BATCH, SERVE_PROMPT, hq, hkv, hd)
     ragged = (1, RAGGED_PROMPT, hq, hkv, hd)
+    moe = _moe_cfg()
+    serve_moe = (SERVE_BATCH, SERVE_PROMPT, moe.n_heads, moe.n_kv_heads,
+                 moe.resolved_head_dim)
     cases += [(serve, SERVE_PROMPT, True, torch.float32, False),
               (serve, SERVE_PROMPT, True, bf16, False),
               (ragged, RAGGED_PROMPT, True, bf16, False),
+              # granite-moe's serve shape: head dim 64, GQA group 3
+              (serve_moe, SERVE_PROMPT, True, torch.float32, False),
+              (serve_moe, SERVE_PROMPT, True, bf16, False),
               ((2, 256, 4, 2, 64), 256, False, torch.float32, False),
               ((1, 300, 4, 2, 64), 200, True, torch.float32, False),
               # the wgmma route: ragged with t < s, GQA groups 1 and 8,
@@ -661,7 +721,8 @@ def phase_check_k4(torch) -> dict:
     for (b, s, hq_, hkv_, d), t, causal, dt, fused in cases:
         key = str(dt).split(".")[-1]
         tol = _tol(torch, dt)
-        if dt == bf16 and (b, s, hq_, hkv_, d) in (serve, ragged):
+        if dt == bf16 and (b, s, hq_, hkv_, d) in (serve, ragged,
+                                                   serve_moe):
             key, tol = "bfloat16_serve_shapes", SERVE_ATTN_BF16_TOL
         if fused:
             q, k, v = _fused_qkv(torch, b, s, hq_, hkv_, d, dt, gen, dev)
@@ -743,18 +804,22 @@ def phase_timing_k3(torch, device_name: str) -> dict:
     return out
 
 
-def phase_timing_k4(torch, device_name: str) -> dict:
+def phase_timing_k4(torch, device_name: str, cfg=None) -> dict:
     """K4, its plain version and one F.scaled_dot_product_attention call
-    at the serve shape (causal, GQA, bf16)."""
+    at a serve shape (causal, GQA, bf16): 4 x 2,048 tokens at the heads of
+    ``cfg`` (default: the qwen3 serve path's)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import ref
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(9)
-    shapes = _serve_shapes()
-    q = torch.randn(shapes["q"], generator=gen).to(torch.bfloat16).to(dev)
-    k = torch.randn(shapes["kv"], generator=gen).to(torch.bfloat16).to(dev)
-    v = torch.randn(shapes["kv"], generator=gen).to(torch.bfloat16).to(dev)
+    cfg = cfg or _serve_cfg()
+    hd = cfg.resolved_head_dim
+    q_shape = (SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, hd)
+    kv_shape = (SERVE_BATCH, SERVE_PROMPT, cfg.n_kv_heads, hd)
+    q = torch.randn(q_shape, generator=gen).to(torch.bfloat16).to(dev)
+    k = torch.randn(kv_shape, generator=gen).to(torch.bfloat16).to(dev)
+    v = torch.randn(kv_shape, generator=gen).to(torch.bfloat16).to(dev)
     s = q.shape[1]
 
     def library():
@@ -797,6 +862,7 @@ def phase_timing_k4(torch, device_name: str) -> dict:
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
            "shape_q": list(q.shape), "shape_kv": list(k.shape),
            "dtype": "bfloat16", "flops": flops, "bytes": nbytes,
+           "arch": cfg.name,
            "library_ms_deterministic": best_det["library"],
            "library_vs_kernel_max_abs_diff": err,
            "library_error": library_error}
@@ -1102,6 +1168,13 @@ def _ssm_cfg(impl: str = "pallas"):
     return replace(get_arch(SSM_ARCH), ssd_impl=impl)
 
 
+def _moe_cfg(dtype: str = "bfloat16"):
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    return replace(get_arch(MOE_ARCH), attn_impl="pallas",
+                   moe_impl="scatter", dtype=dtype)
+
+
 def _ssm_state(cache):
     return cache["p0"]["ssm"]
 
@@ -1265,6 +1338,263 @@ def phase_serve_ssm(torch) -> dict:
             "decode_ms_per_step": sum(step_s) / len(step_s) * 1e3}
 
 
+class _Routing:
+    """While active, records the routing of every MoE dispatch by wrapping
+    ``repro_torch.models.layers._moe_dispatch`` (which ``moe_layer_3d``
+    calls): per call, each token's top-k experts as a sorted set, the gap
+    between its k-th and (k+1)-th router probabilities, and the capacity.
+    It recomputes the router (a GEMM, a softmax, a sort) beside the
+    model's own, and changes nothing the model computes."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self._layers, inner = layers, layers._moe_dispatch
+        self._inner = inner
+        torch = self.torch
+
+        def record(x, router_w, *args, top_k, capacity_factor=1.25, **kw):
+            probs = torch.softmax((x @ router_w).float(), dim=-1)
+            vals, idx = torch.sort(probs, dim=-1, descending=True,
+                                   stable=True)
+            T, E = probs.shape
+            self.calls.append({
+                "experts": idx[:, :top_k].sort(dim=-1).values,
+                "gap": vals[:, top_k - 1] - vals[:, top_k],
+                "capacity": max(1, int(capacity_factor * top_k * T / E)),
+                "n_experts": E})
+            return inner(x, router_w, *args, top_k=top_k,
+                         capacity_factor=capacity_factor, **kw)
+
+        layers._moe_dispatch = record
+        return self
+
+    def __exit__(self, *exc):
+        self._layers._moe_dispatch = self._inner
+
+
+def _dropped_slots(torch, calls) -> dict:
+    """Slots over capacity, ``Σ_e max(0, n_e - C)``, over ``T·k`` slots: per
+    MoE layer (one call each) and over all."""
+    over = []
+    for c in calls:
+        n = torch.bincount(c["experts"].flatten(), minlength=c["n_experts"])
+        over.append(int((n - c["capacity"]).clamp(min=0).sum()))
+    slots = calls[0]["experts"].numel()
+    return {"capacity": calls[0]["capacity"], "slots_per_layer": slots,
+            "share_per_layer": [o / slots for o in over],
+            "share": sum(over) / (slots * len(over))}
+
+
+def _route_grid(torch, calls, n_moe: int, b: int) -> dict:
+    """Per MoE layer, the routes of consecutive passes over ``b`` sequences
+    (a prefill or forward, then any decode steps, ``n_moe`` calls each),
+    laid side by side along the sequence: experts ``[L, b, S, k]``, gap
+    ``[L, b, S]``."""
+    passes = [calls[i:i + n_moe] for i in range(0, len(calls), n_moe)]
+    return {key: torch.stack([
+        torch.cat([p[layer][key].reshape(b, -1, *p[layer][key].shape[1:])
+                   for p in passes], dim=1) for layer in range(n_moe)])
+        for key in ("experts", "gap")}
+
+
+def _route_compare(torch, calls_a, calls_b, n_moe: int, positions, a, b,
+                   tol: dict, tie_gap: float) -> dict:
+    """Logits ``a`` and ``b`` (``[batch, len(positions), vocab]``) of two
+    routes, held at ``tol`` on the compared tokens whose routing gap is at
+    least ``tie_gap`` at every MoE layer in both routes (0: all of them);
+    with the count of (token, layer) routing decisions that differ."""
+    ga = _route_grid(torch, calls_a, n_moe, a.shape[0])
+    gb = _route_grid(torch, calls_b, n_moe, a.shape[0])
+    differ = (ga["experts"] != gb["experts"]).any(-1)         # [L, b, S]
+    near = (ga["gap"] < tie_gap) | (gb["gap"] < tie_gap)
+    clear = ~near[:, :, positions].any(0)                      # [b, P]
+    res = _compare(torch, a[clear], b[clear], tol)
+    res.update({"compared_tokens": int(clear.sum()),
+                "near_tie_tokens_skipped": int((~clear).sum()),
+                "routing_decisions": differ.numel(),
+                "routing_decisions_differ": int(differ.sum()),
+                "compared_tokens_whose_routing_differs": int(
+                    differ[:, :, positions].any(0).sum())})
+    return res
+
+
+def _moe_route_checks(torch, params, cfg, tokens, generated, tol,
+                      tie_gap) -> dict:
+    """The MoE serve path's routes against each other (``_route_compare``):
+    the pallas prefill against the dense one at the served capacity
+    factor; a dropless prefill + decode (teacher-forced with
+    ``generated``) against a dropless ``forward``, as
+    tests/test_archs.py:80 compares them; a 1,000-token prompt through
+    both attentions.  Also the dropped-slot share of the pallas prefill,
+    and the two prefills' logits (``pallas_logits``, ``dense_logits``)."""
+    from dataclasses import replace
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    b, s = tokens.shape
+    n_moe = cfg.n_layers               # every granite layer is an MoE layer
+    dense = replace(cfg, attn_impl="dense")
+    dropless = replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+    def prefill(c, toks):
+        with _Routing(torch) as r:
+            logits, _ = lm.prefill(params, {"tokens": toks}, c)
+        return _vocab(logits, cfg)[:, None], r.calls
+
+    lp, rp = prefill(cfg, tokens)
+    ld, rd = prefill(dense, tokens)
+    out = {"pallas_vs_dense_prefill": _route_compare(
+               torch, rp, rd, n_moe, [s - 1], lp, ld, tol, tie_gap),
+           "dropped_slots_prefill": _dropped_slots(torch, rp),
+           "pallas_logits": lp[:, 0], "dense_logits": ld[:, 0]}
+    del rp, rd
+    with _Routing(torch) as r:
+        lg, cache = lm.prefill(params, {"tokens": tokens}, dropless,
+                               max_len=SERVE_MAX_LEN)
+        steps = [lg]
+        for i, nxt in enumerate(generated):
+            lg, cache = lm.decode_step(params, cache, nxt, s + i, dropless)
+            steps.append(lg)
+    del cache
+    seq = torch.cat([tokens] + generated, dim=1)
+    with _Routing(torch) as rf:
+        full = lm.forward(params, {"tokens": seq}, dropless)
+    served = torch.stack([_vocab(x, cfg) for x in steps], dim=1)
+    positions = list(range(s - 1, s + len(generated)))
+    out["prefill_decode_vs_forward"] = _route_compare(
+        torch, r.calls, rf.calls, n_moe, positions, served,
+        full[:, s - 1:], tol, tie_gap)
+    out["dropless_capacity"] = {"prefill": r.calls[0]["capacity"],
+                                "decode": r.calls[-1]["capacity"],
+                                "forward": rf.calls[0]["capacity"]}
+    del full, served, r, rf
+    ops.reset_launch_counts()
+    lr, rr = prefill(cfg, tokens[:, :RAGGED_PROMPT])
+    out["ragged_k4_launches"] = ops.launch_counts()["flash_attention"]
+    lrd, rrd = prefill(dense, tokens[:, :RAGGED_PROMPT])
+    out["ragged_s"] = RAGGED_PROMPT
+    out["ragged_pallas_vs_dense"] = _route_compare(
+        torch, rr, rrd, n_moe, [RAGGED_PROMPT - 1], lr, lrd, tol, tie_gap)
+    return out
+
+
+def phase_serve_moe(torch) -> dict:
+    """The MoE serve path: granite-moe-3b-a800m at its published widths and
+    depth, bf16, ``attn_impl="pallas"``, ``moe_impl="scatter"``, weights
+    from ``init_params(0)``: one prefill of 4 x 2,048 tokens (K4 exactly
+    once per layer, all on its wgmma route) and 16 greedy decode steps (no
+    K4), with the launch counts zeroed just before and read just after;
+    finite logits; the prefill's dropped-slot share at capacity factor
+    1.25; then the route checks (``_moe_route_checks``) in bf16
+    (``MOE_BF16_TOL``) and with the same weights upcast to f32
+    (``MOE_F32_TOL`` on tokens clear of near-ties); each bf16 prefill's
+    distance from the f32 one is reported."""
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    dev = torch.device("cuda")
+    cfg = _moe_cfg()
+    params, init_s = _sync_s(torch, lambda: lm.init_params(0, cfg))
+    n_params = lm.param_count(params)
+    check(n_params == MOE_PARAMS, f"{MOE_ARCH}: {n_params} params")
+    gen = torch.Generator().manual_seed(15)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=gen).to(dev)
+    lm.prefill(params, {"tokens": tokens[:, :128]}, cfg, max_len=144)  # warm
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    (logits, cache), prefill_s = _sync_s(
+        torch, lambda: lm.prefill(params, {"tokens": tokens}, cfg,
+                                  max_len=SERVE_MAX_LEN))
+    after_prefill = ops.launch_counts()
+    routes_prefill = dict(fl.ROUTE_LAUNCHES)
+    prefill_peak = torch.cuda.max_memory_allocated()
+    generated, step_logits, step_s = [], [logits], []
+    for i in range(SERVE_DECODE):
+        nxt = step_logits[-1].argmax(-1, keepdim=True)
+        generated.append(nxt)
+        (lg, cache), dt = _sync_s(
+            torch, lambda: lm.decode_step(params, cache, nxt,
+                                          SERVE_PROMPT + i, cfg))
+        step_logits.append(lg)
+        step_s.append(dt)
+    launches = ops.launch_counts()
+    routes_decode = {k: n - routes_prefill[k]
+                     for k, n in fl.ROUTE_LAUNCHES.items()}
+    del cache
+    check(after_prefill["flash_attention"] == cfg.n_layers,
+          f"K4 launched {after_prefill['flash_attention']} times in a "
+          f"prefill of {cfg.n_layers} layers")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"K4 launched in decode: {launches}")
+    check(routes_prefill == {"simt": 0, "wgmma": cfg.n_layers},
+          f"K4's prefill launches by route: {routes_prefill}")
+    check(routes_decode == {"simt": 0, "wgmma": 0},
+          f"K4's decode launches by route: {routes_decode}")
+    for i, lg in enumerate(step_logits):
+        check(bool(torch.isfinite(_vocab(lg, cfg)).all()),
+              f"non-finite logits at step {i}")
+        check(bool((lg[:, cfg.vocab_size:] == -1e30).all()),
+              f"vocab pad not masked at step {i}")
+    emit({"phase": "serve_moe", "arch": MOE_ARCH, "attn_impl": "pallas",
+          "moe_impl": cfg.moe_impl, "dtype": cfg.dtype,
+          "n_layers": cfg.n_layers, "n_params": n_params,
+          "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+          "capacity_factor": cfg.capacity_factor, "batch": SERVE_BATCH,
+          "prompt": SERVE_PROMPT, "decode_steps": SERVE_DECODE,
+          "reduced": {"moe_impl": "scatter (the reference's knob; at T = "
+                      "8,192 'einsum' would build a [8192, 8, 40, 2048] "
+                      "one-hot, 10.7 GB in bf16, and ~16 PFLOP of "
+                      "dispatch products a layer)"},
+          "init_params_s": init_s, "prefill_ms": prefill_s * 1e3,
+          "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_s,
+          "decode_ms_per_step": sum(step_s) / len(step_s) * 1e3,
+          "decode_ms_steps": [x * 1e3 for x in step_s],
+          "decode_tokens_per_s": SERVE_BATCH * len(step_s) / sum(step_s),
+          "prefill_peak_bytes": prefill_peak,
+          "launches_prefill": after_prefill,
+          "launches_decode": {k: launches[k] - after_prefill[k]
+                              for k in launches},
+          "k4_routes_prefill": routes_prefill,
+          "k4_routes_decode": routes_decode})
+    bf16 = _moe_route_checks(torch, params, cfg, tokens, generated,
+                             MOE_BF16_TOL, 0.0)
+    # The recorded pallas prefill is the served one, bit for bit.
+    check(torch.equal(bf16["pallas_logits"], _vocab(logits, cfg)),
+          "a second pallas prefill differs from the first")
+    params32 = {"embed": params["embed"].float(),
+                "final_norm": params["final_norm"],
+                "stack": {k: {n: t.float() for n, t in v.items()}
+                          for k, v in params["stack"].items()}}
+    f32 = _moe_route_checks(torch, params32, _moe_cfg("float32"), tokens,
+                            generated, MOE_F32_TOL, MOE_F32_TIE_GAP)
+    del params32
+    bf16_vs_f32 = {route: _compare(torch, bf16.pop(f"{route}_logits"),
+                                   f32.pop(f"{route}_logits"),
+                                   MOE_BF16_TOL)
+                   for route in ("pallas", "dense")}
+    emit({"phase": "serve_moe_checks", "tolerance": {
+              "bfloat16": MOE_BF16_TOL, "float32": MOE_F32_TOL},
+          "tie_gap": {"bfloat16": 0.0, "float32": MOE_F32_TIE_GAP},
+          "bfloat16": bf16, "float32": f32,
+          "bf16_vs_f32_prefill": bf16_vs_f32})
+    for name, res in (("bf16", bf16), ("f32", f32)):
+        for key, val in res.items():
+            if isinstance(val, dict) and "close" in val:
+                check(val["close"], f"MoE serve {name} {key}: {val}")
+                check(val["compared_tokens"] > 0,
+                      f"MoE serve {name} {key}: no token compared")
+        check(res["ragged_k4_launches"] == cfg.n_layers,
+              f"{name} ragged prefill: K4 {res['ragged_k4_launches']}")
+    return {"params": params, "tokens": tokens, "launches": after_prefill,
+            "k4_routes_prefill": routes_prefill,
+            "dropped_share": bf16["dropped_slots_prefill"]["share"],
+            "prefill_ms": prefill_s * 1e3,
+            "decode_ms_per_step": sum(step_s) / len(step_s) * 1e3}
+
+
 def _profile_rows(torch, prof):
     """(device rows, host rows) of a profile, each ``(us, name, count)``,
     largest first: kernels by self device time (an aten op's entry repeats
@@ -1282,10 +1612,12 @@ def _profile_rows(torch, prof):
 
 
 def _device_profile(torch, fn, label: str = "k4",
-                    match: str = "flash_attention", top: int = 10) -> dict:
+                    match: str = "flash_attention", top: int = 10,
+                    groups: dict | None = None) -> dict:
     """Wall time, device busy time and kernels of one call of ``fn`` under
     torch.profiler; ``<label>_ms`` sums the kernels whose name holds
-    ``match``."""
+    ``match``, and each of ``groups`` (name -> name fragments) the kernels
+    whose name holds one of its fragments."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1297,18 +1629,24 @@ def _device_profile(torch, fn, label: str = "k4",
     rows, _ = _profile_rows(torch, prof)
     busy = sum(r[0] for r in rows) / 1e6
     ours = sum(us for us, k, _ in rows if match in k) / 1e6
-    return {"wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3,
-            "device_idle_share": 1 - busy / wall,
-            "kernels_launched": sum(r[2] for r in rows),
-            f"{label}_ms": ours * 1e3,
-            f"{label}_share_of_busy": ours / busy if busy else None,
-            "top": [{"name": k[:80], "ms": us / 1e3, "count": n}
-                    for us, k, n in rows[:top]]}
+    out = {"wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3,
+           "device_idle_share": 1 - busy / wall,
+           "kernels_launched": sum(r[2] for r in rows),
+           f"{label}_ms": ours * 1e3,
+           f"{label}_share_of_busy": ours / busy if busy else None,
+           "top": [{"name": k[:80], "ms": us / 1e3, "count": n}
+                   for us, k, n in rows[:top]]}
+    for name, frags in (groups or {}).items():
+        ms = sum(us for us, k, _ in rows if any(f in k for f in frags)) / 1e3
+        out[f"{name}_ms"] = ms
+        out[f"{name}_share_of_busy"] = ms / (busy * 1e3) if busy else None
+    return out
 
 
 def phase_serve_profile(torch, serve, cfg=None, *, label: str = "k4",
                         match: str = "flash_attention",
-                        phase: str = "serve_profile") -> dict:
+                        phase: str = "serve_profile",
+                        groups: dict | None = None) -> dict:
     """Device busy and idle share of one serve prefill and one decode step
     (torch.profiler).  The profiler slows the host, so the idle share is
     also given against the same call's unprofiled wall time from the serve
@@ -1323,11 +1661,12 @@ def phase_serve_profile(torch, serve, cfg=None, *, label: str = "k4",
         holder["out"] = lm.prefill(params, {"tokens": tokens}, cfg,
                                    max_len=prompt + SERVE_DECODE)
 
-    pre = _device_profile(torch, prefill, label, match, top=15)
+    pre = _device_profile(torch, prefill, label, match, top=15,
+                          groups=groups)
     logits, cache = holder["out"]
     nxt = logits.argmax(-1, keepdim=True)
     dec = _device_profile(torch, lambda: lm.decode_step(
-        params, cache, nxt, prompt, cfg), label, match)
+        params, cache, nxt, prompt, cfg), label, match, groups=groups)
     for prof, key in ((pre, "prefill_ms"), (dec, "decode_ms_per_step")):
         prof["unprofiled_wall_ms"] = serve[key]
         prof["device_idle_share_unprofiled"] = \
@@ -1609,8 +1948,9 @@ def _lm_shapes(cfg) -> dict:
 
 def _lm_cli(torch, argv: list, depth: int):
     """One run of the training CLI (``repro_torch.launch.train.main``) at
-    ``depth``: its summary, per-round history and the launch counts,
-    zeroed just before the run and read just after."""
+    ``depth``: its summary, per-round history, the launch counts (zeroed
+    just before the run and read just after) and the run's peak device
+    memory."""
     import contextlib
     import gc
     import io
@@ -1619,18 +1959,20 @@ def _lm_cli(torch, argv: list, depth: int):
     from repro_torch.launch import train
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "metrics.json"
+        torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         with contextlib.redirect_stdout(io.StringIO()):
             rc = train.main(argv + ["--pipeline-depth", str(depth),
                                     "--metrics-out", str(path)])
         launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
         rec = json.loads(path.read_text())
     gc.collect()
     torch.cuda.empty_cache()
     check(rc == 0, f"{argv}: exit {rc}")
     check(rec["summary"]["kernel_launches"] == launches,
           f"{argv}: the summary's launches {rec['summary']} != {launches}")
-    return rec["summary"], rec["history"], launches
+    return rec["summary"], rec["history"], launches, peak
 
 
 def _mean_exec(hist) -> float:
@@ -1640,17 +1982,44 @@ def _mean_exec(hist) -> float:
     return sum(later) / len(later)
 
 
+def _moe_aux_in_loss(torch) -> dict:
+    """The fl100m granite-moe loss holds ``moe_aux_weight`` times the MoE
+    layers' load-balance term: ``loss_fn`` at the config's weight minus at
+    weight 0 equals it (to f32 rounding of a ~10 loss), and the term, a sum
+    of 12 layers' (each 1 at uniform routing), is positive."""
+    from dataclasses import replace
+    from repro_torch.launch.train import lm_config
+    from repro_torch.models import lm
+    cfg, seq_len, batch = lm_config(MOE_ARCH, "fl100m")
+    params = lm.init_params(0, cfg)
+    gen = torch.Generator().manual_seed(16)
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq_len), generator=gen)
+    with torch.no_grad():
+        loss = float(lm.loss_fn(params, {"tokens": toks}, cfg))
+        bare = float(lm.loss_fn(params, {"tokens": toks},
+                                replace(cfg, moe_aux_weight=0.0)))
+        aux = float(lm._hidden(params, {"tokens": toks}, cfg,
+                               torch.device("cuda"))[1])
+    del params
+    out = {"loss": loss, "loss_without_aux": bare, "aux": aux,
+           "moe_aux_weight": cfg.moe_aux_weight}
+    check(aux > 0
+          and abs(loss - bare - cfg.moe_aux_weight * aux) <= 1e-5 * loss,
+          f"the MoE loss does not hold its aux term: {out}")
+    return out
+
+
 def phase_train_lm(torch) -> dict:
     """``--arch ... --preset fl100m`` through the CLI at depths 1 and 0:
     finite losses, bit-identical across depths, K1 once per lane-loop
-    step."""
+    step; the MoE arch's loss holds its load-balance term."""
     from repro_torch.launch.train import lm_config
     out = {}
     for arch, rounds in LM_TRAIN:
         argv = ["--arch", arch, "--preset", "fl100m", "--rounds", str(rounds)]
         runs = {}
         for depth in (1, 0):
-            _, hist, launches = _lm_cli(torch, argv, depth)
+            _, hist, launches, peak = _lm_cli(torch, argv, depth)
             losses = [h["loss"] for h in hist]
             steps = sum(h["s_steps"] for h in hist)
             for h in hist:
@@ -1666,7 +2035,7 @@ def phase_train_lm(torch) -> dict:
             check(launches["fedavg_accum"] == steps > 0,
                   f"{arch} fl100m depth {depth}: K1 launched "
                   f"{launches['fedavg_accum']} times for {steps} steps")
-            runs[depth] = (losses, launches, hist)
+            runs[depth] = (losses, launches, hist, peak)
         check(runs[1][0] == runs[0][0],
               f"{arch}: depth 1 and 0 losses differ: {runs[1][0]} vs "
               f"{runs[0][0]}")
@@ -1675,7 +2044,8 @@ def phase_train_lm(torch) -> dict:
         hist = runs[1][2]
         out[arch] = {"launches": runs[1][1]["fedavg_accum"],
                      "launches_depth0": runs[0][1]["fedavg_accum"],
-                     "mean_exec_s": _mean_exec(hist)}
+                     "mean_exec_s": _mean_exec(hist),
+                     "peak_gb": runs[1][3] / 1e9}
         emit({"phase": "train_lm_summary", "arch": arch, "preset": "fl100m",
               "rounds": rounds, "losses": runs[1][0],
               "bit_identical_depth_0_1": True,
@@ -1684,6 +2054,8 @@ def phase_train_lm(torch) -> dict:
               "lanes": 4, "s_steps": [h["s_steps"] for h in hist],
               "exec_time": [h["exec_time"] for h in hist],
               "launches_depth1": runs[1][1], "launches_depth0": runs[0][1],
+              **({"aux_in_loss": _moe_aux_in_loss(torch)}
+                 if arch == MOE_ARCH else {}),
               **out[arch]})
     return out
 
@@ -1702,7 +2074,7 @@ def phase_train_lm_mesh(torch) -> dict:
     shards, workers = 2, 4
     runs = {}
     for depth in (1, 0):
-        summary, hist, launches = _lm_cli(torch, argv, depth)
+        summary, hist, launches, _ = _lm_cli(torch, argv, depth)
         for h in hist:
             emit({"phase": "train_lm_mesh", "depth": depth,
                   "round": h["round_idx"], "loss": h["loss"],
@@ -1949,6 +2321,7 @@ def main() -> int:
     timing2 = phase_timing_k2(torch, layout, name)
     timing3 = phase_timing_k3(torch, name)
     timing4 = phase_timing_k4(torch, name)
+    timing4_moe = phase_timing_k4(torch, name, _moe_cfg())
     timing5 = phase_timing_k5(torch, name)
     launches, steps, res = phase_main(torch, args.rounds)
     mesh_launches, mesh_res = phase_mesh(torch, MESH_ROUNDS)
@@ -1963,6 +2336,13 @@ def main() -> int:
                         phase="serve_ssm_profile")
     del ssm["params"]
     phase_agree_lm(torch, SSM_ARCH, ssd_impl="pallas")
+    moe = phase_serve_moe(torch)
+    phase_serve_profile(torch, moe, _moe_cfg(), phase="serve_moe_profile",
+                        groups=MOE_DISPATCH_KERNELS)
+    del moe["params"]
+    for arch, impl in ((MOE_ARCH, {}), ("qwen3-moe-235b-a22b", {}),
+                       ("jamba-v0.1-52b", {"ssd_impl": "pallas"})):
+        phase_agree_lm(torch, arch, attn_impl="pallas", **impl)
     train_lm = phase_train_lm(torch)
     train_mesh = phase_train_lm_mesh(torch)
     torch.cuda.empty_cache()
@@ -2016,7 +2396,13 @@ def main() -> int:
                timing4),
          "launches_per_prefill": serve["launches"]["flash_attention"],
          "launches_by_route": serve["k4_routes_prefill"], "sass": sass,
-         "path": "serve (prefill, attn_impl='pallas')"},
+         "launches_serve_moe": moe["launches"]["flash_attention"],
+         "launches_by_route_serve_moe": moe["k4_routes_prefill"],
+         "serve_moe_shape": {k: timing4_moe[k] for k in (
+             "shape_q", "shape_kv", "ms", "plain_ms", "library_ms",
+             "bound_ms", "bound_by")},
+         "path": "serve (qwen3-0.6b and granite-moe-3b-a800m prefill, "
+                 "attn_impl='pallas')"},
         {**row("ssd", "ssd.cu", "src/repro/kernels/ssd.py:83",
                ssm["launches"]["ssd"], max(err5.values()), timing5),
          "launches_per_prefill": ssm["launches"]["ssd"],

@@ -1,6 +1,6 @@
 """End-to-end federated training entry point of the port — the
 counterpart of ``repro/launch/train.py`` for the paper's SR task and the
-LM archs whose forward the port has (dense and ssm families).
+LM archs whose forward the port has (dense, ssm, MoE and hybrid families).
 
 Composes dataset → cohort sampler → placement → worker pool → round step
 (partial aggregation through the K1 kernel) → synthetic telemetry →
@@ -9,6 +9,8 @@ time-model refit, on the CUDA card::
     PYTHONPATH=src python -m repro_torch.launch.train --task sr --rounds 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
         --preset fl100m --rounds 3
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch granite-moe-3b-a800m --preset fl100m --rounds 2
 
 and the mesh path — one program per worker, the shard-local tree combine,
 int8 shard uploads folded by the K2 kernel::
@@ -17,8 +19,8 @@ int8 shard uploads folded by the K2 kernel::
         --mesh-workers 2 --combine-mode tree --combine-compress int8
 
 The flags are the reference's.  Those of paths not ported yet
-(checkpoints, device cache, control plane, trace export; archs with MoE,
-an encoder or a frontend) raise ``NotImplementedError`` naming their
+(checkpoints, device cache, control plane, trace export; archs with an
+encoder or a frontend) raise ``NotImplementedError`` naming their
 ROADMAP item when set.
 """
 
@@ -89,11 +91,14 @@ def lm_config(arch: str, preset: str = "smoke"
               ) -> tuple[ArchConfig, int, int]:
     """``(cfg, seq_len, batch_size)`` that the reference's ``build_engine``
     trains ``arch`` at under ``preset``: the arch's ``reduced()`` config
-    (f32), then the preset's widths unless ``smoke``."""
+    (f32), then the preset's widths unless ``smoke`` — an MoE arch's
+    experts as wide as the preset's ``d_ff``."""
     p = dict(PRESETS[preset])
     seq_len, batch_size = p.pop("seq_len"), p.pop("batch_size")
     cfg = get_arch(arch).reduced()
     if preset != "smoke":          # smoke == reduced()
+        if cfg.moe:
+            p.setdefault("moe_d_ff", p.get("d_ff", 128))
         cfg = replace(cfg, **p)
     return cfg, seq_len, batch_size
 
@@ -123,8 +128,8 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
     in the reference.  ``engine_options`` are further
     :class:`EngineConfig` fields — the device-cache and control-plane
     options, which raise until they are ported.  Refuses an unported arch
-    (MoE, encoder, frontend: ROADMAP M15c), and a CUDA ``device`` without
-    a card, before any work.
+    (encoder, frontend: ROADMAP M15c), and a CUDA ``device`` without a
+    card, before any work.
     """
     _refuse("ckpt_dir", ckpt_dir, None, "M9")
     if sampler == "online":
@@ -186,8 +191,8 @@ def _build_parser() -> argparse.ArgumentParser:
                     "as in repro.launch.train; unported ones raise.")
     ap.add_argument("--task", choices=TASKS, default=None)
     ap.add_argument("--arch", default=None,
-                    help="an LM arch (dense or ssm family; MoE, encoder "
-                         "and frontend archs raise, M15c)")
+                    help="an LM arch (dense, ssm, MoE or hybrid family; "
+                         "encoder and frontend archs raise, M15c)")
     ap.add_argument("--preset", choices=list(PRESETS), default="smoke",
                     help="LM preset, used only with --arch")
     ap.add_argument("--placement", default="lb", choices=["rr", "bb", "lb"])

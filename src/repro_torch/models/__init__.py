@@ -1,6 +1,7 @@
 """Models of the port: the paper's FL-task models (``papertasks``) and the
-LM stack of the architecture zoo (``lm``: the dense family, and the ssm
-family through the Mamba-2 mixer of ``ssd``), with the loss functions the
+LM stack of the architecture zoo (``lm``: the dense family, the ssm family
+through the Mamba-2 mixer of ``ssd``, and the MoE and hybrid families
+through the routed experts of ``layers``), with the loss functions the
 federated round trains them through."""
 
 from __future__ import annotations

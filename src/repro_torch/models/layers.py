@@ -1,5 +1,4 @@
-"""Shared layer library — port of the dense-family part of
-``repro/models/layers.py``.
+"""Shared layer library — port of ``repro/models/layers.py``.
 
 Pure functions over tensors and explicit parameter dicts, in the
 reference's layouts (``[b, s, heads, head_dim]`` for attention).  Attention
@@ -11,8 +10,11 @@ has the reference's three implementations (the ``attn_impl`` knob):
                 (:func:`repro_torch.kernels.ops.flash_attention`), the
                 plain version on CPU tensors.
 
-``rms_norm(impl="pallas")`` likewise goes to K3.  The MoE layers wait for
-the MoE slice (ROADMAP M15c).
+``rms_norm(impl="pallas")`` likewise goes to K3.  The MoE layers
+(``moe_layer``, ``moe_layer_3d``, ``_moe_dispatch``) have the reference's two
+dispatch implementations (the ``moe_impl`` knob), 'einsum' and 'scatter';
+no Pallas kernel is on their path in the reference, so they are plain
+PyTorch here too.
 """
 
 from __future__ import annotations
@@ -21,12 +23,13 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ref
 
 __all__ = ["dense_init", "norm_init", "rms_norm", "rope",
            "causal_scores_mask", "gqa_attention", "decode_attention",
-           "swiglu", "gelu_mlp"]
+           "swiglu", "gelu_mlp", "moe_layer", "moe_layer_3d"]
 
 
 # --------------------------------------------------------------------------
@@ -217,3 +220,172 @@ def gelu_mlp(x, w_up, b_up, w_down, b_down):
         z = z + b_up
     out = F.gelu(z, approximate="tanh") @ w_down
     return out if b_down is None else out + b_down
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts
+# --------------------------------------------------------------------------
+def moe_layer(x, router_w, moe_gate, moe_up, moe_down, *, top_k: int,
+              capacity_factor: float = 1.25, impl: str = "einsum",
+              ep_shard=None, token_chunk: int = 0, remat: bool = False):
+    """Top-k routed MoE over flattened tokens ``x [T, D]`` (see
+    :func:`_moe_dispatch`).
+
+    ``token_chunk`` > 0 routes blocks of that many tokens one after the
+    other (the tail zero-padded), so the capacity buffers scale with the
+    block: capacity ``C = cf·k·Tc/E`` per block.  The aux term is the mean
+    over blocks.  ``remat`` recomputes each block in backward
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
+    """
+    T, D = x.shape
+    kw = dict(top_k=top_k, capacity_factor=capacity_factor, impl=impl,
+              ep_shard=ep_shard)
+    if not token_chunk or T <= token_chunk:
+        return _moe_dispatch(x, router_w, moe_gate, moe_up, moe_down, **kw)
+    pad = (-T) % token_chunk
+    if pad:
+        x = torch.cat([x, x.new_zeros(pad, D)])
+    outs, aux = _chunked(
+        lambda xc: _moe_dispatch(xc, router_w, moe_gate, moe_up, moe_down,
+                                 **kw),
+        x.split(token_chunk), remat)
+    return torch.cat(outs)[:T], aux
+
+
+def moe_layer_3d(x3, router_w, moe_gate, moe_up, moe_down, *, top_k: int,
+                 capacity_factor: float = 1.25, impl: str = "einsum",
+                 ep_shard=None, seq_chunk: int = 0, remat: bool = False):
+    """Batched MoE over ``x3 [b, s, D]``, dispatched in blocks of
+    ``seq_chunk`` positions along ``s`` (the batch kept whole; the tail
+    zero-padded), each block's ``b·seq_chunk`` tokens routed together.
+    The aux term is the mean over blocks."""
+    b, s, D = x3.shape
+    kw = dict(top_k=top_k, capacity_factor=capacity_factor, impl=impl,
+              ep_shard=ep_shard)
+    if not seq_chunk or s <= seq_chunk:
+        out, aux = _moe_dispatch(x3.reshape(b * s, D), router_w, moe_gate,
+                                 moe_up, moe_down, **kw)
+        return out.reshape(b, s, D), aux
+    pad = (-s) % seq_chunk
+    if pad:
+        x3 = F.pad(x3, (0, 0, 0, pad))
+
+    def block(xc):                                # xc [b, sc, D]
+        out, aux = _moe_dispatch(xc.reshape(b * seq_chunk, D), router_w,
+                                 moe_gate, moe_up, moe_down, **kw)
+        return out.reshape(b, seq_chunk, D), aux
+
+    outs, aux = _chunked(block, x3.split(seq_chunk, dim=1), remat)
+    return torch.cat(outs, dim=1)[:, :s], aux
+
+
+def _chunked(fn, chunks, remat: bool):
+    """``fn`` over ``chunks`` in order: (outputs, mean aux), the aux terms
+    summed from 0 in chunk order as the reference's scan carries them."""
+    outs = []
+    aux = torch.zeros((), dtype=torch.float32, device=chunks[0].device)
+    for xc in chunks:
+        out, a = (checkpoint(fn, xc, use_reentrant=False) if remat
+                  else fn(xc))
+        outs.append(out)
+        aux = aux + a
+    return outs, aux / len(chunks)
+
+
+def _top_k(probs, k: int):
+    """``jax.lax.top_k``: the k largest values per row, largest first, and
+    among equal values the lower index first.  ``torch.topk`` promises no
+    order for ties on CUDA; a stable descending sort keeps equal values in
+    index order."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def _moe_dispatch(x, router_w, moe_gate, moe_up, moe_down, *, top_k: int,
+                  capacity_factor: float = 1.25, impl: str = "einsum",
+                  ep_shard=None):
+    """Top-k routed MoE over flattened tokens, with capacity dropping.
+
+    x ``[T, D]``; router_w ``[D, E]``; moe_gate/up ``[E, D, F]``; moe_down
+    ``[E, F, D]``.  Router logits in f32, softmax, the top-k gates
+    renormalised; each expert takes at most ``C = max(1, int(cf·k·T/E))``
+    (token, k) slots, first come first served in (token, k) order, and the
+    slots beyond are dropped (they add nothing to the output).
+
+    impl='einsum'  — one-hot dispatch and combine products over ``[T, k, E,
+    C]`` (the reference's baseline);
+    impl='scatter' — the tokens placed in ``[E, C, D]`` capacity buffers
+    (the reference scatter-adds them; the port gathers them, the same
+    values), batched expert products, a gather back in which dropped
+    slots read a zero row.
+
+    Returns ``(out [T, D] in x.dtype, aux f32)``, aux the Switch
+    load-balance term ``E · Σ_e density_e · mean_t(probs_e)``, density from
+    each token's first choice.
+    """
+    if ep_shard is not None:
+        raise NotImplementedError(
+            "ep_shard: expert-parallel buffer sharding needs a mesh of "
+            "several cards; the port runs MoE on one card (ROADMAP M15c)")
+    T, D = x.shape
+    E = router_w.shape[-1]
+    logits = (x @ router_w).float()                         # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = _top_k(probs, top_k)              # [T, k]
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(-1, keepdim=True), min=1e-9)          # renormalize
+    C = max(1, int(capacity_factor * top_k * T / E))
+
+    # position of each (token, k) within its expert's capacity buffer: a
+    # running count down the flat [T*k, E] one-hot, taken along the rows of
+    # its contiguous transpose (CUDA scans a column-wise cumsum with one
+    # thread a column: 16 ms a layer at 65,536 x 40).
+    flat_onehot = F.one_hot(gate_idx.reshape(T * top_k), E)  # [T*k, E]
+    counts = torch.cumsum(flat_onehot.T.contiguous(), dim=1).T
+    pos_in_expert = counts * flat_onehot - 1
+
+    if impl == "einsum":
+        # One-hot over C of each slot's position: -1 (not this expert) and
+        # positions >= C (dropped) match no column, so their rows are zero
+        # (``jax.nn.one_hot(-1, C)`` in the reference).
+        cap_oh = (pos_in_expert.reshape(T, top_k, E, 1)
+                  == torch.arange(C, device=x.device)).to(x.dtype)
+        combine = cap_oh * gate_vals[..., None, None].to(x.dtype)
+        expert_in = torch.einsum("tkec,td->ecd", cap_oh, x)     # [E, C, D]
+        h = F.silu(torch.einsum("ecd,edf->ecf", expert_in, moe_gate))
+        h = h * torch.einsum("ecd,edf->ecf", expert_in, moe_up)
+        expert_out = torch.einsum("ecf,efd->ecd", h, moe_down)  # [E, C, D]
+        out = torch.einsum("tkec,ecd->td", combine, expert_out)
+    elif impl == "scatter":
+        flat_expert = gate_idx.reshape(-1)                       # [T*k]
+        flat_pos = pos_in_expert.gather(1, flat_expert[:, None])[:, 0]
+        ok = (flat_pos >= 0) & (flat_pos < C)
+        slot = torch.where(ok, flat_expert * C + flat_pos, E * C)
+        # The reference scatter-adds the tokens into [E*C + 1, D], every
+        # dropped slot onto the overflow row E*C.  Each kept slot has a row
+        # of its own, so that is a gather: ``src`` maps each buffer row to
+        # the token of the slot that lands there, or to a zero row (T).  It
+        # is built with unique indices (each dropped slot parked on a row
+        # of its own past the buffer): on the card a deterministic scatter
+        # serialises repeated indices, 15 ms a layer at granite's prefill.
+        n = T * top_k
+        arange = torch.arange(n, device=x.device)
+        dest = torch.where(ok, slot, E * C + arange)
+        src = torch.full((E * C + n,), T, dtype=torch.long, device=x.device)
+        src.index_copy_(0, dest, arange // top_k)
+        x_pad = torch.cat([x, x.new_zeros(1, D)])
+        expert_in = x_pad[src[:E * C]].reshape(E, C, D)
+        h = F.silu(torch.bmm(expert_in, moe_gate))
+        h = h * torch.bmm(expert_in, moe_up)
+        expert_out = torch.bmm(h, moe_down).reshape(E * C, D)
+        expert_out = torch.cat([expert_out, x.new_zeros(1, D)])
+        gathered = expert_out[slot]                              # [T*k, D]
+        out = (gathered.reshape(T, top_k, D)
+               * gate_vals[..., None].to(x.dtype)).sum(dim=1)
+    else:
+        raise ValueError(f"unknown moe impl {impl!r}")
+
+    # Switch-style load-balance ingredients.
+    density = F.one_hot(gate_idx[:, 0], E).float().mean(0)
+    aux = E * torch.sum(density * probs.mean(0))
+    return out.to(x.dtype), aux

@@ -1,4 +1,4 @@
-"""The LM stack — port of the dense and SSM families of
+"""The LM stack — port of the dense, SSM, MoE and hybrid families of
 ``repro/models/lm.py``.
 
 Every architecture is: embedding → a *period-structured* stack of blocks →
@@ -12,10 +12,12 @@ Python loop over periods where the reference scans.
 
 Ported block kinds: mixer ``attn`` (GQA + RoPE [+ qk-norm]) or ``mamba``
 (the Mamba-2 SSD mixer of :mod:`repro_torch.models.ssd`), MLP ``swiglu`` |
-``relu2`` | ``gelu`` | none, and command-r's ``parallel_block``.  A config
-that needs anything else raises ``NotImplementedError`` naming its ROADMAP
-item, M15c: MoE (so jamba too), the encoder, cross-attention and modality
-frontends.
+``relu2`` | ``gelu`` | ``moe`` (top-k routed experts,
+:func:`repro_torch.models.layers.moe_layer_3d`) | none, and command-r's
+``parallel_block``.  A config that needs anything else raises
+``NotImplementedError`` naming its ROADMAP item, M15c: the encoder,
+cross-attention and modality frontends; and the expert-parallel
+``moe_dispatch`` hook, which needs several cards.
 
 Entry points (``cuda`` unless ``device="cpu"`` is passed; without a card and
 without that request they raise):
@@ -27,8 +29,11 @@ without that request they raise):
     prefill(params, batch, cfg, max_len=)         -> (logits [b, Vp], cache)
     decode_step(params, cache, tokens, pos, cfg)  -> (logits [b, Vp], cache)
 
-``loss_fn`` is differentiable (the federated round trains through it); the
-serve entry points run under ``torch.no_grad``.
+``loss_fn`` is differentiable (the federated round trains through it) and
+adds ``cfg.moe_aux_weight`` times the MoE layers' load-balance term; the
+serve entry points run under ``torch.no_grad``.  ``decode_step`` routes
+its few tokens droplessly (``capacity_factor = n_experts / top_k``), as the
+reference does.
 
 ``params`` must already be on the entry point's device; token batches are
 moved there.  Unlike the reference, ``prefill`` writes k/v (attention) and
@@ -40,7 +45,7 @@ is the largest buffer of the serve path and is never copied.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -49,8 +54,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssd as ssdlib
 from repro_torch.models.layers import (decode_attention, dense_init,
-                                       gelu_mlp, gqa_attention, norm_init,
-                                       rms_norm, rope, swiglu)
+                                       gelu_mlp, gqa_attention, moe_layer_3d,
+                                       norm_init, rms_norm, rope, swiglu)
 
 __all__ = ["init_params", "param_shapes", "forward", "loss_fn", "init_cache",
            "prefill", "decode_step", "layer_plan", "LayerKind", "param_count",
@@ -106,6 +111,11 @@ def layer_plan(cfg: ArchConfig, *, decoder: bool = True) -> list[LayerKind]:
 def require_ported(cfg: ArchConfig) -> list[LayerKind]:
     """The layer plan, or ``NotImplementedError`` naming the ROADMAP item
     of the first part of ``cfg`` the port does not have yet (M15c)."""
+    if cfg.moe_dispatch is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: moe_dispatch, the shard_map expert-parallel "
+            f"dispatch, needs a mesh of more than one card; the port routes "
+            f"MoE on one card through moe_impl (ROADMAP M15c)")
     if cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend!r} modality frontend is not "
@@ -120,9 +130,6 @@ def require_ported(cfg: ArchConfig) -> list[LayerKind]:
             raise NotImplementedError(
                 f"{cfg.name}: cross-attention is not ported yet (ROADMAP "
                 f"M15c)")
-        if kind.mlp == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet (ROADMAP M15c)")
     return plan
 
 
@@ -158,6 +165,11 @@ def _mlp_shapes(cfg: ArchConfig, kind: str) -> dict:
         if cfg.use_bias:
             sh.update({"b_up": (F,), "b_down": (D,)})
         return sh
+    if kind == "moe":
+        E, Fm = cfg.n_experts, cfg.moe_d_ff
+        return {"mlp_norm": (D,), "router": (D, E),
+                "moe_gate": (E, D, Fm), "moe_up": (E, D, Fm),
+                "moe_down": (E, Fm, D)}
     return {}
 
 
@@ -320,13 +332,14 @@ def _attn_body(p, x, cfg: ArchConfig, *, causal: bool, positions=None,
 
 
 def _mlp_body(p, x, cfg: ArchConfig, kind: str, *, norm_key: str = "mlp_norm"):
+    """(MLP output, the MoE load-balance term or None)."""
     h = rms_norm(x, p[norm_key], eps=cfg.norm_eps) if norm_key else x
     if kind == "swiglu":
-        return swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+        return swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), None
     if kind == "gelu":
         bias = cfg.use_bias
         return gelu_mlp(h, p["w_up"], p["b_up"] if bias else None,
-                        p["w_down"], p["b_down"] if bias else None)
+                        p["w_down"], p["b_down"] if bias else None), None
     if kind == "relu2":
         z = h @ p["w_up"]
         if cfg.use_bias:
@@ -334,7 +347,13 @@ def _mlp_body(p, x, cfg: ArchConfig, kind: str, *, norm_key: str = "mlp_norm"):
         out = torch.relu(z).square() @ p["w_down"]
         if cfg.use_bias:
             out = out + p["b_down"]
-        return out
+        return out, None
+    if kind == "moe":
+        return moe_layer_3d(h, p["router"], p["moe_gate"], p["moe_up"],
+                            p["moe_down"], top_k=cfg.top_k,
+                            capacity_factor=cfg.capacity_factor,
+                            impl=cfg.moe_impl, ep_shard=cfg.act_shard_moe,
+                            seq_chunk=cfg.moe_seq_chunk, remat=cfg.remat)
     raise ValueError(kind)
 
 
@@ -348,15 +367,15 @@ def _mamba_body(p, x, cfg: ArchConfig, *, return_state: bool = False):
 
 def _apply_block(p, x, cfg: ArchConfig, kind: LayerKind, *, causal: bool,
                  positions=None, collect: bool = False):
-    """One block; returns (x, what it leaves for the cache): ``{"k", "v"}``
-    of its attention, or with ``collect`` ``{"conv", "ssm"}`` of its Mamba
-    mixer, or None."""
-    contrib = None
+    """One block; returns (x, its MoE load-balance term or None, what it
+    leaves for the cache): ``{"k", "v"}`` of its attention, or with
+    ``collect`` ``{"conv", "ssm"}`` of its Mamba mixer, or None."""
+    contrib, aux = None, None
     if cfg.parallel_block and kind.mixer == "attn" and kind.mlp != "none":
         # command-r: shared norm, attn & mlp in parallel
         attn_out, (k, v) = _attn_body(p, x, cfg, causal=causal,
                                       positions=positions)
-        mlp_out = _mlp_body(p, x, cfg, kind.mlp, norm_key="attn_norm")
+        mlp_out, aux = _mlp_body(p, x, cfg, kind.mlp, norm_key="attn_norm")
         x = x + attn_out + mlp_out
         contrib = {"k": k, "v": v}
     else:
@@ -374,8 +393,9 @@ def _apply_block(p, x, cfg: ArchConfig, kind: LayerKind, *, causal: bool,
                 y = _mamba_body(p, x, cfg)
             x = x + y
         if kind.mlp != "none":
-            x = x + _mlp_body(p, x, cfg, kind.mlp)
-    return x, contrib
+            mlp_out, aux = _mlp_body(p, x, cfg, kind.mlp)
+            x = x + mlp_out
+    return x, aux, contrib
 
 
 # ---------------------------------------------------------------------------
@@ -390,15 +410,19 @@ def _period(stack: dict, key: str, n: int) -> dict:
 
 def _period_blocks(periods, n: int, x, cfg: ArchConfig, plan, *,
                    causal: bool, positions=None, cache=None):
-    """Period ``n``'s blocks.  With ``cache``, each attention block's k/v
-    fill its first ``s`` slots and each Mamba block's conv tail and final
-    SSM state its period's entries."""
+    """Period ``n``'s blocks: (x, the sum of its MoE load-balance terms, or
+    None where it has no MoE block).  With ``cache``, each attention
+    block's k/v fill its first ``s`` slots and each Mamba block's conv
+    tail and final SSM state its period's entries."""
     s = x.shape[1]
+    aux = None
     for i, kind in enumerate(plan):
         key = f"p{i}"
-        x, contrib = _apply_block(_period(periods, key, n), x, cfg, kind,
-                                  causal=causal, positions=positions,
-                                  collect=cache is not None)
+        x, a, contrib = _apply_block(_period(periods, key, n), x, cfg, kind,
+                                     causal=causal, positions=positions,
+                                     collect=cache is not None)
+        if a is not None:
+            aux = a if aux is None else aux + a
         if cache is None or contrib is None:
             continue
         for name, val in contrib.items():
@@ -406,31 +430,35 @@ def _period_blocks(periods, n: int, x, cfg: ArchConfig, plan, *,
                 cache[key][name][n, :, :s] = val
             else:
                 cache[key][name][n] = val
-    return x
+    return x, aux
 
 
 def _run_stack(stack, x, cfg: ArchConfig, plan, *, causal: bool,
                positions=None, cache=None):
     """The blocks in order, period by period, filling ``cache`` (from
-    :func:`init_cache`) when one is given.  Without one, ``cfg.remat``
-    recomputes each period in backward (``torch.utils.checkpoint``), as
-    the reference's ``jax.checkpoint`` around its period body: the same
-    values, less memory."""
+    :func:`init_cache`) when one is given: (x, the MoE load-balance terms
+    summed over periods, 0.0 without MoE).  Without a cache,
+    ``cfg.remat`` recomputes each period in backward
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
+    around its period body: the same values, less memory."""
     # Each stacked leaf unbound once: the backward of that one view stacks
     # the periods' gradients in a single pass, where indexing ``leaf[n]``
     # per period would add up ``n_periods`` zero-padded full-size
     # gradients.
     periods = {key: {name: leaf.unbind(0) for name, leaf in p.items()}
                for key, p in stack.items()}
+    auxs = []
     for n in range(cfg.n_layers // len(plan)):
         if cache is None and cfg.remat:
-            x = checkpoint(_period_blocks, periods, n, x, cfg, plan,
-                           causal=causal, positions=positions,
-                           use_reentrant=False)
+            x, aux = checkpoint(_period_blocks, periods, n, x, cfg, plan,
+                                causal=causal, positions=positions,
+                                use_reentrant=False)
         else:
-            x = _period_blocks(periods, n, x, cfg, plan, causal=causal,
-                               positions=positions, cache=cache)
-    return x
+            x, aux = _period_blocks(periods, n, x, cfg, plan, causal=causal,
+                                    positions=positions, cache=cache)
+        if aux is not None:
+            auxs.append(aux)
+    return x, (torch.stack(auxs).sum() if auxs else 0.0)
 
 
 def _embed_inputs(params, batch, cfg: ArchConfig, device):
@@ -456,11 +484,12 @@ def _lm_head(params, h, cfg: ArchConfig):
 
 
 def _hidden(params, batch, cfg: ArchConfig, device, *, cache=None):
+    """(final-normed hidden states, the MoE load-balance term)."""
     plan = require_ported(cfg)
     x, positions = _embed_inputs(params, batch, cfg, device)
-    x = _run_stack(params["stack"], x, cfg, plan, causal=True,
-                   positions=positions, cache=cache)
-    return rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
+    x, aux = _run_stack(params["stack"], x, cfg, plan, causal=True,
+                        positions=positions, cache=cache)
+    return rms_norm(x, params["final_norm"], eps=cfg.norm_eps), aux
 
 
 def _mask_vocab_pad(logits, cfg: ArchConfig):
@@ -475,7 +504,7 @@ def forward(params, batch, cfg: ArchConfig, *, device=None):
     """Full-sequence f32 logits ``[b, s, vocab_size]`` (pad columns sliced
     off)."""
     device = _on_device(params, device)
-    h = _hidden(params, batch, cfg, device)
+    h, _ = _hidden(params, batch, cfg, device)
     return _lm_head(params, h, cfg)[..., :cfg.vocab_size]
 
 
@@ -498,10 +527,11 @@ def loss_fn(params, batch, cfg: ArchConfig, *, device=None):
     padded and masked, so the ``[b, s, vocab]`` logits never exist at
     once; each chunk's logits are recomputed in backward
     (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
-    does.  The sum is divided by the number of predicted tokens.  The
-    ported families have no MoE, so the auxiliary loss is 0."""
+    does.  The sum is divided by the number of predicted tokens, and
+    ``cfg.moe_aux_weight`` times the MoE layers' summed load-balance term
+    is added (0 without MoE)."""
     device = _on_device(params, device)
-    h = _hidden(params, batch, cfg, device)
+    h, aux = _hidden(params, batch, cfg, device)
     tokens = torch.as_tensor(batch["tokens"], device=device).long()
     h_pred = h[:, :-1]                              # [b, s-1, D]
     labels = tokens[:, 1:]                          # [b, s-1]
@@ -518,7 +548,6 @@ def loss_fn(params, batch, cfg: ArchConfig, *, device=None):
         total = total + checkpoint(
             _chunk_ce, h_pred[:, c:c + chunk], labels[:, c:c + chunk],
             mask[:, c:c + chunk], params, cfg, use_reentrant=False)
-    aux = 0.0                                       # no MoE layer (M15c)
     return total / torch.clamp(mask.sum(), min=1.0) + cfg.moe_aux_weight * aux
 
 
@@ -567,7 +596,7 @@ def prefill(params, batch, cfg: ArchConfig, *, max_len: int | None = None,
     tokens = batch["tokens"]
     b, s = tokens.shape
     cache = init_cache(cfg, b, max_len or s, device=device)
-    h = _hidden(params, batch, cfg, device, cache=cache)
+    h, _ = _hidden(params, batch, cfg, device, cache=cache)
     logits = _lm_head(params, h[:, -1:, :], cfg)[:, 0]
     return _mask_vocab_pad(logits, cfg), cache
 
@@ -605,9 +634,13 @@ def _decode_mamba_block(p, x_t, c, n: int, cfg: ArchConfig):
 def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *, device=None):
     """One-token decode.  tokens ``[b, 1]``; ``pos`` the slot of the new
     token (an int).  Returns (logits ``[b, padded_vocab]`` f32 with pad
-    columns at -1e30, cache) — the same cache object, updated in place."""
+    columns at -1e30, cache) — the same cache object, updated in place.
+    MoE layers run dropless here: ``b`` tokens at ``capacity_factor =
+    n_experts / top_k`` give every expert room for all of them."""
     device = _on_device(params, device)
     plan = require_ported(cfg)
+    if cfg.moe:
+        cfg = replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
     pos = int(pos)
     tokens = torch.as_tensor(tokens, device=device).long()
     x = params["embed"][tokens]                     # [b,1,D]
@@ -619,7 +652,8 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *, device=None):
             if cfg.parallel_block and kind.mixer == "attn" \
                     and kind.mlp != "none":
                 attn_out = _decode_attn_block(p, x, cache[key], n, cfg, pos)
-                mlp_out = _mlp_body(p, x, cfg, kind.mlp, norm_key="attn_norm")
+                mlp_out, _ = _mlp_body(p, x, cfg, kind.mlp,
+                                       norm_key="attn_norm")
                 x = x + attn_out + mlp_out
             else:
                 if kind.mixer == "attn":
@@ -627,7 +661,7 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *, device=None):
                 elif kind.mixer == "mamba":
                     x = x + _decode_mamba_block(p, x, cache[key], n, cfg)
                 if kind.mlp != "none":
-                    x = x + _mlp_body(p, x, cfg, kind.mlp)
+                    x = x + _mlp_body(p, x, cfg, kind.mlp)[0]
     h = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
     logits = _lm_head(params, h, cfg)[:, 0]
     return _mask_vocab_pad(logits, cfg), cache

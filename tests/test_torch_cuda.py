@@ -494,6 +494,68 @@ def test_reduced_serve_path_on_card(dev):
     assert torch.allclose(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("arch,impl", [
+    ("granite-moe-3b-a800m", "einsum"), ("granite-moe-3b-a800m", "scatter"),
+    ("qwen3-moe-235b-a22b", "scatter"), ("jamba-v0.1-52b", "scatter")])
+def test_reduced_moe_serve_paths_on_card(dev, arch, impl):
+    """A reduced MoE arch's serve path (f32, through K4, and K5 for jamba):
+    prefill + 2 decode steps equal a dropless teacher-forced forward, and
+    the card's prefill and decode logits at capacity factor 1.25 equal the
+    CPU's (1e-4: GEMM sums in another order)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    base = replace(get_arch(arch).reduced(), attn_impl="pallas",
+                   ssd_impl="pallas", moe_impl=impl)
+    dropless = replace(base, capacity_factor=base.n_experts / base.top_k)
+    g = torch.Generator().manual_seed(25)
+    toks = torch.randint(0, base.vocab_size, (2, 14), generator=g)
+    out = {}
+    for d in ("cpu", "cuda"):
+        params = lm.init_params(0, base, device=d)
+        for cfg in (base, dropless):
+            lg, cache = lm.prefill(params, {"tokens": toks[:, :12]}, cfg,
+                                   max_len=16, device=d)
+            steps = [lg]
+            for i in range(2):
+                lg, cache = lm.decode_step(params, cache,
+                                           toks[:, 12 + i:13 + i], 12 + i,
+                                           cfg, device=d)
+                steps.append(lg)
+            served = torch.stack([x[:, :cfg.vocab_size] for x in steps], 1)
+            out[d, cfg.capacity_factor] = served.cpu()
+        full = lm.forward(params, {"tokens": toks}, dropless, device=d)
+        assert torch.allclose(out[d, dropless.capacity_factor],
+                              full[:, 11:14].cpu(), rtol=1e-5, atol=1e-5)
+    assert torch.allclose(out["cuda", base.capacity_factor],
+                          out["cpu", base.capacity_factor], rtol=1e-4,
+                          atol=1e-4)
+
+
+def test_moe_scatter_dispatch_is_deterministic_on_card(dev):
+    """The scatter dispatch's accumulating scatter into the overflow row
+    and its gather's backward: the same outputs and gradients bit for bit
+    on a second run, and the einsum impl's values within 1e-5 of each
+    tensor's largest magnitude (the gradients reach ~5e3: 200 copies of
+    one token share its expert rows)."""
+    from repro_torch.models.layers import _moe_dispatch
+    T, D, E, F, k = 300, 64, 8, 32, 2
+    x = _rand((T, D), torch.float32, dev, 26)
+    x[100:] = x[99]                       # fill one expert past capacity
+    ws = [_rand(s, torch.float32, dev, 27 + i) * 0.2 for i, s in
+          enumerate([(D, E), (E, D, F), (E, D, F), (E, F, D)])]
+    runs = []
+    for impl in ("scatter", "scatter", "einsum"):
+        leaves = [w.clone().requires_grad_() for w in ws]
+        out, aux = _moe_dispatch(x, *leaves, top_k=k, impl=impl)
+        (out.square().sum() + aux).backward()
+        runs.append([out.detach(), aux.detach()]
+                    + [w.grad for w in leaves])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    for a, b in zip(runs[0], runs[2]):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
 def test_lm_head_writes_f32_logits_from_bf16_on_card(dev):
     """On the card the head multiplies bf16 operands straight into f32
     (cuBLAS ``out_dtype``): equal to the upcast f32 product up to the
@@ -753,7 +815,8 @@ def test_reduced_mamba_serve_path_on_card(dev):
 
 
 # -- federated LM training (--arch) -------------------------------------------
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-2.7b",
+                                  "granite-moe-3b-a800m"])
 def test_lm_rounds_on_card_track_the_cpu(dev, arch):
     """Two rounds of a reduced arch's federated training on the card
     against the same on the CPU: losses within rtol 1e-6 and the final

@@ -266,7 +266,7 @@ def test_unported_engine_options_raise(field, value):
 
 
 @pytest.mark.parametrize("argv", [["--ckpt-dir", "x"],
-                                  ["--arch", "qwen3-moe-235b-a22b"],
+                                  ["--arch", "internvl2-26b"],
                                   ["--arch", "whisper-base"],
                                   ["--strategy", "fedmedian"],
                                   ["--sampler", "online"],

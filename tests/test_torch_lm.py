@@ -40,9 +40,8 @@ from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 
 DENSE = ["qwen3-0.6b", "minitron-4b", "internlm2-1.8b", "command-r-plus-104b"]
-UNPORTED = {"granite-moe-3b-a800m": "MoE", "qwen3-moe-235b-a22b": "MoE",
-            "internvl2-26b": "frontend", "jamba-v0.1-52b": "MoE",
-            "whisper-base": "frontend"}
+MOE = ["granite-moe-3b-a800m", "qwen3-moe-235b-a22b", "jamba-v0.1-52b"]
+UNPORTED = {"internvl2-26b": "frontend", "whisper-base": "frontend"}
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -93,7 +92,7 @@ def test_shape_cells_and_lookup_are_copies():
         tconfigs.get_arch("gpt-5")
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + MOE)
 def test_block_shapes_match_at_published_widths(name):
     """The full config's parameter shapes, without allocating them."""
     j, t = jconfigs.get_arch(name), tconfigs.get_arch(name)

@@ -608,8 +608,26 @@ def test_init_cache_matches_reference_layout():
             assert not bool(tc[key][name].any())
 
 
-def test_jamba_still_raises_naming_moe():
-    cfg = tconfigs.get_arch("jamba-v0.1-52b").reduced()
-    assert "mamba" in {k.mixer for k in tlm.layer_plan(cfg)}
-    with pytest.raises(NotImplementedError, match="MoE.*M15"):
-        tlm.init_params(0, cfg, device="cpu")
+def test_jamba_serve_path_matches_reference():
+    """The reduced jamba (8 layers a period: Mamba-2 blocks, one attention
+    block, MoE on odd layers, scatter dispatch) through K5's plain version:
+    forward, prefill and 2 decode steps on the reference's weights, with
+    every cache leaf after the last step."""
+    kw = dict(ssd_impl="pallas", ssd_chunk=8)
+    jcfg = replace(jconfigs.get_arch("jamba-v0.1-52b").reduced(), **kw)
+    tcfg = replace(tconfigs.get_arch("jamba-v0.1-52b").reduced(), **kw)
+    plan = tlm.layer_plan(tcfg)
+    assert {k.mixer for k in plan} == {"mamba", "attn"}
+    assert {k.mlp for k in plan} == {"swiglu", "moe"}
+    jp = jlm.init_params(jax.random.key(0), jcfg)
+    tp = tmodels.lm_params_from_numpy(jax.tree.map(np.asarray, jp),
+                                      device="cpu")
+    out = _serve_both(jcfg, tcfg, jp, tp, _tokens(jcfg), 12)
+    np.testing.assert_allclose(_np(out["tf"]), _np(out["jf"]), **TOL)
+    for jl, tl in zip(out["jsteps"], out["tsteps"]):
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    for key, c in out["jcaches"][-1].items():
+        for name, leaf in c.items():
+            np.testing.assert_allclose(_np(out["tcaches"][-1][key][name]),
+                                       _np(leaf), err_msg=f"{key}/{name}",
+                                       **TOL)

@@ -19,6 +19,7 @@ Tolerances, and why:
   bitwise.
 """
 
+import math
 from dataclasses import replace
 
 import numpy as np
@@ -60,9 +61,10 @@ from repro_torch.optim import sgd as tsgd  # noqa: E402
 
 SEED = 1337
 DENSE = ["qwen3-0.6b", "minitron-4b", "internlm2-1.8b", "command-r-plus-104b"]
-FAMILIES = ["qwen3-0.6b", "mamba2-2.7b"]       # one arch per ported family
-UNPORTED = ["granite-moe-3b-a800m", "qwen3-moe-235b-a22b", "internvl2-26b",
-            "jamba-v0.1-52b", "whisper-base"]
+# one arch per ported family: dense, ssm, MoE
+FAMILIES = ["qwen3-0.6b", "mamba2-2.7b", "granite-moe-3b-a800m"]
+MOE = ["granite-moe-3b-a800m", "qwen3-moe-235b-a22b", "jamba-v0.1-52b"]
+UNPORTED = ["internvl2-26b", "whisper-base"]
 LOSS_TOL = dict(rtol=1e-5, atol=0.0)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -131,10 +133,12 @@ def test_lm_dataset_tables_and_tokens_match_reference(vocab, seq_len, batch):
 
 
 # -- loss_fn and its gradients ----------------------------------------------------
-LOSS_CASES = ([(name, {}) for name in DENSE + ["mamba2-2.7b"]]
+LOSS_CASES = ([(name, {}) for name in DENSE + ["mamba2-2.7b"] + MOE]
               + [(name, kw) for name in FAMILIES
                  for kw in (dict(loss_chunk=5),
-                            dict(vocab_size=200, loss_chunk=4))])
+                            dict(vocab_size=200, loss_chunk=4))]
+              + [("granite-moe-3b-a800m",
+                  dict(moe_impl="scatter", moe_aux_weight=1.0))])
 
 
 @pytest.mark.parametrize("name,kw", LOSS_CASES,
@@ -143,7 +147,9 @@ LOSS_CASES = ([(name, {}) for name in DENSE + ["mamba2-2.7b"]]
 def test_loss_and_grads_match_reference(name, kw):
     """``loss_chunk`` 0 (one chunk), 5 over 13 predicted positions (a
     ragged tail padded and masked), and vocab 200 (padded to 256: the pad
-    columns masked out of the log-sum-exp)."""
+    columns masked out of the log-sum-exp).  The MoE archs add
+    ``moe_aux_weight`` times their load-balance term (weight 1.0 on one
+    case, so a dropped or mis-summed term could not pass)."""
     jcfg, tcfg = _cfgs(name, **kw)
     jp, tp = _ref_params(jcfg)
     toks = _tokens(jcfg, (2, 14))
@@ -349,15 +355,25 @@ def test_build_engine_trains_a_given_config_at_the_presets_sizes(preset):
 
 def test_lm_config_matches_the_reference_builder():
     """The fl100m preset's widths on top of ``reduced()``, as the
-    reference's ``build_engine`` composes them."""
+    reference's ``build_engine`` composes them
+    (``repro/launch/train.py:161-170``): an MoE arch's experts take the
+    preset's ``d_ff``."""
     from repro.launch.train import PRESETS as JPRESETS
     assert ttrain.PRESETS == JPRESETS
-    for name in FAMILIES:
+    for name in FAMILIES + MOE:
         cfg, seq_len, batch = ttrain.lm_config(name, "fl100m")
         p = dict(JPRESETS["fl100m"])
         assert (seq_len, batch) == (p.pop("seq_len"), p.pop("batch_size"))
-        want = replace(jconfigs.get_arch(name).reduced(), **p)
+        base = jconfigs.get_arch(name).reduced()
+        if base.moe:
+            p.setdefault("moe_d_ff", p.get("d_ff", 128))
+        want = replace(base, **p)
         assert cfg.to_dict() == want.to_dict()
+    cfg, _, _ = ttrain.lm_config("granite-moe-3b-a800m", "fl100m")
+    assert (cfg.n_experts, cfg.top_k, cfg.moe_d_ff) == (4, 2, 2048)
+    shapes = flatten_tree(tlm.param_shapes(cfg))
+    assert len(shapes) == 12
+    assert sum(math.prod(x) for x in shapes.values()) == 269_998_848
 
 
 def test_cli_trains_an_arch_on_cpu(monkeypatch, capsys):
