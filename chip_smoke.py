@@ -22,7 +22,8 @@ Phases, one JSON object per line on stdout:
              bitwise; ``N+n == 0`` returns ``acc`` bit for bit); K3 and K4
              over the reference's sweeps in f32 and bf16 and at the serve
              path's shapes (2e-5 f32, 2e-2 bf16, as tests/test_kernels.py;
-             K4 at the qwen3 and granite-moe serve shapes, 8e-3 in bf16),
+             K4 at the qwen3, granite-moe and internvl2 serve shapes, 8e-3
+             in bf16),
              K4 also on its wgmma route's bf16 cases (d 64 and 128, ragged
              s and t, GQA groups 1-8, non-causal, fused q/k/v views), each
              case on the route its dtype and head dim name, and a
@@ -35,9 +36,10 @@ Phases, one JSON object per line on stdout:
              widths name (``SSD_TOL``);
 4. timing  — each kernel, its plain version and, where one exists, one
              library call at the main paths' shapes (CUDA events, best of
-             3 interleaved), beside the bytes/ops bound; K4 at both serve
-             shapes (qwen3: 16 heads of 128; granite-moe: 24 of 64, group
-             3);
+             3 interleaved), beside the bytes/ops bound; K4 at the three
+             serve shapes (qwen3: 16 heads of 128; granite-moe: 24 of 64,
+             group 3; internvl2: 48 of 128 over 2,304 positions, group
+             6);
 5. main    — ``build_engine(task="sr")`` at the published SR widths on
              ``cuda``: rounds at pipeline depth 1 and again at depth 0 from
              the same seed, with the launch counts zeroed just before each
@@ -102,22 +104,42 @@ Phases, one JSON object per line on stdout:
 14. agree MoE — the reduced granite-moe, qwen3-moe (scatter) and jamba
              (K5 and MoE in one stack) serve paths on the card against the
              same on the CPU (``AGREE_LM_TOL``);
-15. train LM — federated LM training through the CLI,
+15. serve audio — whisper-base at its published size (73,596,928 params,
+             bf16, ``attn_impl="dense"``): 4 clips of 1,500 frame
+             embeddings with 448-token prompts, one prefill and 16 greedy
+             decode steps, launch counts zeroed just before and read just
+             after (none: dense attention); finite logits; prefill +
+             decode against ``forward`` (``SERVE_TOL``); ``"pallas"``
+             raises ``NotImplementedError`` before any launch; a profiled
+             prefill and decode step; then the reduced whisper card vs CPU
+             (``AGREE_LM_TOL``);
+16. serve VLM — internvl2-26b at its published widths cut to 12 of 48
+             layers (5,839,411,200 params, bf16, ``attn_impl="pallas"``):
+             4 × (256 patch embeddings of width 3,200 + 2,048 tokens), one
+             prefill (K4 exactly 12 launches, all on wgmma) and 16 greedy
+             decode steps (no K4); finite logits; pallas vs dense prefill
+             and prefill + decode vs ``forward`` (``SERVE_TOL``); a
+             profiled prefill and decode step (where the prefill's device
+             time goes); then the reduced internvl2 card vs CPU;
+17. train LM — federated LM training through the CLI,
              ``main(["--arch", A, "--preset", "fl100m", ...])`` for
-             qwen3-0.6b (3 rounds), mamba2-2.7b and granite-moe-3b-a800m
-             (2 rounds each; granite: 12 layers of 4 experts top-2, 2,048
-             wide, 269,998,848 params, the einsum dispatch) at depth 1,
+             qwen3-0.6b (3 rounds), mamba2-2.7b, granite-moe-3b-a800m,
+             whisper-base and internvl2-26b (2 rounds each; granite: 12
+             layers of 4 experts top-2, 2,048 wide, 269,998,848 params,
+             the einsum dispatch; whisper: 2 encoder layers over 16
+             frames, cross-attention, 256 learned positions; internvl2: 16
+             patches of width 32 in front of the 256 tokens) at depth 1,
              then depth 0, from the same seed, the launch counts zeroed
              just before each run and read just after: finite losses,
              bit-identical across depths, K1 exactly once per lane-loop
              step; ``exec_time`` per round and the run's peak memory; the
              granite loss holds its load-balance term;
-16. train LM mesh — the same qwen3 with ``--workers 4 --mesh-workers 2
+18. train LM mesh — the same qwen3 with ``--workers 4 --mesh-workers 2
              --combine-mode tree --combine-compress int8``, 2 rounds at
              depths 1 and 0: bit-identical losses, K2 once per live shard
              per round over the LM's leaf table, K1 once per worker-program
              step, ``combine_bytes_per_round`` 2 × the int8 payload;
-17. train LM full width — qwen3-0.6b at its published widths (596,180,992
+19. train LM full width — qwen3-0.6b at its published widths (596,180,992
              params from ``init_params(0)``) in f32 through
              ``build_engine(lm_cfg=..., preset="fl100m")``: batches of 8 ×
              256 tokens, cohort 4 on 1 worker × 2 lanes, ``steps_cap`` 4
@@ -130,13 +152,13 @@ Phases, one JSON object per line on stdout:
              against its plain version (bitwise) and timed with
              ``torch.lerp`` beside the bound, and K2 on the fl100m
              payload's fold (bitwise, timed);
-18. agree train — a reduced qwen3-0.6b training engine, 2 rounds on the
+20. agree train — a reduced qwen3-0.6b training engine, 2 rounds on the
              card against the same on the CPU: losses within
              ``AGREE_TRAIN_RTOL``, the final params leaf by leaf within
              ``AGREE_TRAIN_PARAMS``, and the initial params outside it;
-19. the ``kernels`` line (K1-K5; K1's and K2's launches on the LM training
-   paths beside the main ones, K4's on the MoE serve path and its timing
-   at that shape), then the card line and the last line
+21. the ``kernels`` line (K1-K5; K1's and K2's launches on the LM training
+   paths beside the main ones, K4's on the MoE and VLM serve paths and
+   its timing at those shapes), then the card line and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no last
@@ -269,14 +291,34 @@ MOE_DISPATCH_KERNELS = {"moe_sort": ("sort", "Sort"),
                         "moe_cumsum": ("scan", "Scan"),
                         "moe_scatter_gather": ("scatter", "index", "Index",
                                                "gather")}
+# The audio encoder-decoder: whisper-base (arXiv:2212.04356) at its
+# published size, nothing cut: 4 clips of 1,500 frame embeddings (the stub
+# of its conv frontend, 30 s of audio) with 448-token prompts (its text
+# context), bf16.  attn_impl="dense", the reference's default: the encoder
+# and the cross-attention are non-causal over 1,500 keys, which the kernel
+# wrapper would pad, and both packages refuse that
+# (repro/kernels/ops.py:129-131); the phase checks that "pallas" raises.
+AUDIO_ARCH = "whisper-base"
+AUDIO_PARAMS = 73_596_928     # the reference's count (51,968-row embed)
+AUDIO_PROMPT = 448
+# The VLM: internvl2-26b (arXiv:2404.16821) at every published width, bf16,
+# attn_impl="pallas"; 4 requests of 256 patch embeddings (one ViT tile,
+# InternViT-6B width 3,200, the stub of its vision tower) in front of 2,048
+# tokens.  Cut to 12 of its 48 layers: the weights are drawn on the CPU at
+# ~36-46 M values/s, and 19.9 B would take 430-550 s of the script's time.
+VLM_ARCH = "internvl2-26b"
+VLM_LAYERS = 12
+VLM_PARAMS = 5_839_411_200    # the reference's count at 12 layers
 # Federated LM training (--arch, f32 as the reference trains): the
-# reference's fl100m preset through the CLI (qwen3 for 3 rounds, mamba2 and
-# granite-moe for 2, its default cohort 8 over 2 workers x 2 lanes), the mesh path with
+# reference's fl100m preset through the CLI (qwen3 for 3 rounds, mamba2,
+# granite-moe, whisper and internvl2 for 2, its default cohort 8 over 2
+# workers x 2 lanes), the mesh path with
 # int8 shard uploads (4 workers over 2 shards), and qwen3-0.6b at its
 # published widths through the same builder at the fl100m preset's "lm"
 # batches of 8 x 256 tokens, cohort 4 on 1 worker x 2 lanes, 4 local steps
 # a client: 2 clients a lane fill the S = 8 bucket with no padded step.
-LM_TRAIN = (("qwen3-0.6b", 3), ("mamba2-2.7b", 2), (MOE_ARCH, 2))
+LM_TRAIN = (("qwen3-0.6b", 3), ("mamba2-2.7b", 2), (MOE_ARCH, 2),
+            (AUDIO_ARCH, 2), (VLM_ARCH, 2))
 LM_MESH_ARGS = ["--workers", "4", "--mesh-workers", "2", "--combine-mode",
                 "tree", "--combine-compress", "int8"]
 LM_MESH_ROUNDS = 2
@@ -676,7 +718,8 @@ def _fused_qkv(torch, b, s, hq, hkv, d, dt, gen, dev):
 
 def phase_check_k4(torch) -> dict:
     """K4 against its plain version: the reference's sweep (causal) in f32
-    and bf16, the qwen3 and granite-moe serve shapes in f32 and bf16, one
+    and bf16, the qwen3, granite-moe and internvl2 serve shapes in f32 and
+    bf16, one
     ragged causal prompt in bf16, non-causal cases, causal queries longer than their keys (the
     zero keys of the reference's padding), and the wgmma route's bf16 cases
     (d 64 and 128, GQA groups 1, 2, 4 and 8, q/k/v as views of one fused
@@ -698,12 +741,18 @@ def phase_check_k4(torch) -> dict:
     moe = _moe_cfg()
     serve_moe = (SERVE_BATCH, SERVE_PROMPT, moe.n_heads, moe.n_kv_heads,
                  moe.resolved_head_dim)
+    vlm = _vlm_cfg()
+    serve_vlm = (SERVE_BATCH, _vlm_positions(vlm), vlm.n_heads,
+                 vlm.n_kv_heads, vlm.resolved_head_dim)
     cases += [(serve, SERVE_PROMPT, True, torch.float32, False),
               (serve, SERVE_PROMPT, True, bf16, False),
               (ragged, RAGGED_PROMPT, True, bf16, False),
               # granite-moe's serve shape: head dim 64, GQA group 3
               (serve_moe, SERVE_PROMPT, True, torch.float32, False),
               (serve_moe, SERVE_PROMPT, True, bf16, False),
+              # internvl2's: 2,304 positions (9 kv blocks of 256), group 6
+              (serve_vlm, serve_vlm[1], True, torch.float32, False),
+              (serve_vlm, serve_vlm[1], True, bf16, False),
               ((2, 256, 4, 2, 64), 256, False, torch.float32, False),
               ((1, 300, 4, 2, 64), 200, True, torch.float32, False),
               # the wgmma route: ragged with t < s, GQA groups 1 and 8,
@@ -722,7 +771,7 @@ def phase_check_k4(torch) -> dict:
         key = str(dt).split(".")[-1]
         tol = _tol(torch, dt)
         if dt == bf16 and (b, s, hq_, hkv_, d) in (serve, ragged,
-                                                   serve_moe):
+                                                   serve_moe, serve_vlm):
             key, tol = "bfloat16_serve_shapes", SERVE_ATTN_BF16_TOL
         if fused:
             q, k, v = _fused_qkv(torch, b, s, hq_, hkv_, d, dt, gen, dev)
@@ -804,10 +853,11 @@ def phase_timing_k3(torch, device_name: str) -> dict:
     return out
 
 
-def phase_timing_k4(torch, device_name: str, cfg=None) -> dict:
+def phase_timing_k4(torch, device_name: str, cfg=None,
+                    s: int = SERVE_PROMPT) -> dict:
     """K4, its plain version and one F.scaled_dot_product_attention call
-    at a serve shape (causal, GQA, bf16): 4 x 2,048 tokens at the heads of
-    ``cfg`` (default: the qwen3 serve path's)."""
+    at a serve shape (causal, GQA, bf16): 4 x ``s`` positions at the heads
+    of ``cfg`` (default: the qwen3 serve path's 2,048)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import ref
@@ -815,12 +865,11 @@ def phase_timing_k4(torch, device_name: str, cfg=None) -> dict:
     gen = torch.Generator().manual_seed(9)
     cfg = cfg or _serve_cfg()
     hd = cfg.resolved_head_dim
-    q_shape = (SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, hd)
-    kv_shape = (SERVE_BATCH, SERVE_PROMPT, cfg.n_kv_heads, hd)
+    q_shape = (SERVE_BATCH, s, cfg.n_heads, hd)
+    kv_shape = (SERVE_BATCH, s, cfg.n_kv_heads, hd)
     q = torch.randn(q_shape, generator=gen).to(torch.bfloat16).to(dev)
     k = torch.randn(kv_shape, generator=gen).to(torch.bfloat16).to(dev)
     v = torch.randn(kv_shape, generator=gen).to(torch.bfloat16).to(dev)
-    s = q.shape[1]
 
     def library():
         return F.scaled_dot_product_attention(
@@ -1049,6 +1098,30 @@ def _sync_s(torch, fn):
     return out, time.perf_counter() - t0
 
 
+def _greedy_decode(torch, params, cache, logits, start: int, cfg):
+    """``SERVE_DECODE`` greedy decode steps from ``logits`` at positions
+    ``start``, ``start + 1``, ...: (the generated tokens, the logits of
+    the prefill and of every step, each step's synced wall seconds)."""
+    from repro_torch.models import lm
+    generated, step_logits, step_s = [], [logits], []
+    for i in range(SERVE_DECODE):
+        nxt = step_logits[-1].argmax(-1, keepdim=True)
+        generated.append(nxt)
+        (lg, cache), dt = _sync_s(
+            torch, lambda: lm.decode_step(params, cache, nxt, start + i, cfg))
+        step_logits.append(lg)
+        step_s.append(dt)
+    return generated, step_logits, step_s
+
+
+def _check_logits(torch, step_logits, cfg) -> None:
+    for i, lg in enumerate(step_logits):
+        check(bool(torch.isfinite(_vocab(lg, cfg)).all()),
+              f"{cfg.name}: non-finite logits at step {i}")
+        check(bool((lg[:, cfg.vocab_size:] == -1e30).all()),
+              f"{cfg.name}: vocab pad not masked at step {i}")
+
+
 def phase_serve(torch) -> dict:
     """The serve path: qwen3-0.6b at its published widths and depth, bf16,
     ``attn_impl="pallas"``: one prefill of 4 x 2,048 tokens, 16 greedy
@@ -1075,15 +1148,8 @@ def phase_serve(torch) -> dict:
     after_prefill = ops.launch_counts()
     routes_prefill = dict(fl.ROUTE_LAUNCHES)
     prefill_peak = torch.cuda.max_memory_allocated()
-    generated, step_logits, step_s = [], [logits], []
-    for i in range(SERVE_DECODE):
-        nxt = step_logits[-1].argmax(-1, keepdim=True)
-        generated.append(nxt)
-        (lg, cache), dt = _sync_s(
-            torch, lambda: lm.decode_step(params, cache, nxt,
-                                          SERVE_PROMPT + i, cfg))
-        step_logits.append(lg)
-        step_s.append(dt)
+    generated, step_logits, step_s = _greedy_decode(
+        torch, params, cache, logits, SERVE_PROMPT, cfg)
     after_decode = ops.launch_counts()
     routes_decode = {k: n - routes_prefill[k]
                      for k, n in fl.ROUTE_LAUNCHES.items()}
@@ -1100,11 +1166,7 @@ def phase_serve(torch) -> dict:
     check(routes_decode == {"simt": 0, "wgmma": 0},
           f"K4's decode launches by route: {routes_decode}")
     check(launches["rmsnorm"] == len(norms), f"K3 launches {launches}")
-    for i, lg in enumerate(step_logits):
-        check(bool(torch.isfinite(_vocab(lg, cfg)).all()),
-              f"non-finite logits at step {i}")
-        check(bool((lg[:, cfg.vocab_size:] == -1e30).all()),
-              f"vocab pad not masked at step {i}")
+    _check_logits(torch, step_logits, cfg)
     emit({"phase": "serve", "arch": SERVE_ARCH, "attn_impl": "pallas",
           "dtype": cfg.dtype, "n_layers": cfg.n_layers,
           "n_params": n_params, "batch": SERVE_BATCH,
@@ -1173,6 +1235,37 @@ def _moe_cfg(dtype: str = "bfloat16"):
     from repro_torch.configs import get_arch
     return replace(get_arch(MOE_ARCH), attn_impl="pallas",
                    moe_impl="scatter", dtype=dtype)
+
+
+def _audio_cfg(impl: str = "dense"):
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    return replace(get_arch(AUDIO_ARCH), attn_impl=impl)
+
+
+def _vlm_cfg(impl: str = "pallas"):
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    return replace(get_arch(VLM_ARCH), n_layers=VLM_LAYERS, attn_impl=impl)
+
+
+def _vlm_positions(cfg) -> int:
+    """The VLM prompt's hidden length: its patches, then its tokens."""
+    return cfg.frontend_len + SERVE_PROMPT
+
+
+def _stub_inputs(torch, cfg, b: int, gen) -> dict:
+    """The modality stub of ``cfg`` for ``b`` requests, standard normal
+    from ``gen`` on the CPU: patch embeddings ``[b, frontend_len,
+    frontend_dim]`` or audio frames ``[b, frontend_len, d_model]``; {}
+    without a frontend."""
+    if cfg.frontend == "patch":
+        return {"patch_embed": torch.randn(
+            b, cfg.frontend_len, cfg.resolved_frontend_dim, generator=gen)}
+    if cfg.frontend == "audio":
+        return {"frames": torch.randn(b, cfg.frontend_len, cfg.d_model,
+                                      generator=gen)}
+    return {}
 
 
 def _ssm_state(cache):
@@ -1264,15 +1357,8 @@ def phase_serve_ssm(torch) -> dict:
     routes_prefill = dict(k5.ROUTE_LAUNCHES)
     prefill_peak = torch.cuda.max_memory_allocated()
     prefill_state = _ssm_state(cache).clone()
-    generated, step_logits, step_s = [], [logits], []
-    for i in range(SERVE_DECODE):
-        nxt = step_logits[-1].argmax(-1, keepdim=True)
-        generated.append(nxt)
-        (lg, cache), dt = _sync_s(
-            torch, lambda: lm.decode_step(params, cache, nxt,
-                                          SERVE_PROMPT + i, cfg))
-        step_logits.append(lg)
-        step_s.append(dt)
+    generated, step_logits, step_s = _greedy_decode(
+        torch, params, cache, logits, SERVE_PROMPT, cfg)
     launches = ops.launch_counts()
     routes_decode = {k: n - routes_prefill[k]
                      for k, n in k5.ROUTE_LAUNCHES.items()}
@@ -1285,11 +1371,7 @@ def phase_serve_ssm(torch) -> dict:
           f"{cfg.n_layers} layers")
     check(launches["ssd"] == cfg.n_layers, f"K5 launched in decode: "
                                            f"{launches}")
-    for i, lg in enumerate(step_logits):
-        check(bool(torch.isfinite(_vocab(lg, cfg)).all()),
-              f"non-finite logits at step {i}")
-        check(bool((lg[:, cfg.vocab_size:] == -1e30).all()),
-              f"vocab pad not masked at step {i}")
+    _check_logits(torch, step_logits, cfg)
     check(bool(torch.isfinite(_ssm_state(cache)).all()),
           "non-finite SSM state")
     emit({"phase": "serve_ssm", "arch": SSM_ARCH, "ssd_impl": "pallas",
@@ -1511,15 +1593,8 @@ def phase_serve_moe(torch) -> dict:
     after_prefill = ops.launch_counts()
     routes_prefill = dict(fl.ROUTE_LAUNCHES)
     prefill_peak = torch.cuda.max_memory_allocated()
-    generated, step_logits, step_s = [], [logits], []
-    for i in range(SERVE_DECODE):
-        nxt = step_logits[-1].argmax(-1, keepdim=True)
-        generated.append(nxt)
-        (lg, cache), dt = _sync_s(
-            torch, lambda: lm.decode_step(params, cache, nxt,
-                                          SERVE_PROMPT + i, cfg))
-        step_logits.append(lg)
-        step_s.append(dt)
+    generated, step_logits, step_s = _greedy_decode(
+        torch, params, cache, logits, SERVE_PROMPT, cfg)
     launches = ops.launch_counts()
     routes_decode = {k: n - routes_prefill[k]
                      for k, n in fl.ROUTE_LAUNCHES.items()}
@@ -1533,11 +1608,7 @@ def phase_serve_moe(torch) -> dict:
           f"K4's prefill launches by route: {routes_prefill}")
     check(routes_decode == {"simt": 0, "wgmma": 0},
           f"K4's decode launches by route: {routes_decode}")
-    for i, lg in enumerate(step_logits):
-        check(bool(torch.isfinite(_vocab(lg, cfg)).all()),
-              f"non-finite logits at step {i}")
-        check(bool((lg[:, cfg.vocab_size:] == -1e30).all()),
-              f"vocab pad not masked at step {i}")
+    _check_logits(torch, step_logits, cfg)
     emit({"phase": "serve_moe", "arch": MOE_ARCH, "attn_impl": "pallas",
           "moe_impl": cfg.moe_impl, "dtype": cfg.dtype,
           "n_layers": cfg.n_layers, "n_params": n_params,
@@ -1595,6 +1666,186 @@ def phase_serve_moe(torch) -> dict:
             "decode_ms_per_step": sum(step_s) / len(step_s) * 1e3}
 
 
+def _serve_record(cfg, n_params, init_s, prefill_s, step_s, positions,
+                  prefill_peak) -> dict:
+    return {"arch": cfg.name, "attn_impl": cfg.attn_impl, "dtype": cfg.dtype,
+            "n_layers": cfg.n_layers, "n_params": n_params,
+            "batch": SERVE_BATCH, "prompt_positions": positions,
+            "decode_steps": SERVE_DECODE, "init_params_s": init_s,
+            "prefill_ms": prefill_s * 1e3,
+            "prefill_positions_per_s": SERVE_BATCH * positions / prefill_s,
+            "decode_ms_per_step": sum(step_s) / len(step_s) * 1e3,
+            "decode_ms_steps": [x * 1e3 for x in step_s],
+            "decode_tokens_per_s": SERVE_BATCH * len(step_s) / sum(step_s),
+            "prefill_peak_bytes": prefill_peak}
+
+
+def phase_serve_audio(torch) -> dict:
+    """The audio encoder-decoder: whisper-base at its published size, bf16,
+    ``attn_impl="dense"``, weights from ``init_params(0)``: 4 clips of
+    1,500 random frame embeddings with 448-token prompts, one prefill
+    (the encoder, then the decoder with its cross-attention k/v cached) and
+    16 greedy decode steps, with the launch counts zeroed just before and
+    read just after (no kernel: dense attention, the ``"xla"`` norms);
+    finite logits; prefill + decode against a teacher-forced ``forward``
+    (``SERVE_TOL``); ``attn_impl="pallas"`` raises ``NotImplementedError``
+    before any launch, as in the reference."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    dev = torch.device("cuda")
+    cfg = _audio_cfg()
+    params, init_s = _sync_s(torch, lambda: lm.init_params(0, cfg))
+    n_params = lm.param_count(params)
+    check(n_params == AUDIO_PARAMS, f"{AUDIO_ARCH}: {n_params} params")
+    gen = torch.Generator().manual_seed(27)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, AUDIO_PROMPT),
+                           generator=gen).to(dev)
+    stubs = {k: v.to(dev) for k, v in
+             _stub_inputs(torch, cfg, SERVE_BATCH, gen).items()}
+    check(stubs["frames"].shape == (SERVE_BATCH, 1500, cfg.d_model),
+          f"frames {tuple(stubs['frames'].shape)}")
+    lm.prefill(params, {"tokens": tokens[:, :16], **stubs}, cfg,
+               max_len=32)                                          # warm
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    (logits, cache), prefill_s = _sync_s(
+        torch, lambda: lm.prefill(params, {"tokens": tokens, **stubs}, cfg,
+                                  max_len=AUDIO_PROMPT + SERVE_DECODE))
+    after_prefill = ops.launch_counts()
+    prefill_peak = torch.cuda.max_memory_allocated()
+    generated, step_logits, step_s = _greedy_decode(
+        torch, params, cache, logits, AUDIO_PROMPT, cfg)
+    launches = ops.launch_counts()
+    check(sum(launches.values()) == 0,
+          f"{AUDIO_ARCH} (dense) launched a kernel: {launches}")
+    _check_logits(torch, step_logits, cfg)
+    cross = {k: tuple(v["xk"].shape) for k, v in cache.items()}
+    check(all(sh[2] == 1500 for sh in cross.values()),
+          f"cross-attention cache {cross}")
+    del cache
+    emit({"phase": "serve_audio", **_serve_record(
+              cfg, n_params, init_s, prefill_s, step_s, AUDIO_PROMPT,
+              prefill_peak),
+          "frames": list(stubs["frames"].shape), "enc_layers":
+          cfg.enc_layers, "cross_cache_shape": cross,
+          "launches_prefill": after_prefill, "launches": launches,
+          "reduced": "nothing"})
+    seq = torch.cat([tokens] + generated, dim=1)
+    full = lm.forward(params, {"tokens": seq, **stubs}, cfg)
+    served = torch.stack([_vocab(lg, cfg) for lg in step_logits], dim=1)
+    vs_forward = _compare(
+        torch, served, full[:, AUDIO_PROMPT - 1:AUDIO_PROMPT + SERVE_DECODE],
+        SERVE_TOL)
+    del full
+    ops.reset_launch_counts()
+    try:
+        lm.prefill(params, {"tokens": tokens, **stubs}, _audio_cfg("pallas"))
+        raised = None
+    except NotImplementedError as e:
+        raised = str(e)
+    k4 = ops.launch_counts()["flash_attention"]
+    emit({"phase": "serve_audio_checks", "tolerance": SERVE_TOL,
+          "prefill_decode_vs_forward": vs_forward,
+          "pallas_raises": raised, "pallas_k4_launches": k4})
+    check(vs_forward["close"], f"whisper prefill + decode vs forward: "
+                               f"{vs_forward}")
+    check(raised is not None and k4 == 0,
+          f"whisper with attn_impl='pallas': raised {raised!r}, K4 {k4}")
+    return {"params": params, "tokens": tokens, "stubs": stubs,
+            "positions": AUDIO_PROMPT, "prefill_ms": prefill_s * 1e3,
+            "decode_ms_per_step": sum(step_s) / len(step_s) * 1e3}
+
+
+def phase_serve_vlm(torch) -> dict:
+    """The VLM: internvl2-26b at its published widths cut to 12 of 48
+    layers, bf16, ``attn_impl="pallas"``, weights from ``init_params(0)``
+    (5.8 B drawn on the CPU): 4 requests of 256 random patch embeddings
+    and 2,048 tokens, one prefill over their 2,304 positions (K4 exactly
+    once per layer, all on its wgmma route) and 16 greedy decode steps
+    from position 2,304 (no K4), with the launch counts zeroed just before
+    and read just after; finite logits; then the pallas prefill against
+    the dense one and prefill + decode against a teacher-forced
+    ``forward`` (``SERVE_TOL``)."""
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    dev = torch.device("cuda")
+    cfg = _vlm_cfg()
+    positions = _vlm_positions(cfg)
+    params, init_s = _sync_s(torch, lambda: lm.init_params(0, cfg))
+    n_params = lm.param_count(params)
+    check(n_params == VLM_PARAMS, f"{VLM_ARCH}: {n_params} params")
+    gen = torch.Generator().manual_seed(28)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=gen).to(dev)
+    stubs = {k: v.to(dev) for k, v in
+             _stub_inputs(torch, cfg, SERVE_BATCH, gen).items()}
+    lm.prefill(params, {"tokens": tokens[:, :128], **stubs}, cfg,
+               max_len=cfg.frontend_len + 144)                      # warm
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    (logits, cache), prefill_s = _sync_s(
+        torch, lambda: lm.prefill(params, {"tokens": tokens, **stubs}, cfg,
+                                  max_len=positions + SERVE_DECODE))
+    after_prefill = ops.launch_counts()
+    routes_prefill = dict(fl.ROUTE_LAUNCHES)
+    prefill_peak = torch.cuda.max_memory_allocated()
+    generated, step_logits, step_s = _greedy_decode(
+        torch, params, cache, logits, positions, cfg)
+    launches = ops.launch_counts()
+    routes_decode = {k: n - routes_prefill[k]
+                     for k, n in fl.ROUTE_LAUNCHES.items()}
+    del cache
+    check(after_prefill["flash_attention"] == cfg.n_layers,
+          f"K4 launched {after_prefill['flash_attention']} times in a "
+          f"prefill of {cfg.n_layers} layers")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"K4 launched in decode: {launches}")
+    check(routes_prefill == {"simt": 0, "wgmma": cfg.n_layers},
+          f"K4's prefill launches by route: {routes_prefill}")
+    check(routes_decode == {"simt": 0, "wgmma": 0},
+          f"K4's decode launches by route: {routes_decode}")
+    _check_logits(torch, step_logits, cfg)
+    emit({"phase": "serve_vlm", **_serve_record(
+              cfg, n_params, init_s, prefill_s, step_s, positions,
+              prefill_peak),
+          "patches": list(stubs["patch_embed"].shape),
+          "prompt_tokens": SERVE_PROMPT,
+          "prefill_text_tokens_per_s": SERVE_BATCH * SERVE_PROMPT
+          / prefill_s,
+          "reduced": {"n_layers": f"{VLM_LAYERS} of 48 (drawing 19.9 B "
+                      f"weights on the CPU would take 430-550 s)"},
+          "launches_prefill": after_prefill,
+          "launches_decode": {k: launches[k] - after_prefill[k]
+                              for k in launches},
+          "k4_routes_prefill": routes_prefill,
+          "k4_routes_decode": routes_decode})
+    dense_logits, _ = lm.prefill(params, {"tokens": tokens, **stubs},
+                                 _vlm_cfg("dense"),
+                                 max_len=positions + SERVE_DECODE)
+    vs_dense = _compare(torch, _vocab(logits, cfg), _vocab(dense_logits, cfg),
+                        SERVE_TOL)
+    del dense_logits
+    seq = torch.cat([tokens] + generated, dim=1)
+    full = lm.forward(params, {"tokens": seq, **stubs}, cfg)
+    served = torch.stack([_vocab(lg, cfg) for lg in step_logits], dim=1)
+    vs_forward = _compare(
+        torch, served, full[:, positions - 1:positions + SERVE_DECODE],
+        SERVE_TOL)
+    del full
+    emit({"phase": "serve_vlm_checks", "tolerance": SERVE_TOL,
+          "pallas_vs_dense_prefill": vs_dense,
+          "prefill_decode_vs_forward": vs_forward})
+    check(vs_dense["close"], f"VLM pallas vs dense prefill: {vs_dense}")
+    check(vs_forward["close"], f"VLM prefill + decode vs forward: "
+                               f"{vs_forward}")
+    return {"params": params, "tokens": tokens, "stubs": stubs,
+            "positions": positions, "launches": after_prefill,
+            "k4_routes_prefill": routes_prefill,
+            "prefill_ms": prefill_s * 1e3,
+            "decode_ms_per_step": sum(step_s) / len(step_s) * 1e3}
+
+
 def _profile_rows(torch, prof):
     """(device rows, host rows) of a profile, each ``(us, name, count)``,
     largest first: kernels by self device time (an aten op's entry repeats
@@ -1648,17 +1899,19 @@ def phase_serve_profile(torch, serve, cfg=None, *, label: str = "k4",
                         phase: str = "serve_profile",
                         groups: dict | None = None) -> dict:
     """Device busy and idle share of one serve prefill and one decode step
-    (torch.profiler).  The profiler slows the host, so the idle share is
-    also given against the same call's unprofiled wall time from the serve
-    phase."""
+    (torch.profiler), with the serve phase's modality stubs (``stubs``)
+    and prompt length in positions (``positions``) where it has them.
+    The profiler slows the host, so the idle share is also given against
+    the same call's unprofiled wall time from the serve phase."""
     from repro_torch.models import lm
     cfg = cfg or _serve_cfg()
     params, tokens = serve["params"], serve["tokens"]
-    prompt = tokens.shape[1]
+    stubs = serve.get("stubs", {})
+    prompt = serve.get("positions", tokens.shape[1])
     holder = {}
 
     def prefill():
-        holder["out"] = lm.prefill(params, {"tokens": tokens}, cfg,
+        holder["out"] = lm.prefill(params, {"tokens": tokens, **stubs}, cfg,
                                    max_len=prompt + SERVE_DECODE)
 
     pre = _device_profile(torch, prefill, label, match, top=15,
@@ -1678,23 +1931,25 @@ def phase_serve_profile(torch, serve, cfg=None, *, label: str = "k4",
 
 def phase_agree_lm(torch, arch: str, **impl) -> dict:
     """A reduced serve path (f32, with ``impl`` routing it through its
-    kernel) on the card against the same on the CPU: prefill and 2 decode
-    steps."""
+    kernel, and the arch's modality stub) on the card against the same on
+    the CPU: prefill and 2 decode steps."""
     from dataclasses import replace
     from repro_torch.configs import get_arch
     from repro_torch.models import lm
     cfg = replace(get_arch(arch).reduced(), **impl)
     gen = torch.Generator().manual_seed(11)
     tokens = torch.randint(0, cfg.vocab_size, (2, 14), generator=gen)
+    stubs = _stub_inputs(torch, cfg, 2, gen)
+    off = cfg.frontend_len if cfg.frontend == "patch" else 0
     out = {}
     for dev in ("cpu", "cuda"):
         params = lm.init_params(0, cfg, device=dev)
-        lg, cache = lm.prefill(params, {"tokens": tokens[:, :12]}, cfg,
-                               max_len=16, device=dev)
+        lg, cache = lm.prefill(params, {"tokens": tokens[:, :12], **stubs},
+                               cfg, max_len=off + 16, device=dev)
         steps = [lg]
         for i in range(2):
             lg, cache = lm.decode_step(params, cache, tokens[:, 12 + i:13 + i],
-                                       12 + i, cfg, device=dev)
+                                       off + 12 + i, cfg, device=dev)
             steps.append(lg)
         out[dev] = torch.stack([_vocab(x, cfg).cpu() for x in steps])
     res = _compare(torch, out["cuda"], out["cpu"], AGREE_LM_TOL)
@@ -1999,7 +2254,7 @@ def _moe_aux_in_loss(torch) -> dict:
         bare = float(lm.loss_fn(params, {"tokens": toks},
                                 replace(cfg, moe_aux_weight=0.0)))
         aux = float(lm._hidden(params, {"tokens": toks}, cfg,
-                               torch.device("cuda"))[1])
+                               torch.device("cuda"))[2])
     del params
     out = {"loss": loss, "loss_without_aux": bare, "aux": aux,
            "moe_aux_weight": cfg.moe_aux_weight}
@@ -2322,6 +2577,8 @@ def main() -> int:
     timing3 = phase_timing_k3(torch, name)
     timing4 = phase_timing_k4(torch, name)
     timing4_moe = phase_timing_k4(torch, name, _moe_cfg())
+    timing4_vlm = phase_timing_k4(torch, name, _vlm_cfg(),
+                                  _vlm_positions(_vlm_cfg()))
     timing5 = phase_timing_k5(torch, name)
     launches, steps, res = phase_main(torch, args.rounds)
     mesh_launches, mesh_res = phase_mesh(torch, MESH_ROUNDS)
@@ -2343,6 +2600,16 @@ def main() -> int:
     for arch, impl in ((MOE_ARCH, {}), ("qwen3-moe-235b-a22b", {}),
                        ("jamba-v0.1-52b", {"ssd_impl": "pallas"})):
         phase_agree_lm(torch, arch, attn_impl="pallas", **impl)
+    audio = phase_serve_audio(torch)
+    phase_serve_profile(torch, audio, _audio_cfg(),
+                        phase="serve_audio_profile")
+    del audio["params"]
+    phase_agree_lm(torch, AUDIO_ARCH)
+    vlm = phase_serve_vlm(torch)
+    phase_serve_profile(torch, vlm, _vlm_cfg(), phase="serve_vlm_profile")
+    del vlm["params"]
+    torch.cuda.empty_cache()
+    phase_agree_lm(torch, VLM_ARCH, attn_impl="pallas")
     train_lm = phase_train_lm(torch)
     train_mesh = phase_train_lm_mesh(torch)
     torch.cuda.empty_cache()
@@ -2401,8 +2668,13 @@ def main() -> int:
          "serve_moe_shape": {k: timing4_moe[k] for k in (
              "shape_q", "shape_kv", "ms", "plain_ms", "library_ms",
              "bound_ms", "bound_by")},
-         "path": "serve (qwen3-0.6b and granite-moe-3b-a800m prefill, "
-                 "attn_impl='pallas')"},
+         "launches_serve_vlm": vlm["launches"]["flash_attention"],
+         "launches_by_route_serve_vlm": vlm["k4_routes_prefill"],
+         "serve_vlm_shape": {k: timing4_vlm[k] for k in (
+             "shape_q", "shape_kv", "ms", "plain_ms", "library_ms",
+             "bound_ms", "bound_by")},
+         "path": "serve (qwen3-0.6b, granite-moe-3b-a800m and "
+                 "internvl2-26b prefill, attn_impl='pallas')"},
         {**row("ssd", "ssd.cu", "src/repro/kernels/ssd.py:83",
                ssm["launches"]["ssd"], max(err5.values()), timing5),
          "launches_per_prefill": ssm["launches"]["ssd"],

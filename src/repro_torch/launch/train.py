@@ -1,6 +1,7 @@
 """End-to-end federated training entry point of the port — the
-counterpart of ``repro/launch/train.py`` for the paper's SR task and the
-LM archs whose forward the port has (dense, ssm, MoE and hybrid families).
+counterpart of ``repro/launch/train.py`` for the paper's SR task and every
+LM arch (dense, ssm, MoE, hybrid, audio encoder-decoder and VLM
+families).
 
 Composes dataset → cohort sampler → placement → worker pool → round step
 (partial aggregation through the K1 kernel) → synthetic telemetry →
@@ -11,6 +12,8 @@ time-model refit, on the CUDA card::
         --preset fl100m --rounds 3
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch granite-moe-3b-a800m --preset fl100m --rounds 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \
+        --preset fl100m --rounds 2
 
 and the mesh path — one program per worker, the shard-local tree combine,
 int8 shard uploads folded by the K2 kernel::
@@ -19,9 +22,8 @@ int8 shard uploads folded by the K2 kernel::
         --mesh-workers 2 --combine-mode tree --combine-compress int8
 
 The flags are the reference's.  Those of paths not ported yet
-(checkpoints, device cache, control plane, trace export; archs with an
-encoder or a frontend) raise ``NotImplementedError`` naming their
-ROADMAP item when set.
+(checkpoints, device cache, control plane, trace export) raise
+``NotImplementedError`` naming their ROADMAP item when set.
 """
 
 from __future__ import annotations
@@ -81,6 +83,51 @@ def set_deterministic() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+class _FrontendDataset:
+    """A token dataset with the modality-stub arrays an arch needs beside
+    ``tokens``, as the reference's ``_FrontendDataset``: ``patch_embed``
+    ``[N, b, frontend_len, frontend_dim]`` (patch frontend) or ``frames``
+    ``[N, b, frontend_len, d_model]`` (audio), f32 standard normal.  The
+    content of (client, batch) comes from a numpy generator seeded with
+    ``(7, cid * 131 + batch_idx)`` where the reference folds that number
+    into ``jax.random.key(7)``: other values, the same distribution
+    (``data/federated.py``)."""
+
+    def __init__(self, base, cfg: ArchConfig):
+        self.base = base
+        self.cfg = cfg
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
+
+    def client_batch(self, cid, batch_idx, *, batch_size=None, seq_len=None):
+        out = self.gather_batches(np.asarray([cid]), np.asarray([batch_idx]),
+                                  batch_size=batch_size, seq_len=seq_len)
+        return {k: v[0] for k, v in out.items()}
+
+    def gather_batches(self, cids, batch_idxs, *, batch_size=None,
+                       seq_len=None):
+        """The base dataset's tokens plus the stub arrays, in bulk."""
+        b = self.base.gather_batches(cids, batch_idxs, batch_size=batch_size,
+                                     seq_len=seq_len)
+        cfg = self.cfg
+        if cfg.frontend == "patch":
+            name, width = "patch_embed", cfg.resolved_frontend_dim
+        else:
+            name, width = "frames", cfg.d_model
+        if b["tokens"].shape[0] == 0:
+            bs = batch_size or self.base.spec.batch_size
+            b[name] = np.zeros((0, bs, cfg.frontend_len, width), np.float32)
+            return b
+        shape = (b["tokens"].shape[1], cfg.frontend_len, width)
+        folds = (np.asarray(cids, np.int64) * 131
+                 + np.asarray(batch_idxs, np.int64))
+        b[name] = np.stack([np.random.default_rng([7, int(f)])
+                            .standard_normal(shape, dtype=np.float32)
+                            for f in folds])
+        return b
+
+
 def _refuse(name: str, value, default, item: str) -> None:
     if value != default:
         raise NotImplementedError(f"{name}={value!r} is not ported yet "
@@ -92,7 +139,8 @@ def lm_config(arch: str, preset: str = "smoke"
     """``(cfg, seq_len, batch_size)`` that the reference's ``build_engine``
     trains ``arch`` at under ``preset``: the arch's ``reduced()`` config
     (f32), then the preset's widths unless ``smoke`` — an MoE arch's
-    experts as wide as the preset's ``d_ff``."""
+    experts as wide as the preset's ``d_ff`` — and a learned-position
+    table at least ``seq_len`` long."""
     p = dict(PRESETS[preset])
     seq_len, batch_size = p.pop("seq_len"), p.pop("batch_size")
     cfg = get_arch(arch).reduced()
@@ -100,6 +148,8 @@ def lm_config(arch: str, preset: str = "smoke"
         if cfg.moe:
             p.setdefault("moe_d_ff", p.get("d_ff", 128))
         cfg = replace(cfg, **p)
+    if cfg.learned_pos:
+        cfg = replace(cfg, max_position=max(cfg.max_position, seq_len))
     return cfg, seq_len, batch_size
 
 
@@ -120,16 +170,17 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
     ``device``.
 
     ``arch`` + ``preset`` train the arch at :func:`lm_config`'s config on
-    the ``"lm"`` token dataset with ``sgd(0.05, momentum=0.9)``, as the
+    the ``"lm"`` token dataset (wrapped in :class:`_FrontendDataset` for an
+    arch with a frontend) with ``sgd(0.05, momentum=0.9)``, as the
     reference does; ``lm_cfg`` trains that config instead (any widths,
     the published ones included) at the preset's ``seq_len`` and
     ``batch_size``.  The weights come from ``lm.init_params(seed, cfg)``.
     ``mesh_workers`` .. ``hosts`` select the mesh path and its combine, as
     in the reference.  ``engine_options`` are further
     :class:`EngineConfig` fields — the device-cache and control-plane
-    options, which raise until they are ported.  Refuses an unported arch
-    (encoder, frontend: ROADMAP M15c), and a CUDA ``device`` without a
-    card, before any work.
+    options, which raise until they are ported.  Refuses a config that
+    sets the multi-card ``moe_dispatch`` hook (ROADMAP M15c), and a CUDA
+    ``device`` without a card, before any work.
     """
     _refuse("ckpt_dir", ckpt_dir, None, "M9")
     if sampler == "online":
@@ -159,6 +210,8 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
         ds = make_federated_dataset(
             "lm", seed=seed, vocab_size=lm_cfg.vocab_size, seq_len=seq_len,
             batch_size=batch_size, n_clients=population or 4096)
+        if lm_cfg.frontend:
+            ds = _FrontendDataset(ds, lm_cfg)
         params = lm.init_params(seed, lm_cfg, device=device)
         loss_fn = make_lane_loss_fn(lm_cfg)
         optimizer = sgd(0.05, momentum=0.9)
@@ -191,8 +244,8 @@ def _build_parser() -> argparse.ArgumentParser:
                     "as in repro.launch.train; unported ones raise.")
     ap.add_argument("--task", choices=TASKS, default=None)
     ap.add_argument("--arch", default=None,
-                    help="an LM arch (dense, ssm, MoE or hybrid family; "
-                         "encoder and frontend archs raise, M15c)")
+                    help="an LM arch of any family (dense, ssm, MoE, "
+                         "hybrid, audio encoder-decoder, VLM)")
     ap.add_argument("--preset", choices=list(PRESETS), default="smoke",
                     help="LM preset, used only with --arch")
     ap.add_argument("--placement", default="lb", choices=["rr", "bb", "lb"])

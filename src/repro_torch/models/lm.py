@@ -6,24 +6,28 @@ final norm → LM head.  A *period* is the smallest repeating pattern of layer
 kinds (dense archs: 1).  Parameters keep the reference's layout — stacked
 per period position with a leading ``n_periods`` dim,
 ``{"embed", "stack": {"p<i>": {name: [n_periods, ...]}}, "final_norm",
-["lm_head"]}`` — so weights carry across one to one
+["lm_head"], ["patch_proj"], ["enc": {"stack", "final_norm", "pos_embed"}],
+["pos_embed"]}`` — so weights carry across one to one
 (:func:`repro_torch.models.lm_params_from_numpy`); the stack runs as a
 Python loop over periods where the reference scans.
 
 Ported block kinds: mixer ``attn`` (GQA + RoPE [+ qk-norm]) or ``mamba``
-(the Mamba-2 SSD mixer of :mod:`repro_torch.models.ssd`), MLP ``swiglu`` |
+(the Mamba-2 SSD mixer of :mod:`repro_torch.models.ssd`), decoder
+cross-attention against an encoder stack (whisper), MLP ``swiglu`` |
 ``relu2`` | ``gelu`` | ``moe`` (top-k routed experts,
 :func:`repro_torch.models.layers.moe_layer_3d`) | none, and command-r's
-``parallel_block``.  A config that needs anything else raises
-``NotImplementedError`` naming its ROADMAP item, M15c: the encoder,
-cross-attention and modality frontends; and the expert-parallel
-``moe_dispatch`` hook, which needs several cards.
+``parallel_block``; the modality stubs: precomputed audio frames fed to
+the encoder (``batch["frames"]``), patch embeddings projected in front of
+the text (``batch["patch_embed"]``), and learned decoder positions.  A
+config that sets the expert-parallel ``moe_dispatch`` hook, which needs
+several cards, raises ``NotImplementedError`` naming ROADMAP M15c.
 
 Entry points (``cuda`` unless ``device="cpu"`` is passed; without a card and
 without that request they raise):
 
     init_params(seed, cfg)                        -> params
     forward(params, batch, cfg)                   -> logits [b, s, V] f32
+                                                     (s counts the patches)
     loss_fn(params, batch, cfg)                   -> next-token CE, scalar
     init_cache(cfg, batch, max_len)               -> cache
     prefill(params, batch, cfg, max_len=)         -> (logits [b, Vp], cache)
@@ -35,10 +39,12 @@ serve entry points run under ``torch.no_grad``.  ``decode_step`` routes
 its few tokens droplessly (``capacity_factor = n_experts / top_k``), as the
 reference does.
 
-``params`` must already be on the entry point's device; token batches are
-moved there.  Unlike the reference, ``prefill`` writes k/v (attention) and
-the conv tail and SSM state (Mamba) straight into the cache it allocates,
-and ``decode_step`` updates ``cache`` in place (and returns it): the cache
+``params`` must already be on the entry point's device; batches are moved
+there.  Unlike the reference, ``prefill`` writes k/v (attention), the
+cross-attention k/v of the encoder output, and the conv tail and SSM state
+(Mamba) straight into the cache it allocates (the encoder runs once, where
+the reference runs it a second time for the cross k/v), and
+``decode_step`` updates ``cache`` in place (and returns it): the cache
 is the largest buffer of the serve path and is never copied.
 """
 
@@ -109,28 +115,15 @@ def layer_plan(cfg: ArchConfig, *, decoder: bool = True) -> list[LayerKind]:
 
 
 def require_ported(cfg: ArchConfig) -> list[LayerKind]:
-    """The layer plan, or ``NotImplementedError`` naming the ROADMAP item
-    of the first part of ``cfg`` the port does not have yet (M15c)."""
+    """The layer plan, or ``NotImplementedError`` where ``cfg`` sets the
+    expert-parallel ``moe_dispatch`` hook, which needs several cards
+    (ROADMAP M15c)."""
     if cfg.moe_dispatch is not None:
         raise NotImplementedError(
             f"{cfg.name}: moe_dispatch, the shard_map expert-parallel "
             f"dispatch, needs a mesh of more than one card; the port routes "
             f"MoE on one card through moe_impl (ROADMAP M15c)")
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} modality frontend is not "
-            f"ported yet (ROADMAP M15c)")
-    if cfg.enc_layers > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder stack is not ported yet (ROADMAP "
-            f"M15c)")
-    plan = layer_plan(cfg)
-    for kind in plan:
-        if kind.cross:
-            raise NotImplementedError(
-                f"{cfg.name}: cross-attention is not ported yet (ROADMAP "
-                f"M15c)")
-    return plan
+    return layer_plan(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +145,22 @@ def _attn_shapes(cfg: ArchConfig) -> dict:
     if cfg.use_bias:
         sh.update({"bq": (cfg.n_heads * hd,), "bk": (cfg.n_kv_heads * hd,),
                    "bv": (cfg.n_kv_heads * hd,), "bo": (D,)})
+    return sh
+
+
+def _cross_shapes(cfg: ArchConfig) -> dict:
+    hd = cfg.resolved_head_dim
+    D = cfg.d_model
+    sh = {
+        "xattn_norm": (D,),
+        "xwq": (D, cfg.n_heads * hd),
+        "xwk": (D, cfg.n_kv_heads * hd),
+        "xwv": (D, cfg.n_kv_heads * hd),
+        "xwo": (cfg.n_heads * hd, D),
+    }
+    if cfg.use_bias:
+        sh.update({"xbq": (cfg.n_heads * hd,), "xbk": (cfg.n_kv_heads * hd,),
+                   "xbv": (cfg.n_kv_heads * hd,), "xbo": (D,)})
     return sh
 
 
@@ -185,6 +194,8 @@ def _block_shapes(cfg: ArchConfig, kind: LayerKind) -> dict:
         sh.update(_attn_shapes(cfg))
     elif kind.mixer == "mamba":
         sh.update(_mamba_shapes(cfg))
+    if kind.cross:
+        sh.update(_cross_shapes(cfg))
     sh.update(_mlp_shapes(cfg, kind.mlp))
     if cfg.parallel_block and "mlp_norm" in sh:
         del sh["mlp_norm"]          # shared input norm (command-r style)
@@ -199,7 +210,7 @@ def _init_leaf(gen: torch.Generator, name: str, shape, dtype):
     :func:`dense_init`."""
     if "norm" in name:
         return norm_init(shape)
-    if name.startswith("b") and len(shape) == 1:
+    if name.startswith(("b", "xb")) and len(shape) == 1:
         return torch.zeros(shape, dtype=dtype)
     f32 = torch.float32
     if name == "mamba_A":
@@ -215,21 +226,39 @@ def _init_leaf(gen: torch.Generator, name: str, shape, dtype):
     return dense_init(gen, shape, dtype)
 
 
+def _stack_shapes(cfg: ArchConfig, plan) -> dict:
+    n_periods = cfg.n_layers // len(plan)
+    return {f"p{i}": {name: (n_periods,) + tuple(shape)
+                      for name, shape in sorted(
+                          _block_shapes(cfg, kind).items())}
+            for i, kind in enumerate(plan)}
+
+
 def param_shapes(cfg: ArchConfig) -> dict:
     """The shape of every parameter of ``cfg``, in :func:`init_params`'s
-    tree and draw order (no weights drawn)."""
-    plan = require_ported(cfg)
-    n_periods = cfg.n_layers // len(plan)
+    tree and draw order (no weights drawn): the reference's tree, with
+    ``patch_proj`` for a patch frontend, ``enc`` (the encoder's stack,
+    final norm and learned positions ``[frontend_len, d_model]``) for an
+    encoder, and ``pos_embed [max_position, d_model]`` for learned
+    decoder positions."""
     shapes = {
         "embed": (cfg.padded_vocab, cfg.d_model),
-        "stack": {f"p{i}": {name: (n_periods,) + tuple(shape)
-                            for name, shape in sorted(
-                                _block_shapes(cfg, kind).items())}
-                  for i, kind in enumerate(plan)},
+        "stack": _stack_shapes(cfg, require_ported(cfg)),
         "final_norm": (cfg.d_model,),
     }
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (cfg.d_model, cfg.padded_vocab)
+    if cfg.frontend == "patch":
+        shapes["patch_proj"] = (cfg.frontend_dim, cfg.d_model)
+    if cfg.enc_layers > 0:
+        enc_cfg = cfg.encoder_cfg()
+        shapes["enc"] = {
+            "stack": _stack_shapes(enc_cfg,
+                                   layer_plan(enc_cfg, decoder=False)),
+            "final_norm": (cfg.d_model,),
+            "pos_embed": (cfg.frontend_len, cfg.d_model)}
+    if cfg.learned_pos:
+        shapes["pos_embed"] = (cfg.max_position, cfg.d_model)
     return shapes
 
 
@@ -240,20 +269,37 @@ def init_params(seed: int, cfg: ArchConfig, *, device=None) -> dict:
     ``jax.random`` init by design; the parity tests carry the reference's
     weights across instead.  Shapes, dtypes and layout are the
     reference's: matrices in ``cfg.dtype``; norm scales and the Mamba
-    per-head rows in f32."""
+    per-head rows in f32; the learned positions (encoder and decoder)
+    drawn at scale 0.02, as the embedding."""
     shapes = param_shapes(cfg)
     device = resolve_device(device)
     dtype = _DTYPES[cfg.dtype]
     gen = torch.Generator().manual_seed(int(seed))
+
+    def stack(leaves):
+        return {key: {name: _init_leaf(gen, name, shape, dtype)
+                      for name, shape in pos.items()}
+                for key, pos in leaves.items()}
+
     params = {
         "embed": dense_init(gen, shapes["embed"], dtype, scale=0.02),
-        "stack": {key: {name: _init_leaf(gen, name, shape, dtype)
-                        for name, shape in leaves.items()}
-                  for key, leaves in shapes["stack"].items()},
+        "stack": stack(shapes["stack"]),
         "final_norm": norm_init(shapes["final_norm"]),
     }
     if "lm_head" in shapes:
         params["lm_head"] = dense_init(gen, shapes["lm_head"], dtype)
+    if "patch_proj" in shapes:
+        params["patch_proj"] = dense_init(gen, shapes["patch_proj"], dtype)
+    if "enc" in shapes:
+        enc = shapes["enc"]
+        params["enc"] = {
+            "stack": stack(enc["stack"]),
+            "final_norm": norm_init(enc["final_norm"]),
+            "pos_embed": dense_init(gen, enc["pos_embed"], dtype,
+                                    scale=0.02)}
+    if "pos_embed" in shapes:
+        params["pos_embed"] = dense_init(gen, shapes["pos_embed"], dtype,
+                                         scale=0.02)
     return _tree_map(lambda x: x.to(device), params)
 
 
@@ -307,11 +353,14 @@ def _project_qkv(p, h, cfg: ArchConfig):
     return q, k, v
 
 
-def _attn_out(p, attn, cfg: ArchConfig):
+def _attn_out(p, attn, cfg: ArchConfig, *, prefix: str = ""):
+    """The output projection of self-attention, or with ``prefix="x"`` of
+    cross-attention."""
     b, s = attn.shape[:2]
-    out = attn.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim) @ p["wo"]
+    out = attn.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim) \
+        @ p[prefix + "wo"]
     if cfg.use_bias:
-        out = out + p["bo"]
+        out = out + p[prefix + "bo"]
     return out
 
 
@@ -329,6 +378,39 @@ def _attn_body(p, x, cfg: ArchConfig, *, causal: bool, positions=None,
                          q_chunk=cfg.attn_q_chunk,
                          repeat_kv=cfg.attn_repeat_kv)
     return _attn_out(p, attn, cfg), (k, v)
+
+
+def _cross_query(p, x, cfg: ArchConfig):
+    """The cross-attention queries ``[b, s, n_heads, hd]`` of ``x``."""
+    h = rms_norm(x, p["xattn_norm"], eps=cfg.norm_eps)
+    b, s, _ = h.shape
+    q = h @ p["xwq"]
+    if cfg.use_bias:
+        q = q + p["xbq"]
+    return q.reshape(b, s, cfg.n_heads, cfg.resolved_head_dim)
+
+
+def _encode_cross_kv(p, enc_out, cfg: ArchConfig):
+    """A cross block's k/v ``[b, T, n_kv_heads, hd]`` of the encoder
+    output."""
+    b, t, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = enc_out @ p["xwk"]
+    v = enc_out @ p["xwv"]
+    if cfg.use_bias:
+        k = k + p["xbk"]
+        v = v + p["xbv"]
+    return (k.reshape(b, t, cfg.n_kv_heads, hd),
+            v.reshape(b, t, cfg.n_kv_heads, hd))
+
+
+def _cross_body(p, x, enc_out, cfg: ArchConfig):
+    """Cross-attention against the encoder output (per-layer k/v
+    projections): (its output, (k, v))."""
+    k, v = _encode_cross_kv(p, enc_out, cfg)
+    attn = gqa_attention(_cross_query(p, x, cfg), k, v, causal=False,
+                         impl=cfg.attn_impl)
+    return _attn_out(p, attn, cfg, prefix="x"), (k, v)
 
 
 def _mlp_body(p, x, cfg: ArchConfig, kind: str, *, norm_key: str = "mlp_norm"):
@@ -366,10 +448,12 @@ def _mamba_body(p, x, cfg: ArchConfig, *, return_state: bool = False):
 
 
 def _apply_block(p, x, cfg: ArchConfig, kind: LayerKind, *, causal: bool,
-                 positions=None, collect: bool = False):
+                 positions=None, enc_out=None, collect: bool = False):
     """One block; returns (x, its MoE load-balance term or None, what it
-    leaves for the cache): ``{"k", "v"}`` of its attention, or with
-    ``collect`` ``{"conv", "ssm"}`` of its Mamba mixer, or None."""
+    leaves for the cache): ``{"k", "v"}`` of its attention (with
+    ``{"xk", "xv"}`` of its cross-attention where it has one and
+    ``enc_out`` is given), or with ``collect`` ``{"conv", "ssm"}`` of its
+    Mamba mixer, or None."""
     contrib, aux = None, None
     if cfg.parallel_block and kind.mixer == "attn" and kind.mlp != "none":
         # command-r: shared norm, attn & mlp in parallel
@@ -392,6 +476,10 @@ def _apply_block(p, x, cfg: ArchConfig, kind: LayerKind, *, causal: bool,
             else:
                 y = _mamba_body(p, x, cfg)
             x = x + y
+        if kind.cross and enc_out is not None:
+            cross_out, (xk, xv) = _cross_body(p, x, enc_out, cfg)
+            x = x + cross_out
+            contrib.update(xk=xk, xv=xv)
         if kind.mlp != "none":
             mlp_out, aux = _mlp_body(p, x, cfg, kind.mlp)
             x = x + mlp_out
@@ -409,17 +497,19 @@ def _period(stack: dict, key: str, n: int) -> dict:
 
 
 def _period_blocks(periods, n: int, x, cfg: ArchConfig, plan, *,
-                   causal: bool, positions=None, cache=None):
+                   causal: bool, positions=None, enc_out=None, cache=None):
     """Period ``n``'s blocks: (x, the sum of its MoE load-balance terms, or
     None where it has no MoE block).  With ``cache``, each attention
-    block's k/v fill its first ``s`` slots and each Mamba block's conv
-    tail and final SSM state its period's entries."""
+    block's k/v fill its first ``s`` slots, a cross block's k/v of
+    ``enc_out`` its period's entries, and each Mamba block's conv tail and
+    final SSM state theirs."""
     s = x.shape[1]
     aux = None
     for i, kind in enumerate(plan):
         key = f"p{i}"
         x, a, contrib = _apply_block(_period(periods, key, n), x, cfg, kind,
                                      causal=causal, positions=positions,
+                                     enc_out=enc_out,
                                      collect=cache is not None)
         if a is not None:
             aux = a if aux is None else aux + a
@@ -434,10 +524,11 @@ def _period_blocks(periods, n: int, x, cfg: ArchConfig, plan, *,
 
 
 def _run_stack(stack, x, cfg: ArchConfig, plan, *, causal: bool,
-               positions=None, cache=None):
-    """The blocks in order, period by period, filling ``cache`` (from
-    :func:`init_cache`) when one is given: (x, the MoE load-balance terms
-    summed over periods, 0.0 without MoE).  Without a cache,
+               positions=None, enc_out=None, cache=None):
+    """The blocks in order, period by period, cross blocks attending to
+    ``enc_out``, filling ``cache`` (from :func:`init_cache`) when one is
+    given: (x, the MoE load-balance terms summed over periods, 0.0 without
+    MoE).  Without a cache,
     ``cfg.remat`` recomputes each period in backward
     (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
     around its period body: the same values, less memory."""
@@ -452,21 +543,48 @@ def _run_stack(stack, x, cfg: ArchConfig, plan, *, causal: bool,
         if cache is None and cfg.remat:
             x, aux = checkpoint(_period_blocks, periods, n, x, cfg, plan,
                                 causal=causal, positions=positions,
-                                use_reentrant=False)
+                                enc_out=enc_out, use_reentrant=False)
         else:
             x, aux = _period_blocks(periods, n, x, cfg, plan, causal=causal,
-                                    positions=positions, cache=cache)
+                                    positions=positions, enc_out=enc_out,
+                                    cache=cache)
         if aux is not None:
             auxs.append(aux)
     return x, (torch.stack(auxs).sum() if auxs else 0.0)
 
 
 def _embed_inputs(params, batch, cfg: ArchConfig, device):
-    """tokens -> (x [b,s,D], positions [1,s])."""
+    """tokens (+ the patch stub) -> (x [b,s,D], loss_mask [b,s], positions
+    [1,s]): patch embeddings projected by ``patch_proj`` go in front of
+    the text, with a loss mask of 0; learned positions count them."""
     tokens = torch.as_tensor(batch["tokens"], device=device).long()
-    x = params["embed"][tokens]                     # [b, s, D]
+    x = params["embed"][tokens]                     # [b, s_text, D]
+    loss_mask = torch.ones(tokens.shape, dtype=torch.float32, device=device)
+    if cfg.frontend == "patch" and "patch_embed" in batch:
+        patches = torch.as_tensor(batch["patch_embed"], device=device).to(
+            x.dtype) @ params["patch_proj"]
+        x = torch.cat([patches, x], dim=1)
+        loss_mask = torch.cat([torch.zeros(patches.shape[:2],
+                                           dtype=torch.float32,
+                                           device=device), loss_mask], dim=1)
+    if cfg.learned_pos:
+        x = x + params["pos_embed"][:x.shape[1]][None]
     positions = torch.arange(x.shape[1], device=device)[None, :]
-    return x, positions
+    return x, loss_mask, positions
+
+
+def _run_encoder(params, batch, cfg: ArchConfig, device):
+    """The encoder over the frame stub: frames in ``cfg.dtype`` plus the
+    encoder's learned positions, its (non-causal) stack, its final
+    norm."""
+    enc_cfg = cfg.encoder_cfg()
+    frames = torch.as_tensor(batch["frames"], device=device).to(
+        _DTYPES[cfg.dtype])                         # [b, T, D]
+    enc = params["enc"]
+    x = frames + enc["pos_embed"][:frames.shape[1]][None]
+    x, _ = _run_stack(enc["stack"], x, enc_cfg,
+                      layer_plan(enc_cfg, decoder=False), causal=False)
+    return rms_norm(x, enc["final_norm"], eps=cfg.norm_eps)
 
 
 def _lm_head(params, h, cfg: ArchConfig):
@@ -484,12 +602,17 @@ def _lm_head(params, h, cfg: ArchConfig):
 
 
 def _hidden(params, batch, cfg: ArchConfig, device, *, cache=None):
-    """(final-normed hidden states, the MoE load-balance term)."""
+    """(final-normed hidden states, the loss mask, the MoE load-balance
+    term)."""
     plan = require_ported(cfg)
-    x, positions = _embed_inputs(params, batch, cfg, device)
+    x, loss_mask, positions = _embed_inputs(params, batch, cfg, device)
+    enc_out = None
+    if cfg.enc_layers > 0:
+        enc_out = _run_encoder(params, batch, cfg, device)
     x, aux = _run_stack(params["stack"], x, cfg, plan, causal=True,
-                        positions=positions, cache=cache)
-    return rms_norm(x, params["final_norm"], eps=cfg.norm_eps), aux
+                        positions=positions, enc_out=enc_out, cache=cache)
+    h = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
+    return h, loss_mask, aux
 
 
 def _mask_vocab_pad(logits, cfg: ArchConfig):
@@ -502,9 +625,9 @@ def _mask_vocab_pad(logits, cfg: ArchConfig):
 @torch.no_grad()
 def forward(params, batch, cfg: ArchConfig, *, device=None):
     """Full-sequence f32 logits ``[b, s, vocab_size]`` (pad columns sliced
-    off)."""
+    off); ``s`` counts the patch positions too."""
     device = _on_device(params, device)
-    h, _ = _hidden(params, batch, cfg, device)
+    h, _, _ = _hidden(params, batch, cfg, device)
     return _lm_head(params, h, cfg)[..., :cfg.vocab_size]
 
 
@@ -522,20 +645,23 @@ def loss_fn(params, batch, cfg: ArchConfig, *, device=None):
     """Next-token cross-entropy (f32 scalar), differentiable: the
     counterpart of ``repro.models.lm.loss_fn``.
 
-    ``h`` at position i predicts token i+1.  The CE is taken over sequence
+    ``h`` at position i predicts token i+1; only the text positions
+    predict (patch positions in front of the text are left out, as their
+    loss mask says).  The CE is taken over sequence
     chunks of ``cfg.loss_chunk`` positions (0: one chunk), the ragged tail
     padded and masked, so the ``[b, s, vocab]`` logits never exist at
     once; each chunk's logits are recomputed in backward
     (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
-    does.  The sum is divided by the number of predicted tokens, and
+    does.  The sum is divided by the masked count of predicted tokens, and
     ``cfg.moe_aux_weight`` times the MoE layers' summed load-balance term
     is added (0 without MoE)."""
     device = _on_device(params, device)
-    h, aux = _hidden(params, batch, cfg, device)
+    h, loss_mask, aux = _hidden(params, batch, cfg, device)
     tokens = torch.as_tensor(batch["tokens"], device=device).long()
-    h_pred = h[:, :-1]                              # [b, s-1, D]
-    labels = tokens[:, 1:]                          # [b, s-1]
-    mask = torch.ones(labels.shape, dtype=torch.float32, device=device)
+    s_tot, s_text = h.shape[1], tokens.shape[1]
+    h_pred = h[:, s_tot - s_text:][:, :-1]          # [b, s_text-1, D]
+    labels = tokens[:, 1:]                          # [b, s_text-1]
+    mask = loss_mask[:, s_tot - s_text + 1:]        # mask of label positions
     n = labels.shape[1]
     chunk = min(cfg.loss_chunk, n) if cfg.loss_chunk else n
     pad = (-n) % chunk
@@ -557,22 +683,34 @@ def loss_fn(params, batch, cfg: ArchConfig, *, device=None):
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None):
     """The zeroed serving cache for a batch of sequences of ≤ ``max_len``
     tokens, per period position: an attention block's ``{"k", "v":
-    [n_periods, batch, max_len, n_kv_heads, hd]}`` in ``cfg.dtype``; a
-    Mamba block's ``{"conv": [n_periods, batch, conv_k - 1, conv_dim]}`` in
-    ``cfg.dtype`` and ``{"ssm": [n_periods, batch, heads, head_dim,
-    state]}`` in f32."""
+    [n_periods, batch, max_len, n_kv_heads, hd]}`` in ``cfg.dtype``, and a
+    cross block's ``{"xk", "xv": [n_periods, batch, frontend_len,
+    n_kv_heads, hd]}`` beside them; a Mamba block's ``{"conv": [n_periods,
+    batch, conv_k - 1, conv_dim]}`` in ``cfg.dtype`` and ``{"ssm":
+    [n_periods, batch, heads, head_dim, state]}`` in f32."""
+    return _new_cache(cfg, batch, max_len, cfg.frontend_len,
+                      resolve_device(device))
+
+
+def _new_cache(cfg: ArchConfig, batch: int, max_len: int, enc_len: int,
+               device):
+    """:func:`init_cache` with the cross k/v sized for ``enc_len`` encoder
+    frames."""
     plan = require_ported(cfg)
-    device = resolve_device(device)
     n_periods = cfg.n_layers // len(plan)
-    shape = (n_periods, batch, max_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
+    hd = cfg.resolved_head_dim
     dtype = _DTYPES[cfg.dtype]
+
+    def zeros(length):
+        return torch.zeros((n_periods, batch, length, cfg.n_kv_heads, hd),
+                           dtype=dtype, device=device)
+
     cache = {}
     for i, kind in enumerate(plan):
         if kind.mixer == "attn":
-            cache[f"p{i}"] = {
-                "k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+            cache[f"p{i}"] = {"k": zeros(max_len), "v": zeros(max_len)}
+            if kind.cross:
+                cache[f"p{i}"].update(xk=zeros(enc_len), xv=zeros(enc_len))
         elif kind.mixer == "mamba":
             mc = ssdlib.mamba2_init_cache(
                 batch, d_inner=cfg.d_inner, head_dim=cfg.ssm_head_dim,
@@ -588,15 +726,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None):
 def prefill(params, batch, cfg: ArchConfig, *, max_len: int | None = None,
             device=None):
     """Process the whole prompt; return (last-position logits ``[b,
-    padded_vocab]`` f32 with pad columns at -1e30, cache).  The cache holds
-    the prompt's k/v in its first ``s`` slots and each Mamba block's conv
-    tail and SSM state after the prompt, so :func:`decode_step` continues
-    at ``pos = s``."""
+    padded_vocab]`` f32 with pad columns at -1e30, cache).  The prompt is
+    ``s`` positions: the patches (if any) and the tokens.  The cache holds
+    its k/v in the first ``s`` slots, each cross block's k/v of the
+    encoder output, and each Mamba block's conv tail and SSM state after
+    the prompt, so :func:`decode_step` continues at ``pos = s``."""
     device = _on_device(params, device)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    cache = init_cache(cfg, b, max_len or s, device=device)
-    h, _ = _hidden(params, batch, cfg, device, cache=cache)
+    b, s = batch["tokens"].shape
+    if cfg.frontend == "patch" and "patch_embed" in batch:
+        s += batch["patch_embed"].shape[1]
+    enc_len = batch["frames"].shape[1] if cfg.enc_layers > 0 else 0
+    cache = _new_cache(cfg, b, max_len or s, enc_len, device)
+    h, _, _ = _hidden(params, batch, cfg, device, cache=cache)
     logits = _lm_head(params, h[:, -1:, :], cfg)[:, 0]
     return _mask_vocab_pad(logits, cfg), cache
 
@@ -615,6 +756,13 @@ def _decode_attn_block(p, x_t, c, n: int, cfg: ArchConfig, pos: int):
     vc[:, pos:pos + 1] = v
     mask = (torch.arange(kc.shape[1], device=x_t.device) <= pos).float()
     return _attn_out(p, decode_attention(q, kc, vc, mask), cfg)
+
+
+def _decode_cross_block(p, x_t, c, n: int, cfg: ArchConfig):
+    """x_t [b,1,D]; attends to period ``n``'s cached encoder k/v."""
+    return _attn_out(p, decode_attention(_cross_query(p, x_t, cfg),
+                                         c["xk"][n], c["xv"][n], None),
+                     cfg, prefix="x")
 
 
 def _decode_mamba_block(p, x_t, c, n: int, cfg: ArchConfig):
@@ -644,6 +792,8 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *, device=None):
     pos = int(pos)
     tokens = torch.as_tensor(tokens, device=device).long()
     x = params["embed"][tokens]                     # [b,1,D]
+    if cfg.learned_pos:
+        x = x + params["pos_embed"][pos:pos + 1][None]
     stack = params["stack"]
     for n in range(cfg.n_layers // len(plan)):
         for i, kind in enumerate(plan):
@@ -660,6 +810,8 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *, device=None):
                     x = x + _decode_attn_block(p, x, cache[key], n, cfg, pos)
                 elif kind.mixer == "mamba":
                     x = x + _decode_mamba_block(p, x, cache[key], n, cfg)
+                if kind.cross:
+                    x = x + _decode_cross_block(p, x, cache[key], n, cfg)
                 if kind.mlp != "none":
                     x = x + _mlp_body(p, x, cfg, kind.mlp)[0]
     h = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)

@@ -532,6 +532,57 @@ def test_reduced_moe_serve_paths_on_card(dev, arch, impl):
                           atol=1e-4)
 
 
+@pytest.mark.parametrize("arch,impl", [("whisper-base", "dense"),
+                                       ("internvl2-26b", "pallas")])
+def test_reduced_frontend_serve_paths_on_card(dev, arch, impl):
+    """whisper (encoder, cross-attention, learned positions) and internvl2
+    (patches in front of the text, through K4) at ``reduced()`` in f32:
+    prefill + 2 decode steps equal the teacher-forced forward at the
+    patch-shifted positions, K4 runs once per layer in internvl2's prefill
+    and never in decode, and the card equals the CPU (1e-4: GEMM sums in
+    another order).  whisper through K4 raises before any launch (its
+    non-causal encoder's 16 keys would be padded)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    cfg = replace(get_arch(arch).reduced(), attn_impl=impl)
+    g = torch.Generator().manual_seed(26)
+    toks = torch.randint(0, cfg.vocab_size, (2, 14), generator=g)
+    width = cfg.resolved_frontend_dim if cfg.frontend == "patch" \
+        else cfg.d_model
+    stub = torch.randn(2, cfg.frontend_len, width, generator=g)
+    key = "patch_embed" if cfg.frontend == "patch" else "frames"
+    off = cfg.frontend_len if cfg.frontend == "patch" else 0
+    out = {}
+    for d in ("cpu", "cuda"):
+        params = lm.init_params(0, cfg, device=d)
+        tops.reset_launch_counts()
+        lg, cache = lm.prefill(params, {"tokens": toks[:, :12], key: stub},
+                               cfg, max_len=off + 16, device=d)
+        k4_prefill = tops.launch_counts()["flash_attention"]
+        steps = [lg]
+        for i in range(2):
+            lg, cache = lm.decode_step(params, cache, toks[:, 12 + i:13 + i],
+                                       off + 12 + i, cfg, device=d)
+            steps.append(lg)
+        k4_all = tops.launch_counts()["flash_attention"]
+        full = lm.forward(params, {"tokens": toks, key: stub}, cfg, device=d)
+        served = torch.stack([x[:, :cfg.vocab_size] for x in steps], 1)
+        assert torch.allclose(served, full[:, off + 11:off + 14],
+                              rtol=1e-5, atol=1e-5)
+        if d == "cuda":
+            want = cfg.n_layers if impl == "pallas" else 0
+            assert k4_prefill == k4_all == want
+        out[d] = served.cpu()
+    assert torch.allclose(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)
+    if arch == "whisper-base":
+        tops.reset_launch_counts()
+        with pytest.raises(NotImplementedError, match="non-causal padding"):
+            lm.prefill(params, {"tokens": toks, key: stub},
+                       replace(cfg, attn_impl="pallas"), device="cuda")
+        assert tops.launch_counts()["flash_attention"] == 0
+
+
 def test_moe_scatter_dispatch_is_deterministic_on_card(dev):
     """The scatter dispatch's accumulating scatter into the overflow row
     and its gather's backward: the same outputs and gradients bit for bit
@@ -816,7 +867,8 @@ def test_reduced_mamba_serve_path_on_card(dev):
 
 # -- federated LM training (--arch) -------------------------------------------
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-2.7b",
-                                  "granite-moe-3b-a800m"])
+                                  "granite-moe-3b-a800m", "whisper-base",
+                                  "internvl2-26b"])
 def test_lm_rounds_on_card_track_the_cpu(dev, arch):
     """Two rounds of a reduced arch's federated training on the card
     against the same on the CPU: losses within rtol 1e-6 and the final

@@ -266,8 +266,6 @@ def test_unported_engine_options_raise(field, value):
 
 
 @pytest.mark.parametrize("argv", [["--ckpt-dir", "x"],
-                                  ["--arch", "internvl2-26b"],
-                                  ["--arch", "whisper-base"],
                                   ["--strategy", "fedmedian"],
                                   ["--sampler", "online"],
                                   ["--trace-out", "t.json"],

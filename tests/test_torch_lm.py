@@ -5,7 +5,10 @@ Inputs are made with numpy from a seed and given to both packages; the
 reference's weights (``jax.random`` init) are carried across with
 ``lm_params_from_numpy``.  The reduced configs (``ArchConfig.reduced()``:
 f32, 4 layers, d_model 64, head_dim 16, vocab 256) of the four dense
-archs.  Tolerances, and why:
+archs and of the two with a modality frontend (whisper-base: 2 encoder
+layers over 16 frames, cross-attention, learned positions; internvl2-26b:
+16 patch embeddings of width 32 in front of the text).  Tolerances, and
+why:
 
 * configs, layer plans, shapes: pure logic, exact;
 * layers and whole models in f32: the two libraries sum GEMMs and
@@ -41,7 +44,12 @@ from repro_torch.models import lm as tlm  # noqa: E402
 
 DENSE = ["qwen3-0.6b", "minitron-4b", "internlm2-1.8b", "command-r-plus-104b"]
 MOE = ["granite-moe-3b-a800m", "qwen3-moe-235b-a22b", "jamba-v0.1-52b"]
-UNPORTED = {"internvl2-26b": "frontend", "whisper-base": "frontend"}
+FRONTEND = ["whisper-base", "internvl2-26b"]
+# The reference's param counts at the published widths (init_params under
+# jax.eval_shape), and internvl2-26b cut to 12 of its 48 layers.
+PUBLISHED = [("whisper-base", 0, 73_596_928),
+             ("internvl2-26b", 0, 19_882_383_360),
+             ("internvl2-26b", 12, 5_839_411_200)]
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
@@ -92,12 +100,37 @@ def test_shape_cells_and_lookup_are_copies():
         tconfigs.get_arch("gpt-5")
 
 
-@pytest.mark.parametrize("name", DENSE + MOE)
+@pytest.mark.parametrize("name", DENSE + MOE + FRONTEND)
 def test_block_shapes_match_at_published_widths(name):
-    """The full config's parameter shapes, without allocating them."""
+    """The full config's parameter shapes, without allocating them (the
+    encoder's blocks too)."""
     j, t = jconfigs.get_arch(name), tconfigs.get_arch(name)
     for jk, tk in zip(jlm.layer_plan(j), tlm.layer_plan(t)):
         assert tlm._block_shapes(t, tk) == jlm._block_shapes(j, jk)
+    if j.enc_layers:
+        je, te = j.encoder_cfg(), t.encoder_cfg()
+        for jk, tk in zip(jlm.layer_plan(je, decoder=False),
+                          tlm.layer_plan(te, decoder=False)):
+            assert not tk.cross
+            assert tlm._block_shapes(te, tk) == jlm._block_shapes(je, jk)
+
+
+@pytest.mark.parametrize("name,n_layers,count", PUBLISHED)
+def test_param_count_matches_the_published_size(name, n_layers, count):
+    """``param_shapes`` at the published widths has the reference's tree,
+    shapes and count (no weights drawn on either side)."""
+    j, t = jconfigs.get_arch(name), tconfigs.get_arch(name)
+    if n_layers:
+        j, t = replace(j, n_layers=n_layers), replace(t, n_layers=n_layers)
+    ref = jax.eval_shape(lambda k: jlm.init_params(k, j), jax.random.key(0))
+    shapes = tlm.param_shapes(t)
+    got = {"/".join(k.key for k in path): leaf for path, leaf in
+           jax.tree_util.tree_flatten_with_path(shapes,
+                                                is_leaf=_is_shape)[0]}
+    want = {"/".join(k.key for k in path): leaf.shape for path, leaf in
+            jax.tree_util.tree_flatten_with_path(ref)[0]}
+    assert got == want
+    assert sum(int(np.prod(v)) for v in got.values()) == count
 
 
 # -- layers -------------------------------------------------------------------
@@ -205,27 +238,49 @@ def test_mlps_match_reference():
         _np(jlayers.gelu_mlp(*map(jnp.asarray, (x, wu, zu, wd, zd)))), **TOL)
 
 
+def _is_shape(x):
+    return isinstance(x, tuple)
+
+
 # -- the model ----------------------------------------------------------------
 def _tokens(cfg, b=2, s=14, seed=7):
     return _rng(seed).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
 
 
-def _serve_both(jcfg, tcfg, jp, tp, toks, s):
+def _stubs(cfg, b=2, seed=17):
+    """The modality stub arrays ``cfg`` reads beside the tokens (numpy)."""
+    rng = _rng(seed)
+    if cfg.frontend == "patch":
+        return {"patch_embed": _normal(rng, (b, cfg.frontend_len,
+                                             cfg.resolved_frontend_dim))}
+    if cfg.frontend == "audio":
+        return {"frames": _normal(rng, (b, cfg.frontend_len, cfg.d_model))}
+    return {}
+
+
+def _serve_both(jcfg, tcfg, jp, tp, toks, s, stubs=None):
     """forward over all of ``toks``; prefill over the first ``s`` tokens,
-    then decode the rest one by one — in both packages."""
+    then decode the rest one by one — in both packages.  ``stubs``: the
+    modality arrays (the same for every call); patches shift the decode
+    positions by their count."""
+    stubs = stubs or {}
+    jstubs = {k: jnp.asarray(v) for k, v in stubs.items()}
+    off = stubs["patch_embed"].shape[1] if "patch_embed" in stubs else 0
     out = {}
-    out["jf"] = jlm.forward(jp, {"tokens": jnp.asarray(toks)}, jcfg)
-    out["tf"] = tlm.forward(tp, {"tokens": toks}, tcfg, device="cpu")
-    jl, jc = jlm.prefill(jp, {"tokens": jnp.asarray(toks[:, :s])}, jcfg,
-                         max_len=s + 4)
-    tl, tc = tlm.prefill(tp, {"tokens": toks[:, :s]}, tcfg, max_len=s + 4,
-                         device="cpu")
+    out["jf"] = jlm.forward(jp, {"tokens": jnp.asarray(toks), **jstubs}, jcfg)
+    out["tf"] = tlm.forward(tp, {"tokens": toks, **stubs}, tcfg,
+                            device="cpu")
+    jl, jc = jlm.prefill(jp, {"tokens": jnp.asarray(toks[:, :s]), **jstubs},
+                         jcfg, max_len=off + s + 4)
+    tl, tc = tlm.prefill(tp, {"tokens": toks[:, :s], **stubs}, tcfg,
+                         max_len=off + s + 4, device="cpu")
     out["jsteps"], out["tsteps"] = [jl], [tl]
     for i in range(toks.shape[1] - s):
         step = toks[:, s + i:s + i + 1]
-        jl, jc = jlm.decode_step(jp, jc, jnp.asarray(step), jnp.int32(s + i),
-                                 jcfg)
-        tl, tc = tlm.decode_step(tp, tc, step, s + i, tcfg, device="cpu")
+        jl, jc = jlm.decode_step(jp, jc, jnp.asarray(step),
+                                 jnp.int32(off + s + i), jcfg)
+        tl, tc = tlm.decode_step(tp, tc, step, off + s + i, tcfg,
+                                 device="cpu")
         out["jsteps"].append(jl)
         out["tsteps"].append(tl)
     out["jcache"], out["tcache"] = jc, tc
@@ -253,6 +308,136 @@ def test_serve_path_matches_reference(name, impl):
                                        _np(out["jcache"][key][kv]), **TOL)
 
 
+@pytest.mark.parametrize("name,impl", [("whisper-base", "dense"),
+                                       ("internvl2-26b", "dense"),
+                                       ("internvl2-26b", "pallas")])
+def test_frontend_serve_path_matches_reference(name, impl):
+    """forward (logits over the patch positions too), prefill and 2 decode
+    steps on the reference's weights and stub inputs; the cache, the
+    cross-attention k/v of the encoder output included."""
+    jcfg, tcfg = _cfgs(name, attn_impl=impl)
+    jp, tp = _ref_params(jcfg, seed=5)
+    assert tlm.param_count(tp) == jlm.param_count(jp)
+    stubs = _stubs(jcfg)
+    out = _serve_both(jcfg, tcfg, jp, tp, _tokens(jcfg, seed=13), 12, stubs)
+    s_tot = 14 + (tcfg.frontend_len if tcfg.frontend == "patch" else 0)
+    assert out["tf"].shape == (2, s_tot, tcfg.vocab_size)
+    np.testing.assert_allclose(_np(out["tf"]), _np(out["jf"]), **TOL)
+    for jl, tl in zip(out["jsteps"], out["tsteps"]):
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    names = {"k", "v"} | ({"xk", "xv"} if tcfg.enc_layers else set())
+    for key, c in out["tcache"].items():
+        assert set(c) == names
+        for name_ in names:
+            assert c[name_].shape == out["jcache"][key][name_].shape
+            np.testing.assert_allclose(_np(c[name_]),
+                                       _np(out["jcache"][key][name_]), **TOL)
+
+
+@pytest.mark.parametrize("name", FRONTEND)
+def test_frontend_prefill_then_decode_equals_forward(name):
+    """Inside the port, on its own weights: prefill + 2 decode steps ==
+    the teacher-forced forward at the same (patch-shifted) positions, and
+    the prefill runs the encoder once."""
+    cfg = tconfigs.get_arch(name).reduced()
+    params = tlm.init_params(0, cfg, device="cpu")
+    toks, stubs = _tokens(cfg, s=14, seed=14), _stubs(cfg, seed=18)
+    off = cfg.frontend_len if cfg.frontend == "patch" else 0
+    full = tlm.forward(params, {"tokens": toks, **stubs}, cfg, device="cpu")
+    calls = []
+    real = tlm._run_encoder
+    tlm._run_encoder = lambda *a: calls.append(1) or real(*a)
+    try:
+        lg, cache = tlm.prefill(params, {"tokens": toks[:, :12], **stubs},
+                                cfg, max_len=off + 16, device="cpu")
+    finally:
+        tlm._run_encoder = real
+    assert len(calls) == (1 if cfg.enc_layers else 0)
+    np.testing.assert_allclose(_np(lg[:, :cfg.vocab_size]),
+                               _np(full[:, off + 11]), **TOL)
+    for i in range(2):
+        lg, _ = tlm.decode_step(params, cache, toks[:, 12 + i:13 + i],
+                                off + 12 + i, cfg, device="cpu")
+        np.testing.assert_allclose(_np(lg[:, :cfg.vocab_size]),
+                                   _np(full[:, off + 12 + i]), **TOL)
+
+
+def test_whisper_pallas_attention_raises_in_both_packages():
+    """The encoder and the cross-attention are non-causal over 16 frames,
+    a key length the kernel wrapper would pad: both packages refuse it
+    (``repro/kernels/ops.py:129-131``), before any launch."""
+    jcfg, tcfg = _cfgs("whisper-base", attn_impl="pallas")
+    jp, tp = _ref_params(jcfg)
+    stubs = _stubs(jcfg)
+    toks = _tokens(jcfg)
+    with pytest.raises(NotImplementedError, match="non-causal padding"):
+        jlm.forward(jp, {"tokens": jnp.asarray(toks),
+                         **{k: jnp.asarray(v) for k, v in stubs.items()}},
+                    jcfg)
+    tops.reset_launch_counts()
+    for call in (lambda: tlm.forward(tp, {"tokens": toks, **stubs}, tcfg,
+                                     device="cpu"),
+                 lambda: tlm.prefill(tp, {"tokens": toks, **stubs}, tcfg,
+                                     device="cpu"),
+                 lambda: tlm.loss_fn(tp, {"tokens": toks, **stubs}, tcfg,
+                                     device="cpu")):
+        with pytest.raises(NotImplementedError, match="non-causal padding"):
+            call()
+    assert tops.launch_counts()["flash_attention"] == 0
+
+
+def test_loss_mask_leaves_out_the_patches():
+    """internvl2's loss: the text positions alone predict (the mask is 0
+    over the patches in front), so it equals the CE of ``forward``'s
+    logits at positions ``P + i`` against token ``i + 1`` — in both
+    packages."""
+    jcfg, tcfg = _cfgs("internvl2-26b", vocab_size=200)
+    jp, tp = _ref_params(jcfg, seed=6)
+    toks, stubs = _tokens(jcfg, seed=15), _stubs(jcfg, seed=19)
+    batch = {"tokens": toks, **stubs}
+    x, mask, pos = tlm._embed_inputs(tp, batch, tcfg, torch.device("cpu"))
+    P = tcfg.frontend_len
+    assert x.shape[1] == P + 14 and pos.shape == (1, P + 14)
+    assert bool((mask[:, :P] == 0).all()) and bool((mask[:, P:] == 1).all())
+    logits = tlm.forward(tp, batch, tcfg, device="cpu").double()
+    pred = logits[:, P:-1]
+    gold = pred.gather(-1, torch.from_numpy(toks[:, 1:]).long()[..., None])
+    want = float((torch.logsumexp(pred, -1) - gold[..., 0]).mean())
+    got = tlm.loss_fn(tp, batch, tcfg, device="cpu")
+    jgot = jlm.loss_fn(jp, {k: jnp.asarray(v) for k, v in batch.items()},
+                       jcfg)
+    np.testing.assert_allclose(float(got), want, rtol=1e-5)
+    np.testing.assert_allclose(float(got), float(jgot), rtol=1e-5)
+
+
+def test_bf16_vlm_serve_path_matches_reference():
+    """internvl2 in the serve path's dtype through the kernel route: bf16
+    weights, activations and patch projection (the projected patches equal
+    bit for bit).  Its untied head, drawn at 1/sqrt(d), gives logits up to
+    3.4, seven times the tied qwen3 case's ~0.5, and a bf16 rounding that
+    lands elsewhere moves a logit by a step of 2^-8 of that scale; so atol
+    0.1, the same share of the logits' scale as that test's 2e-2 (measured
+    0.058 at the 30th position)."""
+    jcfg, tcfg = _cfgs("internvl2-26b", dtype="bfloat16",
+                       attn_impl="pallas")
+    jp, tp = _ref_params(jcfg, seed=7)
+    assert tp["patch_proj"].dtype == torch.bfloat16
+    stubs = _stubs(jcfg, seed=20)
+    x, _, _ = tlm._embed_inputs(tp, {"tokens": np.zeros((2, 1), np.int32),
+                                     **stubs}, tcfg, torch.device("cpu"))
+    jx, _, _ = jlm._embed_inputs(jp, {"tokens": jnp.zeros((2, 1), jnp.int32),
+                                      "patch_embed": jnp.asarray(
+                                          stubs["patch_embed"])}, jcfg)
+    np.testing.assert_array_equal(_np(x), _np(jx))
+    out = _serve_both(jcfg, tcfg, jp, tp, _tokens(jcfg, seed=16), 12, stubs)
+    np.testing.assert_allclose(_np(out["tf"]), _np(out["jf"]),
+                               rtol=0, atol=0.1)
+    for jl, tl in zip(out["jsteps"], out["tsteps"]):
+        np.testing.assert_allclose(_np(tl[:, :tcfg.vocab_size]),
+                                   _np(jl[:, :tcfg.vocab_size]),
+                                   rtol=0, atol=0.1)
+
+
 def test_chunked_serve_path_matches_reference():
     jcfg, tcfg = _cfgs("qwen3-0.6b", attn_impl="chunked", attn_q_chunk=8)
     jp, tp = _ref_params(jcfg, seed=1)
@@ -263,8 +448,8 @@ def test_chunked_serve_path_matches_reference():
 
 
 def test_gelu_and_bias_blocks_match_reference():
-    """The dense blocks' GELU MLP and biases (whisper's, whose encoder is
-    not ported) on a qwen3-shaped stack."""
+    """The dense blocks' GELU MLP and biases (whisper's) on a
+    qwen3-shaped stack."""
     jcfg, tcfg = _cfgs("qwen3-0.6b", mlp_act="gelu", use_bias=True,
                        qk_norm=False)
     jp, tp = _ref_params(jcfg, seed=2)
@@ -361,19 +546,42 @@ def test_init_params_seeded_with_the_reference_layout():
     assert bool((a["stack"]["p0"]["attn_norm"] == 1).all())
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_families_raise(name):
-    cfg = tconfigs.get_arch(name).reduced()
-    toks = np.zeros((1, 4), np.int32)
-    calls = [lambda: tlm.init_params(0, cfg, device="cpu"),
-             lambda: tlm.init_cache(cfg, 1, 8, device="cpu"),
-             lambda: tlm.forward({}, {"tokens": toks}, cfg, device="cpu"),
-             lambda: tlm.prefill({}, {"tokens": toks}, cfg, device="cpu"),
-             lambda: tlm.decode_step({}, {}, toks[:, :1], 0, cfg,
-                                     device="cpu")]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match=UNPORTED[name]):
-            call()
+@pytest.mark.parametrize("name", FRONTEND)
+def test_frontend_init_params_have_the_reference_layout(name):
+    """The port's own draw: the reference's tree, shapes and dtypes; norm
+    scales 1; the learned positions at scale 0.02; the encoder's blocks
+    without cross-attention, the decoder's with it (whisper)."""
+    jcfg, tcfg = _cfgs(name, dtype="bfloat16")
+    p = tlm.init_params(3, tcfg, device="cpu")
+    ref = jax.eval_shape(lambda k: jlm.init_params(k, jcfg),
+                         jax.random.key(0))
+    for path, leaf in jax.tree_util.tree_leaves_with_path(ref):
+        t = p
+        for k in path:
+            t = t[k.key]
+        assert tuple(t.shape) == leaf.shape
+        assert str(t.dtype).split(".")[-1] == leaf.dtype.name
+    assert tlm.param_count(p) == sum(
+        int(np.prod(x.shape)) for x in jax.tree.leaves(ref))
+    for leaf in [p.get("pos_embed"), p.get("enc", {}).get("pos_embed")]:
+        if leaf is not None:
+            assert 0 < float(leaf.float().abs().max()) <= 2 * 0.02 + 1e-3
+    if tcfg.enc_layers:
+        assert bool((p["enc"]["final_norm"] == 1).all())
+        assert "xwq" not in p["enc"]["stack"]["p0"]
+        assert bool((p["stack"]["p0"]["xattn_norm"] == 1).all())
+        assert p["stack"]["p0"]["xbk"].shape == (tcfg.n_layers,
+                                                 tcfg.n_kv_heads * 16)
+    else:
+        assert p["patch_proj"].shape == (32, tcfg.d_model)
+
+
+def test_moe_dispatch_hook_still_raises():
+    """The one refusal left: the multi-card expert-parallel hook."""
+    cfg = replace(tconfigs.get_arch("granite-moe-3b-a800m").reduced(),
+                  moe_dispatch=lambda *a, **k: None)
+    with pytest.raises(NotImplementedError, match="moe_dispatch"):
+        tlm.init_params(0, cfg, device="cpu")
 
 
 def test_entry_points_run_on_the_card_by_default():

@@ -96,6 +96,34 @@ def test_init_is_built_from_randn_draws():
     assert float(w.abs().max()) <= 2.0 / math.sqrt(300)
 
 
+def _dense_init_whole_tensor(gen, shape, dtype, scale):
+    """dense_init's redraw as first written: test the whole tensor after
+    every redraw (the reference loop the faster one must equal)."""
+    w = torch.randn(shape, generator=gen)
+    bad = w.abs() > 2.0
+    while bool(bad.any()):
+        w[bad] = torch.randn(int(bad.sum()), generator=gen)
+        bad = w.abs() > 2.0
+    return (w * scale).to(dtype)
+
+
+@pytest.mark.parametrize("shape,dtype", [((300, 40), torch.float32),
+                                         ((7,), torch.float32),
+                                         ((3, 512, 96), torch.bfloat16),
+                                         ((20_000, 64), torch.bfloat16)])
+def test_dense_init_equals_the_whole_tensor_redraw(shape, dtype):
+    """Bit for bit, and the generator left in the same state (the next
+    leaf's draw equal too)."""
+    from repro_torch.models.layers import dense_init
+    g1, g2 = (torch.Generator().manual_seed(7) for _ in range(2))
+    scale = 1.0 / math.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
+    for _ in range(2):
+        got = dense_init(g1, shape, dtype)
+        want = _dense_init_whole_tensor(g2, shape, dtype, scale)
+        assert got.dtype == dtype
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
 def test_numpy_round_trip_is_exact():
     p_np, _ = _ref_params(5)
     back = tpt.params_to_numpy(tpt.params_from_numpy(p_np, device="cpu"))

@@ -7,7 +7,9 @@ decompositions.
 Inputs are made with numpy from a seed and given to both packages; the
 reference's weights (``jax.random`` init) are carried across with
 ``lm_params_from_numpy``, and the port's engine is handed the reference's
-dataset object.  Reduced configs (f32, 4 layers, d_model 64).
+dataset object (for whisper-base and internvl2-26b the reference's
+``_FrontendDataset``, which adds the frame or patch stubs).  Reduced
+configs (f32, 4 layers, d_model 64).
 Tolerances, and why:
 
 * dataset tables, offsets, leaf order, step counts and weights: exact;
@@ -39,6 +41,7 @@ from repro.core import make_placement as jplacement  # noqa: E402
 from repro.data import federated as jfed  # noqa: E402
 from repro.distributed import WorkerPool as JPool  # noqa: E402
 from repro.fl.round import make_round_step as jround_step  # noqa: E402
+from repro.launch.train import _FrontendDataset as JFrontend  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.models import make_loss_fn as jmake_loss_fn  # noqa: E402
 from repro.optim import sgd as jsgd  # noqa: E402
@@ -64,7 +67,8 @@ DENSE = ["qwen3-0.6b", "minitron-4b", "internlm2-1.8b", "command-r-plus-104b"]
 # one arch per ported family: dense, ssm, MoE
 FAMILIES = ["qwen3-0.6b", "mamba2-2.7b", "granite-moe-3b-a800m"]
 MOE = ["granite-moe-3b-a800m", "qwen3-moe-235b-a22b", "jamba-v0.1-52b"]
-UNPORTED = ["internvl2-26b", "whisper-base"]
+# the modality-frontend archs: audio encoder-decoder, VLM
+FRONTEND = ["whisper-base", "internvl2-26b"]
 LOSS_TOL = dict(rtol=1e-5, atol=0.0)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -83,6 +87,20 @@ def _ref_params(jcfg, seed=0):
 def _tokens(cfg, shape, seed=3):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def _stubs(cfg, lead, seed=4):
+    """The modality stub arrays of ``cfg`` with leading dims ``lead`` (one
+    batch's are ``lead + (b,)``), numpy f32; {} without a frontend."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "patch":
+        tail = (cfg.frontend_len, cfg.resolved_frontend_dim)
+        return {"patch_embed": rng.standard_normal(lead + tail,
+                                                   dtype=np.float32)}
+    if cfg.frontend == "audio":
+        tail = (cfg.frontend_len, cfg.d_model)
+        return {"frames": rng.standard_normal(lead + tail, dtype=np.float32)}
+    return {}
 
 
 def _paths(tree):
@@ -133,12 +151,16 @@ def test_lm_dataset_tables_and_tokens_match_reference(vocab, seq_len, batch):
 
 
 # -- loss_fn and its gradients ----------------------------------------------------
-LOSS_CASES = ([(name, {}) for name in DENSE + ["mamba2-2.7b"] + MOE]
+LOSS_CASES = ([(name, {}) for name in DENSE + ["mamba2-2.7b"] + MOE
+               + FRONTEND]
               + [(name, kw) for name in FAMILIES
                  for kw in (dict(loss_chunk=5),
                             dict(vocab_size=200, loss_chunk=4))]
+              + [(name, dict(vocab_size=200, loss_chunk=4))
+                 for name in FRONTEND]
               + [("granite-moe-3b-a800m",
-                  dict(moe_impl="scatter", moe_aux_weight=1.0))])
+                  dict(moe_impl="scatter", moe_aux_weight=1.0)),
+                 ("whisper-base", dict(remat=True))])
 
 
 @pytest.mark.parametrize("name,kw", LOSS_CASES,
@@ -149,16 +171,19 @@ def test_loss_and_grads_match_reference(name, kw):
     ragged tail padded and masked), and vocab 200 (padded to 256: the pad
     columns masked out of the log-sum-exp).  The MoE archs add
     ``moe_aux_weight`` times their load-balance term (weight 1.0 on one
-    case, so a dropped or mis-summed term could not pass)."""
+    case, so a dropped or mis-summed term could not pass).  whisper's
+    gradients reach the encoder through cross-attention (with ``remat``
+    too: each period, cross-attention included, recomputed in backward);
+    internvl2's the patch projection through the text positions alone."""
     jcfg, tcfg = _cfgs(name, **kw)
     jp, tp = _ref_params(jcfg)
-    toks = _tokens(jcfg, (2, 14))
-    jl, jg = jax.value_and_grad(
-        lambda p: jlm.loss_fn(p, {"tokens": jnp.asarray(toks)}, jcfg))(jp)
+    batch = {"tokens": _tokens(jcfg, (2, 14)), **_stubs(jcfg, (2,))}
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jl, jg = jax.value_and_grad(lambda p: jlm.loss_fn(p, jbatch, jcfg))(jp)
     flat = flatten_tree(tp)
     for v in flat.values():
         v.requires_grad_()
-    tl = tlm.loss_fn(tp, {"tokens": toks}, tcfg, device="cpu")
+    tl = tlm.loss_fn(tp, batch, tcfg, device="cpu")
     tl.backward()
     np.testing.assert_allclose(tl.item(), float(jl), **LOSS_TOL)
     jflat = _jflat(jg)
@@ -197,7 +222,7 @@ def test_loss_fn_runs_on_the_card_by_default():
 
 
 # -- nested <-> flat ------------------------------------------------------------
-@pytest.mark.parametrize("name", FAMILIES + ["synthetic"])
+@pytest.mark.parametrize("name", FAMILIES + FRONTEND + ["synthetic"])
 def test_flat_leaf_order_is_jax_order(name):
     if name == "synthetic":     # keys that are prefixes of one another
         tree = {"stack": {"p10": {"a": 1.0}, "p1": {"b": 2.0, "a_b": 3.0},
@@ -219,23 +244,26 @@ def test_flat_leaf_order_is_jax_order(name):
 
 
 # -- one federated round step ------------------------------------------------------
-@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("name", FAMILIES + FRONTEND)
 def test_reduced_federated_train_step_matches_reference(name):
     """``tests/test_archs.py::test_reduced_federated_train_step`` (W=2, P=1,
     S=2, b=2, s=16) on the reference's params, held against its result."""
     jcfg, tcfg = _cfgs(name)
     jp, tp = _ref_params(jcfg)
     W, P, S, b, s = 2, 1, 2, 2, 16
-    toks = _tokens(jcfg, (W, P, S, b, s), seed=1)
+    batch = {"tokens": _tokens(jcfg, (W, P, S, b, s), seed=1),
+             **_stubs(jcfg, (W, P, S, b))}
     ones = np.ones((W, P, S), np.float32)
     boundary = np.zeros((W, P, S), np.float32)
     boundary[:, :, -1] = 1.0
     weight = boundary * 4.0
     jstep = jround_step(jmake_loss_fn(jcfg), jsgd(0.05, 0.9))
-    jnew, jm = jstep(jp, {"tokens": jnp.asarray(toks)}, jnp.asarray(ones),
-                     jnp.asarray(boundary), jnp.asarray(weight))
+    jnew, jm = jstep(jp, {k: jnp.asarray(v) for k, v in batch.items()},
+                     jnp.asarray(ones), jnp.asarray(boundary),
+                     jnp.asarray(weight))
     tstep = tround_step(tmodels.make_lane_loss_fn(tcfg), tsgd(0.05, 0.9))
-    tnew, tm = tstep(flatten_tree(tp), {"tokens": torch.from_numpy(toks)},
+    tnew, tm = tstep(flatten_tree(tp),
+                     {k: torch.from_numpy(v) for k, v in batch.items()},
                      *(torch.from_numpy(a) for a in (ones, boundary, weight)))
     np.testing.assert_allclose(float(tm.loss), float(jm.loss), **LOSS_TOL)
     assert float(tm.clients) == float(jm.clients) == W * P
@@ -257,6 +285,13 @@ def _lm_dataset(vocab):
     return jfed.make_federated_dataset(
         "lm", seed=SEED, vocab_size=vocab, seq_len=SEQ, batch_size=BATCH,
         n_clients=64, size_mu=2.0, size_sigma=0.8)
+
+
+def _dataset(cfg, wrap=ttrain._FrontendDataset):
+    """The reference's ``"lm"`` dataset, with ``wrap``'s frontend stubs
+    for an arch that has a frontend."""
+    ds = _lm_dataset(cfg.vocab_size)
+    return wrap(ds, cfg) if cfg.frontend else ds
 
 
 def _ref_engine(ds, jcfg, jp):
@@ -305,14 +340,62 @@ def test_three_rounds_track_the_reference_engine():
                                    rtol=1e-4, atol=1e-6, err_msg=k)
 
 
-@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("name", FRONTEND)
+def test_frontend_rounds_track_the_reference_engine(name):
+    """As :func:`test_three_rounds_track_the_reference_engine`, on the
+    reference's ``_FrontendDataset`` (frames or patches beside the tokens)
+    handed to both engines."""
+    jcfg, tcfg = _cfgs(name)
+    jp, tp = _ref_params(jcfg)
+    ds = _dataset(jcfg, wrap=JFrontend)
+    jres = _ref_engine(ds, jcfg, jp).run(3)
+    teng = _port_engine(ds, tcfg, tp)
+    tres = teng.run(3)
+    for j, t in zip(jres, tres):
+        for f in ("n_clients", "s_steps", "makespan", "idle_time"):
+            assert getattr(t, f) == getattr(j, f), f
+        np.testing.assert_allclose(t.loss, j.loss, **LOSS_TOL)
+    assert sorted(teng.params) == sorted(jp)
+    assert math.isfinite(tres[-1].loss)
+
+
+@pytest.mark.parametrize("name", FRONTEND)
+def test_frontend_dataset_matches_the_reference_wrapper(name):
+    """The port's ``_FrontendDataset``: the reference's keys, shapes and
+    dtype (f32), its tokens, and its empty-batch case; content a function
+    of (client, batch) alone, standard normal (other values than the
+    reference's ``jax.random`` by design)."""
+    _, tcfg = _cfgs(name)
+    cfg = replace(tcfg, frontend_len=64)
+    j, t = _dataset(cfg, JFrontend), _dataset(cfg)
+    cids, bis = np.array([0, 5, 5, 63]), np.array([0, 0, 3, 1])
+    jb, tb = j.gather_batches(cids, bis), t.gather_batches(cids, bis)
+    assert sorted(tb) == sorted(jb)
+    for k in jb:
+        assert tb[k].shape == jb[k].shape and tb[k].dtype == jb[k].dtype, k
+    np.testing.assert_array_equal(tb["tokens"], jb["tokens"])
+    stub = "frames" if cfg.frontend == "audio" else "patch_embed"
+    assert tb[stub].dtype == np.float32
+    assert abs(float(tb[stub].mean())) < 0.05
+    assert abs(float(tb[stub].std()) - 1.0) < 0.05
+    np.testing.assert_array_equal(t.client_batch(5, 3)[stub], tb[stub][2])
+    assert not np.array_equal(tb[stub][1], tb[stub][2])
+    short = t.gather_batches(cids[:1], bis[:1], batch_size=3, seq_len=5)
+    assert short[stub].shape == (1, 3) + tb[stub].shape[2:]
+    empty, jempty = (d.gather_batches(cids[:0], bis[:0]) for d in (t, j))
+    assert {k: v.shape for k, v in empty.items()} == \
+        {k: v.shape for k, v in jempty.items()}
+    assert t.n_clients == j.n_clients == 64
+
+
+@pytest.mark.parametrize("name", FAMILIES + FRONTEND)
 def test_losses_bit_identical_across_depths_and_mesh(name):
     """Depths 0/1/2 give the same losses, and the flat mesh at 2 shards
     (a program of 2 lanes per worker) the fused path's 4-lane result, bit
     for bit: each lane's loss runs on its own."""
     _, tcfg = _cfgs(name)
     tp = tlm.init_params(0, tcfg, device="cpu")
-    ds = _lm_dataset(tcfg.vocab_size)
+    ds = _dataset(tcfg)
     runs = {d: [r.loss for r in _port_engine(ds, tcfg, tp, depth=d).run(2)]
             for d in (0, 1, 2)}
     assert runs[0] == runs[1] == runs[2]
@@ -336,6 +419,41 @@ def test_build_engine_runs_lm_smoke_on_cpu():
     assert eng.compile_stats["compiles"] == 1
 
 
+@pytest.mark.parametrize("name", FRONTEND)
+def test_build_engine_runs_frontend_smoke_on_cpu(name):
+    """``arch=`` with a frontend: the dataset carries its stubs, the params
+    the reference's extra leaves, and a round trains."""
+    eng = ttrain.build_engine(arch=name, preset="smoke", device="cpu",
+                              cohort=4, steps_cap=2, population=64)
+    cfg, seq_len, batch = ttrain.lm_config(name, "smoke")
+    extra = {"whisper-base": ["enc", "pos_embed"],
+             "internvl2-26b": ["lm_head", "patch_proj"]}[name]
+    assert sorted(eng.params) == sorted(["embed", "final_norm", "stack"]
+                                        + extra)
+    b = eng.dataset.client_batch(3, 1)
+    stub = "frames" if cfg.frontend == "audio" else "patch_embed"
+    assert b[stub].shape == (batch, cfg.frontend_len,
+                             cfg.resolved_frontend_dim)
+    res = eng.run(1)
+    assert np.isfinite(res[0].loss) and res[0].n_clients == 4
+
+
+@pytest.mark.parametrize("name", FRONTEND)
+def test_cli_trains_a_frontend_arch_on_cpu(name, monkeypatch, capsys):
+    """``--arch`` for the audio encoder-decoder and the VLM, through
+    ``main``, with ``resolve_device`` patched to the CPU."""
+    monkeypatch.setattr(ttrain, "set_deterministic", lambda: None)
+    monkeypatch.setattr(ttrain, "resolve_device",
+                        lambda d: torch.device("cpu"))
+    assert ttrain.main(["--arch", name, "--preset", "smoke", "--rounds",
+                        "1", "--cohort", "2", "--steps-cap", "1",
+                        "--population", "32"]) == 0
+    out = capsys.readouterr().out
+    import json
+    s = json.loads(out[out.index("{"):])
+    assert s["rounds"] == 1 and np.isfinite(s["final_loss"])
+
+
 @pytest.mark.parametrize("preset", list(ttrain.PRESETS))
 def test_build_engine_trains_a_given_config_at_the_presets_sizes(preset):
     """``lm_cfg`` takes the config as given, and the preset's sequence
@@ -356,11 +474,12 @@ def test_build_engine_trains_a_given_config_at_the_presets_sizes(preset):
 def test_lm_config_matches_the_reference_builder():
     """The fl100m preset's widths on top of ``reduced()``, as the
     reference's ``build_engine`` composes them
-    (``repro/launch/train.py:161-170``): an MoE arch's experts take the
-    preset's ``d_ff``."""
+    (``repro/launch/train.py:161-173``): an MoE arch's experts take the
+    preset's ``d_ff``; learned positions cover ``seq_len`` (whisper's
+    128-row table of ``reduced()`` widens to 256)."""
     from repro.launch.train import PRESETS as JPRESETS
     assert ttrain.PRESETS == JPRESETS
-    for name in FAMILIES + MOE:
+    for name in FAMILIES + MOE + FRONTEND:
         cfg, seq_len, batch = ttrain.lm_config(name, "fl100m")
         p = dict(JPRESETS["fl100m"])
         assert (seq_len, batch) == (p.pop("seq_len"), p.pop("batch_size"))
@@ -368,7 +487,12 @@ def test_lm_config_matches_the_reference_builder():
         if base.moe:
             p.setdefault("moe_d_ff", p.get("d_ff", 128))
         want = replace(base, **p)
+        if want.learned_pos:
+            want = replace(want, max_position=max(want.max_position,
+                                                  seq_len))
         assert cfg.to_dict() == want.to_dict()
+    assert ttrain.lm_config("whisper-base", "fl100m")[0].max_position == 256
+    assert ttrain.lm_config("whisper-base", "smoke")[0].max_position == 128
     cfg, _, _ = ttrain.lm_config("granite-moe-3b-a800m", "fl100m")
     assert (cfg.n_experts, cfg.top_k, cfg.moe_d_ff) == (4, 2, 2048)
     shapes = flatten_tree(tlm.param_shapes(cfg))
@@ -389,16 +513,6 @@ def test_cli_trains_an_arch_on_cpu(monkeypatch, capsys):
     s = json.loads(summary)
     assert s["rounds"] == 1 and np.isfinite(s["final_loss"])
     assert s["kernel_launches"]["fedavg_accum"] == 0     # CPU: plain K1
-
-
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_archs_refuse_before_the_device(name, monkeypatch):
-    def no_device(device):
-        raise AssertionError("the device was touched")
-
-    monkeypatch.setattr(ttrain, "resolve_device", no_device)
-    with pytest.raises(NotImplementedError, match="ROADMAP M15c"):
-        ttrain.build_engine(arch=name)
 
 
 def test_lm_round_counts_no_kernel_launch_on_cpu():
