@@ -156,8 +156,31 @@ Phases, one JSON object per line on stdout:
              card against the same on the CPU: losses within
              ``AGREE_TRAIN_RTOL``, the final params leaf by leaf within
              ``AGREE_TRAIN_PARAMS``, and the initial params outside it;
-21. the ``kernels`` line (K1-K5; K1's and K2's launches on the LM training
-   paths beside the main ones, K4's on the MoE and VLM serve paths and
+21. train tasks — the paper's other three tasks at their full sizes
+             (IC 300,032, TG 9,244,672 and MLM 11,339,776 params) through
+             ``build_engine(task=t)``'s defaults (cohort 8 over 2 workers ×
+             2 lanes, ``steps_cap`` 8, LB, FedAvg; SGD for IC and TG, Adam
+             at 4e-5 for MLM), 2 rounds at depth 1, then depth 0, the
+             launch counts zeroed just before each run and read just
+             after: finite losses, bit-identical across depths, K1 exactly
+             once per lane-loop step; ``exec_time`` per round, peak
+             memory, a profiled round, and K1 timed at the task's ``[4,
+             N]`` lane buffer;
+22. fedmedian — ``build_engine(task="sr", strategy="fedmedian")`` at the
+             published widths, 3 rounds at depths 0 and 1: bit-identical
+             losses, no kernel launched (the gather path folds nothing),
+             the card's median of one round's ``[4, N]`` models bitwise
+             equal to the CPU's, and the reduce timed;
+23. resume — SR fused and the int8 mesh path: 4 rounds with a checkpoint
+             every 2, restored into a new engine for 2 more, bitwise
+             equal to rounds 4-5 of an uninterrupted run (K2 2 a round on
+             the resumed mesh rounds, the residuals in the ``.aux.npz``
+             sidecar); the checkpoint's bytes and its save time;
+24. agree tasks — reduced IC, TG and MLM engines, 2 rounds on the card
+             against the same on the CPU (``AGREE_TASKS_RTOL``);
+25. the ``kernels`` line (K1-K5; K1's and K2's launches on the LM training,
+   task, FedMedian and resume paths beside the main ones, K1 timed at the
+   tasks' lane buffers, K4's launches on the MoE and VLM serve paths and
    its timing at those shapes), then the card line and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -332,6 +355,23 @@ FULL_ROUNDS = 2
 # round that left them unchanged could not pass).
 AGREE_TRAIN_RTOL = 1e-6
 AGREE_TRAIN_PARAMS = dict(rtol=1e-4, atol=1e-6)
+# The paper's other three tasks at their full sizes (parameter counts are
+# the reference's), through build_engine's defaults: cohort 8 over 2
+# workers x 2 lanes, steps_cap 8, LB, FedAvg, each task's reference
+# optimizer (MLM through Adam).
+TASK_PARAMS = {"ic": 300_032, "tg": 9_244_672, "mlm": 11_339_776}
+TASK_ROUNDS = 2
+FEDMEDIAN_ROUNDS = 3
+# Resume: 4 rounds with a checkpoint every 2, then 2 more in a new engine,
+# against rounds 4-5 of an uninterrupted run.
+RESUME_ROUNDS, RESUME_EVERY = 4, 2
+# Card vs CPU on reduced task engines (the CPU tests' widths): the same
+# math, GEMM and reduction sums in another order, over 2 rounds; TG's
+# recurrence (12 positions) and MLM's softmax stay well inside 1e-5.
+TASK_SMALL = {"ic": dict(width=32, n_blocks=2),
+              "tg": dict(vocab=90, hidden=16),
+              "mlm": dict(vocab=512, d_model=32, n_layers=2, d_ff=64)}
+AGREE_TASKS_RTOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -1864,16 +1904,18 @@ def _profile_rows(torch, prof):
 
 def _device_profile(torch, fn, label: str = "k4",
                     match: str = "flash_attention", top: int = 10,
-                    groups: dict | None = None) -> dict:
+                    groups: dict | None = None, host: bool = True) -> dict:
     """Wall time, device busy time and kernels of one call of ``fn`` under
     torch.profiler; ``<label>_ms`` sums the kernels whose name holds
     ``match``, and each of ``groups`` (name -> name fragments) the kernels
-    whose name holds one of its fragments."""
+    whose name holds one of its fragments.  ``host=False`` records the
+    device's activity alone: a call of ~10^5 launches then costs seconds
+    to trace and to read back, where host events cost minutes."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2550,6 +2592,248 @@ def phase_agree_train(torch) -> dict:
     return {"max_rel_diff": rel, "params_worst_ratio": params}
 
 
+def _task_run(torch, task: str, depth: int):
+    """``build_engine(task=...)`` at ``depth``: its results, the launch
+    counts (zeroed just before the run and read just after) and the run's
+    peak device memory."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_engine
+    eng = build_engine(task=task, pipeline_depth=depth)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = eng.run(TASK_ROUNDS)
+    launches = ops.launch_counts()
+    torch.cuda.synchronize()
+    return eng, res, launches, torch.cuda.max_memory_allocated()
+
+
+def phase_train_tasks(torch, device_name: str) -> dict:
+    """IC, TG and MLM at their full sizes through ``build_engine(task=t)``
+    at depths 1 and 0: finite losses, bitwise across depths, K1 once per
+    lane-loop step; the parameter count, ``exec_time`` per round, peak
+    memory, a profiled round, and K1 timed at the task's ``[4, N]`` lane
+    buffer beside its plain version, ``torch.lerp`` and the bound."""
+    import gc
+    out = {}
+    for task in ("ic", "tg", "mlm"):
+        t0 = time.perf_counter()
+        runs = {}
+        for depth in (1, 0):
+            eng, res, launches, peak = _task_run(torch, task, depth)
+            for r in res:
+                emit({"phase": "train_tasks", "task": task, "depth": depth,
+                      "round": r.round_idx, "loss": r.loss,
+                      "s_steps": r.s_steps, "exec_time": r.exec_time,
+                      "wall_time": r.wall_time, "pack_time": r.pack_time,
+                      "overlap": r.overlap_fraction})
+            losses = [r.loss for r in res]
+            steps = sum(r.s_steps for r in res)
+            check(all(math.isfinite(x) for x in losses),
+                  f"{task} depth {depth}: losses {losses}")
+            check(launches["fedavg_accum"] == steps > 0,
+                  f"{task} depth {depth}: K1 launched "
+                  f"{launches['fedavg_accum']} times for {steps} steps")
+            _finite_params(torch, eng)
+            n = sum(v.numel() for v in eng.params.values())
+            check(n == TASK_PARAMS[task], f"{task} has {n} params")
+            runs[depth] = {"losses": losses, "launches": launches,
+                           "steps": steps, "peak_bytes": peak,
+                           "exec_time": [r.exec_time for r in res]}
+            if depth == 1:
+                # TG's round is ~2 x 10^5 launches: its device alone.
+                tp = time.perf_counter()
+                prof = _device_profile(torch, lambda: eng.run(1), label="k1",
+                                       match="fedavg", top=8,
+                                       host=task != "tg")
+                prof["seconds"] = time.perf_counter() - tp
+            del eng, res
+            gc.collect()
+            torch.cuda.empty_cache()
+        check(runs[1]["losses"] == runs[0]["losses"],
+              f"{task}: depth 1 and 0 losses differ: {runs[1]['losses']} "
+              f"vs {runs[0]['losses']}")
+        fold = phase_timing(torch, TASK_PARAMS[task], 4, device_name)
+        out[task] = {"launches": runs[1]["launches"]["fedavg_accum"],
+                     "launches_depth0": runs[0]["launches"]["fedavg_accum"],
+                     "n_params": TASK_PARAMS[task],
+                     "exec_time": runs[1]["exec_time"],
+                     "peak_gb": runs[1]["peak_bytes"] / 1e9,
+                     "device_idle_share": prof["device_idle_share"],
+                     "k1_share_of_busy": prof["k1_share_of_busy"],
+                     "fold": {k: fold[k] for k in (
+                         "shape", "ms", "plain_ms", "library_ms",
+                         "bound_ms", "bound_by")}}
+        out[task]["seconds"] = time.perf_counter() - t0
+        emit({"phase": "train_tasks_summary", "task": task,
+              "rounds": TASK_ROUNDS, "losses": runs[1]["losses"],
+              "bit_identical_depth_0_1": True, "lanes": 4,
+              "s_steps_total": runs[1]["steps"],
+              "exec_time_depth0": runs[0]["exec_time"],
+              "peak_gb_depth0": runs[0]["peak_bytes"] / 1e9,
+              "profile": prof, **out[task]})
+    return out
+
+
+class _RecordReduce:
+    """Wraps a strategy to keep the last round's stacked models."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.associative = inner.associative
+        self.name = inner.name
+        self.last = None
+
+    def reduce(self, stacked, weights, global_params):
+        self.last = stacked["flat"]
+        return self.inner.reduce(stacked, weights, global_params)
+
+
+def phase_fedmedian(torch) -> dict:
+    """``build_engine(task="sr", strategy="fedmedian")`` at SR's published
+    widths, 3 rounds at depths 0 and 1: finite losses, bitwise across
+    depths, no K1 launch (nothing folds on the gather path); the card's
+    median of one round's ``[4, N]`` models against the CPU's, bitwise,
+    and the reduce timed."""
+    from repro_torch.core.aggregation import median_leading
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_engine
+    runs = {}
+    for depth in (0, 1):
+        eng = build_engine(task="sr", strategy="fedmedian",
+                           pipeline_depth=depth)
+        eng.strategy = rec = _RecordReduce(eng.strategy)
+        ops.reset_launch_counts()
+        res = eng.run(FEDMEDIAN_ROUNDS)
+        launches = ops.launch_counts()
+        torch.cuda.synchronize()
+        for r in res:
+            emit({"phase": "fedmedian", "depth": depth, "round": r.round_idx,
+                  "loss": r.loss, "s_steps": r.s_steps,
+                  "exec_time": r.exec_time, "wall_time": r.wall_time})
+        _finite_params(torch, eng)
+        runs[depth] = ([r.loss for r in res], launches, res)
+    losses, launches, res = runs[1]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(runs[0][0] == losses,
+          f"fedmedian depth 0 and 1 differ: {runs[0][0]} vs {losses}")
+    for d in (0, 1):
+        check(sum(runs[d][1].values()) == 0,
+              f"the gather path launched kernels: {runs[d][1]}")
+    stacked = rec.last
+    card = median_leading(stacked)
+    cpu = median_leading(stacked.cpu())
+    check(torch.equal(card.cpu(), cpu),
+          "the card's median differs from the CPU's")
+    reduce_ms = time_ms(lambda: median_leading(stacked), iters=10)
+    out = {"losses": losses, "bit_identical_depth_0_1": True,
+           "launches_depth1": launches, "launches_depth0": runs[0][1],
+           "stacked_shape": list(stacked.shape),
+           "median_card_equals_cpu": True, "median_ms": reduce_ms,
+           "mean_exec_s": sum(r.exec_time for r in res[1:])
+           / max(len(res) - 1, 1)}
+    emit({"phase": "fedmedian_summary", "rounds": FEDMEDIAN_ROUNDS, **out})
+    return out
+
+
+def _resume_case(torch, label: str, **kw) -> dict:
+    """``RESUME_ROUNDS`` rounds with a checkpoint every ``RESUME_EVERY``,
+    then 2 more in a new engine restored from it, against rounds 4-5 of an
+    uninterrupted run: bitwise.  The checkpoint's bytes and a save timed
+    on the card's engine."""
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_engine
+    total = RESUME_ROUNDS + 2
+    whole = [r.loss for r in build_engine(task="sr", **kw).run(total)]
+    with tempfile.TemporaryDirectory() as tmp:
+        first = build_engine(task="sr", ckpt_dir=tmp,
+                             rounds_per_checkpoint=RESUME_EVERY, **kw)
+        first.run(RESUME_ROUNDS)
+        files = sorted(Path(tmp).glob(f"round_{RESUME_ROUNDS:08d}*"))
+        nbytes = {f.name: f.stat().st_size for f in files}
+        t0 = time.perf_counter()
+        first.save_checkpoint()
+        save_s = time.perf_counter() - t0
+        eng = build_engine(task="sr", ckpt_dir=tmp, **kw)
+        t0 = time.perf_counter()
+        check(eng.restore_latest() and eng.round_idx == RESUME_ROUNDS,
+              f"{label}: restore failed at round {eng.round_idx}")
+        restore_s = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        resumed = [r.loss for r in eng.run(2)]
+        launches = ops.launch_counts()
+    out = {"case": label, "whole": whole, "resumed": resumed,
+           "bitwise": resumed == whole[RESUME_ROUNDS:],
+           "checkpoint_bytes": nbytes,
+           "checkpoint_total_bytes": sum(nbytes.values()),
+           "save_s": save_s, "restore_s": restore_s,
+           "launches_resumed": launches}
+    emit({"phase": "resume", **out})
+    check(out["bitwise"], f"{label}: resumed losses {resumed} != "
+                          f"{whole[RESUME_ROUNDS:]}")
+    check(all(math.isfinite(x) for x in whole), f"{label}: {whole}")
+    return out
+
+
+def phase_resume(torch) -> dict:
+    fused = _resume_case(torch, "fused")
+    mesh = _resume_case(torch, "mesh_int8", **MESH)
+    check(mesh["launches_resumed"]["dequant_merge"]
+          == 2 * MESH["mesh_workers"],
+          f"K2 launches on the resumed mesh run: {mesh['launches_resumed']}")
+    check(any(k.endswith(".aux.npz") for k in mesh["checkpoint_bytes"]),
+          "the int8 checkpoint has no residual sidecar")
+    return {"fused": fused, "mesh_int8": mesh}
+
+
+def _small_task_engine(task: str, device: str):
+    """A reduced task engine (the CPU tests' widths; cohort 8 over 2
+    workers x 2 lanes, ``steps_cap`` 2) with the task's reference
+    optimizer."""
+    from repro_torch.core import (EngineConfig, FederatedEngine,
+                                  SyntheticTelemetry, UniformSampler,
+                                  make_placement)
+    from repro_torch.data import make_federated_dataset
+    from repro_torch.distributed import WorkerPool
+    from repro_torch.models.papertasks import make_task_model
+    from repro_torch.optim import adam, sgd
+    small = TASK_SMALL[task]
+    extra = ({"vocab_size": small["vocab"], "seq_len": 12}
+             if task != "ic" else {})
+    ds = make_federated_dataset(task, n_clients=64, batch_size=4,
+                                size_mu=2.5, size_sigma=0.8, **extra)
+    params, loss = make_task_model(task, 0, device="cpu", **small)
+    opt = (adam(4e-5) if task == "mlm" else
+           sgd(0.8 if task == "tg" else 0.05, momentum=0.9,
+               weight_decay=5e-4))
+    return FederatedEngine(
+        dataset=ds, loss_fn=loss, init_params=params, optimizer=opt,
+        placement=make_placement("lb"), sampler=UniformSampler(64, 8),
+        pool=WorkerPool.homogeneous(2, type_name="a40", concurrency=2),
+        telemetry=SyntheticTelemetry(),
+        config=EngineConfig(steps_cap=2, batch_size=4, lanes_per_worker=2),
+        device=device)
+
+
+def phase_agree_tasks(torch) -> dict:
+    """Reduced IC, TG and MLM engines, 2 rounds on the card against the
+    same on the CPU: losses within ``AGREE_TASKS_RTOL``."""
+    out = {}
+    for task in ("ic", "tg", "mlm"):
+        losses = {dev: [r.loss for r in
+                        _small_task_engine(task, dev).run(2)]
+                  for dev in ("cpu", "cuda")}
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+        emit({"phase": "agree_tasks", "task": task, "losses": losses,
+              "max_rel_diff": rel, "rtol": AGREE_TASKS_RTOL})
+        check(rel <= AGREE_TASKS_RTOL,
+              f"{task}: card vs CPU losses differ by {rel}: {losses}")
+        out[task] = rel
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=4)
@@ -2617,6 +2901,10 @@ def main() -> int:
     lm_fold = phase_lm_fold(torch, name)
     k2_lm = phase_k2_lm(torch, name)
     phase_agree_train(torch)
+    tasks = phase_train_tasks(torch, name)
+    fedmedian = phase_fedmedian(torch)
+    resume = phase_resume(torch)
+    phase_agree_tasks(torch)
     if args.profile_out:
         phase_profile(torch, args.profile_out, "fused")
         phase_profile(torch, args.profile_out, "mesh", **MESH)
@@ -2639,6 +2927,11 @@ def main() -> int:
                                for a, v in train_lm.items()},
          "launches_train_lm_mesh": train_mesh["launches"]["fedavg_accum"],
          "launches_train_full": train_full["launches"],
+         "launches_train_tasks": {t: v["launches"] for t, v in tasks.items()},
+         "train_tasks_fold": {t: v["fold"] for t, v in tasks.items()},
+         "launches_fedmedian": fedmedian["launches_depth1"]["fedavg_accum"],
+         "launches_resume_fused": resume["fused"]["launches_resumed"][
+             "fedavg_accum"],
          "train_full_fold": {k: lm_fold[k] for k in (
              "shape", "ms", "plain_ms", "library_ms", "bound_ms",
              "bound_by", "max_abs_err")}},
@@ -2647,6 +2940,8 @@ def main() -> int:
                mesh_launches["dequant_merge"], max_err2, timing2),
          "launches_per_round": mesh_launches["dequant_merge"] / len(mesh_res),
          "launches_train_lm_mesh": train_mesh["launches"]["dequant_merge"],
+         "launches_resume_mesh": resume["mesh_int8"]["launches_resumed"][
+             "dequant_merge"],
          "lm_payload": {k: k2_lm[k] for k in (
              "shape", "leaves", "ms", "plain_ms", "bound_ms", "bound_by")},
          "path": "mesh"},

@@ -14,8 +14,11 @@ so the compression error is delayed, never dropped.  The root rebuilds
 ``g + dequant(payload)`` inside the combine (K2 for int8).
 
 Residuals live in one :class:`CombineCompressor` per engine and change at
-one site, the consumer's mesh combine, in strict round order.  Saving them
-in a checkpoint is not ported (ROADMAP M9).
+one site, the consumer's mesh combine, in strict round order.  They ride a
+checkpoint's ``.aux.npz`` sidecar (:meth:`CombineCompressor.state_aux`,
+:meth:`~CombineCompressor.load_state`), params-shaped per shard as the
+reference saves them, so a resumed compressed run is bitwise the
+uninterrupted one.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import torch
 
 from repro_torch.compress.quant import int8_quantize
 from repro_torch.compress.topk import TopKState, topk_compress, topk_k
-from repro_torch.kernels.layout import FlatLayout
+from repro_torch.kernels.layout import (FlatLayout, flatten_tree,
+                                        unflatten_tree)
 
 __all__ = ["CombineCompressor", "make_encode_step", "payload_nbytes"]
 
@@ -101,16 +105,19 @@ class CombineCompressor:
     def residual(self, shard: int) -> dict:
         """The shard's carried error tree (zeros on first sight)."""
         r = self._residuals.get(shard)
-        if r is None:
-            r = self._layout.views(torch.zeros(self._layout.n,
-                                               dtype=torch.float32,
-                                               device=self._device))
-        return r
+        return self._zeros() if r is None else r
+
+    def _zeros(self) -> dict:
+        return self._layout.views(torch.zeros(
+            self._layout.n, dtype=torch.float32, device=self._device))
 
     def commit(self, updates: dict) -> None:
         """Adopt this round's new residuals — once per round, after the
         combine is dispatched, so a failed round leaves the old set."""
         self._residuals.update(updates)
+
+    def reset(self) -> None:
+        self._residuals.clear()
 
     def residual_sq_sum(self) -> torch.Tensor:
         """Sum of squares over every shard's residual, as a device scalar
@@ -124,3 +131,31 @@ class CombineCompressor:
         """Global L2 norm over every shard's residual (the error-feedback
         mass still waiting to be sent)."""
         return float(self.residual_sq_sum().sqrt())
+
+    # -- checkpointing -------------------------------------------------------
+    def state_meta(self) -> dict:
+        """JSON-safe descriptor (the arrays ride the checkpoint's aux npz)."""
+        return {"mode": self.mode, "frac": self.frac,
+                "shards": sorted(int(s) for s in self._residuals)}
+
+    def state_aux(self):
+        """The residual trees keyed by shard id, each params-shaped (nested
+        as the params are), or None when no shard has compressed yet."""
+        if not self._residuals:
+            return None
+        return {f"s{int(s)}": unflatten_tree(self._residuals[s])
+                for s in sorted(self._residuals)}
+
+    def aux_like(self, shards) -> dict:
+        """Structure template for :meth:`state_aux` of the given shard ids —
+        what a checkpoint restore needs to load the npz back."""
+        return {f"s{int(s)}": unflatten_tree(self._zeros()) for s in shards}
+
+    def load_state(self, aux: dict) -> None:
+        """Adopt residual trees read back from :meth:`state_aux`'s form."""
+        layout = self._layout
+        self._residuals = {
+            int(key[1:]): layout.views(layout.flatten(
+                {k: torch.as_tensor(v) for k, v in flatten_tree(tree).items()}
+            ).to(self._device, torch.float32))
+            for key, tree in aux.items()}

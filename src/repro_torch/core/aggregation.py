@@ -20,8 +20,8 @@ variants, selected with ``impl``:
   .fedavg_accum`, the counterpart of ``impl="pallas"``): returns ``acc``
   where ``N+n == 0``.
 
-They agree wherever ``N+n > 0``.  FedMedian (the gather path) is not
-ported yet (ROADMAP M4).
+They agree wherever ``N+n > 0``.  The non-associative FedMedian reduce
+(:func:`median_leading`, :func:`fedmedian`) serves the gather path.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from repro_torch.kernels.ref import lane_weight
 
 __all__ = ["PartialAggregate", "partial_init", "partial_update",
            "partial_merge", "finalize", "fedavg_flat", "tree_weighted_mean",
-           "fold_clients", "AGG_IMPLS"]
+           "fold_clients", "fedmedian", "median_leading", "AGG_IMPLS"]
 
 AGG_IMPLS = ("kernel", "plain")
 
@@ -123,6 +123,25 @@ def fedavg_flat(client_trees: list, weights) -> dict:
     stacked = {k: torch.stack([t[k] for t in client_trees])
                for k in client_trees[0]}
     return tree_weighted_mean(stacked, weights)
+
+
+def median_leading(x: torch.Tensor) -> torch.Tensor:
+    """Coordinate-wise median over the leading dim, as ``jnp.median(x,
+    axis=0)``: the mean of the two middle values of the sorted column,
+    ``(lo + hi) * 0.5`` (one rounding; the middle value itself for an odd
+    count).  ``torch.median`` would return the lower middle value, and
+    ``torch.quantile`` refuses inputs over 2^24 elements."""
+    srt = torch.sort(x, dim=0).values
+    n = x.shape[0]
+    return (srt[(n - 1) // 2] + srt[n // 2]) * 0.5
+
+
+def fedmedian(client_trees: list) -> dict:
+    """Coordinate-wise median (non-associative robust aggregation — the
+    paper's Table 7 strategy).  Requires the gather path: all client models
+    at the server."""
+    return {k: median_leading(torch.stack([t[k] for t in client_trees]))
+            for k in client_trees[0]}
 
 
 def fold_clients(global_params: dict, client_params_stacked: dict, n_samples,

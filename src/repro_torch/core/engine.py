@@ -11,7 +11,10 @@ Per round:
      the S-bucketed size and copies them to the device asynchronously;
   7. the round step trains every lane and partially aggregates on the
      device, through a counted :class:`~repro_torch.fl.round
-     .StepCompileCache`.
+     .StepCompileCache` — or, for a non-associative strategy (FedMedian),
+     the gather step returns every lane's model and the strategy reduces
+     them in one shot;
+  8. every ``rounds_per_checkpoint`` rounds, a checkpoint (with a store).
 
 Pipelining (``EngineConfig.pipeline_depth``) is the reference's:
 ``depth = 0`` is a synchronous loop; ``depth >= 1`` runs steps 1–6 for
@@ -34,9 +37,16 @@ fused step), or §3.3's tree (a merge per shard first), optionally with the
 host level (``hosts``) or compressed shard uploads (``combine_compress``;
 K2 folds int8 payloads).  On one card every shard is that card.
 
+Checkpoints are the reference's files (:mod:`repro_torch.checkpoint`): the
+global model, the sampler and synthetic-telemetry RNG states snapshotted at
+prepare time, the placement model's rows of booked rounds, and the
+compressed combine's residuals, so a resumed run is bitwise the
+uninterrupted one at any pipeline depth.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: the device batch cache, the control plane, the gather strategies,
-checkpoints and the process-per-host harness (ROADMAP M4, M9–M11, M14).
+ignored: the device batch cache, the control plane (and restoring a
+checkpoint that carries its state) and the process-per-host harness
+(ROADMAP M10, M11, M14).
 """
 
 from __future__ import annotations
@@ -54,12 +64,14 @@ from repro_torch.compress import CombineCompressor, make_encode_step
 from repro_torch.core.aggregation import AGG_IMPLS
 from repro_torch.core.placement import (Assignment, ClientInfo,
                                         LearningBasedPlacement, Placement)
+from repro_torch.core.sampling import restore_sampler, sampler_state
 from repro_torch.data.batching import (PackBuffers, RoundArrays,
                                        build_round_arrays, padding_stats,
                                        plan_round, worker_stream_lengths)
 from repro_torch.distributed.sharding import HostShardMap, WorkerShardMap
 from repro_torch.fl.round import (StepCompileCache, make_combine_step,
                                   make_compressed_combine_step,
+                                  make_gather_round_step,
                                   make_host_node_merge_step,
                                   make_payload_decode_step, make_round_step,
                                   make_shard_merge_step,
@@ -133,6 +145,12 @@ def _stack_payloads(mode: str, payloads: list):
             for name in payloads[0]}
 
 
+def _warn(msg: str) -> None:
+    """A restore that cannot be exact says so on stdout, as the reference
+    does, and goes on."""
+    print("warning: " + msg)
+
+
 def _pinned_zeros(shape, dtype) -> np.ndarray:
     """Zeroed page-locked host memory, as a numpy view (the pack buffers'
     allocator on CUDA: copies out of pinned memory run asynchronously)."""
@@ -190,6 +208,7 @@ class EngineConfig:
     deadline_rho: float = 0.0     # >0 enables over-sample + trim
     pipeline_depth: int = 1       # 0 = sync; d >= 1 = prep t+1..t+d during t
     compile_cache_size: int = 8   # LRU cap on distinct round shapes
+    rounds_per_checkpoint: int = 25  # with a checkpoint store
     # -- mesh execution (per-worker programs) and its combine ---------------
     mesh_workers: int = 0          # 0/1 = one fused program; K >= 2 = one
     #                                program per worker over K shards
@@ -316,6 +335,9 @@ class _PreparedRound:
     combine_s: float = 0.0   # combine wall (last worker sync -> loss sync)
     combine_bytes: int = 0   # consumer-set: cross-shard combine transfer
     residual_sq: torch.Tensor | None = None  # consumer-set: device scalar
+    # -- checkpoint snapshots, taken at prepare time ------------------------
+    sampler_st: dict | None = None     # sampler RNG after this round's draw
+    telemetry_st: dict | None = None   # telemetry RNG after its draws
 
 
 class FederatedEngine:
@@ -337,13 +359,12 @@ class FederatedEngine:
                  obs=None, device=None):
         strategy = FedAvg() if strategy is None else strategy
         config = EngineConfig() if config is None else config
-        if not strategy.associative:
-            raise NotImplementedError(
-                f"strategy {strategy.name!r} needs the gather path, which is "
-                "not ported yet (ROADMAP M4/M5)")
-        if checkpoint_store is not None:
-            raise NotImplementedError("checkpoints are not ported yet "
-                                      "(ROADMAP M9)")
+        if config.mesh_workers >= 2 and not strategy.associative:
+            raise ValueError(
+                "mesh_workers >= 2 requires an associative strategy: "
+                "the gather path ships every client model and reduces "
+                "host-side in one shot — it has no per-worker partials "
+                "to combine")
         self.device = resolve_device(device)
         self.dataset = dataset
         self.loss_fn = loss_fn
@@ -364,8 +385,11 @@ class FederatedEngine:
         self.telemetry = telemetry
         self.strategy = strategy
         self.cfg = config
+        self.ckpt = checkpoint_store
         self.round_idx = 0
         self.history: list[RoundResult] = []
+        self._sampler_ckpt_state = None
+        self._telemetry_ckpt_state = None
         # Rounds t .. t+depth are in flight at once: depth+1 slot sets.
         self._pack_buffers = PackBuffers(
             depth=config.pipeline_depth + 1,
@@ -378,10 +402,18 @@ class FederatedEngine:
         def cache(factory):
             return StepCompileCache(factory, capacity=size)
 
-        self._round_step = cache(
-            lambda: make_round_step(loss_fn, optimizer,
-                                    agg_impl=config.agg_impl,
-                                    grad_clip=config.grad_clip))
+        if strategy.associative:
+            self._round_step = cache(
+                lambda: make_round_step(loss_fn, optimizer,
+                                        agg_impl=config.agg_impl,
+                                        grad_clip=config.grad_clip))
+            self._gather_step = None
+        else:
+            # Non-associative: every lane's model goes to the reduce.
+            self._gather_step = cache(
+                lambda: make_gather_round_step(loss_fn, optimizer,
+                                               grad_clip=config.grad_clip))
+            self._round_step = None
         # Mesh execution: one program per worker over K shards (0/1 keep
         # the one fused program).  On one device every shard resolves to
         # it and no partial moves; across cards the partials cross to the
@@ -433,7 +465,8 @@ class FederatedEngine:
                 max_workers=self._mesh_shards,
                 thread_name_prefix="pollen-sync")
         self._caches = {
-            "round_step": self._round_step, "worker_step": self._worker_step,
+            "round_step": self._round_step, "gather_step": self._gather_step,
+            "worker_step": self._worker_step,
             "combine_step": self._combine_step,
             "merge_step": self._merge_step,
             "host_node_step": self._host_node_step,
@@ -452,9 +485,11 @@ class FederatedEngine:
         """Counters of the step caches (distinct round shapes).  On the
         mesh path the totals fold in every program's cache, each also
         broken out under its own name."""
-        stats = self._round_step.stats()
+        main = (self._round_step if self._round_step is not None
+                else self._gather_step)
+        stats = main.stats()
         for label, c in self._caches.items():
-            if c is None or label == "round_step":
+            if c is None or c is main:
                 continue
             sub = c.stats()
             for k in ("compiles", "evictions", "hits", "entries"):
@@ -543,8 +578,15 @@ class FederatedEngine:
                 self.placement.refit(t)
         with tr.span("prep.sample", t=t):
             clients = self._cohort(t)
+        sampler_st = sampler_state(self.sampler)
         assignment = self.placement.assign(clients, workers)
         makespan, idle, rows = self._record_telemetry(t, assignment, workers)
+        # Snapshot the synthetic-telemetry RNG AFTER this round's draws
+        # (mirrors the sampler snapshot): the checkpoint for round_idx = t+1
+        # resumes the stream where round t left it, however far ahead the
+        # pipelined producer has drawn.
+        telemetry_st = (self.telemetry.state_dict()
+                        if hasattr(self.telemetry, "state_dict") else None)
         slo_p50, slo_p99 = _slo_percentiles(rows)
         plan = plan_round(assignment, workers,
                           lanes_per_worker=self.cfg.lanes_per_worker,
@@ -552,7 +594,9 @@ class FederatedEngine:
         prep = _PreparedRound(t=t, clients=clients, workers=workers,
                               arrays=None, device=None, pack_s=0.0,
                               makespan=makespan, idle_time=idle,
-                              slo_p50=slo_p50, slo_p99=slo_p99)
+                              slo_p50=slo_p50, slo_p99=slo_p99,
+                              sampler_st=sampler_st,
+                              telemetry_st=telemetry_st)
         if self._mesh_shards:
             # One program per worker: the round packs once at its full
             # [W, P, S] size and each worker's block is sliced out for its
@@ -625,8 +669,16 @@ class FederatedEngine:
             return self._execute_mesh(prep)
         with self._tracer.span("exec.dispatch", t=prep.t):
             batches, step_mask, boundary, weight = prep.device
-            self._params, metrics = self._round_step(
+            if self._gather_step is None:
+                self._params, metrics = self._round_step(
+                    self._params, batches, step_mask, boundary, weight)
+                return metrics
+            stacked, ws, metrics = self._gather_step(
                 self._params, batches, step_mask, boundary, weight)
+            # Coordinate-wise reduces see the [W·P, N] models as one leaf.
+            new = self.strategy.reduce({"flat": stacked}, ws,
+                                       {"flat": self._params.flat})
+            self._params = self._layout.views(new["flat"])
             return metrics
 
     @property
@@ -886,6 +938,8 @@ class FederatedEngine:
         result.critical_path = crit.critical_path
         self.history.append(result)
         self.round_idx = t + 1
+        self._sampler_ckpt_state = prep.sampler_st
+        self._telemetry_ckpt_state = prep.telemetry_st
         if self._tracer.enabled:
             self._tracer.counter("combine_bytes", float(prep.combine_bytes))
         if self._metrics is not None:
@@ -899,6 +953,9 @@ class FederatedEngine:
             m.observe("round_wall_s", result.wall_time)
             m.observe("pack_s", prep.pack_s)
             m.observe("exec_s", prep.exec_s)
+        if (self.ckpt is not None
+                and (t + 1) % self.cfg.rounds_per_checkpoint == 0):
+            self.save_checkpoint()
         return result
 
     # -- the round -------------------------------------------------------------
@@ -1001,3 +1058,150 @@ class FederatedEngine:
               f"pack={r.pack_time * 1e3:.0f}ms "
               f"exec={r.exec_time * 1e3:.0f}ms "
               f"overlap={r.overlap_fraction:.0%}")
+
+    # -- fault tolerance -----------------------------------------------------
+    def save_checkpoint(self) -> None:
+        """Checkpoint the state after round ``round_idx - 1`` (the
+        reference's ``save_checkpoint``)."""
+        extra: dict = {"round": self.round_idx}
+        # The per-round snapshots taken at prepare time: at depth >= 1 the
+        # live RNGs are ahead by the in-flight preps, but these match
+        # round_idx exactly, so a restore reproduces the workload stream.
+        if self._sampler_ckpt_state is not None:
+            extra["sampler"] = self._sampler_ckpt_state
+        elif (st := sampler_state(self.sampler)) is not None:
+            extra["sampler"] = st              # pre-first-round checkpoint
+        if self._telemetry_ckpt_state is not None:
+            extra["telemetry_rng"] = self._telemetry_ckpt_state
+        elif hasattr(self.telemetry, "state_dict"):
+            extra["telemetry_rng"] = self.telemetry.state_dict()
+        if isinstance(self.placement, LearningBasedPlacement):
+            # Only rows of rounds already BOOKED: the producer may have
+            # recorded telemetry for in-flight rounds, which re-run (and
+            # re-record) after a restore.  Snapshot the model dict and each
+            # row list once — the producer may be appending to them.
+            extra["telemetry"] = {
+                t: [list(r) for r in list(m._xs) if r[0] < self.round_idx]
+                for t, m in list(self.placement.models.items())}
+        aux_tree = {}
+        if self._compress is not None:
+            # Committed for rounds <= round_idx - 1 by now: the sidecar
+            # matches round_idx exactly.
+            extra["combine_compress"] = self._compress.state_meta()
+            comp_aux = self._compress.state_aux()
+            if comp_aux is not None:
+                aux_tree["compress"] = comp_aux
+        if self._host_map is not None:
+            # The combine-tree family this trajectory was produced under.
+            extra["host_layout"] = {"hosts": self._host_map.n_hosts,
+                                    "shards": self._host_map.n_shards}
+        if aux_tree:
+            extra["aux_layout"] = "v2"
+        self.ckpt.save(self.round_idx, self.params, extra=extra,
+                       aux=aux_tree or None)
+
+    def _restore_aux_entry(self, rnd: int, extra: dict, key: str, like):
+        """Load one owner's subtree from the checkpoint aux sidecar.  v2
+        sidecars nest per owner; pre-v2 ones hold the compress tree at the
+        top level (and had no other owners)."""
+        if extra.get("aux_layout") == "v2":
+            out = self.ckpt.restore_aux({key: like}, round_idx=rnd)
+            return None if out is None else out[key]
+        if key != "compress":
+            return None
+        return self.ckpt.restore_aux(like, round_idx=rnd)
+
+    def restore_latest(self) -> bool:
+        """Resume from the newest checkpoint; False when there is none.
+
+        Raises ``NotImplementedError`` for a checkpoint that carries
+        control-plane state (written by the reference with its control
+        plane on): the control plane is not ported (ROADMAP M10)."""
+        if self.ckpt is None or self.ckpt.latest_round() is None:
+            return False
+        params, rnd, extra = self.ckpt.restore(self.params)
+        if extra.get("control"):
+            raise NotImplementedError(
+                "this checkpoint carries control-plane state, and the "
+                "control plane is not ported yet (ROADMAP M10)")
+        self.params = params
+        self.round_idx = rnd
+        if extra.get("sampler"):
+            try:
+                self.sampler = restore_sampler(extra["sampler"])
+            except (KeyError, ValueError) as e:
+                _warn(
+                    f"checkpoint sampler state unusable ({e!r}); resuming "
+                    "with the configured sampler — the workload stream will "
+                    "NOT match the original run")
+        if extra.get("telemetry_rng") and hasattr(self.telemetry,
+                                                  "load_state_dict"):
+            try:
+                self.telemetry.load_state_dict(extra["telemetry_rng"])
+            except (KeyError, ValueError, TypeError) as e:
+                _warn(
+                    f"checkpoint telemetry RNG state unusable ({e!r}); "
+                    "resuming with a fresh stream — synthetic times will "
+                    "NOT match the uninterrupted run")
+        self._restore_compress(rnd, extra)
+        if (isinstance(self.placement, LearningBasedPlacement)
+                and "telemetry" in extra):
+            for tname, rows in extra["telemetry"].items():
+                m = self.placement._model(tname)
+                m._xs = [tuple(r) for r in rows]
+                m._fit_sig = (-1, -1)      # direct _xs swap: force a refit
+                m._recent_sig = (-1, -1, -1)
+            self.placement.refit(self.round_idx)
+        return True
+
+    def _restore_compress(self, rnd: int, extra: dict) -> None:
+        """The host-layout guard and the error-feedback residuals, with the
+        reference's warnings: hosts = 0 (the legacy fold) and hosts >= 1
+        (the canonical pairwise tree) are different combine arithmetic, so
+        a checkpoint of one family resumes the other with zero residuals;
+        so does a checkpoint of another compressor."""
+        try:
+            ckpt_hosts = int((extra.get("host_layout") or {}).get("hosts", 0))
+        except (AttributeError, TypeError, ValueError):
+            ckpt_hosts = 0     # malformed sidecar field: treat as legacy
+        cfg_hosts = self._host_map.n_hosts if self._host_map is not None else 0
+        mismatch = (ckpt_hosts >= 1) != (cfg_hosts >= 1)
+        if mismatch:
+            _warn(
+                f"checkpoint host layout (hosts={ckpt_hosts}) does not match "
+                f"the configured engine (hosts={cfg_hosts}); the combine "
+                "arithmetic families differ, so the resumed trajectory will "
+                "NOT match the uninterrupted run"
+                + ("; resuming with zero error-feedback residuals"
+                   if self._compress is not None else ""))
+        if self._compress is None:
+            return
+        self._compress.reset()
+        meta = extra.get("combine_compress")
+        if not meta or not meta.get("shards") or mismatch:
+            return
+        if (meta.get("mode") != self.cfg.combine_compress
+                or meta.get("frac") != self.cfg.combine_topk_frac):
+            _warn(
+                f"checkpoint combine_compress state ({meta.get('mode')!r}, "
+                f"frac={meta.get('frac')}) does not match the configured "
+                "compressor; resuming with zero residuals — the resumed run "
+                "will NOT match the uninterrupted one")
+            return
+        try:
+            aux = self._restore_aux_entry(
+                rnd, extra, "compress",
+                self._compress.aux_like(meta["shards"]))
+        except (KeyError, ValueError) as e:
+            _warn(
+                f"checkpoint residual state unusable ({e!r}); resuming with "
+                "zero residuals — the resumed run will NOT match the "
+                "uninterrupted one")
+            return
+        if aux is None:
+            _warn(
+                "checkpoint lists compressed-combine residuals but the "
+                ".aux.npz sidecar is missing; resuming with zero residuals",
+                stacklevel=3)
+            return
+        self._compress.load_state(aux)

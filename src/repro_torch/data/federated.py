@@ -9,9 +9,9 @@ reference's by design, the distribution is the same (standard-normal
 features shifted by ``2·dir[y]``, labels from the client's Dirichlet class
 mix; tokens ``(base // 4 + offset) % vocab_size`` with ``base`` uniform in
 ``[0, vocab_size)`` and the reference's per-client ``offset``, a
-non-IID unigram skew).  The ``"lm"`` task feeds the LM archs' federated
-training; TG and MLM have token datasets too, but their models are not
-ported yet (``models/papertasks.py``, ROADMAP M3).
+non-IID unigram skew).  IC and SR are labelled feature tasks, TG and MLM
+token tasks (``models/papertasks.py``); the ``"lm"`` task feeds the LM
+archs' federated training.
 
 The engine takes any dataset whose ``gather_batches`` returns numpy, so the
 parity tests hand it the reference's dataset object.

@@ -1,5 +1,7 @@
-from .round import RoundMetrics, StepCompileCache, make_round_step
-from .strategy import FedAvg, Strategy
+from .round import (RoundMetrics, StepCompileCache, make_gather_round_step,
+                    make_round_step)
+from .strategy import FedAvg, FedMedian, Strategy, strategy_from_name
 
-__all__ = ["FedAvg", "RoundMetrics", "StepCompileCache", "Strategy",
-           "make_round_step"]
+__all__ = ["FedAvg", "FedMedian", "RoundMetrics", "StepCompileCache",
+           "Strategy", "make_gather_round_step", "make_round_step",
+           "strategy_from_name"]

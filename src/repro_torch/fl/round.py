@@ -40,7 +40,11 @@ over host blocks, or the compressed combine
 (:func:`make_compressed_combine_step`, K2 for int8 payloads).  Trees pass
 between these programs as dicts whose leaves are views of one flat buffer
 (:class:`~repro_torch.kernels.layout.FlatTree`), so each program works on
-one flat tensor.  The gather path is not ported yet (ROADMAP M5).
+one flat tensor.
+
+Non-associative strategies (FedMedian) take the gather path instead:
+:func:`make_gather_round_step` trains the same lanes and returns every
+lane's model unreduced.
 """
 
 from __future__ import annotations
@@ -58,7 +62,8 @@ from repro_torch.kernels.layout import FlatLayout
 from repro_torch.kernels.ref import fedavg_accum_ref
 from repro_torch.optim.optimizers import apply_updates, clip_by_global_norm
 
-__all__ = ["make_round_step", "make_worker_round_step", "make_combine_step",
+__all__ = ["make_round_step", "make_gather_round_step",
+           "make_worker_round_step", "make_combine_step",
            "make_shard_merge_step", "make_host_node_merge_step",
            "make_payload_decode_step", "make_compressed_combine_step",
            "RoundMetrics", "StepCompileCache", "round_shape_key"]
@@ -85,6 +90,45 @@ def _tree_select(flag, a, b):
     raise TypeError(f"cannot select over {type(b).__name__}")
 
 
+def _stack_state(state, lanes: int):
+    """One model's optimizer state stacked over ``lanes`` lanes (as the
+    reference's vmap sees it): every tensor gains a leading ``[L]`` dim, so
+    Adam's scalar ``step`` becomes one count per lane."""
+    if torch.is_tensor(state):
+        return state.expand((lanes,) + tuple(state.shape))
+    if isinstance(state, dict):
+        return {k: _stack_state(v, lanes) for k, v in state.items()}
+    if isinstance(state, tuple):
+        vals = [_stack_state(v, lanes) for v in state]
+        return type(state)(*vals) if hasattr(state, "_fields") else tuple(vals)
+    raise TypeError(f"cannot stack {type(state).__name__}")
+
+
+def _local_step(loss_fn, optimizer, grad_clip, layout: FlatLayout, theta,
+                opt_state, batch, m):
+    """One local SGD/Adam step of every lane: ``theta [L, N]`` and its
+    optimizer state advance where the step mask ``m [L]`` is set; a masked
+    lane keeps both exactly.  Returns ``(theta, opt_state, loss [L])``."""
+    L = theta.shape[0]
+    leaves = {k: v.detach().requires_grad_()
+              for k, v in layout.views(theta).items()}
+    with torch.enable_grad():
+        loss = loss_fn(leaves, batch)
+        grads = torch.autograd.grad(loss.sum(),
+                                    [leaves[k] for k in layout.names])
+    grads = {"flat": layout.flatten(dict(zip(layout.names, grads)),
+                                    lead=(L,))}
+    if grad_clip is not None:
+        grads, _ = clip_by_global_norm(grads, grad_clip, batch_dims=1)
+    updates, new_opt = optimizer.update(grads, opt_state, {"flat": theta})
+    mcol = m[:, None]
+    theta = apply_updates(
+        {"flat": theta},
+        {k: u * mcol.to(u.dtype) for k, u in updates.items()})["flat"]
+    # Masked steps keep the old optimizer state (exact no-op).
+    return theta, _tree_select(m > 0, new_opt, opt_state), loss.detach()
+
+
 def _make_lane_scan(loss_fn, optimizer, *, agg_impl: str = "kernel",
                     grad_clip: float | None = None):
     """All lanes' sequential client streams: S local steps, folding each
@@ -100,31 +144,15 @@ def _make_lane_scan(loss_fn, optimizer, *, agg_impl: str = "kernel",
         L, S = mask.shape
         theta0 = global_flat.expand(L, -1)
         theta = theta0.clone()
-        opt0 = optimizer.init({"flat": theta})
+        opt0 = _stack_state(optimizer.init({"flat": global_flat}), L)
         opt_state = opt0
         partial = partial_init({"flat": theta}, lanes=L)
         loss_sum = torch.zeros(L, dtype=torch.float32, device=theta.device)
         for s in range(S):
-            batch = {k: v[:, s] for k, v in lane_batches.items()}
             m, bnd, w = mask[:, s], boundary[:, s], weight[:, s]
-            leaves = {k: v.detach().requires_grad_()
-                      for k, v in layout.views(theta).items()}
-            with torch.enable_grad():
-                loss = loss_fn(leaves, batch)
-                grads = torch.autograd.grad(
-                    loss.sum(), [leaves[k] for k in layout.names])
-            grads = {"flat": layout.flatten(dict(zip(layout.names, grads)),
-                                            lead=(L,))}
-            if grad_clip is not None:
-                grads, _ = clip_by_global_norm(grads, grad_clip, batch_dims=1)
-            updates, new_opt = optimizer.update(grads, opt_state,
-                                                {"flat": theta})
-            mcol = m[:, None]
-            theta = apply_updates(
-                {"flat": theta},
-                {k: u * mcol.to(u.dtype) for k, u in updates.items()})["flat"]
-            # Masked steps keep the old optimizer state (exact no-op).
-            opt_state = _tree_select(m > 0, new_opt, opt_state)
+            theta, opt_state, loss = _local_step(
+                loss_fn, optimizer, grad_clip, layout, theta, opt_state,
+                {k: v[:, s] for k, v in lane_batches.items()}, m)
             # Fold the trained client at its boundary, behind a select that
             # keeps masked/padded steps BITWISE no-ops on the partial (Eq. 1
             # rescales by N/(N+0), which can flip the last bit).
@@ -136,7 +164,7 @@ def _make_lane_scan(loss_fn, optimizer, *, agg_impl: str = "kernel",
             theta = _tree_select(bnd > 0, theta0, theta)
             opt_state = _tree_select(bnd > 0, opt0, opt_state)
             # Lane loss totals accumulate in step order.
-            loss_sum = loss_sum + loss.detach() * m
+            loss_sum = loss_sum + loss * m
         return partial, loss_sum
 
     return lane_scan
@@ -169,8 +197,8 @@ def make_round_step(loss_fn, optimizer, *, agg_impl: str = "kernel",
 def _scan_lanes(lane_scan, layout, gflat, batches, step_mask, boundary,
                 weight):
     """Run ``lane_scan`` over a ``[W, P, S, ...]`` block as ``L = W·P``
-    lanes; returns the lanes' partial (``{"flat": [L, N]}``, ``[L]``) and
-    their loss totals ``[L]``."""
+    lanes; returns what it returns (the fused scan: the lanes' partial,
+    ``{"flat": [L, N]}`` and ``[L]``, and their loss totals ``[L]``)."""
     W, P = step_mask.shape[:2]
     L = W * P
 
@@ -381,6 +409,54 @@ def make_compressed_combine_step(mode: str):
         return layout.views(new_flat), metrics
 
     return combine
+
+
+def make_gather_round_step(loss_fn, optimizer, *,
+                           grad_clip: float | None = None):
+    """Round step for NON-associative strategies (paper §3.3 last
+    paragraph): every lane returns its trained model and the server reduces
+    them in one shot (FedMedian).  No kernel runs here: nothing folds.
+
+    ``round_step(global_params, batches, step_mask, boundary, weight) ->
+    (stacked [W·P, N], weights [W·P], metrics)``: the lanes' trained models
+    as one flat buffer (the params' :class:`FlatLayout`), each lane's
+    weight ``(boundary · weight).sum()``, and the round metrics; the caller
+    applies the strategy's reduce.
+
+    As in the reference (``repro/fl/round.py:471-512``), a lane is NOT
+    reset at a client boundary: a lane that holds several clients trains
+    them in sequence on one model and one optimizer state, and a lane with
+    no client returns the global model, which still enters the reduce.
+    """
+
+    @torch.no_grad()
+    def gather_scan(layout, global_flat, lane_batches, mask, boundary,
+                    weight):
+        L, S = mask.shape
+        theta = global_flat.expand(L, -1).clone()
+        opt_state = _stack_state(optimizer.init({"flat": global_flat}), L)
+        loss_sum = torch.zeros(L, dtype=torch.float32, device=theta.device)
+        for s in range(S):
+            m = mask[:, s]
+            theta, opt_state, loss = _local_step(
+                loss_fn, optimizer, grad_clip, layout, theta, opt_state,
+                {k: v[:, s] for k, v in lane_batches.items()}, m)
+            loss_sum = loss_sum + loss * m
+        return theta, (boundary * weight).sum(-1), loss_sum
+
+    @torch.no_grad()
+    def round_step(global_params, batches, step_mask, boundary, weight):
+        layout = FlatLayout.of(global_params)
+        thetas, ws, lane_losses = _scan_lanes(
+            gather_scan, layout, layout.flatten(global_params), batches,
+            step_mask, boundary, weight)
+        n_steps = step_mask.sum()
+        metrics = RoundMetrics(
+            loss=_ordered_sum(lane_losses) / torch.clamp(n_steps, min=1.0),
+            steps=n_steps, clients=boundary.sum(), total_weight=ws.sum())
+        return thetas, ws, metrics
+
+    return round_step
 
 
 def _ordered_sum(v):

@@ -1,13 +1,21 @@
 """End-to-end federated training entry point of the port — the
-counterpart of ``repro/launch/train.py`` for the paper's SR task and every
-LM arch (dense, ssm, MoE, hybrid, audio encoder-decoder and VLM
-families).
+counterpart of ``repro/launch/train.py`` for the paper's four tasks (IC,
+SR, TG, MLM) and every LM arch (dense, ssm, MoE, hybrid, audio
+encoder-decoder and VLM families).
 
 Composes dataset → cohort sampler → placement → worker pool → round step
-(partial aggregation through the K1 kernel) → synthetic telemetry →
-time-model refit, on the CUDA card::
+(partial aggregation through the K1 kernel, or the gather path for
+FedMedian) → synthetic telemetry → time-model refit → checkpoints, on the
+CUDA card::
 
     PYTHONPATH=src python -m repro_torch.launch.train --task sr --rounds 20
+    PYTHONPATH=src python -m repro_torch.launch.train --task mlm --rounds 5
+    PYTHONPATH=src python -m repro_torch.launch.train --task sr \
+        --strategy fedmedian --rounds 10
+    PYTHONPATH=src python -m repro_torch.launch.train --task ic --rounds 50 \
+        --ckpt-dir /tmp/pollen_ic
+    PYTHONPATH=src python -m repro_torch.launch.train --task ic --rounds 10 \
+        --ckpt-dir /tmp/pollen_ic --resume
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
         --preset fl100m --rounds 3
     PYTHONPATH=src python -m repro_torch.launch.train \
@@ -21,8 +29,13 @@ int8 shard uploads folded by the K2 kernel::
     PYTHONPATH=src python -m repro_torch.launch.train --task sr --workers 4 \
         --mesh-workers 2 --combine-mode tree --combine-compress int8
 
-The flags are the reference's.  Those of paths not ported yet
-(checkpoints, device cache, control plane, trace export) raise
+Each task trains with the reference's client optimizer: ``adam(4e-5)``
+for MLM, ``sgd(0.8, momentum=0.9, weight_decay=5e-4)`` for TG and
+``sgd(0.05, ...)`` for IC and SR.  A checkpoint is written every
+``rounds_per_checkpoint`` (25) rounds.
+
+The flags are the reference's.  Those of paths not ported yet (device
+cache, control plane, online sampler, trace export) raise
 ``NotImplementedError`` naming their ROADMAP item when set.
 """
 
@@ -38,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import CheckpointStore
 from repro_torch.configs import ArchConfig, get_arch
 from repro_torch.core import (EngineConfig, FederatedEngine,
                               SyntheticTelemetry, UniformSampler, ZipfSampler,
@@ -50,7 +64,7 @@ from repro_torch.fl.strategy import strategy_from_name
 from repro_torch.kernels import ops as kops
 from repro_torch.models import lm, make_lane_loss_fn
 from repro_torch.models.papertasks import make_task_model
-from repro_torch.optim import sgd
+from repro_torch.optim import adam, sgd
 
 __all__ = ["build_engine", "lm_config", "main", "set_deterministic",
            "PRESETS"]
@@ -159,7 +173,8 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
                  population: int | None = None, workers: int = 2,
                  concurrency: int = 2, strategy: str = "fedavg",
                  steps_cap: int = 8, seed: int = 1337,
-                 ckpt_dir: str | None = None, deadline_rho: float = 0.0,
+                 ckpt_dir: str | None = None, rounds_per_checkpoint: int = 25,
+                 deadline_rho: float = 0.0,
                  pipeline_depth: int = 1, sampler: str = "uniform",
                  zipf_exponent: float = 1.2, grad_clip: float | None = None,
                  mesh_workers: int = 0, bucket_mode: str = "round",
@@ -176,13 +191,15 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
     the published ones included) at the preset's ``seq_len`` and
     ``batch_size``.  The weights come from ``lm.init_params(seed, cfg)``.
     ``mesh_workers`` .. ``hosts`` select the mesh path and its combine, as
-    in the reference.  ``engine_options`` are further
+    in the reference; ``strategy="fedmedian"`` the gather path; with
+    ``ckpt_dir`` the engine saves a checkpoint there every
+    ``rounds_per_checkpoint`` rounds (``restore_latest`` resumes from it).
+    ``engine_options`` are further
     :class:`EngineConfig` fields — the device-cache and control-plane
     options, which raise until they are ported.  Refuses a config that
     sets the multi-card ``moe_dispatch`` hook (ROADMAP M15c), and a CUDA
     ``device`` without a card, before any work.
     """
-    _refuse("ckpt_dir", ckpt_dir, None, "M9")
     if sampler == "online":
         raise NotImplementedError("sampler='online' is not ported yet "
                                   "(ROADMAP M17)")
@@ -204,6 +221,7 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
                           combine_mode=combine_mode,
                           combine_compress=combine_compress,
                           combine_topk_frac=topk_frac, hosts=hosts,
+                          rounds_per_checkpoint=rounds_per_checkpoint,
                           **engine_options)
     device = resolve_device(device)
     if lm_cfg is not None:
@@ -220,7 +238,9 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
             task, seed=seed,
             **({"n_clients": population} if population else {}))
         params, loss_fn = make_task_model(task, seed, device=device)
-        optimizer = sgd(0.05, momentum=0.9, weight_decay=5e-4)
+        optimizer = (adam(4e-5) if task == "mlm" else
+                     sgd(0.8 if task == "tg" else 0.05, momentum=0.9,
+                         weight_decay=5e-4))
     if sampler == "zipf":
         sampler_obj = ZipfSampler(ds.n_clients, cohort, a=zipf_exponent,
                                   seed=seed)
@@ -235,7 +255,9 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
         pool=WorkerPool.homogeneous(workers, type_name="a40",
                                     concurrency=concurrency),
         telemetry=SyntheticTelemetry(seed=seed), strategy=strat,
-        config=config, obs=obs, device=device)
+        config=config,
+        checkpoint_store=CheckpointStore(ckpt_dir) if ckpt_dir else None,
+        obs=obs, device=device)
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -301,7 +323,6 @@ def _build_parser() -> argparse.ArgumentParser:
 # Flags whose paths this slice does not port: (dest, default, ROADMAP item).
 # The device-cache and control-plane flags are refused by EngineConfig.
 _UNPORTED_FLAGS = (
-    ("resume", False, "M9"),
     ("population_period", 48.0, "M17"), ("population_surge", None, "M17"),
     ("population_outage", None, "M17"),
     ("trace_out", None, "M8 (trace export)"),
@@ -342,6 +363,8 @@ def main(argv=None) -> int:
         wid, rnd = (int(x) for x in args.join_worker.split(":"))
         engine.pool.schedule(FailureEvent(round_idx=rnd, kind="join",
                                           wid=wid, type_name="a40"))
+    if args.resume and engine.restore_latest():
+        print(f"resumed from round {engine.round_idx}")
     kops.reset_launch_counts()
     results = engine.run(args.rounds, log_every=1)
     summary = {

@@ -1,5 +1,6 @@
-from .optimizers import (Optimizer, SGDState, apply_updates,
-                         clip_by_global_norm, sgd)
+from .optimizers import (AdamState, Optimizer, SGDState, adam, adamw,
+                         apply_updates, clip_by_global_norm, make_optimizer,
+                         sgd)
 
-__all__ = ["Optimizer", "SGDState", "apply_updates", "clip_by_global_norm",
-           "sgd"]
+__all__ = ["AdamState", "Optimizer", "SGDState", "adam", "adamw",
+           "apply_updates", "clip_by_global_norm", "make_optimizer", "sgd"]

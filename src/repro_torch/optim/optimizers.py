@@ -3,8 +3,13 @@
 Port of ``repro/optim/optimizers.py``: ``opt.init(params) -> state``;
 ``opt.update(grads, state, params) -> (updates, state)``; apply with
 :func:`apply_updates`.  The paper's SR/IC/TG clients use SGD with momentum
-and weight decay (A.1).  ``adam``/``adamw`` serve only ``--task mlm`` and
-are not ported yet.
+and weight decay, its MLM clients Adam (A.1); ``adamw`` is Adam with
+decoupled weight decay.
+
+``init`` gives the state of ONE model.  The round step trains ``L`` lanes
+side by side and stacks that state ``L`` times (as the reference's vmap
+does), so Adam's ``step`` counter becomes ``[L]``, one count per lane:
+``update`` broadcasts ``step`` over the trailing dims of each leaf.
 """
 
 from __future__ import annotations
@@ -13,8 +18,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-__all__ = ["Optimizer", "SGDState", "sgd", "apply_updates",
-           "clip_by_global_norm"]
+__all__ = ["Optimizer", "SGDState", "AdamState", "sgd", "adam", "adamw",
+           "make_optimizer", "apply_updates", "clip_by_global_norm"]
 
 
 class Optimizer(NamedTuple):
@@ -73,3 +78,72 @@ def sgd(lr: float, momentum: float = 0.0, weight_decay: float = 0.0) -> Optimize
 
     return Optimizer(init=init, update=update)
 
+
+
+class AdamState(NamedTuple):
+    step: Any            # int32 update count: () for one model, [L] stacked
+    mu: Any
+    nu: Any
+
+
+def _per_lane(x: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """``x`` (shaped like ``step``) broadcast over ``leaf``'s trailing dims."""
+    return x.reshape(x.shape + (1,) * (leaf.ndim - x.ndim))
+
+
+def _adam(lr, b1, b2, eps, weight_decay, decoupled) -> Optimizer:
+    def init(params):
+        first = next(iter(params.values()))
+        return AdamState(
+            step=torch.zeros((), dtype=torch.int32, device=first.device),
+            mu={k: torch.zeros_like(p, dtype=torch.float32)
+                for k, p in params.items()},
+            nu={k: torch.zeros_like(p, dtype=torch.float32)
+                for k, p in params.items()})
+
+    def update(grads, state, params):
+        if weight_decay and not decoupled:
+            grads = {k: g + weight_decay * params[k].to(g.dtype)
+                     for k, g in grads.items()}
+        step = state.step + 1
+        mu = {k: b1 * state.mu[k] + (1 - b1) * g.float()
+              for k, g in grads.items()}
+        nu = {k: b2 * state.nu[k] + (1 - b2) * torch.square(g.float())
+              for k, g in grads.items()}
+        bc1 = 1 - torch.pow(b1, step.float())
+        bc2 = 1 - torch.pow(b2, step.float())
+
+        def upd(m, v, p):
+            u = (-lr * (m / _per_lane(bc1, m))
+                 / (torch.sqrt(v / _per_lane(bc2, v)) + eps))
+            if weight_decay and decoupled:
+                u = u - lr * weight_decay * p.float()
+            return u.to(p.dtype)
+
+        updates = {k: upd(mu[k], nu[k], p) for k, p in params.items()}
+        return updates, AdamState(step=step, mu=mu, nu=nu)
+
+    return Optimizer(init=init, update=update)
+
+
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         weight_decay: float = 0.0) -> Optimizer:
+    """Adam with coupled (L2) weight decay — paper A.1's MLM optimizer."""
+    return _adam(lr, b1, b2, eps, weight_decay, decoupled=False)
+
+
+def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 0.01) -> Optimizer:
+    """Adam with decoupled weight decay."""
+    return _adam(lr, b1, b2, eps, weight_decay, decoupled=True)
+
+
+def make_optimizer(name: str, **kw) -> Optimizer:
+    name = name.lower()
+    if name == "sgd":
+        return sgd(**kw)
+    if name == "adam":
+        return adam(**kw)
+    if name == "adamw":
+        return adamw(**kw)
+    raise ValueError(f"unknown optimizer {name!r}")

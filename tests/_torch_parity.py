@@ -100,3 +100,58 @@ def port_engine(ds, params, *, agg_impl="kernel", depth=1, deadline_rho=0.0,
                        lanes_per_worker=LANES, pipeline_depth=depth,
                        agg_impl=agg_impl, deadline_rho=deadline_rho),
         obs=obs, device="cpu")
+
+
+# -- the reference's system-test engine (tests/test_system.py:19-43) ---------
+SYS_MODEL = dict(input_dim=16, width=32, n_blocks=2)
+
+
+def system_dataset():
+    """The reference's dataset of its system tests: 64 SR clients."""
+    return make_federated_dataset("sr", n_clients=64, input_dim=16,
+                                  batch_size=4, size_mu=2.5, size_sigma=0.8)
+
+
+def system_params():
+    p, _ = make_task_model("sr", jax.random.key(0), **SYS_MODEL)
+    return {k: np.asarray(v) for k, v in p.items()}
+
+
+def system_engine(port: bool, *, strategy="fedavg", depth=1, ckpt=None,
+                  rounds_per_ckpt=2, specs=None, workers=2, **cfg):
+    """``tests/test_system.py``'s ``_small_engine`` (cohort 8 over 2
+    workers x 2 lanes, ``steps_cap`` 4, SGD lr 0.1 momentum 0.9, LB) for
+    the reference (``port=False``) or the port on the CPU, both on the
+    reference's dataset and weights.  ``ckpt`` is a checkpoint directory;
+    ``specs`` a worker pool's specs; ``cfg`` more config fields."""
+    from repro.checkpoint import CheckpointStore as JStore
+    from repro.fl.strategy import strategy_from_name as jstrategy
+    from repro_torch.checkpoint import CheckpointStore as TStore
+    from repro_torch.fl.strategy import strategy_from_name as tstrategy
+    ds, params = system_dataset(), system_params()
+    if port:
+        pool = (TPool.from_specs(specs) if specs else
+                TPool.homogeneous(workers, type_name="a40", concurrency=2))
+        return TEngine(
+            dataset=ds, loss_fn=TASK_MODELS["sr"].loss_fn,
+            init_params=to_torch(params), optimizer=tsgd(0.1, momentum=0.9),
+            placement=tplacement("lb"), sampler=TSampler(64, 8), pool=pool,
+            telemetry=TTelemetry(), strategy=tstrategy(strategy),
+            config=TConfig(steps_cap=4, batch_size=4, lanes_per_worker=2,
+                           pipeline_depth=depth,
+                           rounds_per_checkpoint=rounds_per_ckpt, **cfg),
+            checkpoint_store=TStore(str(ckpt)) if ckpt else None,
+            device="cpu")
+    _, loss = make_task_model("sr", jax.random.key(0), **SYS_MODEL)
+    pool = (JPool.from_specs(specs) if specs else
+            JPool.homogeneous(workers, type_name="a40", concurrency=2))
+    return JEngine(
+        dataset=ds, loss_fn=loss,
+        init_params=jax.tree.map(jax.numpy.asarray, params),
+        optimizer=jsgd(0.1, momentum=0.9), placement=jplacement("lb"),
+        sampler=JSampler(64, 8), pool=pool, telemetry=JTelemetry(),
+        strategy=jstrategy(strategy),
+        config=JConfig(steps_cap=4, batch_size=4, lanes_per_worker=2,
+                       pipeline_depth=depth,
+                       rounds_per_checkpoint=rounds_per_ckpt, **cfg),
+        checkpoint_store=JStore(str(ckpt)) if ckpt else None)

@@ -911,3 +911,104 @@ def test_k1_launches_once_per_lm_lane_step(dev):
         programs = 2 if mesh else 1               # 2 workers
         assert tops.launch_counts()["fedavg_accum"] == \
             programs * sum(r.s_steps for r in res)
+
+
+# -- the paper's other tasks, FedMedian and resume (--task, --strategy,
+# --ckpt-dir) ---------------------------------------------------------------
+TASK_SMALL = {"ic": dict(width=32, n_blocks=2),
+              "tg": dict(vocab=90, hidden=16),
+              "mlm": dict(vocab=512, d_model=32, n_layers=2, d_ff=64)}
+
+
+def _task_engine(task, device, *, depth=1, strategy="fedavg", ckpt=None,
+                 **cfg):
+    """A reduced task engine (cohort 8 over 2 workers x 2 lanes,
+    ``steps_cap`` 2) with the reference's per-task optimizer, its weights
+    drawn on the CPU from seed 0 and moved to ``device``."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.core import (EngineConfig, FederatedEngine,
+                                  SyntheticTelemetry, UniformSampler,
+                                  make_placement)
+    from repro_torch.data import make_federated_dataset
+    from repro_torch.distributed import WorkerPool
+    from repro_torch.fl.strategy import strategy_from_name
+    from repro_torch.models.papertasks import make_task_model
+    from repro_torch.optim import adam, sgd
+    small = TASK_SMALL.get(task, dict(input_dim=16, width=32, n_blocks=2))
+    extra = ({"vocab_size": small["vocab"], "seq_len": 12}
+             if task in ("tg", "mlm") else
+             {"input_dim": 16} if task == "sr" else {})
+    ds = make_federated_dataset(task, n_clients=64, batch_size=4,
+                                size_mu=2.5, size_sigma=0.8, **extra)
+    params, loss = make_task_model(task, 0, device="cpu", **small)
+    opt = (adam(4e-5) if task == "mlm" else
+           sgd(0.8 if task == "tg" else 0.05, momentum=0.9,
+               weight_decay=5e-4))
+    return FederatedEngine(
+        dataset=ds, loss_fn=loss, init_params=params, optimizer=opt,
+        placement=make_placement("lb"), sampler=UniformSampler(64, 8),
+        pool=WorkerPool.homogeneous(cfg.pop("workers", 2), type_name="a40",
+                                    concurrency=2),
+        telemetry=SyntheticTelemetry(),
+        strategy=strategy_from_name(strategy),
+        config=EngineConfig(steps_cap=2, batch_size=4, lanes_per_worker=2,
+                            pipeline_depth=depth, rounds_per_checkpoint=2,
+                            **cfg),
+        checkpoint_store=CheckpointStore(str(ckpt)) if ckpt else None,
+        device=device)
+
+
+@pytest.mark.parametrize("task", ["ic", "tg", "mlm"])
+def test_task_rounds_on_card_track_the_cpu(dev, task):
+    """Two rounds of each reduced task on the card: K1 once per lane-loop
+    step, bitwise across depths, and within rtol 1e-5 of the CPU's losses
+    (GEMM and reduction sums in another order; TG's recurrence and MLM's
+    softmax stay inside it) and 1e-4 + 1e-6 of its params."""
+    tops.reset_launch_counts()
+    card = _task_engine(task, "cuda")
+    res = card.run(2)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["fedavg_accum"] == sum(r.s_steps
+                                                       for r in res)
+    cpu = _task_engine(task, "cpu")
+    cres = cpu.run(2)
+    np.testing.assert_allclose([r.loss for r in res],
+                               [r.loss for r in cres], rtol=1e-5)
+    for k, v in cpu.params.items():
+        assert torch.allclose(card.params[k].cpu(), v, rtol=1e-4,
+                              atol=1e-6), k
+    assert [r.loss for r in _task_engine(task, "cuda", depth=0).run(2)] \
+        == [r.loss for r in res]
+
+
+def test_fedmedian_on_card(dev):
+    """The median reduce is bitwise the CPU's (sorting is exact and
+    ``(lo + hi) * 0.5`` one rounding), for odd and even counts and at
+    SR's flat size; the gather path launches no K1 and its losses are
+    bitwise across depths."""
+    from repro_torch.core.aggregation import median_leading
+    for n in (3, 4):
+        x = _rand((n, 4_244_992), torch.float32, "cpu", 30 + n)
+        assert torch.equal(median_leading(x.to(dev)).cpu(),
+                           median_leading(x))
+    tops.reset_launch_counts()
+    runs = [[r.loss for r in _task_engine("sr", "cuda", depth=d,
+                                          strategy="fedmedian").run(3)]
+            for d in (0, 1)]
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["fedavg_accum"] == 0
+    assert runs[0] == runs[1] and all(np.isfinite(runs[0]))
+
+
+@pytest.mark.parametrize("mesh", [{}, dict(workers=4, mesh_workers=2,
+                                           combine_mode="tree",
+                                           combine_compress="int8")],
+                         ids=["fused", "int8"])
+def test_resume_on_card_is_bitwise(dev, mesh, tmp_path):
+    """4 rounds with a checkpoint every 2, restore into a new engine, 2
+    more: bitwise rounds 4-5 of an uninterrupted 6-round run."""
+    whole = [r.loss for r in _task_engine("sr", "cuda", **mesh).run(6)]
+    _task_engine("sr", "cuda", ckpt=tmp_path, **mesh).run(4)
+    eng = _task_engine("sr", "cuda", ckpt=tmp_path, **mesh)
+    assert eng.restore_latest() and eng.round_idx == 4
+    assert [r.loss for r in eng.run(2)] == whole[4:]

@@ -265,8 +265,8 @@ def test_unported_engine_options_raise(field, value):
         teng.EngineConfig(**{field: value})
 
 
-@pytest.mark.parametrize("argv", [["--ckpt-dir", "x"],
-                                  ["--strategy", "fedmedian"],
+@pytest.mark.parametrize("argv", [["--population-surge", "2:4"],
+                                  ["--flight-rounds", "4"],
                                   ["--sampler", "online"],
                                   ["--trace-out", "t.json"],
                                   ["--device-cache-batches", "8"]])
