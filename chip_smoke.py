@@ -170,7 +170,9 @@ Phases, one JSON object per line on stdout:
              published widths, 3 rounds at depths 0 and 1: bit-identical
              losses, no kernel launched (the gather path folds nothing),
              the card's median of one round's ``[4, N]`` models bitwise
-             equal to the CPU's, and the reduce timed;
+             equal to the CPU's — and with a NaN and ±inf put into them,
+             NaN exactly where a column holds a NaN, bitwise elsewhere —
+             and the reduce timed;
 23. resume — SR fused and the int8 mesh path: 4 rounds with a checkpoint
              every 2, restored into a new engine for 2 more, bitwise
              equal to rounds 4-5 of an uninterrupted run (K2 2 a round on
@@ -178,7 +180,32 @@ Phases, one JSON object per line on stdout:
              sidecar); the checkpoint's bytes and its save time;
 24. agree tasks — reduced IC, TG and MLM engines, 2 rounds on the card
              against the same on the CPU (``AGREE_TASKS_RTOL``);
-25. the ``kernels`` line (K1-K5; K1's and K2's launches on the LM training,
+25. control — the closed loop on SR at its published widths (K1 folding
+             every lane-loop step), the launch counts zeroed just before
+             each run and read just after: measured telemetry on the
+             fused path at depths 0/1/2 under ``reuse`` and ``stall``
+             (``CONTROL_ROUNDS`` rounds each): the refit barrier's audit
+             clean, no stall at depth <= 1, the LB model fed from the
+             card's round times, K1 once per lane-loop step (counted, and
+             from the profiler's kernel events in a profiled round);
+             measured telemetry on the mesh path (flat, and tree with int8
+             uploads): exact per-worker times, a residual per worker, the
+             audit clean; synthetic telemetry with the drift fallback and
+             the hill climber live at depths 0/1/2: losses bitwise, the
+             fallback engaged, every slot move in the worker pool;
+26. population — ``--sampler online --population 1000000 --cohort 64``
+             with a global outage over rounds [2, 4) and the controller
+             live, at depths 0/1/2: SLO fields and losses identical,
+             ``stale_fraction`` > 0 exactly inside the window, O(cohort)
+             probes, the prep time a round; a resume from a checkpoint
+             replays the stream (cohorts, SLO fields, losses) bitwise with
+             the controller's state restored;
+27. memory probe — ``round_memory_analysis`` of SR and MLM at 1 and 2
+             lanes (argument, output and temp bytes from the allocator),
+             the slot estimate for this card and for the default 80 GB
+             spec, then one SR round at ``min(estimate, 64)`` lanes on one
+             worker whose peak must stay within the estimate's budget;
+28. the ``kernels`` line (K1-K5; K1's and K2's launches on the LM training,
    task, FedMedian and resume paths beside the main ones, K1 timed at the
    tasks' lane buffers, K4's launches on the MoE and VLM serve paths and
    its timing at those shapes), then the card line and the last line
@@ -365,6 +392,18 @@ FEDMEDIAN_ROUNDS = 3
 # Resume: 4 rounds with a checkpoint every 2, then 2 more in a new engine,
 # against rounds 4-5 of an uninterrupted run.
 RESUME_ROUNDS, RESUME_EVERY = 4, 2
+# The closed loop on SR (published widths, build_engine's defaults: cohort
+# 8 over 2 workers x 2 lanes): rounds per run; the synthetic controller's
+# hair-trigger drift threshold and hill-climb interval; the slot cap of
+# the climber (EngineConfig.adapt_max_slots).
+CONTROL_ROUNDS = 8
+CONTROL_DRIFT, CONTROL_ADAPT = 0.01, 2
+CONTROL_MAX_SLOTS = 64
+# The open-world population: 1,000,000 registered clients, cohorts of 64,
+# every region offline over rounds [2, 4) (the stale fill), 6 rounds at
+# each depth; the resume checkpoints at round 4.
+POP_CLIENTS, POP_COHORT, POP_OUTAGE = 1_000_000, 64, "2:4"
+POP_ROUNDS, POP_RESUME_AT = 6, 4     # the resume replays rounds 4-5
 # Card vs CPU on reduced task engines (the CPU tests' widths): the same
 # math, GEMM and reduction sums in another order, over 2 rounds; TG's
 # recurrence (12 positions) and MLM's softmax stay well inside 1e-5.
@@ -1926,6 +1965,7 @@ def _device_profile(torch, fn, label: str = "k4",
            "device_idle_share": 1 - busy / wall,
            "kernels_launched": sum(r[2] for r in rows),
            f"{label}_ms": ours * 1e3,
+           f"{label}_launches": sum(n for _, k, n in rows if match in k),
            f"{label}_share_of_busy": ours / busy if busy else None,
            "top": [{"name": k[:80], "ms": us / 1e3, "count": n}
                    for us, k, n in rows[:top]]}
@@ -2725,11 +2765,25 @@ def phase_fedmedian(torch) -> dict:
     cpu = median_leading(stacked.cpu())
     check(torch.equal(card.cpu(), cpu),
           "the card's median differs from the CPU's")
+    # A diverged client: a NaN in one model makes its column NaN (as
+    # jnp.median does); +-inf columns and the finite rest stay bitwise.
+    sick = stacked.clone()
+    sick[1, 7] = float("nan")
+    sick[0, 11], sick[2, 11] = float("inf"), float("-inf")
+    sick[0, 12] = float("inf")
+    card_s, cpu_s = median_leading(sick).cpu(), median_leading(sick.cpu())
+    nan = torch.isnan(cpu_s)
+    check(bool(nan[7]) and torch.equal(torch.isnan(card_s), nan)
+          and int(nan.sum()) == int(torch.isnan(sick).any(0).sum().cpu())
+          and torch.equal(card_s[~nan], cpu_s[~nan]),
+          "the card's median of a model with NaN/inf differs from the "
+          "CPU's or drops the NaN")
     reduce_ms = time_ms(lambda: median_leading(stacked), iters=10)
     out = {"losses": losses, "bit_identical_depth_0_1": True,
            "launches_depth1": launches, "launches_depth0": runs[0][1],
            "stacked_shape": list(stacked.shape),
-           "median_card_equals_cpu": True, "median_ms": reduce_ms,
+           "median_card_equals_cpu": True,
+           "median_nan_column_is_nan": True, "median_ms": reduce_ms,
            "mean_exec_s": sum(r.exec_time for r in res[1:])
            / max(len(res) - 1, 1)}
     emit({"phase": "fedmedian_summary", "rounds": FEDMEDIAN_ROUNDS, **out})
@@ -2785,6 +2839,300 @@ def phase_resume(torch) -> dict:
     check(any(k.endswith(".aux.npz") for k in mesh["checkpoint_bytes"]),
           "the int8 checkpoint has no residual sidecar")
     return {"fused": fused, "mesh_int8": mesh}
+
+
+# -- the closed loop, the open-world population, the concurrency estimator ---
+def _sr_run(torch, rounds: int, depth: int = 1, setup=None, **kw):
+    """``build_engine(task="sr", **kw)`` at the published widths, ``rounds``
+    rounds at ``depth`` with the launch counts zeroed just before and read
+    just after (``setup(engine)`` runs before that)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_engine
+    eng = build_engine(task="sr", pipeline_depth=depth, **kw)
+    if setup is not None:
+        setup(eng)
+    ops.reset_launch_counts()
+    res = eng.run(rounds)
+    launches = ops.launch_counts()
+    torch.cuda.synchronize()
+    return eng, res, launches
+
+
+def _round_rows(phase: str, res, **tags) -> None:
+    for r in res:
+        emit({"phase": phase, **tags, "round": r.round_idx, "loss": r.loss,
+              "s_steps": r.s_steps, "exec_time": r.exec_time,
+              "wall_time": r.wall_time, "pack_time": r.pack_time,
+              "barrier_stall_s": r.barrier_stall_s,
+              "drift_fallback": r.drift_fallback,
+              "critical_path": r.critical_path})
+
+
+def _model_rows(eng) -> int:
+    return sum(len(m._xs) for m in eng.placement.models.values())
+
+
+def phase_control(torch) -> dict:
+    """The closed loop on SR at its published widths (K1 folding every
+    lane-loop step):
+
+    1. measured telemetry on the fused path at depths 0/1/2 under
+       ``reuse`` and ``stall``, ``CONTROL_ROUNDS`` rounds each: the audit
+       is clean, ``stall`` stalls nothing at depth <= 1, the LB model holds
+       rows whose times came from the card (and the synthetic telemetry
+       drew nothing), K1 launched once per lane-loop step — counted, and
+       in a profiled round from the profiler's kernel events;
+    2. measured telemetry on the mesh path (4 workers over 2 shards, flat,
+       then tree with int8 uploads): per-worker times recorded exactly,
+       none attributed by share, every worker with a residual, the audit
+       clean, K2 twice a round with int8;
+    3. synthetic telemetry with ``drift_threshold`` and ``adapt_interval``
+       live at depths 0/1/2: losses bitwise, the fallback engaged, slot
+       moves reached the worker pool."""
+    from repro_torch.core import SyntheticTelemetry
+    out = {"measured": {}, "mesh": {}, "synthetic": {}}
+    for policy in ("reuse", "stall"):
+        for depth in (0, 1, 2):
+            eng, res, launches = _sr_run(torch, CONTROL_ROUNDS, depth,
+                                         telemetry_mode="measured",
+                                         barrier_policy=policy)
+            _round_rows("control_measured", res, depth=depth, policy=policy)
+            st = eng.control_stats
+            steps = sum(r.s_steps for r in res)
+            stall = [r.barrier_stall_s for r in res]
+            check(eng.control.audit() == [] and st["audit_violations"] == 0,
+                  f"measured {policy} depth {depth}: audit "
+                  f"{eng.control.audit()}")
+            if policy == "stall" and depth <= 1:
+                check(all(x == 0.0 for x in stall),
+                      f"stall at depth {depth} stalled: {stall}")
+            check(st["barrier"]["rows_attributed"] > 0
+                  and _model_rows(eng) > 0
+                  and eng.placement.ready_for(eng.pool.snapshot()),
+                  f"measured {policy} depth {depth}: the LB model holds no "
+                  f"card rows: {st['barrier']}")
+            check(eng.telemetry.state_dict()
+                  == SyntheticTelemetry(seed=1337).state_dict(),
+                  "measured mode drew synthetic telemetry")
+            check(launches["fedavg_accum"] == steps > 0,
+                  f"measured {policy} depth {depth}: K1 launched "
+                  f"{launches['fedavg_accum']} times for {steps} steps")
+            row = {"launches": launches["fedavg_accum"], "steps": steps,
+                   "stall_s": sum(stall), "stalls": st["barrier"]["stalls"],
+                   "model_rows": _model_rows(eng),
+                   "rows_attributed": st["barrier"]["rows_attributed"],
+                   "mean_exec_s": sum(r.exec_time for r in res[1:])
+                   / (len(res) - 1),
+                   "mean_wall_s": sum(r.wall_time for r in res[1:])
+                   / (len(res) - 1),
+                   "critical_path": [r.critical_path for r in res]}
+            if policy == "reuse" and depth == 1:
+                before = len(eng.history)
+                prof = _device_profile(torch, lambda: eng.run(1),
+                                       label="k1", match="fedavg", top=6)
+                r = eng.history[before]
+                check(prof["k1_launches"] == r.s_steps,
+                      f"profiled measured round: {prof['k1_launches']} K1 "
+                      f"kernels for {r.s_steps} steps")
+                row["profile"] = prof
+                check(eng.control.audit() == [], "audit after the profile")
+            out["measured"][f"{policy}_depth{depth}"] = row
+            emit({"phase": "control_measured_summary", "policy": policy,
+                  "depth": depth, **row, "barrier": st["barrier"]})
+    for label, kw in (("flat", dict(workers=4, mesh_workers=2)),
+                      ("tree_int8", MESH)):
+        eng, res, launches = _sr_run(torch, MESH_ROUNDS + 1, 1,
+                                     telemetry_mode="measured", **kw)
+        _round_rows("control_mesh", res, combine=label)
+        st = eng.control_stats
+        check(st["barrier"]["rows_attributed"] == 0
+              and st["barrier"]["rows_exact"] > 0,
+              f"mesh {label}: worker times not exact: {st['barrier']}")
+        check(sorted(st["worker_residuals"]) == [0, 1, 2, 3],
+              f"mesh {label}: residuals {st.get('worker_residuals')}")
+        check(st["audit_violations"] == 0 and eng.control.audit() == [],
+              f"mesh {label}: audit {eng.control.audit()}")
+        if label == "tree_int8":
+            check(launches["dequant_merge"] == 2 * len(res),
+                  f"mesh int8: K2 launched {launches}")
+        out["mesh"][label] = {
+            "rows_exact": st["barrier"]["rows_exact"],
+            "worker_residuals": st["worker_residuals"],
+            "launches": launches,
+            "mean_exec_s": sum(r.exec_time for r in res[1:]) / (len(res) - 1)}
+        emit({"phase": "control_mesh_summary", "combine": label,
+              **out["mesh"][label]})
+    runs = {}
+    for depth in (0, 1, 2):
+        moves = []
+
+        def spy(eng):
+            # Record the pool's slot counts after every move the hill
+            # climber applies (producer-side, in round order).
+            apply = eng.control._apply_slots
+
+            def applied(key, slots):
+                apply(key, slots)
+                moves.append((key, slots, sorted(
+                    w.concurrency for w in eng.pool.workers.values())))
+
+            eng.control._apply_slots = applied
+
+        eng, res, launches = _sr_run(torch, CONTROL_ROUNDS, depth, spy,
+                                     drift_threshold=CONTROL_DRIFT,
+                                     adapt_interval=CONTROL_ADAPT)
+        _round_rows("control_synthetic", res, depth=depth)
+        slots = {w.wid: w.concurrency for w in eng.pool.snapshot()}
+        check(eng.control.autoconc.updates > 0 and moves
+              and all(set(pool) == {n} for _, n, pool in moves),
+              f"synthetic depth {depth}: slot moves {moves} did not reach "
+              f"the pool")
+        check(launches["fedavg_accum"] == sum(r.s_steps for r in res),
+              f"synthetic depth {depth}: K1 launched {launches}")
+        runs[depth] = [(r.loss, r.drift_fallback, r.makespan) for r in res]
+        out["synthetic"][f"depth{depth}"] = {
+            "slots": slots, "moves": moves, "stats": eng.control_stats}
+    check(runs[0] == runs[1] == runs[2],
+          f"synthetic control: depths differ: {runs}")
+    check(any(f for _, f, _ in runs[0]), "the drift fallback never engaged")
+    out["synthetic"]["losses"] = [x[0] for x in runs[0]]
+    emit({"phase": "control_summary", "bit_identical_depth_0_1_2": True,
+          **out["synthetic"]})
+    return out
+
+
+def phase_population(torch) -> dict:
+    """``build_engine(task="sr", sampler="online", population=1,000,000,
+    cohort=64)`` with a global ``--population-outage`` window, at the
+    published widths, ``POP_ROUNDS`` rounds at depths 0/1/2 with the
+    controller live (drift fallback and hill climber): the SLO fields and
+    losses identical across depths, ``stale_fraction`` > 0 only inside the
+    window, O(cohort) probes a round and the prep time at 1 M clients;
+    then a resume from a checkpoint replays the stream (cohorts, SLO
+    fields, losses) bitwise with the controller state restored."""
+    import tempfile
+    from repro_torch.launch.train import build_engine
+    kw = dict(sampler="online", population=POP_CLIENTS, cohort=POP_COHORT,
+              population_outage=POP_OUTAGE, drift_threshold=CONTROL_DRIFT,
+              adapt_interval=CONTROL_ADAPT)
+    lo, hi = (int(x) for x in POP_OUTAGE.split(":"))
+    runs, results = {}, {}
+    for depth in (0, 1, 2):
+        eng, res, launches = _sr_run(torch, POP_ROUNDS, depth, **kw)
+        results[depth] = res
+        _round_rows("population", res, depth=depth)
+        for r in res:
+            emit({"phase": "population_slo", "depth": depth,
+                  "round": r.round_idx, "slo_p50": r.slo_p50,
+                  "slo_p99": r.slo_p99, "stale_fraction": r.stale_fraction,
+                  "online_pool": r.online_pool, "n_clients": r.n_clients})
+        check(launches["fedavg_accum"] == sum(r.s_steps for r in res),
+              f"population depth {depth}: K1 launched {launches}")
+        probes = eng.sampler.index.probes
+        check(probes <= POP_ROUNDS * 2 * eng.sampler.max_draw_factor
+              * POP_COHORT, f"population: {probes} probes")
+        runs[depth] = {
+            "slo": [(r.slo_p50, r.slo_p99, r.stale_fraction, r.online_pool)
+                    for r in res],
+            "losses": [r.loss for r in res],
+            "pack_time": [r.pack_time for r in res],
+            "exec_time": [r.exec_time for r in res],
+            "probes_per_round": probes / POP_ROUNDS,
+            "launches": launches["fedavg_accum"]}
+    slo = runs[0]["slo"]
+    check(runs[0]["slo"] == runs[1]["slo"] == runs[2]["slo"],
+          f"SLO fields differ across depths: {runs}")
+    check(runs[0]["losses"] == runs[1]["losses"] == runs[2]["losses"],
+          "population losses differ across depths")
+    check(all((s[2] > 0) == (lo <= t < hi) for t, s in enumerate(slo)),
+          f"stale_fraction outside/inside the outage {POP_OUTAGE}: {slo}")
+    check(all(math.isfinite(x) for x in runs[0]["losses"]), "losses")
+    whole = results[1]                   # depth 1, as build_engine's default
+    with tempfile.TemporaryDirectory() as tmp:
+        first = build_engine(task="sr", ckpt_dir=tmp,
+                             rounds_per_checkpoint=POP_RESUME_AT // 2, **kw)
+        first.run(POP_RESUME_AT)
+        saved = first._control_ckpt_state
+        eng = build_engine(task="sr", ckpt_dir=tmp, **kw)
+        check(eng.restore_latest() and eng.round_idx == POP_RESUME_AT,
+              f"population resume at {eng.round_idx}")
+        check(eng.control.state_dict() == json.loads(json.dumps(saved)),
+              "the restored controller state differs from the snapshot")
+        resumed = eng.run(2)
+
+    def sig(r):
+        return (r.loss, r.n_clients, r.slo_p50, r.slo_p99, r.stale_fraction,
+                r.online_pool, r.drift_fallback)
+
+    check([sig(r) for r in resumed] == [sig(r) for r in
+                                        whole[POP_RESUME_AT:]],
+          f"resumed online stream differs: {[sig(r) for r in resumed]} vs "
+          f"{[sig(r) for r in whole[POP_RESUME_AT:]]}")
+    out = {"population": POP_CLIENTS, "cohort": POP_COHORT,
+           "outage": POP_OUTAGE, "slo": slo, "losses": runs[1]["losses"],
+           "pack_time_depth0": runs[0]["pack_time"],
+           "pack_time_depth1": runs[1]["pack_time"],
+           "exec_time_depth1": runs[1]["exec_time"],
+           "probes_per_round": runs[0]["probes_per_round"],
+           "launches": runs[1]["launches"],
+           "resume_bitwise": True, "bit_identical_depth_0_1_2": True}
+    emit({"phase": "population_summary", **out})
+    return out
+
+
+def phase_memory_probe(torch) -> dict:
+    """``round_memory_analysis`` (one lane-loop round at 1 and 2 lanes, the
+    allocator's peak) for SR and MLM at their published sizes, and the slot
+    estimate it gives for this card and for the default 80 GB spec; then
+    one SR round at ``min(estimate, adapt_max_slots)`` lanes on one worker,
+    whose peak must stay within the estimate's budget."""
+    import gc
+    from repro_torch.core import (DeviceSpec,
+                                  estimate_slots_from_memory_analysis,
+                                  round_memory_analysis)
+    from repro_torch.launch.train import build_engine
+    card = DeviceSpec.from_card()
+    out = {"card": {"name": card.name, "hbm_bytes": card.hbm_bytes}}
+    card_est = {}
+    for task in ("sr", "mlm"):
+        eng = build_engine(task=task)
+        probes = {n: round_memory_analysis(eng, slots_compiled=n)
+                  for n in (1, 2)}
+        est = {spec_name: estimate_slots_from_memory_analysis(
+            probes[2], slots_compiled=2, group_devices=1, device=spec)
+            for spec_name, spec in (("card", card),
+                                    ("spec_80gb", DeviceSpec()))}
+        card_est[task] = est["card"]
+        check(probes[2].temp_size_in_bytes > probes[1].temp_size_in_bytes,
+              f"{task}: 2 lanes took no more temp bytes than 1: {probes}")
+        out[task] = {"probe": {n: vars(m) for n, m in probes.items()},
+                     "estimate": {k: vars(e) for k, e in est.items()}}
+        emit({"phase": "memory_probe", "task": task, "card": out["card"],
+              **out[task]})
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    est = card_est["sr"]
+    lanes = min(est.slots, CONTROL_MAX_SLOTS)
+    eng = build_engine(task="sr", workers=1, concurrency=lanes,
+                       cohort=lanes)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = eng.run(1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(res[0].loss), f"{lanes}-lane SR round: {res}")
+    check(peak <= est.budget_bytes,
+          f"{lanes}-lane SR round peaked at {peak} B, over the estimate's "
+          f"budget {est.budget_bytes} B")
+    out["sr_round"] = {"lanes": lanes, "peak_bytes": peak,
+                       "budget_bytes": est.budget_bytes,
+                       "estimate_slots": est.slots,
+                       "exec_time": res[0].exec_time,
+                       "s_steps": res[0].s_steps}
+    emit({"phase": "memory_probe_round", **out["sr_round"]})
+    return out
 
 
 def _small_task_engine(task: str, device: str):
@@ -2905,6 +3253,9 @@ def main() -> int:
     fedmedian = phase_fedmedian(torch)
     resume = phase_resume(torch)
     phase_agree_tasks(torch)
+    control = phase_control(torch)
+    population = phase_population(torch)
+    memory = phase_memory_probe(torch)
     if args.profile_out:
         phase_profile(torch, args.profile_out, "fused")
         phase_profile(torch, args.profile_out, "mesh", **MESH)
@@ -2932,6 +3283,12 @@ def main() -> int:
          "launches_fedmedian": fedmedian["launches_depth1"]["fedavg_accum"],
          "launches_resume_fused": resume["fused"]["launches_resumed"][
              "fedavg_accum"],
+         "launches_control_measured": {
+             k: v["launches"] for k, v in control["measured"].items()},
+         "launches_control_mesh": {
+             k: v["launches"]["fedavg_accum"]
+             for k, v in control["mesh"].items()},
+         "launches_population": population["launches"],
          "train_full_fold": {k: lm_fold[k] for k in (
              "shape", "ms", "plain_ms", "library_ms", "bound_ms",
              "bound_by", "max_abs_err")}},
@@ -2941,6 +3298,8 @@ def main() -> int:
          "launches_per_round": mesh_launches["dequant_merge"] / len(mesh_res),
          "launches_train_lm_mesh": train_mesh["launches"]["dequant_merge"],
          "launches_resume_mesh": resume["mesh_int8"]["launches_resumed"][
+             "dequant_merge"],
+         "launches_control_mesh": control["mesh"]["tree_int8"]["launches"][
              "dequant_merge"],
          "lm_payload": {k: k2_lm[k] for k in (
              "shape", "leaves", "ms", "plain_ms", "bound_ms", "bound_by")},

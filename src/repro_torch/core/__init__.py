@@ -3,6 +3,10 @@
 from .aggregation import (PartialAggregate, fedavg_flat, fold_clients,
                           partial_init, partial_merge, partial_update,
                           tree_weighted_mean)
+from .concurrency import (ConcurrencyEstimate, DeviceSpec,
+                          RoundMemoryAnalysis, estimate_slots_analytic,
+                          estimate_slots_from_memory_analysis,
+                          gpu_concurrency_probe, round_memory_analysis)
 from .engine import EngineConfig, FederatedEngine, RoundResult, s_bucket
 from .placement import (Assignment, BatchesBasedPlacement, ClientInfo,
                         LearningBasedPlacement, Placement,
@@ -14,13 +18,15 @@ from .timemodel import (LogLinearFit, TrainingTimeModel, fit_linear,
                         fit_log_linear)
 
 __all__ = [
-    "Assignment", "BatchesBasedPlacement", "ClientInfo", "DeadlineFilter",
-    "EngineConfig", "FederatedEngine", "GPUProfile", "LearningBasedPlacement",
+    "Assignment", "BatchesBasedPlacement", "ClientInfo",
+    "ConcurrencyEstimate", "DeadlineFilter", "DeviceSpec", "EngineConfig", "FederatedEngine", "GPUProfile", "LearningBasedPlacement",
     "LogLinearFit", "PartialAggregate", "Placement", "PowerOfChoiceSampler",
-    "RoundResult", "RoundRobinPlacement", "SyntheticTelemetry",
+    "RoundMemoryAnalysis", "RoundResult", "RoundRobinPlacement", "SyntheticTelemetry",
     "TelemetryStore", "TrainingTimeModel", "UniformSampler", "WorkerInfo",
-    "ZipfSampler", "fedavg_flat", "fit_linear", "fit_log_linear",
-    "fold_clients", "make_placement", "partial_init", "partial_merge",
-    "partial_update", "restore_sampler", "s_bucket", "sampler_state",
+    "ZipfSampler", "estimate_slots_analytic",
+    "estimate_slots_from_memory_analysis", "fedavg_flat", "fit_linear",
+    "fit_log_linear", "fold_clients", "gpu_concurrency_probe",
+    "make_placement", "partial_init", "partial_merge",
+    "partial_update", "restore_sampler", "round_memory_analysis", "s_bucket", "sampler_state",
     "tree_weighted_mean",
 ]

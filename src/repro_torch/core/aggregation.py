@@ -129,11 +129,14 @@ def median_leading(x: torch.Tensor) -> torch.Tensor:
     """Coordinate-wise median over the leading dim, as ``jnp.median(x,
     axis=0)``: the mean of the two middle values of the sorted column,
     ``(lo + hi) * 0.5`` (one rounding; the middle value itself for an odd
-    count).  ``torch.median`` would return the lower middle value, and
-    ``torch.quantile`` refuses inputs over 2^24 elements."""
+    count), and NaN for a column that holds a NaN (``torch.sort`` puts a
+    NaN last, so the middle values alone would drop it).  ``torch.median``
+    would return the lower middle value, and ``torch.quantile`` refuses
+    inputs over 2^24 elements."""
     srt = torch.sort(x, dim=0).values
     n = x.shape[0]
-    return (srt[(n - 1) // 2] + srt[n // 2]) * 0.5
+    out = (srt[(n - 1) // 2] + srt[n // 2]) * 0.5
+    return out.masked_fill_(torch.isnan(x).any(0), float("nan"))
 
 
 def fedmedian(client_trees: list) -> dict:

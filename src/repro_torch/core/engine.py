@@ -37,20 +37,36 @@ fused step), or §3.3's tree (a merge per shard first), optionally with the
 host level (``hosts``) or compressed shard uploads (``combine_compress``;
 K2 folds int8 payloads).  On one card every shard is that card.
 
+Closed-loop control (``telemetry_mode`` / ``drift_threshold`` /
+``adapt_interval`` — :mod:`repro_torch.control`) is the reference's: with
+``telemetry_mode="measured"`` the placement model learns from the card's
+measured times — the fused round's dispatch-to-loss-sync wall time spread
+over its clients by predicted share, or each mesh worker's own sync —
+released to the producer through the depth-aware refit barrier
+(``barrier_policy`` ``"reuse"`` or ``"stall"``).  The drift detector can
+fall placement back to Batches-Based and the hill climber retunes worker
+concurrency; both act producer-side in round order, so synthetic-mode runs
+stay bit-identical across depths with the controller live.
+
 Checkpoints are the reference's files (:mod:`repro_torch.checkpoint`): the
-global model, the sampler and synthetic-telemetry RNG states snapshotted at
-prepare time, the placement model's rows of booked rounds, and the
+global model, the sampler (the open-world one included) and
+synthetic-telemetry RNG states and the control plane's state, snapshotted
+at prepare time, the placement model's rows of booked rounds, and the
 compressed combine's residuals, so a resumed run is bitwise the
 uninterrupted one at any pipeline depth.
 
+An observability bundle (:mod:`repro_torch.obs`) may ride along: its tracer
+books every stage, and its flight recorder keeps the last rounds and dumps
+them when a round or the pipeline aborts.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: the device batch cache, the control plane (and restoring a
-checkpoint that carries its state) and the process-per-host harness
-(ROADMAP M10, M11, M14).
+ignored: the device batch cache (ROADMAP M11) and the process-per-host
+harness (M14).
 """
 
 from __future__ import annotations
 
+import json
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -183,6 +199,11 @@ class RoundResult:
     combine_bytes: int = 0         # cross-shard combine transfer (mesh path)
     residual_norm: float = 0.0     # L2 of the error-feedback residuals after
     #                                this round (compressed combine only)
+    barrier_stall_s: float = 0.0   # producer stall at the refit barrier
+    drift_fallback: bool = False   # placed by the BB fallback (drift alarm)
+    stale_fraction: float = 0.0    # cohort fraction drafted while offline
+    online_pool: float = 0.0       # expected online-pool size at sample time
+    #                                (0 for closed-registry samplers)
 
 
 # (field, default, ROADMAP item) of every EngineConfig option not ported
@@ -190,9 +211,6 @@ class RoundResult:
 _UNPORTED = (
     ("device_cache_batches", 0, "M11"), ("device_cache_bytes", 0, "M11"),
     ("cache_affinity", False, "M11"),
-    ("telemetry_mode", "synthetic", "M10"), ("barrier_policy", "reuse", "M10"),
-    ("drift_threshold", 0.0, "M10"), ("adapt_interval", 0, "M10"),
-    ("adapt_granularity", "type", "M10"),
 )
 
 
@@ -220,15 +238,18 @@ class EngineConfig:
     combine_topk_frac: float = 0.05  # fraction of entries topk sends per leaf
     hosts: int = 0                 # H >= 1: shards merge in H host blocks
     #                                through the canonical pairwise tree
+    # -- control plane (repro_torch.control): any non-default knob enables it
+    telemetry_mode: str = "synthetic"   # "synthetic" | "measured"
+    barrier_policy: str = "reuse"       # "reuse" | "stall" (measured mode)
+    drift_threshold: float = 0.0        # residual EWMA alarm; 0 = off
+    drift_window: int = 16
+    adapt_interval: int = 0             # rounds per hill-climb move; 0 = off
+    adapt_max_slots: int = 64
+    adapt_granularity: str = "type"     # "type" | "worker" (per-wid slots)
     # -- options of the reference not ported yet (see _UNPORTED) ------------
     device_cache_batches: int = 0
     device_cache_bytes: int = 0
     cache_affinity: bool = False
-    telemetry_mode: str = "synthetic"
-    barrier_policy: str = "reuse"
-    drift_threshold: float = 0.0
-    adapt_interval: int = 0
-    adapt_granularity: str = "type"
 
     def __post_init__(self):
         depth = self.pipeline_depth
@@ -241,12 +262,46 @@ class EngineConfig:
         if self.compile_cache_size < 1:
             raise ValueError("compile_cache_size must be >= 1, got "
                              f"{self.compile_cache_size!r}")
+        for name in ("device_cache_batches", "device_cache_bytes"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0, got "
+                                 f"{getattr(self, name)!r}")
         self._check_mesh()
+        self._check_control()
         for name, default, item in _UNPORTED:
             value = getattr(self, name)
             if value != default:
                 raise NotImplementedError(
                     f"{name}={value!r} is not ported yet (ROADMAP {item})")
+
+    @property
+    def control_enabled(self) -> bool:
+        return (self.telemetry_mode == "measured"
+                or self.drift_threshold > 0 or self.adapt_interval > 0)
+
+    def _check_control(self) -> None:
+        """The reference's checks of the control-plane knobs
+        (``repro/core/engine.py:378-403``), with its messages."""
+        if self.adapt_granularity not in ("type", "worker"):
+            raise ValueError("adapt_granularity must be 'type' or 'worker', "
+                             f"got {self.adapt_granularity!r}")
+        if self.telemetry_mode not in ("synthetic", "measured"):
+            raise ValueError("telemetry_mode must be 'synthetic' or "
+                             f"'measured', got {self.telemetry_mode!r}")
+        if self.barrier_policy not in ("reuse", "stall"):
+            raise ValueError("barrier_policy must be 'reuse' or 'stall', "
+                             f"got {self.barrier_policy!r}")
+        if self.barrier_policy == "stall" and self.telemetry_mode != "measured":
+            raise ValueError("barrier_policy='stall' requires "
+                             "telemetry_mode='measured' (synthetic "
+                             "telemetry is drawn at prepare time; there is "
+                             "no finish-time barrier to stall on)")
+        if self.drift_threshold < 0:
+            raise ValueError("drift_threshold must be >= 0, got "
+                             f"{self.drift_threshold!r}")
+        if self.adapt_interval < 0:
+            raise ValueError("adapt_interval must be >= 0, got "
+                             f"{self.adapt_interval!r}")
 
     def _check_mesh(self) -> None:
         """The reference's checks of the mesh, bucket, combine and host
@@ -324,20 +379,30 @@ class _PreparedRound:
     exec_t0: float = 0.0     # consumer-set: execution dispatch timestamp
     exec_s: float = 0.0      # consumer-set: dispatch -> loss sync
     padded_steps: int = 0
+    n_steps_real: int = 0    # unpadded lane steps (throughput accounting)
+    shares: list | None = None  # (type, x, pred) attribution weights (measured)
+    stall_s: float = 0.0     # producer stall at the refit barrier
+    fallback: bool = False   # placed by the drift fallback (BB)
+    # -- deadline-SLO metrics, computed producer-side in round order ---------
     slo_p50: float = 0.0
     slo_p99: float = 0.0
+    stale_fraction: float = 0.0
+    online_pool: float = 0.0
     # -- mesh execution (per-worker programs) ---------------------------------
     worker_programs: list | None = None
-    # [(wid, type_name, shard, device, device_arrays, xs)]
+    # [(wid, type_name, shard, device, device_arrays, xs, pred_s)]
     combine_masks: tuple | None = None  # full (mask, boundary, weight)
-    worker_times: list | None = None    # consumer-set: [(wid, type, xs, s)]
+    worker_times: list | None = None
+    # consumer-set: [(wid, type_name, xs, pred_s, meas_s)]
     combine_t0: float = 0.0  # consumer-set: cross-shard combine start
     combine_s: float = 0.0   # combine wall (last worker sync -> loss sync)
     combine_bytes: int = 0   # consumer-set: cross-shard combine transfer
     residual_sq: torch.Tensor | None = None  # consumer-set: device scalar
+    residual_norm: float = 0.0  # consumer-set at the loss sync
     # -- checkpoint snapshots, taken at prepare time ------------------------
     sampler_st: dict | None = None     # sampler RNG after this round's draw
     telemetry_st: dict | None = None   # telemetry RNG after its draws
+    control_st: dict | None = None     # control plane after this prep
 
 
 class FederatedEngine:
@@ -390,6 +455,7 @@ class FederatedEngine:
         self.history: list[RoundResult] = []
         self._sampler_ckpt_state = None
         self._telemetry_ckpt_state = None
+        self._control_ckpt_state = None
         # Rounds t .. t+depth are in flight at once: depth+1 slot sets.
         self._pack_buffers = PackBuffers(
             depth=config.pipeline_depth + 1,
@@ -397,6 +463,23 @@ class FederatedEngine:
         self.obs = obs
         self._tracer = obs.tracer if obs is not None else NULL_TRACER
         self._metrics = obs.metrics if obs is not None else None
+        self._ctl_log_seen = 0
+        self.control = None
+        if config.control_enabled:
+            # Deferred import: repro_torch.control imports core.placement,
+            # so a module-level import here would cycle through the package.
+            from repro_torch.control.controller import (ControlPlane,
+                                                        ControllerConfig)
+            self.control = ControlPlane(
+                ControllerConfig(
+                    telemetry_mode=config.telemetry_mode,
+                    barrier_policy=config.barrier_policy,
+                    drift_threshold=config.drift_threshold,
+                    drift_window=config.drift_window,
+                    adapt_interval=config.adapt_interval,
+                    adapt_max_slots=config.adapt_max_slots,
+                    adapt_granularity=config.adapt_granularity),
+                placement=placement, pool=pool)
         size = config.compile_cache_size
 
         def cache(factory):
@@ -501,6 +584,11 @@ class FederatedEngine:
     def _compiles_total(self) -> int:
         return sum(c.compiles for c in self._caches.values() if c is not None)
 
+    @property
+    def control_stats(self) -> dict:
+        """Control-plane counters (barrier/drift/concurrency; {} when off)."""
+        return self.control.stats() if self.control is not None else {}
+
     def _s_align(self, s_real: int) -> int:
         return s_bucket(s_real, base=self.cfg.s_bucket_base)
 
@@ -523,11 +611,14 @@ class FederatedEngine:
         return ClientInfo(cid=cid, n_batches=self.dataset.n_batches(cid),
                           n_samples=self.dataset.n_samples(cid))
 
-    def _record_telemetry(self, t: int, assignment: Assignment, workers
-                          ) -> tuple[float, float, list]:
-        """Draw per-client times for the assignment and feed them to the
-        placement model; return (makespan, idle_time, rows) with rows =
-        [(type, n_batches, t_c)].  Runs on the producer, in round order."""
+    @staticmethod
+    def _accumulate_loads(assignment: Assignment, workers, time_fn
+                          ) -> tuple[float, float, list, dict]:
+        """Fold ``time_fn(worker, client)`` over the assignment; return
+        (makespan, idle_time, rows, loads) with rows = [(type, n_batches,
+        t_c)] in iteration order and loads = per-wid concurrency-scaled
+        totals (the per-worker predictions the mesh path measures
+        against)."""
         by_wid = {w.wid: w for w in workers}
         loads: dict[int, float] = {}
         rows: list = []
@@ -535,20 +626,50 @@ class FederatedEngine:
             w = by_wid[wid]
             total = 0.0
             for c in clients:
-                if self.telemetry is not None:
-                    t_c = self.telemetry.sample_time(
-                        w.type_name, c.n_batches, concurrency=w.concurrency)
-                else:
-                    t_c = float(c.n_batches) / max(w.speed, 1e-9)
+                t_c = time_fn(w, c)
                 total += t_c
                 rows.append((w.type_name, c.n_batches, t_c))
             loads[wid] = total / max(w.concurrency, 1)
         makespan = max(loads.values()) if loads else 0.0
         idle = sum(makespan - v for v in loads.values())
+        return makespan, idle, rows, loads
+
+    def _record_telemetry(self, t: int, assignment: Assignment, workers
+                          ) -> tuple[float, float, list]:
+        """Draw per-client times for the assignment and feed them to the
+        placement model; return (makespan, idle_time, rows) with rows =
+        [(type, n_batches, t_c)].  Runs on the producer, in round order."""
+        def draw(w, c):
+            if self.telemetry is not None:
+                return self.telemetry.sample_time(w.type_name, c.n_batches,
+                                                  concurrency=w.concurrency)
+            return float(c.n_batches) / max(w.speed, 1e-9)
+
+        makespan, idle, rows, _ = self._accumulate_loads(assignment, workers,
+                                                         draw)
         if isinstance(self.placement, LearningBasedPlacement):
             for tname, x, t_c in rows:
                 self.placement.observe_type(t, tname, x, t_c)
         return makespan, idle, rows
+
+    def _predict_round(self, assignment: Assignment, workers
+                       ) -> tuple[float, float, list, dict]:
+        """Measured mode's prepare-time half: PREDICT per-client times (no
+        synthetic draw, no ``observe``) and return the shares the consumer
+        spreads the measured round time over, plus the per-wid predicted
+        loads.  Batch-count/speed proxies stand in until the per-type model
+        is ready."""
+        models = (self.placement.models
+                  if isinstance(self.placement, LearningBasedPlacement)
+                  else {})
+
+        def predict(w, c):
+            m = models.get(w.type_name)
+            if m is not None and m.ready:
+                return float(m.predict(float(c.n_batches)))
+            return float(c.n_batches) / max(w.speed, 1e-9)
+
+        return self._accumulate_loads(assignment, workers, predict)
 
     @staticmethod
     def _put(a: np.ndarray, device) -> torch.Tensor:
@@ -568,10 +689,23 @@ class FederatedEngine:
     # -- the pipeline stages ---------------------------------------------------
     def _prepare_round(self, t: int) -> _PreparedRound:
         """Host-side producer: sample, place, record telemetry, pack, start
-        the H2D transfer.  Every host-state mutation lives here."""
+        the H2D transfer.  Every host-state mutation lives here — pool
+        events, the control plane's barrier flush, drift and slot moves,
+        sampler RNG, refit, telemetry — in round order."""
         tp0 = time.perf_counter()
         tr = self._tracer
-        self.pool.advance_to(t)
+        fired = self.pool.advance_to(t)
+        ctl = self.control
+        stall_s, fallback = 0.0, False
+        if ctl is not None:
+            if fired:
+                ctl.on_pool_events(t, fired)
+            # The closed loop's producer half: flush barrier-released
+            # measured rows into the model ("stall" blocks here until round
+            # t-2 has finished), update drift, apply pending slot moves.
+            with tr.span("prep.barrier", t=t):
+                pre = ctl.pre_round(t)
+            stall_s, fallback = pre.stall_s, pre.fallback
         workers = self.pool.snapshot()
         if isinstance(self.placement, LearningBasedPlacement):
             with tr.span("prep.refit", t=t):
@@ -579,24 +713,61 @@ class FederatedEngine:
         with tr.span("prep.sample", t=t):
             clients = self._cohort(t)
         sampler_st = sampler_state(self.sampler)
-        assignment = self.placement.assign(clients, workers)
-        makespan, idle, rows = self._record_telemetry(t, assignment, workers)
+        place = ctl.fallback_placement if fallback else self.placement
+        assignment = place.assign(clients, workers)
+        shares, loads = None, {}
+        if self.cfg.telemetry_mode == "measured":
+            makespan, idle, shares, loads = self._predict_round(assignment,
+                                                                workers)
+            time_rows = shares
+            if self._mesh_shards:
+                # Each worker program is synced on its own: worker times are
+                # measured, and the predicted-share attribution is unused.
+                shares = None
+        else:
+            makespan, idle, time_rows = self._record_telemetry(
+                t, assignment, workers)
+            if ctl is not None:
+                ctl.round_prepared(t, makespan=makespan,
+                                   n_clients=len(clients), rows=time_rows)
+        slo_p50, slo_p99 = _slo_percentiles(time_rows)
+        # The online-pool stats the sampler published for THIS round's draw
+        # (same thread, read at once: depth-invariant).
+        pop_stats = getattr(self.sampler, "last_stats", None) or {}
         # Snapshot the synthetic-telemetry RNG AFTER this round's draws
         # (mirrors the sampler snapshot): the checkpoint for round_idx = t+1
         # resumes the stream where round t left it, however far ahead the
-        # pipelined producer has drawn.
+        # pipelined producer has drawn.  The control plane likewise, after
+        # every control mutation of this round.
         telemetry_st = (self.telemetry.state_dict()
                         if hasattr(self.telemetry, "state_dict") else None)
-        slo_p50, slo_p99 = _slo_percentiles(rows)
+        control_st = ctl.state_dict() if ctl is not None else None
+        if ctl is not None and tr.enabled:
+            # Controller decisions become instants by diffing its log.
+            log = ctl.log
+            for rnd, kind, detail in log[self._ctl_log_seen:]:
+                tr.instant("ctl." + str(kind), round=int(rnd),
+                           detail=str(detail))
+            self._ctl_log_seen = len(log)
+            if fallback:
+                tr.instant("ctl.drift_fallback", round=t)
         plan = plan_round(assignment, workers,
                           lanes_per_worker=self.cfg.lanes_per_worker,
                           steps_cap=self.cfg.steps_cap, min_steps=1)
         prep = _PreparedRound(t=t, clients=clients, workers=workers,
                               arrays=None, device=None, pack_s=0.0,
                               makespan=makespan, idle_time=idle,
+                              n_steps_real=plan.n_steps_total,
+                              shares=shares, stall_s=stall_s,
+                              fallback=fallback,
                               slo_p50=slo_p50, slo_p99=slo_p99,
+                              stale_fraction=float(
+                                  pop_stats.get("stale_fraction", 0.0)),
+                              online_pool=float(
+                                  pop_stats.get("online_pool", 0.0)),
                               sampler_st=sampler_st,
-                              telemetry_st=telemetry_st)
+                              telemetry_st=telemetry_st,
+                              control_st=control_st)
         if self._mesh_shards:
             # One program per worker: the round packs once at its full
             # [W, P, S] size and each worker's block is sliced out for its
@@ -613,7 +784,7 @@ class FederatedEngine:
                     seq_len=self.cfg.seq_len, s_align=lambda s: S,
                     buffers=self._pack_buffers)
                 prep.worker_programs = self._pack_worker_programs(
-                    plan, worker_S, prep.arrays, assignment, workers)
+                    plan, worker_S, prep.arrays, assignment, workers, loads)
             prep.pack_s = time.perf_counter() - tp0
             prep.padded_steps = (int(sum(worker_S)) * plan.P
                                  - plan.n_steps_total)
@@ -635,7 +806,7 @@ class FederatedEngine:
         return prep
 
     def _pack_worker_programs(self, plan, worker_S, arrays, assignment,
-                              workers) -> list:
+                              workers, loads: dict) -> list:
         """Producer half of the mesh path: each worker's ``[1, P, S_w]``
         block, copied to its shard's device.
 
@@ -660,7 +831,7 @@ class FederatedEngine:
                      put(arrays.weight))
             xs = [c.n_batches for c in assignment.per_worker.get(w.wid, [])]
             programs.append((w.wid, w.type_name, mesh_map.shard_of(w.wid),
-                             dev, block, xs))
+                             dev, block, xs, float(loads.get(w.wid, 0.0))))
         return programs
 
     def _execute(self, prep: _PreparedRound):
@@ -719,7 +890,7 @@ class FederatedEngine:
         tr = self._tracer
         dispatched = []
         on_dev: dict = {}
-        for wid, tname, shard, dev, block, xs in prep.worker_programs:
+        for wid, tname, shard, dev, block, xs, pred in prep.worker_programs:
             params = self._params_on(dev, on_dev)
             if dev.type == "cuda":
                 with torch.cuda.device(dev):
@@ -728,7 +899,7 @@ class FederatedEngine:
                     done.record()
             else:
                 out, done = self._worker_step(params, *block), None
-            dispatched.append((wid, tname, shard, xs, out, done))
+            dispatched.append((wid, tname, shard, xs, pred, out, done))
         # Each shard's programs run in order on its device, so a worker's
         # time is the delta from its shard-mate's completion.  Shards sync
         # on their own threads: blocking on a slow shard from one thread
@@ -737,7 +908,7 @@ class FederatedEngine:
         # target topology.
         t0 = prep.exec_t0
         by_shard: dict[int, list] = {}
-        for i, (wid, _, shard, _, _, done) in enumerate(dispatched):
+        for i, (wid, _, shard, _, _, _, done) in enumerate(dispatched):
             by_shard.setdefault(shard, []).append((i, wid, done))
         meas = [0.0] * len(dispatched)
 
@@ -758,20 +929,20 @@ class FederatedEngine:
         else:
             for chain in by_shard.values():
                 sync_shard(chain)
-        prep.worker_times = [(wid, tname, xs, meas[i]) for i, (
-            wid, tname, _, xs, _, _) in enumerate(dispatched)]
+        prep.worker_times = [(wid, tname, xs, pred, meas[i]) for i, (
+            wid, tname, _, xs, pred, _, _) in enumerate(dispatched)]
         # The combine's wall starts here and ends at the loss sync.
         prep.combine_t0 = time.perf_counter()
         if self._merge_step is None:
             # Flat: every lane partial crosses, and the combine is exactly
             # the fused step's tail on the concatenated [W·P, N] partials.
             theta_wp, n_wp, lane_losses = _cat_parts(
-                [self._to_root(d[4]) for d in dispatched])
+                [self._to_root(d[5]) for d in dispatched])
             prep.combine_bytes = n_wp.numel() * self._partial_bytes
             return self._combine(prep, theta_wp, n_wp, lane_losses)
         by_group: dict[int, list] = {}
         for d in dispatched:
-            by_group.setdefault(d[2], []).append(d[4])
+            by_group.setdefault(d[2], []).append(d[5])
         merged = {shard: self._merge_shard(outs)
                   for shard, outs in sorted(by_group.items())}
         if self._host_map is not None:
@@ -892,8 +1063,11 @@ class FederatedEngine:
         return metrics
 
     def _post_execute(self, prep: _PreparedRound, metrics) -> None:
-        """Consumer hook at the device sync point: measure execution, and
-        on the mesh path the combine's share of it."""
+        """Consumer hook at the device sync point: measure execution (on
+        the mesh path the combine's share of it) and — with the control
+        plane on — hand the measurement to it and mark the round finished
+        for the refit barrier.  That is what wakes a stalled producer, so
+        it runs before any queue wait."""
         with self._tracer.span("exec.wait", t=prep.t):
             float(metrics.loss)                # device sync point
         now = time.perf_counter()
@@ -906,6 +1080,16 @@ class FederatedEngine:
                     t=prep.t, mode=self.cfg.combine_mode,
                     compress=self.cfg.combine_compress,
                     bytes=int(prep.combine_bytes))
+        if prep.residual_sq is not None:
+            prep.residual_norm = float(prep.residual_sq.sqrt())
+        if self.control is not None:
+            if prep.residual_sq is not None:
+                self.control.on_combine_compressed(
+                    prep.t, bytes_sent=prep.combine_bytes,
+                    residual_norm=prep.residual_norm)
+            self.control.round_executed(prep.t, prep.exec_s, prep.shares,
+                                        prep.n_steps_real,
+                                        worker_times=prep.worker_times)
 
     def _finish(self, prep: _PreparedRound, metrics, t0: float) -> RoundResult:
         """Consumer tail: result bookkeeping."""
@@ -925,14 +1109,16 @@ class FederatedEngine:
             exec_time=prep.exec_s, padded_steps=prep.padded_steps,
             slo_p50=prep.slo_p50, slo_p99=prep.slo_p99,
             combine_bytes=prep.combine_bytes,
-            residual_norm=(float(prep.residual_sq.sqrt())
-                           if prep.residual_sq is not None else 0.0))
+            residual_norm=prep.residual_norm,
+            barrier_stall_s=prep.stall_s, drift_fallback=prep.fallback,
+            stale_fraction=prep.stale_fraction, online_pool=prep.online_pool)
         crit = critique_round(
             round_idx=t, pack_s=prep.pack_s, overlap_s=prep.overlap_s,
             exec_s=prep.exec_s, combine_s=prep.combine_s,
+            barrier_stall_s=prep.stall_s,
             makespan=prep.makespan, idle_time=prep.idle_time,
             n_workers=len(prep.workers),
-            worker_meas=([(w[0], w[3]) for w in prep.worker_times]
+            worker_meas=([(w[0], w[4]) for w in prep.worker_times]
                          if prep.worker_times else None))
         result.idle_fraction = crit.idle_fraction
         result.critical_path = crit.critical_path
@@ -940,7 +1126,9 @@ class FederatedEngine:
         self.round_idx = t + 1
         self._sampler_ckpt_state = prep.sampler_st
         self._telemetry_ckpt_state = prep.telemetry_st
+        self._control_ckpt_state = prep.control_st
         if self._tracer.enabled:
+            self._tracer.counter("online_pool", prep.online_pool)
             self._tracer.counter("combine_bytes", float(prep.combine_bytes))
         if self._metrics is not None:
             m = self._metrics
@@ -953,6 +1141,12 @@ class FederatedEngine:
             m.observe("round_wall_s", result.wall_time)
             m.observe("pack_s", prep.pack_s)
             m.observe("exec_s", prep.exec_s)
+        if self.obs is not None and self.obs.flight is not None:
+            self.obs.flight.on_round(t, {
+                "loss": loss, "n_clients": len(prep.clients),
+                "makespan": prep.makespan, "pack_s": prep.pack_s,
+                "exec_s": prep.exec_s, "stall_s": prep.stall_s,
+                "critique": crit.as_dict()})
         if (self.ckpt is not None
                 and (t + 1) % self.cfg.rounds_per_checkpoint == 0):
             self.save_checkpoint()
@@ -962,10 +1156,18 @@ class FederatedEngine:
     def run_round(self) -> RoundResult:
         """One fully synchronous round (also the ``pipeline_depth=0`` path)."""
         t0 = time.perf_counter()
-        prep = self._prepare_round(self.round_idx)
-        prep.exec_t0 = time.perf_counter()
-        metrics = self._execute(prep)
-        self._post_execute(prep, metrics)
+        if self.control is not None:
+            self.control.begin_run(self.round_idx)
+        try:
+            prep = self._prepare_round(self.round_idx)
+            prep.exec_t0 = time.perf_counter()
+            metrics = self._execute(prep)
+            self._post_execute(prep, metrics)
+        except BaseException as e:
+            if self.control is not None:
+                self.control.abort()
+            self._flight_dump(f"run_round abort: {e!r}")
+            raise
         return self._finish(prep, metrics, t0)
 
     def _run_pipelined(self, n_rounds: int, *, log_every: int = 0
@@ -978,12 +1180,35 @@ class FederatedEngine:
         round step raises, every round already executed is booked in
         ``history`` before the error surfaces, and queued preps stop at the
         abort guard without touching host state."""
+        try:
+            return self._run_pipelined_inner(n_rounds, log_every=log_every)
+        except BaseException as e:
+            if self.control is not None:
+                # Wake a producer stalled at the refit barrier: the round
+                # it waits for will never finish now.
+                self.control.abort()
+            self._flight_dump(f"pipeline abort: {e!r}")
+            raise
+
+    def _flight_dump(self, reason: str) -> None:
+        """Flight-recorder dump on an engine abort (never raises: the
+        recorder guards itself, and this must not mask the primary
+        error)."""
+        if self.obs is not None and self.obs.flight is not None:
+            path = self.obs.flight.dump(reason)
+            if path is not None:
+                print(f"flight recorder: dumped {path} ({reason})")
+
+    def _run_pipelined_inner(self, n_rounds: int, *, log_every: int = 0
+                             ) -> list[RoundResult]:
         out: list[RoundResult] = []
         first = self.round_idx
         last = first + n_rounds - 1
         depth = self.cfg.pipeline_depth
         queue: deque = deque()
         aborted = False
+        if self.control is not None:
+            self.control.begin_run(first)
 
         def guarded_prep(t):
             nonlocal aborted
@@ -1008,8 +1233,15 @@ class FederatedEngine:
                     prep.exec_t0 = time.perf_counter()
                     metrics = self._execute(prep)
                     self._post_execute(prep, metrics)   # device sync point
+                    # (marks round t finished for the refit barrier before
+                    # the queue wait below)
                 except BaseException:
+                    # Stop the producer too; the abort must land before the
+                    # raise, or leaving the with-block would join a prep
+                    # stalled at the refit barrier for its full timeout.
                     aborted = True
+                    if self.control is not None:
+                        self.control.abort()
                     for fut in queue:
                         fut.cancel()
                     raise
@@ -1091,6 +1323,16 @@ class FederatedEngine:
             comp_aux = self._compress.state_aux()
             if comp_aux is not None:
                 aux_tree["compress"] = comp_aux
+        if self._control_ckpt_state is not None:
+            # The control loop (drift EWMAs, slot trajectory, pending
+            # measured rows), snapshotted at prepare time so it matches
+            # round_idx at any depth; JSON in one uint8 leaf, as the
+            # reference writes it.
+            payload = np.frombuffer(
+                json.dumps(self._control_ckpt_state).encode("utf-8"),
+                dtype=np.uint8).copy()
+            extra["control"] = {"nbytes": int(payload.size)}
+            aux_tree["control"] = payload
         if self._host_map is not None:
             # The combine-tree family this trajectory was produced under.
             extra["host_layout"] = {"hosts": self._host_map.n_hosts,
@@ -1114,18 +1356,17 @@ class FederatedEngine:
     def restore_latest(self) -> bool:
         """Resume from the newest checkpoint; False when there is none.
 
-        Raises ``NotImplementedError`` for a checkpoint that carries
-        control-plane state (written by the reference with its control
-        plane on): the control plane is not ported (ROADMAP M10)."""
+        The control plane resumes where round ``rnd``'s prep left it when
+        the checkpoint carries its snapshot, and re-warms (``reset``)
+        otherwise; an engine without a control plane ignores the
+        snapshot, as the reference's does."""
         if self.ckpt is None or self.ckpt.latest_round() is None:
             return False
         params, rnd, extra = self.ckpt.restore(self.params)
-        if extra.get("control"):
-            raise NotImplementedError(
-                "this checkpoint carries control-plane state, and the "
-                "control plane is not ported yet (ROADMAP M10)")
         self.params = params
         self.round_idx = rnd
+        if self.control is not None:
+            self._restore_control(rnd, extra)
         if extra.get("sampler"):
             try:
                 self.sampler = restore_sampler(extra["sampler"])
@@ -1153,6 +1394,30 @@ class FederatedEngine:
                 m._recent_sig = (-1, -1, -1)
             self.placement.refit(self.round_idx)
         return True
+
+    def _restore_control(self, rnd: int, extra: dict) -> None:
+        """The control-plane snapshot from the aux sidecar, with the
+        reference's fallbacks and warnings."""
+        meta = extra.get("control")
+        if meta:
+            try:
+                arr = self._restore_aux_entry(
+                    rnd, extra, "control",
+                    np.zeros(int(meta["nbytes"]), dtype=np.uint8))
+                if arr is not None:
+                    state = json.loads(
+                        np.asarray(arr, dtype=np.uint8).tobytes())
+                    self.control.load_state(state, rnd)
+                    # A save before the next round finishes must keep it.
+                    self._control_ckpt_state = state
+                    return
+                _warn("checkpoint lists controller state but the .aux.npz "
+                      "sidecar is missing; resuming with a re-warmed "
+                      "control loop")
+            except (KeyError, ValueError, TypeError) as e:
+                _warn(f"checkpoint controller state unusable ({e!r}); "
+                      "resuming with a re-warmed control loop")
+        self.control.reset(rnd)
 
     def _restore_compress(self, rnd: int, extra: dict) -> None:
         """The host-layout guard and the error-feedback residuals, with the
@@ -1201,7 +1466,6 @@ class FederatedEngine:
         if aux is None:
             _warn(
                 "checkpoint lists compressed-combine residuals but the "
-                ".aux.npz sidecar is missing; resuming with zero residuals",
-                stacklevel=3)
+                ".aux.npz sidecar is missing; resuming with zero residuals")
             return
         self._compress.load_state(aux)

@@ -169,9 +169,10 @@ def restore_sampler(state: dict):
                                  d=state.get("d"),
                                  seed=state.get("seed", 1337))
     elif kind == "online":
-        raise NotImplementedError(
-            "the open-world OnlinePoolSampler is not ported yet "
-            "(ROADMAP M17)")
+        # Lazy import: core stays importable without the population package
+        # and the package imports simcluster only (no cycle either way).
+        from repro_torch.population.sampler import OnlinePoolSampler
+        return OnlinePoolSampler.from_state(state)
     else:
         raise ValueError(f"unknown sampler kind {kind!r}")
     if "rng" in state:

@@ -29,14 +29,27 @@ int8 shard uploads folded by the K2 kernel::
     PYTHONPATH=src python -m repro_torch.launch.train --task sr --workers 4 \
         --mesh-workers 2 --combine-mode tree --combine-compress int8
 
+the closed loop — placement learned from the card's measured round times
+through the refit barrier, drift fallback, slot hill-climbing — the
+open-world population, and the trace export and flight recorder::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --task sr \
+        --telemetry measured --barrier-policy stall --pipeline-depth 2
+    PYTHONPATH=src python -m repro_torch.launch.train --task sr \
+        --drift-threshold 0.5 --adapt-interval 2
+    PYTHONPATH=src python -m repro_torch.launch.train --task sr \
+        --sampler online --population 1000000 --cohort 64 \
+        --population-outage 4:8
+    PYTHONPATH=src python -m repro_torch.launch.train --task sr \
+        --trace-out trace.json --flight-rounds 8
+
 Each task trains with the reference's client optimizer: ``adam(4e-5)``
 for MLM, ``sgd(0.8, momentum=0.9, weight_decay=5e-4)`` for TG and
 ``sgd(0.05, ...)`` for IC and SR.  A checkpoint is written every
 ``rounds_per_checkpoint`` (25) rounds.
 
-The flags are the reference's.  Those of paths not ported yet (device
-cache, control plane, online sampler, trace export) raise
-``NotImplementedError`` naming their ROADMAP item when set.
+The flags are the reference's.  Those of the device cache, not ported
+yet, raise ``NotImplementedError`` naming their ROADMAP item when set.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 from collections import Counter
 from dataclasses import replace
 
@@ -64,6 +78,7 @@ from repro_torch.fl.strategy import strategy_from_name
 from repro_torch.kernels import ops as kops
 from repro_torch.models import lm, make_lane_loss_fn
 from repro_torch.models.papertasks import make_task_model
+from repro_torch.obs import make_observability, write_trace
 from repro_torch.optim import adam, sgd
 
 __all__ = ["build_engine", "lm_config", "main", "set_deterministic",
@@ -142,10 +157,27 @@ class _FrontendDataset:
         return b
 
 
-def _refuse(name: str, value, default, item: str) -> None:
-    if value != default:
-        raise NotImplementedError(f"{name}={value!r} is not ported yet "
-                                  f"(ROADMAP {item})")
+def _parse_intervention(kind: str, spec: str):
+    """``START:END[:SCALE][:REGION]`` -> Intervention (outage scale is 0)."""
+    from repro_torch.population import Intervention
+
+    parts = spec.split(":")
+    if len(parts) < 2:
+        raise ValueError(f"--population-{kind} needs START:END[:SCALE]"
+                         f"[:REGION], got {spec!r}")
+    start, end = int(parts[0]), int(parts[1])
+    scale = 0.0 if kind == "outage" else 1.5
+    region = None
+    rest = parts[2:]
+    if rest:
+        try:
+            scale = float(rest[0])
+            rest = rest[1:]
+        except ValueError:
+            pass
+    if rest:
+        region = rest[0]
+    return Intervention(kind, start, end, scale, region=region)
 
 
 def lm_config(arch: str, preset: str = "smoke"
@@ -176,7 +208,11 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
                  ckpt_dir: str | None = None, rounds_per_checkpoint: int = 25,
                  deadline_rho: float = 0.0,
                  pipeline_depth: int = 1, sampler: str = "uniform",
-                 zipf_exponent: float = 1.2, grad_clip: float | None = None,
+                 zipf_exponent: float = 1.2,
+                 population_period: float = 48.0,
+                 population_surge: str | None = None,
+                 population_outage: str | None = None,
+                 grad_clip: float | None = None,
                  mesh_workers: int = 0, bucket_mode: str = "round",
                  combine_mode: str = "flat", combine_compress: str = "none",
                  topk_frac: float = 0.05, hosts: int = 0,
@@ -194,16 +230,26 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
     in the reference; ``strategy="fedmedian"`` the gather path; with
     ``ckpt_dir`` the engine saves a checkpoint there every
     ``rounds_per_checkpoint`` rounds (``restore_latest`` resumes from it).
-    ``engine_options`` are further
-    :class:`EngineConfig` fields — the device-cache and control-plane
-    options, which raise until they are ported.  Refuses a config that
-    sets the multi-card ``moe_dispatch`` hook (ROADMAP M15c), and a CUDA
-    ``device`` without a card, before any work.
+    ``sampler="online"`` draws cohorts from the open-world population:
+    ``population`` clients registered in a hash-derived store (O(1) memory
+    in the population) over a base dataset of at most 4,096 clients,
+    arriving by the diurnal regional traces rescaled to
+    ``population_period`` rounds, with the ``population_surge`` and
+    ``population_outage`` windows (``START:END[:SCALE][:REGION]``).
+    ``engine_options`` are further :class:`EngineConfig` fields — the
+    control plane's (``telemetry_mode``, ``barrier_policy``,
+    ``drift_threshold``, ``adapt_interval``, ``adapt_granularity``, ...)
+    and the device cache's, which raise until it is ported.  Refuses a
+    config that sets the multi-card ``moe_dispatch`` hook (ROADMAP M15c),
+    and a CUDA ``device`` without a card, before any work.
     """
-    if sampler == "online":
-        raise NotImplementedError("sampler='online' is not ported yet "
-                                  "(ROADMAP M17)")
     strat = strategy_from_name(strategy)
+    # The open-world sampler streams from a hash-derived registry: the base
+    # dataset (content and class tables) stays small however many clients
+    # ``population`` registers.
+    base_clients = population
+    if sampler == "online" and population:
+        base_clients = min(population, 4096)
     if lm_cfg is None and arch is not None:
         lm_cfg = lm_config(arch, preset)[0]
     if lm_cfg is not None:
@@ -227,7 +273,7 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
     if lm_cfg is not None:
         ds = make_federated_dataset(
             "lm", seed=seed, vocab_size=lm_cfg.vocab_size, seq_len=seq_len,
-            batch_size=batch_size, n_clients=population or 4096)
+            batch_size=batch_size, n_clients=base_clients or 4096)
         if lm_cfg.frontend:
             ds = _FrontendDataset(ds, lm_cfg)
         params = lm.init_params(seed, lm_cfg, device=device)
@@ -236,12 +282,30 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
     else:
         ds = make_federated_dataset(
             task, seed=seed,
-            **({"n_clients": population} if population else {}))
+            **({"n_clients": base_clients} if base_clients else {}))
         params, loss_fn = make_task_model(task, seed, device=device)
         optimizer = (adam(4e-5) if task == "mlm" else
                      sgd(0.8 if task == "tg" else 0.05, momentum=0.9,
                          weight_decay=5e-4))
-    if sampler == "zipf":
+    if sampler == "online":
+        from repro_torch.population import (ArrivalIndex,
+                                            ClientMetadataStore,
+                                            OnlinePoolSampler,
+                                            PopulationDataset)
+        store = ClientMetadataStore(population or ds.n_clients, seed=seed,
+                                    batch_size=ds.spec.batch_size)
+        interventions = []
+        if population_surge:
+            interventions.append(
+                _parse_intervention("surge", population_surge))
+        if population_outage:
+            interventions.append(
+                _parse_intervention("outage", population_outage))
+        index = ArrivalIndex(store, period=population_period,
+                             interventions=tuple(interventions))
+        ds = PopulationDataset(ds, store)
+        sampler_obj = OnlinePoolSampler(index, cohort, seed=seed)
+    elif sampler == "zipf":
         sampler_obj = ZipfSampler(ds.n_clients, cohort, a=zipf_exponent,
                                   seed=seed)
     elif sampler == "poc":
@@ -263,7 +327,7 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
 def _build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="Pollen FL simulation on the CUDA card (port).  Flags "
-                    "as in repro.launch.train; unported ones raise.")
+                    "as in repro.launch.train; the device cache's raise.")
     ap.add_argument("--task", choices=TASKS, default=None)
     ap.add_argument("--arch", default=None,
                     help="an LM arch of any family (dense, ssm, MoE, "
@@ -320,21 +384,12 @@ def _build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-# Flags whose paths this slice does not port: (dest, default, ROADMAP item).
-# The device-cache and control-plane flags are refused by EngineConfig.
-_UNPORTED_FLAGS = (
-    ("population_period", 48.0, "M17"), ("population_surge", None, "M17"),
-    ("population_outage", None, "M17"),
-    ("trace_out", None, "M8 (trace export)"),
-    ("flight_rounds", 0, "M8 (flight recorder)"),
-)
-
-
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
-    for dest, default, item in _UNPORTED_FLAGS:
-        _refuse("--" + dest.replace("_", "-"), getattr(args, dest), default,
-                item)
+    obs = None
+    if args.trace_out or args.flight_rounds > 0:
+        obs = make_observability(trace_rounds=args.trace_rounds,
+                                 flight_rounds=args.flight_rounds)
     set_deterministic()
     engine = build_engine(
         task=args.task, arch=args.arch, preset=args.preset,
@@ -345,6 +400,9 @@ def main(argv=None) -> int:
         ckpt_dir=args.ckpt_dir, grad_clip=args.grad_clip,
         deadline_rho=args.deadline_rho, pipeline_depth=args.pipeline_depth,
         sampler=args.sampler, zipf_exponent=args.zipf_exponent,
+        population_period=args.population_period,
+        population_surge=args.population_surge,
+        population_outage=args.population_outage,
         device_cache_batches=args.device_cache_batches,
         device_cache_bytes=int(args.device_cache_mb * 2**20),
         telemetry_mode=args.telemetry, barrier_policy=args.barrier_policy,
@@ -354,7 +412,12 @@ def main(argv=None) -> int:
         mesh_workers=args.mesh_workers, cache_affinity=args.cache_affinity,
         bucket_mode=args.bucket_mode, combine_mode=args.combine_mode,
         combine_compress=args.combine_compress, topk_frac=args.topk_frac,
-        hosts=args.hosts)
+        hosts=args.hosts, obs=obs)
+    if obs is not None and obs.flight is not None:
+        def _on_sigterm(signum, frame):  # last-gasp state dump
+            obs.flight.dump("SIGTERM")
+            raise SystemExit(128 + signum)
+        signal.signal(signal.SIGTERM, _on_sigterm)
     if args.fail_worker:
         wid, rnd = (int(x) for x in args.fail_worker.split(":"))
         engine.pool.schedule(FailureEvent(round_idx=rnd, kind="fail",
@@ -390,6 +453,16 @@ def main(argv=None) -> int:
             r.critical_path for r in results if r.critical_path)),
         "kernel_launches": kops.launch_counts(),
     }
+    if obs is not None:
+        summary["tracer"] = obs.tracer.stats()
+    if args.sampler == "online":
+        summary["population"] = {
+            "registered": int(engine.sampler.population),
+            "mean_online_pool": float(np.mean(
+                [r.online_pool for r in results])) if results else None,
+            "mean_stale_fraction": float(np.mean(
+                [r.stale_fraction for r in results])) if results else None,
+        }
     if args.mesh_workers >= 2:
         summary["mesh_workers"] = args.mesh_workers
         summary["affinity_swaps"] = 0        # cache affinity: ROADMAP M11
@@ -404,6 +477,16 @@ def main(argv=None) -> int:
             summary["combine_compress"] = args.combine_compress
             summary["final_residual_norm"] = (
                 results[-1].residual_norm if results else 0.0)
+    if engine.control is not None:
+        summary["control"] = engine.control_stats
+        summary["barrier_stall_s"] = float(sum(
+            r.barrier_stall_s for r in results))
+        summary["fallback_rounds"] = int(sum(
+            r.drift_fallback for r in results))
+    if args.trace_out:
+        recs = obs.tracer.snapshot()
+        write_trace(args.trace_out, recs)
+        print(f"trace: wrote {len(recs)} records to {args.trace_out}")
     print(json.dumps(summary, indent=1))
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:

@@ -84,30 +84,46 @@ def rms_norm(x, scale, *, eps: float = 1e-6, impl: str = "xla"):
 # --------------------------------------------------------------------------
 # rotary position embeddings
 # --------------------------------------------------------------------------
-def _rope_angles(positions, head_dim: int, theta: float):
-    """cos/sin of shape ``positions.shape + (head_dim // 2,)``.  The
-    frequencies are ``exp(-i/hd * log(theta))`` in f32, with ``log(theta)``
-    taken in f32, as the reference computes them."""
-    dev = positions.device
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """The ``head_dim // 2`` rotary frequencies ``exp(-i/hd * log(theta))``
+    in f32, with ``log(theta)`` taken in f32, as the reference computes
+    them.  The library's ``exp`` may round a frequency to the neighbouring
+    f32 value of the reference's (one ulp)."""
     log_theta = torch.log(torch.tensor(theta, dtype=torch.float32,
-                                       device=dev))
-    freqs = torch.exp(-torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                    device=dev) / head_dim * log_theta)
-    ang = positions.float()[..., None] * freqs
+                                       device=device))
+    return torch.exp(-torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                   device=device) / head_dim * log_theta)
+
+
+def rope_angles(positions, freqs: torch.Tensor) -> torch.Tensor:
+    """Angles ``positions.shape + freqs.shape``: position times frequency,
+    one f32 rounding."""
+    return positions.float()[..., None] * freqs
+
+
+def _rope_angles(positions, head_dim: int, theta: float):
+    """cos/sin of shape ``positions.shape + (head_dim // 2,)``."""
+    ang = rope_angles(positions, rope_freqs(head_dim, theta,
+                                            positions.device))
     return torch.cos(ang), torch.sin(ang)
+
+
+def rope_rotate(x, cos, sin):
+    """Rotate the two halves of the head dim (not interleaved) by the
+    angles whose ``cos``/``sin`` are ``[..., s, hd/2]``; f32 math, output
+    in ``x.dtype``."""
+    cos = cos[..., None, :]                          # [..., s, 1, hd/2]
+    sin = sin[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def rope(x, positions, *, theta: float = 10_000.0):
     """Apply rotary embedding to the two halves of the head dim (not
     interleaved).  x: ``[..., seq, heads, head_dim]``; positions
     broadcastable to ``[..., seq]``."""
-    hd = x.shape[-1]
-    cos, sin = _rope_angles(positions, hd, theta)   # [..., s, hd/2]
-    cos = cos[..., None, :]                          # [..., s, 1, hd/2]
-    sin = sin[..., None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    return rope_rotate(x, *_rope_angles(positions, x.shape[-1], theta))
 
 
 # --------------------------------------------------------------------------

@@ -118,30 +118,36 @@ def system_params():
 
 
 def system_engine(port: bool, *, strategy="fedavg", depth=1, ckpt=None,
-                  rounds_per_ckpt=2, specs=None, workers=2, **cfg):
+                  rounds_per_ckpt=2, specs=None, workers=2, dataset=None,
+                  sampler=None, obs=None, **cfg):
     """``tests/test_system.py``'s ``_small_engine`` (cohort 8 over 2
     workers x 2 lanes, ``steps_cap`` 4, SGD lr 0.1 momentum 0.9, LB) for
     the reference (``port=False``) or the port on the CPU, both on the
     reference's dataset and weights.  ``ckpt`` is a checkpoint directory;
-    ``specs`` a worker pool's specs; ``cfg`` more config fields."""
+    ``specs`` a worker pool's specs; ``dataset`` and ``sampler`` replace
+    the 64-client dataset and its uniform sampler; ``obs`` is an
+    observability bundle of the engine's package; ``cfg`` more config
+    fields."""
     from repro.checkpoint import CheckpointStore as JStore
     from repro.fl.strategy import strategy_from_name as jstrategy
     from repro_torch.checkpoint import CheckpointStore as TStore
     from repro_torch.fl.strategy import strategy_from_name as tstrategy
-    ds, params = system_dataset(), system_params()
+    ds = system_dataset() if dataset is None else dataset
+    params = system_params()
     if port:
         pool = (TPool.from_specs(specs) if specs else
                 TPool.homogeneous(workers, type_name="a40", concurrency=2))
         return TEngine(
             dataset=ds, loss_fn=TASK_MODELS["sr"].loss_fn,
             init_params=to_torch(params), optimizer=tsgd(0.1, momentum=0.9),
-            placement=tplacement("lb"), sampler=TSampler(64, 8), pool=pool,
-            telemetry=TTelemetry(), strategy=tstrategy(strategy),
+            placement=tplacement("lb"),
+            sampler=TSampler(64, 8) if sampler is None else sampler,
+            pool=pool, telemetry=TTelemetry(), strategy=tstrategy(strategy),
             config=TConfig(steps_cap=4, batch_size=4, lanes_per_worker=2,
                            pipeline_depth=depth,
                            rounds_per_checkpoint=rounds_per_ckpt, **cfg),
             checkpoint_store=TStore(str(ckpt)) if ckpt else None,
-            device="cpu")
+            obs=obs, device="cpu")
     _, loss = make_task_model("sr", jax.random.key(0), **SYS_MODEL)
     pool = (JPool.from_specs(specs) if specs else
             JPool.homogeneous(workers, type_name="a40", concurrency=2))
@@ -149,9 +155,10 @@ def system_engine(port: bool, *, strategy="fedavg", depth=1, ckpt=None,
         dataset=ds, loss_fn=loss,
         init_params=jax.tree.map(jax.numpy.asarray, params),
         optimizer=jsgd(0.1, momentum=0.9), placement=jplacement("lb"),
-        sampler=JSampler(64, 8), pool=pool, telemetry=JTelemetry(),
+        sampler=JSampler(64, 8) if sampler is None else sampler, pool=pool,
+        telemetry=JTelemetry(),
         strategy=jstrategy(strategy),
         config=JConfig(steps_cap=4, batch_size=4, lanes_per_worker=2,
                        pipeline_depth=depth,
                        rounds_per_checkpoint=rounds_per_ckpt, **cfg),
-        checkpoint_store=JStore(str(ckpt)) if ckpt else None)
+        checkpoint_store=JStore(str(ckpt)) if ckpt else None, obs=obs)

@@ -206,13 +206,28 @@ def test_restore_across_host_families_warns_and_zeroes_residuals(tmp_path,
     assert e._compress.residual_norm() == 0.0
 
 
-def test_restore_of_control_plane_state_raises(tmp_path):
+def test_restore_of_control_plane_state_across_packages(tmp_path):
     """A reference checkpoint written with its control plane on carries
-    that state, which the port cannot restore yet."""
-    par.system_engine(False, ckpt=tmp_path, drift_threshold=0.5).run(2)
-    eng = par.system_engine(True, ckpt=tmp_path)
-    with pytest.raises(NotImplementedError, match="M10"):
-        eng.restore_latest()
+    that state: the port's engine restores it into its own control plane
+    (the drift EWMAs, the slot trajectory, the measured rows' barrier),
+    and an engine without a control plane ignores it, as the
+    reference's does."""
+    kw = dict(telemetry_mode="measured", drift_threshold=0.5,
+              adapt_interval=2)
+    ref = par.system_engine(False, ckpt=tmp_path, **kw)
+    ref.run(2)
+    saved = json.loads(json.dumps(ref._control_ckpt_state))
+    eng = par.system_engine(True, ckpt=tmp_path, **kw)
+    assert eng.restore_latest() and eng.round_idx == 2
+    got = eng.control.state_dict()
+    # the barrier resumes as if rounds 0 .. 1 had finished in order
+    assert got["measured"].pop("last_finished") == 1
+    saved["measured"].pop("last_finished")
+    assert got == saved
+    eng.run(2)
+    assert eng.control.audit() == []
+    plain = par.system_engine(True, ckpt=tmp_path)
+    assert plain.restore_latest() and plain.control is None
 
 
 def test_no_store_or_no_checkpoint_restores_nothing(tmp_path):

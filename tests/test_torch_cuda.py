@@ -1012,3 +1012,77 @@ def test_resume_on_card_is_bitwise(dev, mesh, tmp_path):
     eng = _task_engine("sr", "cuda", ckpt=tmp_path, **mesh)
     assert eng.restore_latest() and eng.round_idx == 4
     assert [r.loss for r in eng.run(2)] == whole[4:]
+
+
+def test_fedmedian_non_finite_column_on_card(dev):
+    """A NaN in one client's model makes its column NaN on the card as on
+    the CPU (``jnp.median``'s rule); ±inf columns and the finite rest are
+    bitwise the CPU's."""
+    from repro_torch.core.aggregation import median_leading
+    for n in (3, 4):
+        x = _rand((n, 4_244_992), torch.float32, "cpu", 40 + n)
+        x[n // 2, 7] = float("nan")
+        x[0, 11], x[1, 11] = float("inf"), float("-inf")
+        x[0, 12] = float("inf")
+        got, want = median_leading(x.to(dev)).cpu(), median_leading(x)
+        assert torch.isnan(got[7]) and torch.isnan(want[7])
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        finite = ~torch.isnan(want)
+        assert torch.equal(got[finite], want[finite])
+
+
+def test_memory_probe_on_card(dev):
+    """``round_memory_analysis`` runs one lane-loop round and reads the
+    allocator: arguments are the params plus the round's inputs, the
+    outputs the new params plus metrics; more lanes need more temp bytes;
+    the estimate it feeds fits its budget."""
+    from repro_torch.core import (DeviceSpec, estimate_slots_from_memory_analysis,
+                                  round_memory_analysis)
+    eng = _task_engine("sr", "cuda")
+    params_bytes = sum(v.numel() * 4 for v in eng.params.values())
+    one = round_memory_analysis(eng, slots_compiled=1)
+    two = round_memory_analysis(eng, slots_compiled=2)
+    for m in (one, two):
+        assert m.argument_size_in_bytes > params_bytes
+        assert m.output_size_in_bytes >= params_bytes
+        assert m.peak_bytes >= m.argument_size_in_bytes
+    assert two.temp_size_in_bytes > one.temp_size_in_bytes
+    spec = DeviceSpec.from_card()
+    est = estimate_slots_from_memory_analysis(two, slots_compiled=2,
+                                              group_devices=1, device=spec)
+    assert est.slots >= 1 and est.budget_bytes < spec.hbm_bytes
+    assert eng.round_idx == 0 and eng.history == []
+
+
+@pytest.mark.parametrize("policy", ["reuse", "stall"])
+def test_measured_mode_on_card(dev, policy):
+    """Measured telemetry from the card's own syncs: the fused path's
+    dispatch-to-loss-sync time attributed by share, the mesh path's
+    per-worker sync times exact; the refit barrier's audit is clean at
+    depths 0-2."""
+    for depth in (0, 1, 2):
+        eng = _task_engine("sr", "cuda", depth=depth,
+                           telemetry_mode="measured", barrier_policy=policy)
+        eng.run(6)
+        st = eng.control_stats
+        assert st["audit_violations"] == 0 and eng.control.audit() == []
+        assert st["barrier"]["rows_attributed"] > 0
+        assert eng.placement.ready_for(eng.pool.snapshot())
+    eng = _task_engine("sr", "cuda", workers=4, mesh_workers=2,
+                       combine_mode="tree", combine_compress="int8",
+                       telemetry_mode="measured", barrier_policy=policy)
+    eng.run(4)
+    st = eng.control_stats
+    assert st["barrier"]["rows_attributed"] == 0
+    assert st["barrier"]["rows_exact"] > 0 and st["audit_violations"] == 0
+    assert set(st["worker_residuals"]) == {0, 1, 2, 3}
+
+
+def test_synthetic_control_bitwise_across_depths_on_card(dev):
+    runs = {}
+    for depth in (0, 1, 2):
+        eng = _task_engine("sr", "cuda", depth=depth, drift_threshold=0.01,
+                           adapt_interval=2)
+        runs[depth] = [(r.loss, r.drift_fallback) for r in eng.run(8)]
+        assert eng.control.autoconc.updates > 0
+    assert runs[0] == runs[1] == runs[2]

@@ -257,19 +257,17 @@ def test_build_engine_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("device_cache_batches", 8), ("device_cache_bytes", 1 << 20),
-    ("cache_affinity", True), ("telemetry_mode", "measured"),
-    ("barrier_policy", "stall"), ("drift_threshold", 0.5),
-    ("adapt_interval", 2), ("adapt_granularity", "worker")])
+    ("cache_affinity", True)])
 def test_unported_engine_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP M1"):
         teng.EngineConfig(**{field: value})
 
 
-@pytest.mark.parametrize("argv", [["--population-surge", "2:4"],
-                                  ["--flight-rounds", "4"],
-                                  ["--sampler", "online"],
-                                  ["--trace-out", "t.json"],
-                                  ["--device-cache-batches", "8"]])
+@pytest.mark.parametrize("argv", [["--device-cache-batches", "8"],
+                                  ["--device-cache-mb", "1"],
+                                  ["--mesh-workers", "2",
+                                   "--device-cache-batches", "8",
+                                   "--cache-affinity"]])
 def test_unported_cli_flags_raise_before_touching_the_device(argv, monkeypatch):
     monkeypatch.setattr(ttrain, "set_deterministic", lambda: None)
     monkeypatch.setattr(ttrain, "resolve_device", lambda d: torch.device("cpu"))

@@ -61,6 +61,30 @@ def test_fedmedian_is_bitwise_jnp_median(n, ties):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("bad", ["nan", "inf", "-inf", "inf_and_nan"])
+def test_fedmedian_matches_jnp_median_on_non_finite_models(n, bad):
+    """One client's model holds a NaN, +inf or -inf (a diverged client):
+    NaN wherever ``jnp.median`` gives NaN, bitwise elsewhere — finite
+    columns keep their bits, the infinities sort as the reference's."""
+    trees = _trees(n, seed=20 + n)
+    sick = trees[n // 2]
+    if bad == "inf_and_nan":
+        sick["a"][0, :2] = np.inf
+        sick["b"][3] = np.nan
+        trees[0]["a"][0, 0] = -np.inf
+    else:
+        sick["a"][1, 1] = sick["b"][0] = sick["c"][1, 0, 3] = float(bad)
+    want = jagg.fedmedian([jax.tree.map(jnp.asarray, t) for t in trees])
+    got = tagg.fedmedian([par.to_torch(t) for t in trees])
+    for k in SHAPES:
+        w = np.asarray(want[k])
+        np.testing.assert_array_equal(np.isnan(got[k].numpy()), np.isnan(w))
+        np.testing.assert_array_equal(got[k].numpy(), w)
+    if bad == "nan":
+        assert np.isnan(np.asarray(want["b"])[0])
+
+
 @pytest.mark.parametrize("n", [3, 4])
 def test_strategy_reduces_match_the_reference(n):
     """FedMedian.reduce bitwise (the weights ignored); FedAvg.reduce with

@@ -134,26 +134,82 @@ def test_param_count_matches_the_published_size(name, n_layers, count):
 
 
 # -- layers -------------------------------------------------------------------
-@pytest.mark.parametrize("theta,hd,n,atol", [(10_000.0, 16, 40, 2e-5),
-                                             (1_000_000.0, 128, 2064, 2e-4)])
-def test_rope_matches_reference(theta, hd, n, atol):
-    """Angles up to 2,063 rad at the serve path's lengths: one f32 ulp of
-    such an angle is 2.4e-4 rad, and the libraries' exp, cos and sin differ
-    in the last bits, so the long case allows 2e-4 (measured 6.8e-5)."""
+F32_EPS = float(np.finfo(np.float32).eps)
+ROPE_CASES = [(10_000.0, 16, 40), (1_000_000.0, 128, 2064)]
+
+
+def _ref_rope_freqs(hd, theta):
+    """The reference's frequencies (``repro/models/layers.py:65``), on
+    XLA's CPU ``exp``."""
+    return np.asarray(jnp.exp(-jnp.arange(0, hd, 2, dtype=jnp.float32)
+                              / hd * jnp.log(theta)))
+
+
+@pytest.mark.parametrize("theta,hd,n", ROPE_CASES)
+def test_rope_frequencies_within_one_ulp_of_reference(theta, hd, n):
+    """(a) Each package takes ``exp`` from its own library, and a library's
+    vector ``exp`` may round to the neighbouring f32 value: the port's
+    frequencies are the reference's to within one f32 ulp (at hd 128, θ 1e6
+    XLA's CPU ``exp`` and torch's differ on a few of the 64 frequencies,
+    by one ulp, depending on the CPU)."""
+    want = _ref_rope_freqs(hd, theta)
+    got = tlayers.rope_freqs(hd, theta).numpy()
+    ulps = np.abs(got.view(np.int32).astype(np.int64)
+                  - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 1, ulps
+
+
+@pytest.mark.parametrize("theta,hd,n", ROPE_CASES)
+def test_rope_given_the_reference_frequencies_matches_it(theta, hd, n):
+    """(b) Given the reference's frequencies, the port's angles (position
+    times frequency, one f32 rounding) are bitwise the reference's, and
+    its rotation agrees within 1e-6: only ``cos``/``sin`` differ, by an
+    ulp or two of values at most 1, times inputs of a few units."""
     rng = _rng(1)
     x = _normal(rng, (2, n, 3, hd))
-    pos = np.arange(n)[None, :]
-    want = jlayers.rope(jnp.asarray(x), jnp.asarray(pos), theta=theta)
-    got = tlayers.rope(torch.from_numpy(x), torch.from_numpy(pos),
-                       theta=theta)
-    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=atol)
-    # per-token positions (decode) broadcast the same way
-    posb = np.full((2, 1), n - 1)
-    want = jlayers.rope(jnp.asarray(x[:, -1:]), jnp.asarray(posb),
-                        theta=theta)
-    got = tlayers.rope(torch.from_numpy(x[:, -1:]), torch.from_numpy(posb),
-                       theta=theta)
-    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=atol)
+    for pos in (np.arange(n)[None, :], np.full((2, 1), n - 1)):
+        xs = x if pos.shape[1] == n else x[:, -1:]
+        freqs = _ref_rope_freqs(hd, theta)
+        want_ang = np.asarray(jnp.asarray(pos).astype(jnp.float32)[..., None]
+                              * jnp.asarray(freqs))
+        ang = tlayers.rope_angles(torch.from_numpy(pos),
+                                  torch.from_numpy(freqs.copy()))
+        np.testing.assert_array_equal(ang.numpy(), want_ang)
+        got = tlayers.rope_rotate(torch.from_numpy(xs), torch.cos(ang),
+                                  torch.sin(ang))
+        want = jlayers.rope(jnp.asarray(xs), jnp.asarray(pos), theta=theta)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("theta,hd,n", ROPE_CASES)
+def test_rope_matches_reference(theta, hd, n):
+    """(c) End to end, each output element is held to a bound computed from
+    its inputs.  The angle ``pos·freq`` takes the frequency's error (≤ one
+    ulp, check (a)) times the position, ``pos·ulp(freq)``, plus one ulp of
+    the angle from the two products' roundings; an angle error δ moves
+    ``x1·cos - x2·sin`` (and its pair) by at most ``δ·(|x1| + |x2|)``.  On
+    top come f32 roundings of ``cos``, ``sin`` and the rotation,
+    ``4·eps·(|x1| + |x2|)``.  At position 2,063 one ulp of the angle is
+    2.4e-4 rad, so a fixed ``atol`` below that passes or fails with the
+    CPU's vector ``exp``; the bound does not."""
+    rng = _rng(1)
+    x = _normal(rng, (2, n, 3, hd))
+    freqs = _ref_rope_freqs(hd, theta)
+    for pos in (np.arange(n)[None, :], np.full((2, 1), n - 1)):
+        xs = x if pos.shape[1] == n else x[:, -1:]
+        want = _np(jlayers.rope(jnp.asarray(xs), jnp.asarray(pos),
+                                theta=theta))
+        got = _np(tlayers.rope(torch.from_numpy(xs), torch.from_numpy(pos),
+                               theta=theta))
+        ang = pos.astype(np.float32)[..., None] * freqs     # [b, s, hd/2]
+        dang = (pos[..., None] * np.spacing(freqs)
+                + np.spacing(np.abs(ang)))
+        x1, x2 = np.split(np.abs(xs), 2, axis=-1)            # [b, s, h, hd/2]
+        mag = x1 + x2
+        bound = (dang[..., None, :] + 4 * F32_EPS) * mag
+        bound = np.concatenate([bound, bound], axis=-1)
+        err = np.abs(got - want)
+        assert (err <= bound).all(), float((err / bound).max())
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
