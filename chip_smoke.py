@@ -205,10 +205,31 @@ Phases, one JSON object per line on stdout:
              the slot estimate for this card and for the default 80 GB
              spec, then one SR round at ``min(estimate, 64)`` lanes on one
              worker whose peak must stay within the estimate's budget;
-28. the ``kernels`` line (K1-K5; K1's and K2's launches on the LM training,
-   task, FedMedian and resume paths beside the main ones, K1 timed at the
-   tasks' lane buffers, K4's launches on the MoE and VLM serve paths and
-   its timing at those shapes), then the card line and the last line
+28. cache — the device batch cache (PR 22) on SR at its published widths
+             under a Zipf draw of 64 clients a round (gradients clipped
+             at 1), 12 rounds: off, 512 rows, and a byte budget holding
+             the whole population (7,656 batches of 5,200 B), each at
+             depths 0/1/2: losses bitwise
+             the cache-off run's, K1 = Σ ``s_steps``, bytes saved = hit
+             steps × 5,200; the hit rate, ``pack_time`` and bytes copied
+             a round on and off, the assembly's device ms (CUDA events),
+             a profiled round;
+29. cache mesh — 4 workers over 2 shards, tree, int8, 256 rows, cache
+             affinity, at depths 1 and 0 (bitwise; per-shard sums; K2 once
+             per live shard a round); without affinity cache on == off
+             bitwise; 3 rounds card vs CPU recorded; the same options on
+             the agree phase's small engine, 6 rounds card vs CPU within
+             rtol 1e-4; the reclaim scenario (capacity rows [32, 32] →
+             [64, 0] → [32, 32]);
+30. multihost — ``run_multihost(build_engine, ...)``: two spawned ranks on
+             the card, bitwise the in-process ``hosts=1`` run, each rank
+             running only its own block; rank 1 killed inside round 3's
+             exchange (``ok=False``, a flight dump) and a bitwise resume
+             from rank 0's checkpoint; the exchange's ms and bytes;
+31. the ``kernels`` line (K1-K5; K1's and K2's launches on the LM training,
+   task, FedMedian, resume and cache paths beside the main ones, K1 timed
+   at the tasks' lane buffers, K4's launches on the MoE and VLM serve paths
+   and its timing at those shapes), then the card line and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no last
@@ -411,6 +432,34 @@ TASK_SMALL = {"ic": dict(width=32, n_blocks=2),
               "tg": dict(vocab=90, hidden=16),
               "mlm": dict(vocab=512, d_model=32, n_layers=2, d_ff=64)}
 AGREE_TASKS_RTOL = 1e-5
+# The device batch cache (PR 22): SR at its published widths under a Zipf
+# draw of 64 clients a round (hot clients recur), 12 rounds; the cache off,
+# 512 rows, and a byte budget that holds every batch of the population.
+# A batch row is x [20, 64] f32 + y [20] int32 (``_probe_row_bytes``).
+# The Zipf head draws clients whose local SGD diverges at SR's learning
+# rate, cache on or off, in the reference as in the port: on the
+# reference's data and weights both give NaN in round 0 without a clip
+# (``tests/_torch_sr_zipf_reference.py``).  So these runs clip each step's
+# gradient at global norm 1 (``--grad-clip 1.0``), as the reference's
+# heavier Zipf recipe (exponent 1.6) does; its cache recipe sets none.
+CACHE_ROUNDS, CACHE_COHORT, CACHE_ROWS = 12, 64, 512
+CACHE_KW = dict(sampler="zipf", grad_clip=1.0)
+SR_ROW_BYTES = 5_200
+# The cache on the mesh path: the int8 tree mesh with 256 rows over its 2
+# shards and cache-aware placement.  Card vs CPU at SR's rtol on the agree
+# phase's small engine with the same options (at the published widths an
+# int8 code at a rounding edge turns a 1e-7 difference into ~1e-3 within
+# two rounds, cache on or off: recorded, not held).
+CACHE_MESH = dict(MESH, **CACHE_KW, device_cache_batches=256,
+                  cache_affinity=True)
+CACHE_MESH_ROUNDS, CACHE_AGREE_ROUNDS = 6, 3
+# The process-per-host harness: tests/test_multihost.py:26's kwargs (SR, 4
+# workers over 4 shards, tree, no compression, steps_cap 4, seed 13), two
+# ranks on the one card.
+MULTIHOST = dict(task="sr", workers=4, mesh_workers=4, pipeline_depth=1,
+                 combine_mode="tree", combine_compress="none", steps_cap=4,
+                 seed=13, hosts=2, device="cuda")
+MULTIHOST_ROUNDS = 4
 
 
 def emit(obj) -> None:
@@ -3182,6 +3231,390 @@ def phase_agree_tasks(torch) -> dict:
     return out
 
 
+# -- the device batch cache and the process-per-host harness (PR 22) ---------
+def _cache_spy(torch, eng, timed: bool) -> tuple[list, list]:
+    """Record every cache plan the producer makes; with ``timed``, the host
+    seconds of each assembly on the consumer thread and CUDA events around
+    it on the stream (the stream's time from the first enqueued op to the
+    last: mostly the host's enqueueing, as the stream is idle then)."""
+    cache = eng._device_cache
+    plans, spans = [], []
+    plan, apply = cache.plan, cache.apply
+
+    def planned(*a, **kw):
+        cp = plan(*a, **kw)
+        plans.append(cp)
+        return cp
+
+    def applied(miss, cp):
+        if not timed:
+            return apply(miss, cp)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = apply(miss, cp)
+        ev[1].record()
+        spans.append((cp.round_idx, ev, time.perf_counter() - t0))
+        return out
+
+    cache.plan, cache.apply = planned, applied
+    return plans, spans
+
+
+def _h2d_bytes(lanes: int, S: int, content_rows: int, n_index: int) -> int:
+    """Bytes a fused round copies to the card: the content rows, the three
+    ``[W, P, S]`` f32 masks, and the cache's int64 index vectors."""
+    return content_rows * SR_ROW_BYTES + 3 * 4 * lanes * S + 8 * n_index
+
+
+def _per_shard_sums(st: dict) -> bool:
+    return all(sum(s[k] for s in st["per_shard"]) == st[k]
+               for k in ("hit_steps", "miss_steps", "insertions",
+                         "evictions", "reclaim_evictions", "bytes_saved"))
+
+
+def phase_cache(torch) -> dict:
+    """The device batch cache on the fused path: ``build_engine(task="sr",
+    sampler="zipf", grad_clip=1.0, cohort=64)`` at the published widths,
+    ``CACHE_ROUNDS`` rounds with the cache off (depth 1), with
+    ``CACHE_ROWS`` rows and with a byte budget that holds the whole
+    population, each at depths 0/1/2:
+    losses bitwise equal to the cache-off run, K1 = Σ ``s_steps``,
+    ``bytes_saved == hit_steps × 5,200``, no eviction under the population
+    budget.  Records the hit rate, ``pack_time`` and the bytes copied to
+    the card a round with the cache on and off, the assembly's device ms a
+    round (CUDA events) and a profiled round."""
+    from repro_torch.core.engine import _probe_row_bytes
+    from repro_torch.data import make_federated_dataset
+    ds = make_federated_dataset("sr", seed=1337)
+    row_bytes = _probe_row_bytes(ds, batch_size=20)
+    check(row_bytes == SR_ROW_BYTES, f"SR batch row is {row_bytes} B")
+    pop_batches = sum(ds.n_batches(c) for c in range(ds.n_clients))
+    kw = dict(CACHE_KW, cohort=CACHE_COHORT)
+    lanes = 4                                  # 2 workers x 2 lanes
+    _, off, k_off = _sr_run(torch, CACHE_ROUNDS, 1, **kw)
+    ref = [r.loss for r in off]
+    check(all(math.isfinite(x) for x in ref), f"cache off: losses {ref}")
+    check(k_off["fedavg_accum"] == sum(r.s_steps for r in off),
+          f"cache off: K1 launched {k_off}")
+    off_bytes = [_h2d_bytes(lanes, r.s_steps, lanes * r.s_steps, 0)
+                 for r in off]
+    out = {"row_bytes": row_bytes, "population_batches": pop_batches,
+           "off": {"launches": k_off["fedavg_accum"], "h2d_bytes": off_bytes,
+                   "pack_s": [r.pack_time for r in off],
+                   "exec_s": [r.exec_time for r in off]}}
+    emit({"phase": "cache_summary", "setting": "off", "depth": 1,
+          "losses": ref, **out["off"]})
+    settings = {"rows512": dict(device_cache_batches=CACHE_ROWS),
+                "population": dict(device_cache_bytes=pop_batches
+                                   * row_bytes)}
+    for label, extra in settings.items():
+        for depth in (0, 1, 2):
+            spy = {}
+
+            def setup(eng, depth=depth):
+                spy["plans"], spy["spans"] = _cache_spy(torch, eng,
+                                                        depth == 1)
+
+            eng, res, k = _sr_run(torch, CACHE_ROUNDS, depth, setup,
+                                  **kw, **extra)
+            losses = [r.loss for r in res]
+            check(losses == ref, f"cache {label} depth {depth}: losses "
+                                 f"{losses} != cache off {ref}")
+            steps = sum(r.s_steps for r in res)
+            check(k["fedavg_accum"] == steps,
+                  f"cache {label} depth {depth}: K1 {k} for {steps} steps")
+            st = eng.cache_stats
+            check(st["bytes_saved"] == st["hit_steps"] * row_bytes
+                  == sum(r.cache_bytes_saved for r in res),
+                  f"cache {label} depth {depth}: bytes saved {st}")
+            check(st["hit_steps"] > 0, f"cache {label}: no hit in {st}")
+            if label == "population":
+                check(st["capacity_rows"] == pop_batches
+                      and st["evictions"] == 0,
+                      f"population budget: {st['capacity_rows']} rows, "
+                      f"{st['evictions']} evictions")
+            plans = {cp.round_idx: cp for cp in spy["plans"]}
+            on_bytes = [_h2d_bytes(
+                lanes, r.s_steps, plans[r.round_idx].n_miss_rows,
+                sum(getattr(plans[r.round_idx], f).size for f in (
+                    "miss_dst", "ins_src", "ins_dst", "hit_src",
+                    "hit_dst"))) for r in res]
+            for r, b in zip(res, on_bytes):
+                emit({"phase": "cache", "setting": label, "depth": depth,
+                      "round": r.round_idx, "loss": r.loss,
+                      "hit_rate": r.cache_hit_rate,
+                      "bytes_saved": r.cache_bytes_saved, "h2d_bytes": b,
+                      "h2d_bytes_off": off_bytes[r.round_idx],
+                      "s_steps": r.s_steps, "pack_time": r.pack_time,
+                      "exec_time": r.exec_time, "wall_time": r.wall_time})
+            row = {"launches": k["fedavg_accum"], "steps": steps,
+                   "hit_rate": [r.cache_hit_rate for r in res],
+                   "h2d_bytes": on_bytes,
+                   "pack_s": [r.pack_time for r in res],
+                   "exec_s": [r.exec_time for r in res],
+                   "stats": {k2: v for k2, v in st.items()
+                             if k2 != "per_shard"}}
+            if depth == 1:
+                torch.cuda.synchronize()
+                row["assembly_stream_ms"] = [ev[0].elapsed_time(ev[1])
+                                             for _, ev, _ in spy["spans"]]
+                row["assembly_host_ms"] = [h * 1e3
+                                           for _, _, h in spy["spans"]]
+                prof = _device_profile(
+                    torch, lambda: eng.run(1), label="k1", match="fedavg",
+                    top=8, groups={"assembly": ("index", "adix", "ort")})
+                r = eng.history[-1]
+                check(prof["k1_launches"] == r.s_steps,
+                      f"profiled cache round: {prof['k1_launches']} K1 "
+                      f"kernels for {r.s_steps} steps")
+                row["profile"] = {**prof, "hit_rate": r.cache_hit_rate}
+            out[f"{label}_depth{depth}"] = row
+            emit({"phase": "cache_summary", "setting": label, "depth": depth,
+                  **row})
+    return out
+
+
+def _small_mesh_engine(device: str, **cfg):
+    """The agree phase's small SR engine (width 64, 2 blocks, 64 clients,
+    SGD 0.05) on 4 workers x 2 lanes over 2 mesh shards with a Zipf draw of
+    8, and ``cfg`` for the rest of its config."""
+    from repro_torch.core import (EngineConfig, FederatedEngine,
+                                  SyntheticTelemetry, ZipfSampler,
+                                  make_placement)
+    from repro_torch.data import make_federated_dataset
+    from repro_torch.distributed import WorkerPool
+    from repro_torch.models.papertasks import make_task_model
+    from repro_torch.optim import sgd
+    ds = make_federated_dataset("sr", n_clients=64, batch_size=4,
+                                size_mu=2.5, size_sigma=0.8)
+    params, loss = make_task_model("sr", 0, width=64, n_blocks=2,
+                                   device="cpu")
+    return FederatedEngine(
+        dataset=ds, loss_fn=loss, init_params=params,
+        optimizer=sgd(0.05, momentum=0.9, weight_decay=5e-4),
+        placement=make_placement("lb"), sampler=ZipfSampler(64, 8, a=1.2),
+        pool=WorkerPool.homogeneous(4, type_name="a40", concurrency=2),
+        telemetry=SyntheticTelemetry(),
+        config=EngineConfig(steps_cap=4, batch_size=4, lanes_per_worker=2,
+                            mesh_workers=2, **cfg),
+        device=device)
+
+
+def _agree_cache_mesh(torch) -> dict:
+    """The cache mesh's options (tree, int8, cache, affinity, clip) on the
+    small engine, 6 rounds on the card and on the CPU: losses within the
+    agree phase's rtol 1e-4, hits and affinity swaps equal."""
+    cfg = dict(combine_mode="tree", combine_compress="int8",
+               device_cache_batches=64, cache_affinity=True, grad_clip=1.0)
+    runs = {dev: _small_mesh_engine(dev, **cfg).run(6)
+            for dev in ("cpu", "cuda")}
+    losses = {dev: [r.loss for r in res] for dev, res in runs.items()}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    check(rel <= 1e-4, f"cache mesh card vs CPU: {rel} ({losses})")
+    for f in ("cache_hit_rate", "affinity_swaps"):
+        check([getattr(r, f) for r in runs["cuda"]]
+              == [getattr(r, f) for r in runs["cpu"]],
+              f"cache mesh card vs CPU: {f} differs")
+    return {"losses": losses, "max_rel_diff": rel, "rtol": 1e-4,
+            "affinity_swaps": [r.affinity_swaps for r in runs["cuda"]],
+            "hit_rate": [r.cache_hit_rate for r in runs["cuda"]]}
+
+
+def _reclaim_on_card(torch) -> dict:
+    """``tests/test_reclaim.py:215`` on the card: shard 1 (wids 1, 3) loses
+    both workers at round 3 and wid 5 rejoins it at round 7; the capacity
+    rows go [32, 32] → [64, 0] → [32, 32] in 2 rebalances, the per-shard
+    counters sum to the global ones, affinity never routes to the dead
+    shard, the audit stays clean."""
+    from repro_torch.core import (EngineConfig, FederatedEngine,
+                                  SyntheticTelemetry, ZipfSampler,
+                                  make_placement)
+    from repro_torch.data import make_federated_dataset
+    from repro_torch.distributed import FailureEvent, WorkerPool
+    from repro_torch.models.papertasks import make_task_model
+    from repro_torch.optim import sgd
+    ds = make_federated_dataset("sr", n_clients=64, input_dim=16,
+                                batch_size=4, size_mu=2.5, size_sigma=0.8)
+    params, loss = make_task_model("sr", 0, device="cpu", input_dim=16,
+                                   width=32, n_blocks=2)
+    pool = WorkerPool.homogeneous(4, type_name="a40", concurrency=2)
+    for ev in (FailureEvent(round_idx=3, kind="fail", wid=1),
+               FailureEvent(round_idx=3, kind="fail", wid=3),
+               FailureEvent(round_idx=7, kind="join", wid=5,
+                            type_name="a40", concurrency=2)):
+        pool.schedule(ev)
+    eng = FederatedEngine(
+        dataset=ds, loss_fn=loss, init_params=params,
+        optimizer=sgd(0.1, momentum=0.9), placement=make_placement("lb"),
+        sampler=ZipfSampler(64, 8, a=1.2), pool=pool,
+        telemetry=SyntheticTelemetry(),
+        config=EngineConfig(steps_cap=4, batch_size=4, lanes_per_worker=2,
+                            pipeline_depth=1, mesh_workers=2,
+                            device_cache_batches=64, cache_affinity=True,
+                            telemetry_mode="measured", drift_threshold=0.4),
+        device="cuda")
+    caps = []
+    for n in (3, 3, 1, 2, 2):
+        eng.run(n)
+        st = eng.cache_stats
+        caps.append([s["capacity_rows"] for s in st["per_shard"]])
+        check(_per_shard_sums(st), f"reclaim: per-shard sums {st}")
+        if len(caps) == 3:
+            check(st["per_shard"][1]["clients_cached"] == 0,
+                  "reclaim: the dead shard holds entries")
+    check(caps[:4] == [[32, 32], [64, 0], [64, 0], [32, 32]],
+          f"reclaim: capacity rows {caps}")
+    check(st["rebalances"] == 2 and st["rows_moved"] == 64,
+          f"reclaim: {st['rebalances']} rebalances, {st['rows_moved']} rows")
+    cst = eng.control.stats()
+    check(cst["cache_rebalances"] == 2 and cst["audit_violations"] == 0,
+          f"reclaim: control {cst['cache_rebalances']} rebalances, audit "
+          f"{cst['audit_violations']}")
+    check(all(math.isfinite(r.loss) for r in eng.history),
+          "reclaim: non-finite losses")
+    return {"capacity_rows": caps, "rebalances": st["rebalances"],
+            "rows_moved": st["rows_moved"]}
+
+
+def phase_cache_mesh(torch) -> dict:
+    """The cache on the mesh path: ``CACHE_MESH`` (4 workers over 2 shards,
+    tree, int8, 256 rows, cache affinity) at the published widths,
+    ``CACHE_MESH_ROUNDS`` rounds at depths 1 and 0 (bitwise), per-shard
+    counters summing to the global ones, K2 once per live shard a round,
+    K1 once per worker-program step; the same mesh without affinity is
+    bitwise cache-off; its first rounds card vs CPU recorded; the same
+    options on the agree phase's small engine, card vs CPU within its rtol
+    1e-4; then the reclaim scenario."""
+    from repro_torch.launch.train import build_engine
+    runs, out = {}, {}
+    for depth in (1, 0):
+        eng, res, k = _sr_run(torch, CACHE_MESH_ROUNDS, depth, **CACHE_MESH)
+        _round_rows("cache_mesh", res, depth=depth)
+        st = eng.cache_stats
+        check(_per_shard_sums(st), f"cache mesh: per-shard sums {st}")
+        check(k["dequant_merge"] == CACHE_MESH["mesh_workers"] * len(res),
+              f"cache mesh depth {depth}: K2 launched {k}")
+        steps = CACHE_MESH["workers"] * sum(r.s_steps for r in res)
+        check(k["fedavg_accum"] == steps,
+              f"cache mesh depth {depth}: K1 {k} for {steps} steps")
+        runs[depth] = [r.loss for r in res]
+        out[f"depth{depth}"] = {
+            "launches": k, "hit_rate": [r.cache_hit_rate for r in res],
+            "affinity_swaps": [r.affinity_swaps for r in res],
+            "exec_s": [r.exec_time for r in res],
+            "pack_s": [r.pack_time for r in res],
+            "per_shard": st["per_shard"]}
+    check(runs[1] == runs[0], f"cache mesh: depths differ {runs}")
+    check(all(math.isfinite(x) for x in runs[1]), f"cache mesh: {runs}")
+    plain = dict(MESH, **CACHE_KW)
+    on = _sr_run(torch, CACHE_MESH_ROUNDS, 1, device_cache_batches=256,
+                 **plain)[1]
+    off = _sr_run(torch, CACHE_MESH_ROUNDS, 1, **plain)[1]
+    check([r.loss for r in on] == [r.loss for r in off],
+          "cache mesh without affinity: cache on != off")
+    cpu = [r.loss for r in build_engine(task="sr", device="cpu",
+                                        **CACHE_MESH).run(CACHE_AGREE_ROUNDS)]
+    out["published_card_vs_cpu"] = {
+        "cpu": cpu, "rel_diff": [abs(a - b) / abs(b)
+                                 for a, b in zip(runs[1], cpu)]}
+    out["agree"] = _agree_cache_mesh(torch)
+    out["reclaim"] = _reclaim_on_card(torch)
+    emit({"phase": "cache_mesh_summary", "losses": runs[1],
+          "bit_identical_depth_0_1": True, **out})
+    return out
+
+
+def phase_multihost(torch) -> dict:
+    """The process-per-host harness on the card: ``run_multihost(
+    build_engine, MULTIHOST, hosts=2)`` — two spawned ranks sharing the
+    card — bitwise equal to the in-process ``hosts=1`` run, every rank
+    agreeing and running only its own block's workers, the sidecar audit
+    clean; then rank 1 killed inside round 3's exchange (``ok=False``, a
+    flight dump) and a fleet resumed from rank 0's checkpoint bitwise equal
+    to the uninterrupted run.  Records the wall time a round against the
+    in-process run, and the exchange's ms and bytes a rank a round."""
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.launch.multihost import run_multihost
+    from repro_torch.launch.train import build_engine
+    from repro_torch.obs import make_observability
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = run_multihost(build_engine, MULTIHOST, hosts=2,
+                        rounds=MULTIHOST_ROUNDS)
+    fleet_s = time.perf_counter() - t0
+    check(res.ok, f"multihost: {res.reason}")
+    eng = build_engine(**dict(MULTIHOST, hosts=1))
+    ops.reset_launch_counts()
+    ref = eng.run(MULTIHOST_ROUNDS)
+    launches = ops.launch_counts()
+    torch.cuda.synchronize()
+    check(res.losses == [r.loss for r in ref],
+          f"multihost {res.losses} != in process {[r.loss for r in ref]}")
+    steps = sum(r.s_steps for r in ref)
+    check(launches["fedavg_accum"] == 4 * steps,
+          f"multihost reference: K1 {launches}")
+    # Each rank's own count over its run: K1 once a step for each of its
+    # block's 2 workers, the two ranks together the in-process run's.
+    rank_k1 = {h: res.per_rank_launches[h]["fedavg_accum"] for h in (0, 1)}
+    check(rank_k1 == {0: 2 * steps, 1: 2 * steps},
+          f"multihost: rank K1 {res.per_rank_launches} for {steps} steps")
+    check(res.audit == [] and len(res.records) == 2 * MULTIHOST_ROUNDS,
+          f"multihost: audit {res.audit}, {len(res.records)} records")
+    for r in res.records:
+        wids = {w[0] for w in r.worker_times}
+        check(wids == ({0, 1} if r.host == 0 else {2, 3}),
+              f"multihost: rank {r.host} ran workers {wids}")
+    part_bytes = SR_PARAMS * 4 + 8
+    check(all(b == [part_bytes, part_bytes] for b in res.exchange_bytes),
+          f"multihost: exchanged {res.exchange_bytes} B")
+    out = {"losses": res.losses, "fleet_wall_s": fleet_s,
+           "rank_launches": res.per_rank_launches,
+           "exchange_ms": [x * 1e3 for x in res.exchange_s],
+           "exchange_bytes_per_rank": part_bytes,
+           "rank_exec_s": {h: [r.exec_s for r in res.records
+                               if r.host == h] for h in (0, 1)},
+           "in_process_exec_s": [r.exec_time for r in ref],
+           "in_process_wall_s": [r.wall_time for r in ref]}
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(MULTIHOST, ckpt_dir=f"{tmp}/ck", rounds_per_checkpoint=2)
+        full_res = build_engine(**dict(kw, hosts=1, ckpt_dir=None)).run(6)
+        full = [r.loss for r in full_res]
+        back_steps = sum(r.s_steps for r in full_res[2:6])
+        fpath = f"{tmp}/flight.json"
+        obs = make_observability(trace_rounds=8, flight_rounds=8,
+                                 flight_path=fpath)
+        dead = run_multihost(build_engine, kw, hosts=2, rounds=6,
+                             kill_at=(3, 1), flight=obs.flight)
+        check(not dead.ok and "host 1 died" in dead.reason
+              and dead.rounds_completed == 3 and dead.audit == [],
+              f"multihost kill: ok={dead.ok} {dead.reason!r} "
+              f"rounds={dead.rounds_completed}")
+        check(dead.flight_path == fpath and os.path.exists(fpath),
+              f"multihost kill: flight dump {dead.flight_path}")
+        with open(fpath) as f:
+            check("host 1 died" in json.load(f)["reason"],
+                  "multihost kill: the flight dump's reason")
+        back = run_multihost(build_engine, kw, hosts=2, rounds=4,
+                             resume=True)
+        check(back.ok and back.losses == full[2:6],
+              f"multihost resume: {back.reason} {back.losses} != "
+              f"{full[2:6]}")
+        check({h: c["fedavg_accum"]
+               for h, c in back.per_rank_launches.items()}
+              == {0: 2 * back_steps, 1: 2 * back_steps},
+              f"multihost resume: rank K1 {back.per_rank_launches} for "
+              f"{back_steps} steps")
+    out["kill"] = {"reason": dead.reason.splitlines()[0],
+                   "rounds_completed": dead.rounds_completed,
+                   "resumed_losses": back.losses}
+    emit({"phase": "multihost_summary", "bit_identical_hosts_1_2": True,
+          **out})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=4)
@@ -3256,6 +3689,9 @@ def main() -> int:
     control = phase_control(torch)
     population = phase_population(torch)
     memory = phase_memory_probe(torch)
+    cache = phase_cache(torch)
+    cache_mesh = phase_cache_mesh(torch)
+    multihost = phase_multihost(torch)
     if args.profile_out:
         phase_profile(torch, args.profile_out, "fused")
         phase_profile(torch, args.profile_out, "mesh", **MESH)
@@ -3289,6 +3725,13 @@ def main() -> int:
              k: v["launches"]["fedavg_accum"]
              for k, v in control["mesh"].items()},
          "launches_population": population["launches"],
+         "launches_cache": {k: v["launches"] for k, v in cache.items()
+                            if isinstance(v, dict) and "launches" in v},
+         "launches_cache_mesh": cache_mesh["depth1"]["launches"][
+             "fedavg_accum"],
+         "launches_multihost_per_rank": {
+             h: c["fedavg_accum"]
+             for h, c in multihost["rank_launches"].items()},
          "train_full_fold": {k: lm_fold[k] for k in (
              "shape", "ms", "plain_ms", "library_ms", "bound_ms",
              "bound_by", "max_abs_err")}},
@@ -3300,6 +3743,8 @@ def main() -> int:
          "launches_resume_mesh": resume["mesh_int8"]["launches_resumed"][
              "dequant_merge"],
          "launches_control_mesh": control["mesh"]["tree_int8"]["launches"][
+             "dequant_merge"],
+         "launches_cache_mesh": cache_mesh["depth1"]["launches"][
              "dequant_merge"],
          "lm_payload": {k: k2_lm[k] for k in (
              "shape", "leaves", "ms", "plain_ms", "bound_ms", "bound_by")},

@@ -59,9 +59,22 @@ An observability bundle (:mod:`repro_torch.obs`) may ride along: its tracer
 books every stage, and its flight recorder keeps the last rounds and dumps
 them when a round or the pipeline aborts.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: the device batch cache (ROADMAP M11) and the process-per-host
-harness (M14).
+The device batch cache (``device_cache_batches`` / ``device_cache_bytes``;
+:mod:`repro_torch.data.device_cache`) is the reference's: the producer
+plans each round (per worker against its shard's pool on the mesh path)
+and gathers only the missed steps into the pinned ring; the consumer
+assembles the round's batches on the device from those rows and the pool,
+in place, on the stream the step then runs on.  ``cache_affinity`` swaps
+cached clients, load-neutrally, toward the shard that holds their rows;
+a shard that loses its last worker hands its rows to the others.  The
+reference's batch-donation carve-out has no counterpart: the port donates
+nothing, and the step only reads the round base.
+
+The process-per-host harness (:mod:`repro_torch.launch.multihost`) drives
+three seams, all ``None`` in process: ``_host_rank`` (this process runs
+only its host block's worker programs; the others stay holes),
+``_host_exchange`` (the all-gather of host partials, as numpy f32) and
+``_round_observer`` (each round's control rows onto the sidecar channel).
 """
 
 from __future__ import annotations
@@ -79,11 +92,15 @@ from repro_torch import resolve_device
 from repro_torch.compress import CombineCompressor, make_encode_step
 from repro_torch.core.aggregation import AGG_IMPLS
 from repro_torch.core.placement import (Assignment, ClientInfo,
-                                        LearningBasedPlacement, Placement)
+                                        LearningBasedPlacement, Placement,
+                                        apply_cache_affinity)
 from repro_torch.core.sampling import restore_sampler, sampler_state
 from repro_torch.data.batching import (PackBuffers, RoundArrays,
-                                       build_round_arrays, padding_stats,
-                                       plan_round, worker_stream_lengths)
+                                       build_round_arrays, build_round_masks,
+                                       gather_content_rows, padding_stats,
+                                       plan_round, split_plan_by_worker,
+                                       worker_stream_lengths)
+from repro_torch.data.device_cache import CachePlan, DeviceBatchCache
 from repro_torch.distributed.sharding import HostShardMap, WorkerShardMap
 from repro_torch.fl.round import (StepCompileCache, make_combine_step,
                                   make_compressed_combine_step,
@@ -161,6 +178,25 @@ def _stack_payloads(mode: str, payloads: list):
             for name in payloads[0]}
 
 
+def _partial_to_numpy(part):
+    """Wire form of one host's ``(theta, n, loss)`` partial for the
+    process-per-host exchange: numpy (pickle-safe; f32 → numpy → f32 is
+    bit-exact, so the trip through the coordinator never perturbs the
+    reduction).  ``None`` (an all-holes block) passes through."""
+    if part is None:
+        return None
+    theta, n, loss = part
+    return (theta.flat.cpu().numpy(), n.cpu().numpy(), loss.cpu().numpy())
+
+
+def _probe_row_bytes(dataset, *, batch_size=None, seq_len=None) -> int:
+    """Bytes of one packed batch row (all leaves), from a one-batch gather."""
+    probe = dataset.gather_batches(np.asarray([0]), np.asarray([0]),
+                                   batch_size=batch_size, seq_len=seq_len)
+    return int(sum(int(np.prod(v.shape[1:])) * v.dtype.itemsize
+                   for v in probe.values()))
+
+
 def _warn(msg: str) -> None:
     """A restore that cannot be exact says so on stdout, as the reference
     does, and goes on."""
@@ -190,6 +226,8 @@ class RoundResult:
     pack_time: float = 0.0         # host time packing this round's arrays
     overlap_fraction: float = 0.0  # fraction of pack hidden under execution
     recompiles: int = 0            # distinct round shapes met so far
+    cache_hit_rate: float = 0.0    # device-cache step hit rate this round
+    cache_bytes_saved: int = 0     # H2D bytes skipped via the device cache
     exec_time: float = 0.0         # dispatch -> loss sync, host seconds
     padded_steps: int = 0          # dispatched-but-masked lane steps
     slo_p50: float = 0.0           # median per-client round time
@@ -201,17 +239,10 @@ class RoundResult:
     #                                this round (compressed combine only)
     barrier_stall_s: float = 0.0   # producer stall at the refit barrier
     drift_fallback: bool = False   # placed by the BB fallback (drift alarm)
+    affinity_swaps: int = 0        # cache-affinity client swaps this round
     stale_fraction: float = 0.0    # cohort fraction drafted while offline
     online_pool: float = 0.0       # expected online-pool size at sample time
     #                                (0 for closed-registry samplers)
-
-
-# (field, default, ROADMAP item) of every EngineConfig option not ported
-# yet: a non-default value raises instead of being ignored.
-_UNPORTED = (
-    ("device_cache_batches", 0, "M11"), ("device_cache_bytes", 0, "M11"),
-    ("cache_affinity", False, "M11"),
-)
 
 
 @dataclass
@@ -227,9 +258,12 @@ class EngineConfig:
     pipeline_depth: int = 1       # 0 = sync; d >= 1 = prep t+1..t+d during t
     compile_cache_size: int = 8   # LRU cap on distinct round shapes
     rounds_per_checkpoint: int = 25  # with a checkpoint store
+    device_cache_batches: int = 0  # device rows kept for hot clients; 0 = off
+    device_cache_bytes: int = 0    # the cache's budget in bytes; 0 = off
     # -- mesh execution (per-worker programs) and its combine ---------------
     mesh_workers: int = 0          # 0/1 = one fused program; K >= 2 = one
     #                                program per worker over K shards
+    cache_affinity: bool = False   # prefer the shard holding a client's rows
     bucket_mode: str = "round"     # "round": every worker program runs at
     #                                the round's S; "worker": at its own
     combine_mode: str = "flat"     # "flat": one combine over every lane
@@ -246,10 +280,6 @@ class EngineConfig:
     adapt_interval: int = 0             # rounds per hill-climb move; 0 = off
     adapt_max_slots: int = 64
     adapt_granularity: str = "type"     # "type" | "worker" (per-wid slots)
-    # -- options of the reference not ported yet (see _UNPORTED) ------------
-    device_cache_batches: int = 0
-    device_cache_bytes: int = 0
-    cache_affinity: bool = False
 
     def __post_init__(self):
         depth = self.pipeline_depth
@@ -268,11 +298,6 @@ class EngineConfig:
                                  f"{getattr(self, name)!r}")
         self._check_mesh()
         self._check_control()
-        for name, default, item in _UNPORTED:
-            value = getattr(self, name)
-            if value != default:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet (ROADMAP {item})")
 
     @property
     def control_enabled(self) -> bool:
@@ -304,11 +329,21 @@ class EngineConfig:
                              f"{self.adapt_interval!r}")
 
     def _check_mesh(self) -> None:
-        """The reference's checks of the mesh, bucket, combine and host
-        options (``repro/core/engine.py:310-377``), with its messages."""
+        """The reference's checks of the mesh, affinity, bucket, combine and
+        host options (``repro/core/engine.py:310-377``), with its
+        messages."""
         if not isinstance(self.mesh_workers, int) or self.mesh_workers < 0:
             raise ValueError("mesh_workers must be an int >= 0, got "
                              f"{self.mesh_workers!r}")
+        if self.cache_affinity:
+            if self.mesh_workers < 2:
+                raise ValueError(
+                    "cache_affinity requires mesh_workers >= 2 (with one "
+                    "shard there is no 'other' pool to prefer)")
+            if self.device_cache_batches <= 0 and self.device_cache_bytes <= 0:
+                raise ValueError(
+                    "cache_affinity requires an enabled device cache "
+                    "(device_cache_batches or device_cache_bytes)")
         if self.bucket_mode not in ("round", "worker"):
             raise ValueError("bucket_mode must be 'round' or 'worker', "
                              f"got {self.bucket_mode!r}")
@@ -371,7 +406,8 @@ class _PreparedRound:
     workers: list
     arrays: RoundArrays | None
     device: tuple | None     # (batches, step_mask, boundary, weight) on
-    #                          the device — None on the mesh path
+    #                          the device — None on the mesh path; with the
+    #                          cache, batches are the compact miss rows
     pack_s: float            # host pack time (plan + gather + scatter)
     makespan: float          # simulated round time (prepare time)
     idle_time: float
@@ -388,9 +424,13 @@ class _PreparedRound:
     slo_p99: float = 0.0
     stale_fraction: float = 0.0
     online_pool: float = 0.0
+    cache_plan: CachePlan | None = None  # the fused path's cache plan
+    affinity_swaps: int = 0  # cache-affinity swap count this round
     # -- mesh execution (per-worker programs) ---------------------------------
     worker_programs: list | None = None
-    # [(wid, type_name, shard, device, device_arrays, xs, pred_s)]
+    # [(wid, type_name, shard, device, device_arrays, cache_plan, xs,
+    #   pred_s)]; device and device_arrays are None for another host's
+    # worker (process-per-host harness), cache_plan None without the cache
     combine_masks: tuple | None = None  # full (mask, boundary, weight)
     worker_times: list | None = None
     # consumer-set: [(wid, type_name, xs, pred_s, meas_s)]
@@ -547,6 +587,30 @@ class FederatedEngine:
             self._sync_pool = ThreadPoolExecutor(
                 max_workers=self._mesh_shards,
                 thread_name_prefix="pollen-sync")
+        # The process-per-host harness's seams (launch/multihost.py): rank
+        # r runs only its host block's worker programs and all-gathers host
+        # partials through the exchange; the observer ships each round's
+        # control rows onto the sidecar channel.  None = in process.
+        self._host_rank: int | None = None
+        self._host_exchange = None
+        self._round_observer = None
+        self._device_cache = None
+        if config.device_cache_batches > 0 or config.device_cache_bytes > 0:
+            row_bytes = 0
+            if config.device_cache_bytes > 0:
+                # Byte capacity -> rows: probe one batch for the row size
+                # (leaf shapes are uniform across clients by construction).
+                row_bytes = _probe_row_bytes(dataset,
+                                             batch_size=config.batch_size,
+                                             seq_len=config.seq_len)
+            self._device_cache = DeviceBatchCache(
+                config.device_cache_batches,
+                capacity_bytes=config.device_cache_bytes,
+                row_bytes=row_bytes,
+                compile_cache_size=config.compile_cache_size,
+                n_shards=self._mesh_shards or 1,
+                devices=(fl_combine_topology(self._mesh_shards, self.device)[0]
+                         if self._mesh_shards else [self.device]))
         self._caches = {
             "round_step": self._round_step, "gather_step": self._gather_step,
             "worker_step": self._worker_step,
@@ -561,6 +625,8 @@ class FederatedEngine:
                 if c is not None:
                     c.tracer = self._tracer
                     c.trace_label = label
+            if self._device_cache is not None:
+                self._device_cache.tracer = self._tracer
 
     # -- helpers -------------------------------------------------------------
     @property
@@ -583,6 +649,11 @@ class FederatedEngine:
     @property
     def _compiles_total(self) -> int:
         return sum(c.compiles for c in self._caches.values() if c is not None)
+
+    @property
+    def cache_stats(self) -> dict:
+        """Device-batch-cache counters (``{}`` when the cache is off)."""
+        return self._device_cache.stats() if self._device_cache else {}
 
     @property
     def control_stats(self) -> dict:
@@ -677,12 +748,13 @@ class FederatedEngine:
         on CUDA; on the CPU the tensor shares the pack buffer)."""
         return torch.from_numpy(a).to(device, non_blocking=True)
 
-    def _to_device(self, arrays: RoundArrays) -> tuple:
-        """Start the H2D copies of a packed round."""
+    def _to_device(self, batches: dict, arrays: RoundArrays) -> tuple:
+        """Start the H2D copies of a packed round (``batches`` are the
+        compact miss rows on the cache path)."""
         def put(a):
             return self._put(a, self.device)
 
-        return ({k: put(v) for k, v in arrays.batches.items()},
+        return ({k: put(v) for k, v in batches.items()},
                 put(arrays.step_mask), put(arrays.boundary),
                 put(arrays.weight))
 
@@ -715,6 +787,29 @@ class FederatedEngine:
         sampler_st = sampler_state(self.sampler)
         place = ctl.fallback_placement if fallback else self.placement
         assignment = place.assign(clients, workers)
+        mesh_map, n_swaps = None, 0
+        cache = self._device_cache
+        if self._mesh_shards:
+            mesh_map = WorkerShardMap.build(workers, self._mesh_shards,
+                                            devices=self._shard_devices)
+            if cache is not None:
+                # Orphan-shard reclamation: a shard whose last worker died
+                # hands its row budget to the survivors (and gets it back
+                # on a rejoin) — here, in round order, so the LRU's
+                # consequences are the same at any depth.
+                ev = cache.rebalance(mesh_map.live_shards())
+                if ev is not None and ctl is not None:
+                    ctl.on_cache_rebalance(t, ev)
+            if self.cfg.cache_affinity:
+                # Load-neutral swaps (equal batch count, equal worker type)
+                # toward the live shard that already holds a client's rows.
+                # Under the process-per-host harness a rank's cache holds
+                # only its own shards, so ranks can swap differently (as in
+                # the reference): launch/multihost.py does not support it.
+                assignment, n_swaps = apply_cache_affinity(
+                    assignment, workers, mesh_map.shard_of_wid,
+                    cache.shard_for_client,
+                    live_shards=mesh_map.live_shards())
         shares, loads = None, {}
         if self.cfg.telemetry_mode == "measured":
             makespan, idle, shares, loads = self._predict_round(assignment,
@@ -767,8 +862,9 @@ class FederatedEngine:
                                   pop_stats.get("online_pool", 0.0)),
                               sampler_st=sampler_st,
                               telemetry_st=telemetry_st,
-                              control_st=control_st)
-        if self._mesh_shards:
+                              control_st=control_st,
+                              affinity_swaps=n_swaps)
+        if mesh_map is not None:
             # One program per worker: the round packs once at its full
             # [W, P, S] size and each worker's block is sliced out for its
             # own copy; the full masks also go over once, for the combine.
@@ -779,12 +875,18 @@ class FederatedEngine:
             else:
                 worker_S = [S] * plan.W
             with tr.span("prep.pack", t=t, S=S, W=plan.W):
-                prep.arrays = build_round_arrays(
-                    self.dataset, plan=plan, batch_size=self.cfg.batch_size,
-                    seq_len=self.cfg.seq_len, s_align=lambda s: S,
-                    buffers=self._pack_buffers)
+                if cache is not None:
+                    prep.arrays = build_round_masks(
+                        plan, S, buffers=self._pack_buffers)
+                else:
+                    prep.arrays = build_round_arrays(
+                        self.dataset, plan=plan,
+                        batch_size=self.cfg.batch_size,
+                        seq_len=self.cfg.seq_len, s_align=lambda s: S,
+                        buffers=self._pack_buffers)
                 prep.worker_programs = self._pack_worker_programs(
-                    plan, worker_S, prep.arrays, assignment, workers, loads)
+                    t, plan, worker_S, prep.arrays, assignment, workers,
+                    mesh_map, loads)
             prep.pack_s = time.perf_counter() - tp0
             prep.padded_steps = (int(sum(worker_S)) * plan.P
                                  - plan.n_steps_total)
@@ -795,18 +897,33 @@ class FederatedEngine:
                     for x in (a.step_mask, a.boundary, a.weight))
             return prep
         with tr.span("prep.pack", t=t):
-            prep.arrays = build_round_arrays(
-                self.dataset, plan=plan, batch_size=self.cfg.batch_size,
-                seq_len=self.cfg.seq_len, s_align=self._s_align,
-                buffers=self._pack_buffers)
+            if cache is not None:
+                # Cache path: no full-size host batch buffer at all — the
+                # masks as usual, and the content as compact miss rows the
+                # consumer assembles on the device (misses + pool hits).
+                S = self._s_align(plan.s_real)
+                prep.cache_plan = cache.plan(plan, S, t)
+                prep.arrays = build_round_masks(plan, S,
+                                                buffers=self._pack_buffers)
+                host_batches = gather_content_rows(
+                    self.dataset, plan, prep.cache_plan.content_mask,
+                    prep.cache_plan.n_miss_rows,
+                    batch_size=self.cfg.batch_size, seq_len=self.cfg.seq_len,
+                    buffers=self._pack_buffers)
+            else:
+                prep.arrays = build_round_arrays(
+                    self.dataset, plan=plan, batch_size=self.cfg.batch_size,
+                    seq_len=self.cfg.seq_len, s_align=self._s_align,
+                    buffers=self._pack_buffers)
+                host_batches = prep.arrays.batches
         prep.pack_s = time.perf_counter() - tp0
         prep.padded_steps = prep.arrays.step_mask.size - plan.n_steps_total
         with tr.span("prep.h2d", t=t):
-            prep.device = self._to_device(prep.arrays)
+            prep.device = self._to_device(host_batches, prep.arrays)
         return prep
 
-    def _pack_worker_programs(self, plan, worker_S, arrays, assignment,
-                              workers, loads: dict) -> list:
+    def _pack_worker_programs(self, t, plan, worker_S, arrays, assignment,
+                              workers, mesh_map, loads: dict) -> list:
         """Producer half of the mesh path: each worker's ``[1, P, S_w]``
         block, copied to its shard's device.
 
@@ -815,23 +932,51 @@ class FederatedEngine:
         trailing padded steps).  A block at the round's S is a contiguous
         slice of the pinned ring and copies asynchronously; a shorter one
         is a strided view, which PyTorch stages through pageable memory
-        before the copy (same values, a blocking copy on this thread)."""
-        mesh_map = WorkerShardMap.build(workers, self._mesh_shards,
-                                        devices=self._shard_devices)
+        before the copy (same values, a blocking copy on this thread).
+        With the device cache on, each worker's content travels as its own
+        compact miss rows (a contiguous ring slot), planned against its
+        shard's pool at that worker's S."""
+        subplans = (split_plan_by_worker(plan)
+                    if self._device_cache is not None else None)
+        slot_counts: dict[int, int] = {}
         programs = []
         for wi, w in enumerate(sorted(workers, key=lambda w: w.wid)):
+            shard = mesh_map.shard_of(w.wid)
+            slot = slot_counts.get(shard, 0)
+            slot_counts[shard] = slot + 1
+            xs = [c.n_batches for c in assignment.per_worker.get(w.wid, [])]
+            pred = float(loads.get(w.wid, 0.0))
+            if (self._host_rank is not None
+                    and self._host_map.host_of(shard) != self._host_rank):
+                # Process-per-host harness: another host owns this shard.
+                # Everything above ran here too (every rank's producer
+                # state agrees); the copies and the program are that
+                # host's.  The entry keeps the positions aligned.
+                programs.append((w.wid, w.type_name, shard, None, None, None,
+                                 xs, pred))
+                continue
             dev = mesh_map.device_for(w.wid) or self.device
             S_w = worker_S[wi]
 
             def put(a):
                 return self._put(a[wi:wi + 1, :, :S_w], dev)
 
-            block = ({k: put(v) for k, v in arrays.batches.items()},
-                     put(arrays.step_mask), put(arrays.boundary),
+            masks = (put(arrays.step_mask), put(arrays.boundary),
                      put(arrays.weight))
-            xs = [c.n_batches for c in assignment.per_worker.get(w.wid, [])]
-            programs.append((w.wid, w.type_name, mesh_map.shard_of(w.wid),
-                             dev, block, xs, float(loads.get(w.wid, 0.0))))
+            cplan = None
+            if self._device_cache is not None:
+                cplan = self._device_cache.plan(subplans[wi], S_w, t,
+                                                shard=shard, worker_slot=slot)
+                miss = gather_content_rows(
+                    self.dataset, subplans[wi], cplan.content_mask,
+                    cplan.n_miss_rows, batch_size=self.cfg.batch_size,
+                    seq_len=self.cfg.seq_len, buffers=self._pack_buffers,
+                    tag=wi)
+                batches = {k: self._put(v, dev) for k, v in miss.items()}
+            else:
+                batches = {k: put(v) for k, v in arrays.batches.items()}
+            programs.append((w.wid, w.type_name, shard, dev,
+                             (batches, *masks), cplan, xs, pred))
         return programs
 
     def _execute(self, prep: _PreparedRound):
@@ -840,6 +985,10 @@ class FederatedEngine:
             return self._execute_mesh(prep)
         with self._tracer.span("exec.dispatch", t=prep.t):
             batches, step_mask, boundary, weight = prep.device
+            if prep.cache_plan is not None:
+                # The compact miss rows and the pool become the round's
+                # batches, in place, ahead of the step on this stream.
+                batches = self._device_cache.apply(batches, prep.cache_plan)
             if self._gather_step is None:
                 self._params, metrics = self._round_step(
                     self._params, batches, step_mask, boundary, weight)
@@ -888,18 +1037,40 @@ class FederatedEngine:
         each one INDIVIDUALLY — a CUDA event per worker, waited on one
         thread per shard — then combine the partials."""
         tr = self._tracer
+        cache = self._device_cache
         dispatched = []
         on_dev: dict = {}
-        for wid, tname, shard, dev, block, xs, pred in prep.worker_programs:
+        shard_slots: dict[int, int] = {}
+
+        def run(block, cplan, params):
+            if cplan is not None:
+                block = (cache.apply(block[0], cplan), *block[1:])
+            return self._worker_step(params, *block)
+
+        for wid, tname, shard, dev, block, cplan, xs, pred in \
+                prep.worker_programs:
+            if block is None:
+                # Another host's shard (process-per-host harness): its
+                # owner runs it and ships the merged host partial instead.
+                continue
+            if cplan is not None:
+                shard_slots[shard] = max(shard_slots.get(shard, 0),
+                                         cplan.worker_slot + 1)
             params = self._params_on(dev, on_dev)
             if dev.type == "cuda":
                 with torch.cuda.device(dev):
-                    out = self._worker_step(params, *block)
+                    out = run(block, cplan, params)
                     done = torch.cuda.Event()
                     done.record()
             else:
-                out, done = self._worker_step(params, *block), None
+                out, done = run(block, cplan, params), None
             dispatched.append((wid, tname, shard, xs, pred, out, done))
+        if cache is not None:
+            # Elastic churn can shrink (or empty) a shard's worker set:
+            # retire the departed slots' round bases, or they stay resident
+            # for the rest of the run.
+            for s in range(cache.n_shards):
+                cache.retire_slots(s, shard_slots.get(s, 0))
         # Each shard's programs run in order on its device, so a worker's
         # time is the delta from its shard-mate's completion.  Shards sync
         # on their own threads: blocking on a slow shard from one thread
@@ -1024,6 +1195,7 @@ class FederatedEngine:
         and decoded to a dense partial before the pairwise nodes."""
         hm = self._host_map
         tr = self._tracer
+        own = self._host_rank
         nfn = self._host_node_step.lookup(("node",))
 
         def node(a, b):
@@ -1039,8 +1211,10 @@ class FederatedEngine:
                 theta = decode(self._params_on(theta.flat.device, on_dev),
                                payload)
             slots[shard] = self._to_root((theta, m[1][0, 0], m[2][0, 0]))
-        host_parts = []
+        host_parts: list = [None] * hm.n_hosts
         for h in range(hm.n_hosts):
+            if own is not None and h != own:
+                continue
             t0h = time.perf_counter()
             part = HostShardMap.pairwise_reduce(
                 slots[h * hm.block:(h + 1) * hm.block], node)
@@ -1048,7 +1222,17 @@ class FederatedEngine:
                 tr.add_span("exec.host_merge", t0h,
                             time.perf_counter() - t0h, lane=f"host{h}",
                             host=h, t=prep.t)
-            host_parts.append(part)
+            host_parts[h] = part
+        if self._host_exchange is not None:
+            # Every rank gets every host's partial and runs the same root
+            # reduction, so params stay bitwise equal on every host.
+            gathered = self._host_exchange(
+                prep.t, own, _partial_to_numpy(host_parts[own]))
+            for h, p in enumerate(gathered):
+                if h != own and p is not None:
+                    flat, n, loss = (torch.from_numpy(a).to(self.device)
+                                     for a in p)
+                    host_parts[h] = (self._layout.views(flat), n, loss)
         live = sum(1 for p in host_parts if p is not None)
         if live == 0:
             raise RuntimeError(f"round {prep.t}: no live shard partials "
@@ -1096,6 +1280,10 @@ class FederatedEngine:
         t = prep.t
         loss = float(metrics.loss)
         stats = padding_stats(prep.arrays)
+        plans = ([prep.cache_plan] if prep.cache_plan is not None else
+                 [p[5] for p in prep.worker_programs or () if p[5] is not None])
+        hit = sum(c.hit_steps for c in plans)
+        total = hit + sum(c.miss_steps for c in plans)
         result = RoundResult(
             round_idx=t, loss=loss, n_clients=len(prep.clients),
             makespan=prep.makespan, idle_time=prep.idle_time,
@@ -1106,11 +1294,14 @@ class FederatedEngine:
             overlap_fraction=(prep.overlap_s / prep.pack_s
                               if prep.pack_s > 0 else 0.0),
             recompiles=self._compiles_total,
+            cache_hit_rate=hit / total if total else 0.0,
+            cache_bytes_saved=sum(c.bytes_saved for c in plans),
             exec_time=prep.exec_s, padded_steps=prep.padded_steps,
             slo_p50=prep.slo_p50, slo_p99=prep.slo_p99,
             combine_bytes=prep.combine_bytes,
             residual_norm=prep.residual_norm,
             barrier_stall_s=prep.stall_s, drift_fallback=prep.fallback,
+            affinity_swaps=prep.affinity_swaps,
             stale_fraction=prep.stale_fraction, online_pool=prep.online_pool)
         crit = critique_round(
             round_idx=t, pack_s=prep.pack_s, overlap_s=prep.overlap_s,
@@ -1128,6 +1319,7 @@ class FederatedEngine:
         self._telemetry_ckpt_state = prep.telemetry_st
         self._control_ckpt_state = prep.control_st
         if self._tracer.enabled:
+            self._tracer.counter("cache_hit_rate", result.cache_hit_rate)
             self._tracer.counter("online_pool", prep.online_pool)
             self._tracer.counter("combine_bytes", float(prep.combine_bytes))
         if self._metrics is not None:
@@ -1147,6 +1339,10 @@ class FederatedEngine:
                 "makespan": prep.makespan, "pack_s": prep.pack_s,
                 "exec_s": prep.exec_s, "stall_s": prep.stall_s,
                 "critique": crit.as_dict()})
+        if self._round_observer is not None:
+            # Harness hook (launch/multihost.py): this round's control rows
+            # onto the sidecar channel, in round order.  Observation only.
+            self._round_observer(prep, result)
         if (self.ckpt is not None
                 and (t + 1) % self.cfg.rounds_per_checkpoint == 0):
             self.save_checkpoint()
@@ -1164,6 +1360,11 @@ class FederatedEngine:
             metrics = self._execute(prep)
             self._post_execute(prep, metrics)
         except BaseException as e:
+            # A prep that died between cache.plan and cache.apply left LRU
+            # entries whose pool rows were never written: a retry would
+            # serve them as bogus hits.
+            if self._device_cache is not None:
+                self._device_cache.invalidate()
             if self.control is not None:
                 self.control.abort()
             self._flight_dump(f"run_round abort: {e!r}")
@@ -1183,6 +1384,10 @@ class FederatedEngine:
         try:
             return self._run_pipelined_inner(n_rounds, log_every=log_every)
         except BaseException as e:
+            # Preps may have planned cache insertions whose pool rows were
+            # never written (plan runs producer-side, apply consumer-side).
+            if self._device_cache is not None:
+                self._device_cache.invalidate()
             if self.control is not None:
                 # Wake a producer stalled at the refit barrier: the round
                 # it waits for will never finish now.
@@ -1284,12 +1489,14 @@ class FederatedEngine:
 
     @staticmethod
     def _log_round(r: RoundResult) -> None:
+        cache = (f" cache={r.cache_hit_rate:.0%}"
+                 if (r.cache_hit_rate or r.cache_bytes_saved) else "")
         print(f"round {r.round_idx:5d} loss={r.loss:.4f} "
               f"clients={r.n_clients} S={r.s_steps} "
               f"useful={r.useful_fraction:.2%} idle={r.idle_time:.1f}s "
               f"pack={r.pack_time * 1e3:.0f}ms "
               f"exec={r.exec_time * 1e3:.0f}ms "
-              f"overlap={r.overlap_fraction:.0%}")
+              f"overlap={r.overlap_fraction:.0%}" + cache)
 
     # -- fault tolerance -----------------------------------------------------
     def save_checkpoint(self) -> None:
@@ -1365,6 +1572,10 @@ class FederatedEngine:
         params, rnd, extra = self.ckpt.restore(self.params)
         self.params = params
         self.round_idx = rnd
+        if self._device_cache is not None:
+            # The cache is not checkpointed; entries planned for rounds past
+            # the restore point must not survive as hits.
+            self._device_cache.invalidate()
         if self.control is not None:
             self._restore_control(rnd, extra)
         if extra.get("sampler"):

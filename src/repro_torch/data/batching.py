@@ -2,7 +2,9 @@
 arrays for the round step.
 
 A numpy-only copy of ``repro.data.batching`` (importing the reference would
-load JAX); the one change is the allocator hook on :class:`PackBuffers`.
+load JAX); the changes are the allocator hook on :class:`PackBuffers` and
+its ring of compact miss-row buffers, which :func:`gather_content_rows`
+fills when it is given the ring.
 
 Execution model (the accelerator adaptation of Pollen's worker processes):
 
@@ -245,6 +247,24 @@ class PackBuffers:
         return (slot["batches"], slot["step_mask"], slot["boundary"],
                 slot["weight"])
 
+    def acquire_rows(self, tag, n_rows: int, row_specs):
+        """Return ``{name: [n_rows, ...]}`` buffers from the ring of compact
+        miss-row slots keyed by ``tag`` (a round's worker index, 0 on the
+        fused path), the row count and the leaf specs.  Each key is taken
+        at most once a round, so a slot comes back only ``depth`` rounds
+        later, as the full-size slots do."""
+        key = ("rows", tag, int(n_rows),
+               tuple((n, tuple(sh), str(dt)) for n, sh, dt in row_specs))
+        slots, cursor = self._rings.get(key, ([], 0))
+        if len(slots) < self.depth:
+            slot = {n: self._alloc((int(n_rows),) + tuple(sh), dt)
+                    for n, sh, dt in row_specs}
+            slots.append(slot)
+        else:
+            slot = slots[cursor % self.depth]
+        self._rings[key] = (slots, (cursor + 1) % max(self.depth, 1))
+        return slot
+
 
 def _batch_content(dataset, cids, batch_idx, *, batch_size, seq_len) -> dict:
     """Bulk-fetch N batches; falls back to a per-batch loop for datasets
@@ -353,7 +373,8 @@ def build_round_masks(plan: RoundPlan, S: int, *,
 def gather_content_rows(dataset, plan: RoundPlan, sel, n_rows: int, *,
                         batch_size: int | None = None,
                         seq_len: int | None = None,
-                        buffers: PackBuffers | None = None) -> dict:
+                        buffers: PackBuffers | None = None,
+                        tag=0) -> dict:
     """Compact ``{name: [n_rows, ...]}`` content for the selected steps.
 
     ``sel``: bool [N] step mask (None = every step); rows keep plan-step
@@ -361,9 +382,11 @@ def gather_content_rows(dataset, plan: RoundPlan, sel, n_rows: int, *,
     batch 0) BEFORE hitting the dataset, so the bulk-gather jit sees the
     same pow2-bucketed shape the caller's scatter uses — round-to-round
     variation in the selected count never compiles a new gather program.
-    Padding rows carry dummy content; the device-side scatter drops them
-    via out-of-bounds destinations.  With ``buffers``, leaf shapes for an
-    all-padding result come from ``row_memo`` instead of a dataset probe.
+    Padding rows carry dummy content; the device-side assembly reads only
+    the selected rows before them.  With ``buffers``, leaf shapes for an
+    all-padding result come from ``row_memo`` instead of a dataset probe,
+    and the rows come back in a slot of the ring's ``tag`` rows (pinned
+    memory on CUDA, so their copy to the card is asynchronous).
     """
     cids = plan.cids if sel is None else plan.cids[sel]
     bidx = plan.batch_idx if sel is None else plan.batch_idx[sel]
@@ -390,6 +413,10 @@ def gather_content_rows(dataset, plan: RoundPlan, sel, n_rows: int, *,
                for name, sh, dt in row_specs}
     if buffers is not None:
         buffers.row_memo[(batch_size, seq_len)] = row_specs
+        slot = buffers.acquire_rows(tag, n_rows, row_specs)
+        for name, arr in out.items():
+            np.copyto(slot[name], arr)
+        out = slot
     return out
 
 

@@ -43,13 +43,22 @@ open-world population, and the trace export and flight recorder::
     PYTHONPATH=src python -m repro_torch.launch.train --task sr \
         --trace-out trace.json --flight-rounds 8
 
+and the device batch cache — hot clients' batch rows kept in device memory,
+per shard on the mesh path, with cache-aware placement::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --task sr \
+        --sampler zipf --device-cache-batches 512
+    PYTHONPATH=src python -m repro_torch.launch.train --task sr \
+        --workers 4 --mesh-workers 2 --sampler zipf \
+        --device-cache-batches 256 --cache-affinity
+
 Each task trains with the reference's client optimizer: ``adam(4e-5)``
 for MLM, ``sgd(0.8, momentum=0.9, weight_decay=5e-4)`` for TG and
 ``sgd(0.05, ...)`` for IC and SR.  A checkpoint is written every
 ``rounds_per_checkpoint`` (25) rounds.
 
-The flags are the reference's.  Those of the device cache, not ported
-yet, raise ``NotImplementedError`` naming their ROADMAP item when set.
+The flags are the reference's.  The process-per-host harness is
+``python -m repro_torch.launch.multihost``.
 """
 
 from __future__ import annotations
@@ -239,7 +248,8 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
     ``engine_options`` are further :class:`EngineConfig` fields — the
     control plane's (``telemetry_mode``, ``barrier_policy``,
     ``drift_threshold``, ``adapt_interval``, ``adapt_granularity``, ...)
-    and the device cache's, which raise until it is ported.  Refuses a
+    and the device cache's (``device_cache_batches``,
+    ``device_cache_bytes``, ``cache_affinity``).  Refuses a
     config that sets the multi-card ``moe_dispatch`` hook (ROADMAP M15c),
     and a CUDA ``device`` without a card, before any work.
     """
@@ -327,7 +337,7 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
 def _build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="Pollen FL simulation on the CUDA card (port).  Flags "
-                    "as in repro.launch.train; the device cache's raise.")
+                    "as in repro.launch.train.")
     ap.add_argument("--task", choices=TASKS, default=None)
     ap.add_argument("--arch", default=None,
                     help="an LM arch of any family (dense, ssm, MoE, "
@@ -463,9 +473,15 @@ def main(argv=None) -> int:
             "mean_stale_fraction": float(np.mean(
                 [r.stale_fraction for r in results])) if results else None,
         }
+    if args.device_cache_batches or args.device_cache_mb:
+        summary["cache_hit_rate"] = float(np.mean(
+            [r.cache_hit_rate for r in results])) if results else None
+        summary["cache_bytes_saved"] = int(sum(
+            r.cache_bytes_saved for r in results))
     if args.mesh_workers >= 2:
         summary["mesh_workers"] = args.mesh_workers
-        summary["affinity_swaps"] = 0        # cache affinity: ROADMAP M11
+        summary["affinity_swaps"] = int(sum(
+            r.affinity_swaps for r in results))
         summary["bucket_mode"] = args.bucket_mode
         summary["combine_mode"] = args.combine_mode
         summary["padded_steps"] = int(sum(r.padded_steps for r in results))
@@ -477,6 +493,8 @@ def main(argv=None) -> int:
             summary["combine_compress"] = args.combine_compress
             summary["final_residual_norm"] = (
                 results[-1].residual_norm if results else 0.0)
+        if engine.cache_stats.get("per_shard"):
+            summary["cache_per_shard"] = engine.cache_stats["per_shard"]
     if engine.control is not None:
         summary["control"] = engine.control_stats
         summary["barrier_stall_s"] = float(sum(

@@ -1086,3 +1086,25 @@ def test_synthetic_control_bitwise_across_depths_on_card(dev):
         runs[depth] = [(r.loss, r.drift_fallback) for r in eng.run(8)]
         assert eng.control.autoconc.updates > 0
     assert runs[0] == runs[1] == runs[2]
+
+
+@pytest.mark.parametrize("mesh", [0, 2], ids=["fused", "mesh"])
+def test_device_cache_on_card_is_bitwise_cache_off(dev, mesh):
+    """SR rounds with the device cache on the card: losses bitwise equal to
+    the cache-off run at depths 0/1/2, hits served, K1 launched exactly as
+    often (the assembly launches no kernel of the port's)."""
+    def run(depth, rows):
+        tops.reset_launch_counts()
+        eng = _task_engine("sr", "cuda", depth=depth, mesh_workers=mesh,
+                           device_cache_batches=rows)
+        res = eng.run(6)
+        torch.cuda.synchronize()
+        return [r.loss for r in res], tops.launch_counts(), eng.cache_stats
+
+    off, k_off, _ = run(1, 0)
+    assert all(np.isfinite(off))
+    for depth in (0, 1, 2):
+        on, k_on, st = run(depth, 24)
+        assert on == off, depth
+        assert k_on == k_off
+        assert st["hit_steps"] > 0

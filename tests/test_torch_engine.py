@@ -10,6 +10,7 @@
 * The port never loads JAX, and never runs on the CPU unless asked.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -255,12 +256,26 @@ def test_build_engine_without_a_card_raises(monkeypatch):
         ttrain.build_engine()
 
 
+# What each cache option needs beside it: affinity steers toward shards.
+_CACHE_PREREQS = {"cache_affinity": dict(mesh_workers=2,
+                                         device_cache_batches=8)}
+
+
 @pytest.mark.parametrize("field,value", [
     ("device_cache_batches", 8), ("device_cache_bytes", 1 << 20),
     ("cache_affinity", True)])
-def test_unported_engine_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP M1"):
-        teng.EngineConfig(**{field: value})
+def test_cache_engine_options_are_taken(field, value):
+    """The device cache's options (once refused, ROADMAP M11) are taken as
+    the reference takes them, with its checks."""
+    from repro.core import EngineConfig as JConfig
+    kw = {field: value, **_CACHE_PREREQS.get(field, {})}
+    cfg = teng.EngineConfig(**kw)
+    assert getattr(cfg, field) == value
+    assert getattr(JConfig(**kw), field) == value
+    if field == "cache_affinity":
+        for bad in (dict(device_cache_batches=8), dict(mesh_workers=2)):
+            with pytest.raises(ValueError, match="cache_affinity requires"):
+                teng.EngineConfig(cache_affinity=True, **bad)
 
 
 @pytest.mark.parametrize("argv", [["--device-cache-batches", "8"],
@@ -268,11 +283,24 @@ def test_unported_engine_options_raise(field, value):
                                   ["--mesh-workers", "2",
                                    "--device-cache-batches", "8",
                                    "--cache-affinity"]])
-def test_unported_cli_flags_raise_before_touching_the_device(argv, monkeypatch):
+def test_cache_cli_flags_run_rounds_on_the_cpu(argv, monkeypatch, capsys):
+    """Each cache flag runs SR on the CPU (``resolve_device`` patched) and
+    the summary reports the cache's fields, as the reference's does."""
     monkeypatch.setattr(ttrain, "set_deterministic", lambda: None)
     monkeypatch.setattr(ttrain, "resolve_device", lambda d: torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="M"):
-        ttrain.main(argv)
+    base = ["--rounds", "2", "--cohort", "4", "--steps-cap", "2",
+            "--sampler", "zipf", "--zipf-exponent", "2.0"]
+    assert ttrain.main(base + argv) == 0
+    out = capsys.readouterr().out
+    summary = json.loads(out[out.index("\n{") + 1:])
+    assert summary["device"] == "cpu" and summary["rounds"] == 2
+    assert np.isfinite(summary["final_loss"])
+    assert 0.0 <= summary["cache_hit_rate"] <= 1.0
+    assert summary["cache_bytes_saved"] % 5200 == 0    # hit rows x 5,200 B
+    if "--mesh-workers" in argv:
+        assert summary["affinity_swaps"] >= 0
+        per = summary["cache_per_shard"]
+        assert sum(s["capacity_rows"] for s in per) == 8
 
 
 def test_port_imports_no_jax():
