@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch port on one CUDA card: the quickest proof that
 the port still builds, agrees with itself, trains and serves on the GPU.
 
-    python3 chip_smoke.py [--rounds 4] [--profile-out DIR]
+    python3 chip_smoke.py [--rounds 4] [--profile-out DIR] [--dryrun-out DIR]
 
 Phases, one JSON object per line on stdout:
 
@@ -226,10 +226,30 @@ Phases, one JSON object per line on stdout:
              running only its own block; rank 1 killed inside round 3's
              exchange (``ok=False``, a flight dump) and a bitwise resume
              from rank 0's checkpoint; the exchange's ms and bytes;
-31. the ``kernels`` line (K1-K5; K1's and K2's launches on the LM training,
+31. dryrun — ``repro_torch.launch.dryrun``: every (arch × shape) cell of
+             the assignment counted on meta tensors (FLOPs by dtype,
+             bytes, peak live bytes against the card's budget, the
+             roofline terms, K1-K5's work) by ``DRYRUN_WORKERS`` niced
+             processes started after the build; 32 cells must be ``ok``
+             or ``fail`` with the op named, the 8 ``long_500k`` skips
+             carry the reference's reason.  Four cells run on the card
+             (``DRYRUN_RUNS``): qwen3-0.6b train_4k (S=32, b=8; bf16 and
+             f32 leaves, K1 twice a step), qwen3-0.6b and mamba2-2.7b
+             prefill_32k (one prompt through K4 and K5, all ``wgmma``),
+             mamba2-2.7b long_500k; each must fit by the count and not
+             run out of memory, give finite outputs, launch
+             ``DRYRUN_LAUNCHES``, and its counted matrix-product FLOPs
+             must be within 1 % of torch.profiler's; step time, ``mfu``,
+             the roofline fraction and the predicted beside the measured
+             peak; the train cell's first local step with the allocator
+             read around every op (the workspace inside an op, which the
+             count cannot see); K4 and K5 timed at 32k positions beside
+             SDPA and K5's plain version;
+32. the ``kernels`` line (K1-K5; K1's and K2's launches on the LM training,
    task, FedMedian, resume and cache paths beside the main ones, K1 timed
    at the tasks' lane buffers, K4's launches on the MoE and VLM serve paths
-   and its timing at those shapes), then the card line and the last line
+   and its timing at those shapes, K1's, K4's and K5's dry-run launches),
+   then the card line and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no last
@@ -237,6 +257,9 @@ line.  It also fails where no CUDA card is present, and where the repo's
 ``src/`` is missing.  ``--profile-out DIR`` adds a torch.profiler pass over
 two rounds of the main path (``DIR/fused``) and of the mesh path
 (``DIR/mesh``): the trace, per-kernel device time and per-op host time.
+``--dryrun-out DIR`` writes every dry-run record there as JSON (one file a
+cell, ``__run`` for the cells run on the card), which
+``python -m repro_torch.launch.report --dir DIR`` renders.
 """
 
 from __future__ import annotations
@@ -460,6 +483,30 @@ MULTIHOST = dict(task="sr", workers=4, mesh_workers=4, pipeline_depth=1,
                  combine_mode="tree", combine_compress="none", steps_cap=4,
                  seed=13, hosts=2, device="cuda")
 MULTIHOST_ROUNDS = 4
+# The dry-run (M18): every (arch × shape) cell of the assignment counted on
+# meta tensors by ``repro_torch.launch.dryrun.run_cell`` in DRYRUN_WORKERS
+# background processes (niced; started after the build, they count while
+# the earlier phases run), and four cells run on the card at their
+# published widths and dtypes with the overrides each needs: qwen3's
+# planned b=64 holds ~69 GB of dense f32 attention scores a layer, so its
+# round runs 32 steps of 8; the 32k prefills take one prompt through K4
+# and K5.
+DRYRUN_WORKERS = 4
+DRYRUN_RUNS = (("qwen3-0.6b", "train_4k", {"S": 32, "b": 8}),
+               ("qwen3-0.6b", "prefill_32k", {"b": 1, "attn_impl": "pallas"}),
+               ("mamba2-2.7b", "prefill_32k", {"b": 1, "ssd_impl": "pallas"}),
+               ("mamba2-2.7b", "long_500k", {}))
+# Each cell's kernel launches in its timed call: K1 once per dtype group
+# (bf16 and f32) a lane-loop step, K4 once a qwen3 layer, K5 once a mamba2
+# layer, none in a decode step.
+DRYRUN_LAUNCHES = {("qwen3-0.6b", "train_4k"): {"fedavg_accum": 2 * 32},
+                   ("qwen3-0.6b", "prefill_32k"): {"flash_attention": 28},
+                   ("mamba2-2.7b", "prefill_32k"): {"ssd": 64},
+                   ("mamba2-2.7b", "long_500k"): {}}
+# Counted aten matrix-product FLOPs against torch.profiler's for one call.
+DRYRUN_FLOPS_RTOL = 0.01
+K4_32K = (1, 32768, 16, 8, 128)            # qwen3's b, s, hq, hkv, d
+SSD_32K = (1, 32768, 80, 64, 1, 128, 128)  # mamba2's b, s, h, p, g, n, chunk
 
 
 def emit(obj) -> None:
@@ -484,6 +531,13 @@ def mem_bw(name: str) -> float:
         if key in name:
             return bw
     return 3.35e12
+
+
+def peak_flops(dtype) -> float:
+    """The card's peak rate for arithmetic in ``dtype`` (a kernel's
+    ``Work.dtype``): dense bf16 on the tensor cores, else f32."""
+    import torch
+    return BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
 
 
 _sleep_cycles_per_ms: list = []
@@ -643,7 +697,7 @@ def phase_check(torch, n_params: int, lanes: int) -> float:
 def phase_timing(torch, n_params: int, lanes: int, device_name: str) -> dict:
     """K1, its plain version and torch.lerp on the round's [L, N] call."""
     from repro_torch.kernels import fedavg_accum as fa
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, work
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1)
     acc = torch.randn(lanes, n_params, generator=gen).to(dev)
@@ -657,11 +711,11 @@ def phase_timing(torch, n_params: int, lanes: int, device_name: str) -> dict:
     best = _best_of(runs, (("kernel", "plain", "library"),
                            ("library", "plain", "kernel"),
                            ("kernel", "plain", "library")))
-    elems = lanes * n_params
-    nbytes = 3 * elems * acc.element_size()      # 2 reads + 1 write
+    w = work.fedavg_accum(acc.shape, acc.dtype)
+    nbytes = w.bytes
     bw = mem_bw(device_name)
     bytes_ms = nbytes / bw * 1e3
-    ops_ms = 4 * elems / F32_FLOPS * 1e3         # 2 mul, 1 add, 1 div
+    ops_ms = w.flops / peak_flops(w.dtype) * 1e3
     out = {"ms": best["kernel"], "plain_ms": best["plain"],
            "library_ms": best["library"],
            "bound_ms": max(bytes_ms, ops_ms),
@@ -732,7 +786,7 @@ def phase_check_k2(torch, layout) -> float:
 def phase_timing_k2(torch, layout, device_name: str) -> dict:
     """K2 and its plain version on one shard's SR payload fold."""
     from repro_torch.kernels import dequant_merge as dm
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, work
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(3)
     acc, q, g = _payload(torch, layout.n, gen, dev)
@@ -747,9 +801,10 @@ def phase_timing_k2(torch, layout, device_name: str) -> dict:
     best = _best_of(runs, (("kernel", "plain"), ("plain", "kernel"),
                            ("kernel", "plain")))
     n = layout.n
-    nbytes = 13 * n                  # acc, g f32 + q int8 read; out written
+    w = work.dequant_merge(n)
+    nbytes = w.bytes
     bytes_ms = nbytes / mem_bw(device_name) * 1e3
-    ops_ms = 6 * n / F32_FLOPS * 1e3  # dequant mul+add; 2 mul, add, div
+    ops_ms = w.flops / peak_flops(w.dtype) * 1e3
     out = {"ms": best["kernel"], "plain_ms": best["plain"],
            "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -947,7 +1002,7 @@ def phase_check_k4(torch) -> dict:
 def phase_timing_k3(torch, device_name: str) -> dict:
     """K3, its plain version and F.rms_norm at the serve path's shapes."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, work
     from repro_torch.kernels import rmsnorm as rn
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(8)
@@ -966,9 +1021,10 @@ def phase_timing_k3(torch, device_name: str) -> dict:
                                ("library", "plain", "kernel"),
                                ("kernel", "plain", "library")))
         rows, d = shape
-        nbytes = 2 * rows * d * x.element_size() + d * 4
+        w = work.rmsnorm(rows, d, x.dtype)
+        nbytes = w.bytes
         bytes_ms = nbytes / mem_bw(device_name) * 1e3
-        ops_ms = 4 * rows * d / F32_FLOPS * 1e3   # square, add, 2 muls
+        ops_ms = w.flops / peak_flops(w.dtype) * 1e3
         out[label] = {"ms": best["kernel"], "plain_ms": best["plain"],
                       "library_ms": best["library"],
                       "bound_ms": max(bytes_ms, ops_ms),
@@ -988,7 +1044,7 @@ def phase_timing_k4(torch, device_name: str, cfg=None,
     of ``cfg`` (default: the qwen3 serve path's 2,048)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fl
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, work
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(9)
     cfg = cfg or _serve_cfg()
@@ -1029,10 +1085,9 @@ def phase_timing_k4(torch, device_name: str, cfg=None,
         torch.use_deterministic_algorithms(deterministic)
     best_det = _best_of({"library": runs["library"]}, (("library",),),
                         iters=5, warmup=1)
-    b, _, hq, d = q.shape
-    flops = 4 * b * hq * (s * (s + 1) // 2) * d   # causal QK^T and PV
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    ops_ms = flops / BF16_FLOPS * 1e3
+    w = work.flash_attention(q.shape, k.shape, q.dtype, causal=True)
+    flops, nbytes = w.flops, w.bytes
+    ops_ms = flops / peak_flops(w.dtype) * 1e3
     bytes_ms = nbytes / mem_bw(device_name) * 1e3
     out = {"ms": best["kernel"], "plain_ms": best["plain"],
            "library_ms": best["library"], "bound_ms": max(ops_ms, bytes_ms),
@@ -1130,31 +1185,11 @@ def phase_check_k5(torch) -> dict:
     return errs
 
 
-def _ssd_work(args, chunk: int) -> tuple[int, int]:
-    """(bytes, operations) the chunked SSD needs on these inputs: each input
-    read once, y and the f32 final state written once; C B^T once per group
-    and chunk (its lower triangle), the masked intra-chunk product, C .
-    state for every chunk after the first, and the state update."""
-    x, B = args[0], args[3]
-    b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
-    nbytes = (sum(t.numel() * t.element_size() for t in args)
-              + x.numel() * x.element_size() + b * h * p * n * 4)
-    q = min(chunk, (s + 7) // 8 * 8)
-    rows = [min(q, s - t0) for t0 in range(0, s, q)]
-    tri = sum(r * (r + 1) // 2 for r in rows)
-    flops = (2 * b * g * tri * n                    # C B^T
-             + 2 * b * h * tri * p                  # (C B^T * L)(x dt)
-             + 2 * b * h * (s - rows[0]) * n * p    # C . state
-             + 2 * b * h * s * p * n)               # the state update
-    return nbytes, flops
-
-
 def phase_timing_k5(torch, device_name: str) -> dict:
     """K5 and its plain version at the serve shape (bf16, the state
     returned, as prefill calls it).  No single PyTorch call computes the
     SSD, so there is no library time."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref, work
     from repro_torch.kernels import ssd as k5
     gen = torch.Generator().manual_seed(13)
     args = _ssd_inputs(torch, SSD_SERVE, torch.bfloat16, gen,
@@ -1164,9 +1199,12 @@ def phase_timing_k5(torch, device_name: str) -> dict:
             "plain": lambda: ref.ssd_chunks_ref(*args, chunk=ck)}
     best = _best_of(runs, (("kernel", "plain"), ("plain", "kernel"),
                            ("kernel", "plain")), iters=5, warmup=1)
-    nbytes, flops = _ssd_work(args, ck)
+    x, dt, B = args[0], args[1], args[3]
+    w = work.ssd(x.shape, B.shape, x.dtype, dt.dtype,
+                 chunk=ops.ssd_chunk(x.shape[1], ck), state=True)
+    nbytes, flops = w.bytes, w.flops
     bytes_ms = nbytes / mem_bw(device_name) * 1e3
-    ops_ms = flops / BF16_FLOPS * 1e3
+    ops_ms = flops / peak_flops(w.dtype) * 1e3
     out = {"ms": best["kernel"], "plain_ms": best["plain"],
            "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -2577,7 +2615,7 @@ def phase_lm_fold(torch, device_name: str) -> dict:
     with it and ``torch.lerp`` beside the bytes bound.  Inputs are drawn
     on the card (9.5 GB)."""
     from repro_torch.kernels import fedavg_accum as fa
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, work
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
     lanes, n = FULL["workers"] * FULL["concurrency"], SERVE_PARAMS
@@ -2598,10 +2636,10 @@ def phase_lm_fold(torch, device_name: str) -> dict:
     best = _best_of(runs, (("kernel", "plain", "library"),
                            ("library", "plain", "kernel"),
                            ("kernel", "plain", "library")), iters=10)
-    elems = lanes * n
-    nbytes = 3 * elems * 4                        # 2 reads + 1 write
+    w = work.fedavg_accum(acc.shape, acc.dtype)
+    nbytes = w.bytes
     bytes_ms = nbytes / mem_bw(device_name) * 1e3
-    ops_ms = 4 * elems / F32_FLOPS * 1e3
+    ops_ms = w.flops / peak_flops(w.dtype) * 1e3
     out = {"shape": [lanes, n], "max_abs_err": err, "ms": best["kernel"],
            "plain_ms": best["plain"], "library_ms": best["library"],
            "bound_ms": max(bytes_ms, ops_ms),
@@ -3615,10 +3653,275 @@ def phase_multihost(torch) -> dict:
     return out
 
 
+def _dry_launches(dry: dict, arch: str, shape: str, kernel: str) -> int:
+    return dry["runs"][(arch, shape)]["run"]["launches"][kernel]
+
+
+def dryrun_pool_start():
+    """Count DRYRUN_RUNS' cells at their overrides and every runnable cell
+    at its plan on meta tensors, in DRYRUN_WORKERS spawned processes at the
+    lowest priority; returns ``(pool, {(arch, shape, tag): result})``, tag
+    ``"run"`` for the former.  Those go first, then train cells and large
+    archs, so the longest counts start first."""
+    import multiprocessing as mp
+
+    from repro_torch.configs import ARCH_NAMES, SHAPES, get_arch
+    from repro_torch.launch import dryrun, plan
+    cells = [(a, s) for a in ARCH_NAMES for s in SHAPES
+             if plan.runnable(get_arch(a), s)]
+    cells.sort(key=lambda c: (c[1] != "train_4k",
+                              -plan.param_bytes(get_arch(c[0]))))
+    pool = mp.get_context("spawn").Pool(DRYRUN_WORKERS, initializer=os.nice,
+                                         initargs=(19,))
+    pending = {(a, s, "run"): pool.apply_async(
+        dryrun.run_cell, (a, s), {"overrides": over or None})
+        for a, s, over in DRYRUN_RUNS}
+    pending.update({(a, s, ""): pool.apply_async(dryrun.run_cell, (a, s))
+                    for a, s in cells})
+    return pool, pending
+
+
+def _dryrun_op_workspace(torch, arch: str, shape: str, over: dict) -> dict:
+    """A train cell's first local step on the card with the allocator read
+    around every aten op: the ops inside which its peak rose above both
+    the bytes allocated before and after (the op's own workspace, which a
+    count of the storages alive between ops cannot see), largest first."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.launch import dryrun, plan, steps
+
+    class OpPeaks(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.jumps: dict = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            out = func(*args, **(kwargs or {}))
+            jump = torch.cuda.max_memory_allocated() - max(
+                before, torch.cuda.memory_allocated())
+            if jump > 0:
+                key = (func.overloadpacket.__name__,
+                       str([list(a.shape) for a in args
+                            if isinstance(a, torch.Tensor)][:2]))
+                n, top = self.jumps.get(key, (0, 0))
+                self.jumps[key] = (n + 1, max(top, jump))
+            return out
+
+    pl = plan.make_plan(arch, shape, overrides=over)
+    fn, args = steps.build_step(pl, "cuda")
+    warm = dryrun.first_step(pl, args)
+    mode = OpPeaks()
+    with mode:
+        out = fn(*warm)
+    torch.cuda.synchronize()
+    del out, fn, args, warm
+    torch.cuda.empty_cache()
+    rows = sorted(((top, n, op, shapes)
+                   for (op, shapes), (n, top) in mode.jumps.items()),
+                  reverse=True)[:5]
+    out = {"call": f"{arch} {shape} first local step",
+           "largest_in_op_peaks": [{"op": op, "shapes": shapes, "calls": n,
+                                    "gb": top / 1e9}
+                                   for top, n, op, shapes in rows]}
+    emit({"phase": "dryrun_op_workspace", **out})
+    return out
+
+
+def _dryrun_kernels(torch, device_name: str) -> dict:
+    """K4 at qwen3's 32k prompt beside one SDPA call, and K5 at mamba2's
+    beside its plain version, each with its bound from
+    ``kernels/work.py``.  K4's plain version is not timed here: its f32
+    scores ``[1, 16, 32768, 32768]`` alone take 68.7 GB."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import ops, ref, work
+    from repro_torch.kernels import ssd as k5
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(21)
+    b, s, hq, hkv, d = K4_32K
+    q = torch.randn(b, s, hq, d, generator=gen).to(torch.bfloat16).to(dev)
+    k = torch.randn(b, s, hkv, d, generator=gen).to(torch.bfloat16).to(dev)
+    v = torch.randn(b, s, hkv, d, generator=gen).to(torch.bfloat16).to(dev)
+    runs = {"kernel": lambda: fl.flash_attention_bshd(q, k, v, causal=True,
+                                                      t_pad=s),
+            "library": lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True)}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:
+        err = _max_err(torch, runs["library"]().transpose(1, 2),
+                       runs["kernel"]())
+        best = _best_of(runs, (("kernel", "library"), ("library", "kernel"),
+                               ("kernel", "library")), iters=5, warmup=1)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    w = work.flash_attention(q.shape, k.shape, q.dtype, causal=True)
+    bytes_ms = w.bytes / mem_bw(device_name) * 1e3
+    ops_ms = w.flops / peak_flops(w.dtype) * 1e3
+    out = {"flash_attention": {
+        "shape_q": list(q.shape), "shape_kv": list(k.shape),
+        "ms": best["kernel"], "plain_ms": None,
+        "library_ms": best["library"], "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_vs_kernel_max_abs_diff": err}}
+    del q, k, v
+    args = _ssd_inputs(torch, SSD_32K, torch.bfloat16, gen, model_like=True)
+    ck = ops.ssd_chunk(SSD_32K[1], SSD_32K[6])
+    runs = {"kernel": lambda: k5.ssd_bshp(*args, chunk=ck, want_state=True),
+            "plain": lambda: ref.ssd_chunks_ref(*args, chunk=ck)}
+    y, state = runs["kernel"]()
+    want_y, want_state = runs["plain"]()
+    check(_close(torch, y, want_y, **SSD_TOL["bfloat16"])
+          and _close(torch, state, want_state, **SSD_TOL["bfloat16"]),
+          f"K5 at {list(SSD_32K)}: max err {_max_err(torch, y, want_y)}")
+    best = _best_of(runs, (("kernel", "plain"), ("plain", "kernel"),
+                           ("kernel", "plain")), iters=5, warmup=1)
+    x, dt, B = args[0], args[1], args[3]
+    w = work.ssd(x.shape, B.shape, x.dtype, dt.dtype, chunk=ck, state=True)
+    bytes_ms = w.bytes / mem_bw(device_name) * 1e3
+    ops_ms = w.flops / peak_flops(w.dtype) * 1e3
+    out["ssd"] = {"shape": list(SSD_32K), "ms": best["kernel"],
+                  "plain_ms": best["plain"], "library_ms": None,
+                  "bound_ms": max(bytes_ms, ops_ms),
+                  "bound_by": "bytes" if bytes_ms >= ops_ms
+                  else "operations",
+                  "max_abs_err_y": _max_err(torch, y, want_y)}
+    for row in out.values():
+        row["roofline_share"] = row["bound_ms"] / row["ms"]
+    emit({"phase": "dryrun_kernels", **out})
+    del args, y, state, want_y, want_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dryrun(torch, pool, pending: dict, device_name: str, smi: str,
+                 out_dir: str | None) -> dict:
+    """The dry-run: the four DRYRUN_RUNS cells, counted by the background
+    pool, measured on the card by ``dryrun.measure_cell`` (the count must
+    say it fits, the run must not run out of memory, its outputs must be
+    finite, its launches DRYRUN_LAUNCHES' and its counted matrix-product
+    FLOPs within DRYRUN_FLOPS_RTOL of the profiler's); the train cell's
+    in-op workspace; K4 and K5 at 32k positions; then every other count of
+    the pool (32 cells ok, or failed with the op named) and the 8 declared
+    skips."""
+    from repro_torch.configs import ARCH_NAMES, SHAPES, get_arch
+    from repro_torch.launch import dryrun, plan
+    t0 = time.perf_counter()
+    runs = {}
+    for arch, shape, over in DRYRUN_RUNS:
+        torch.cuda.empty_cache()
+        rec = pending.pop((arch, shape, "run")).get(timeout=1200)
+        check(rec["status"] == "ok", f"dry-run {arch} {shape}: {rec}")
+        m = rec["run"] = dryrun.measure_cell(rec, device="cuda")
+        want = DRYRUN_LAUNCHES[(arch, shape)]
+        got = {k: v for k, v in m["launches"].items() if v}
+        emit({"phase": "dryrun_run", "arch": arch, "shape": shape,
+              "overrides": over, "card": smi, "W": rec["W"], "P": rec["P"],
+              "S": rec["S"], "b": rec["b"], "fits": rec["fits"],
+              "predicted_peak_gb": m["predicted_peak_bytes"] / 1e9,
+              "peak_gb": m["peak_bytes"] / 1e9, "step_s": m["step_s"],
+              "warmup_s": m["warmup_s"],
+              "bound_s": rec["roofline"]["step_lower_bound_s"],
+              "dominant": rec["roofline"]["dominant"],
+              "compute_s": rec["roofline"]["compute_s"],
+              "memory_s": rec["roofline"]["memory_s"],
+              "roofline_fraction": m["roofline_fraction"], "mfu": m["mfu"],
+              "gflops": rec["flops_per_device"] / 1e9,
+              "gb": rec["bytes_per_device"] / 1e9,
+              "model_gflops": rec["model_flops_total"] / 1e9,
+              "useful_ratio": rec["useful_ratio"], "launches": got,
+              "routes": m["routes"], "kernels_counted": rec["kernels"],
+              "profiled_kernels": m["profiled_kernels"],
+              "profiled_call": m["profiled_call"],
+              "profiled_busy_ms": m["profiled_busy_ms"],
+              "top_kernels": m["top_kernels"][:6],
+              "matmul_flops_counted": m["matmul_flops_counted"],
+              "matmul_flops_profiled": m["matmul_flops_profiled"],
+              "matmul_flops_rel_diff": m["matmul_flops_rel_diff"],
+              "finite": m["finite"]})
+        check(rec["fits"], f"dry-run {arch} {shape}: the count says it does "
+                           f"not fit ({m['predicted_peak_bytes']} B)")
+        check(m["finite"], f"dry-run {arch} {shape}: non-finite outputs")
+        check(got == want, f"dry-run {arch} {shape}: launches {got}, want "
+                           f"{want}")
+        for kernel, n in want.items():
+            if kernel in m["routes"]:
+                check(m["routes"][kernel]["wgmma"] == n,
+                      f"dry-run {arch} {shape}: {kernel} routes "
+                      f"{m['routes'][kernel]}")
+        check(m["matmul_flops_rel_diff"] <= DRYRUN_FLOPS_RTOL,
+              f"dry-run {arch} {shape}: counted matmul FLOPs "
+              f"{m['matmul_flops_counted']} vs profiled "
+              f"{m['matmul_flops_profiled']}")
+        runs[(arch, shape)] = rec
+    workspace = _dryrun_op_workspace(torch, *DRYRUN_RUNS[0])
+    kernels = _dryrun_kernels(torch, device_name)
+    run_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    records = []
+    for (arch, shape, _), res in pending.items():
+        rec = res.get(timeout=1200)
+        records.append(rec)
+        row = {"phase": "dryrun_cell", "arch": arch, "shape": shape,
+               "status": rec["status"]}
+        if rec["status"] == "ok":
+            row.update(plan=[rec["W"], rec["P"], rec["S"], rec["b"]],
+                       fits=rec["fits"],
+                       peak_gb=rec["memory_analysis"]["peak_live_bytes"]
+                       / 1e9, gflops=rec["flops_per_device"] / 1e9,
+                       gb=rec["bytes_per_device"] / 1e9,
+                       dominant=rec["roofline"]["dominant"],
+                       bound_s=rec["roofline"]["step_lower_bound_s"],
+                       useful_ratio=rec["useful_ratio"],
+                       kernels={k: v["calls"]
+                                for k, v in rec["kernels"].items()},
+                       count_s=rec["count_s"])
+        else:
+            row["op"] = rec.get("op")
+        emit(row)
+    pool.close()
+    pool.join()
+    skips = [dryrun.skip_record(a, s) for a in ARCH_NAMES for s in SHAPES
+             if not plan.runnable(get_arch(a), s)]
+    for rec in skips:
+        emit({"phase": "dryrun_cell", **rec})
+    ok = [r for r in records if r["status"] == "ok"]
+    failed = [r for r in records if r["status"] != "ok"]
+    check(len(records) == 32 and len(skips) == 8,
+          f"dry-run: {len(records)} counted cells, {len(skips)} skips")
+    check(all(r.get("op") for r in failed),
+          f"dry-run: a cell failed without naming its op: {failed}")
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        named = [(r, "") for r in records + skips] + \
+            [(r, "__run") for r in runs.values()]
+        for rec, tag in named:
+            path = os.path.join(out_dir, f"{rec['arch']}__{rec['shape']}"
+                                         f"{tag}.json")
+            with open(path, "w") as f:
+                json.dump(rec, f, indent=1)
+    out = {"runs": runs, "kernels": kernels, "workspace": workspace,
+           "ok": len(ok),
+           "failed": [(r["arch"], r["shape"], r["op"]) for r in failed],
+           "skips": len(skips), "run_s": run_s,
+           "collect_s": time.perf_counter() - t1}
+    emit({"phase": "dryrun", "counted_ok": len(ok),
+          "counted_failed": out["failed"], "skipped": len(skips),
+          "fits": sum(bool(r["fits"]) for r in ok), "run_s": run_s,
+          "collect_s": out["collect_s"],
+          "count_s_total": sum(r["count_s"] for r in ok)})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--profile-out", default=None)
+    ap.add_argument("--dryrun-out", default=None,
+                    help="write every dry-run record there as JSON")
     args = ap.parse_args()
 
     import torch
@@ -3629,6 +3932,16 @@ def main() -> int:
     set_deterministic()
     smi = phase_probe(torch)
     sass, sass5 = phase_build()
+    pool, pending = dryrun_pool_start()
+    try:
+        return _phases(torch, args, smi, sass, sass5, pool, pending)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
+    """Every phase after the build, while the dry-run pool counts."""
     name = torch.cuda.get_device_name(0)
     lanes, n_params = 4, SR_PARAMS       # 2 workers x 2 lanes, SR published
     max_err = phase_check(torch, n_params, lanes)
@@ -3692,6 +4005,8 @@ def main() -> int:
     cache = phase_cache(torch)
     cache_mesh = phase_cache_mesh(torch)
     multihost = phase_multihost(torch)
+    torch.cuda.empty_cache()
+    dry = phase_dryrun(torch, pool, pending, name, smi, args.dryrun_out)
     if args.profile_out:
         phase_profile(torch, args.profile_out, "fused")
         phase_profile(torch, args.profile_out, "mesh", **MESH)
@@ -3734,7 +4049,9 @@ def main() -> int:
              for h, c in multihost["rank_launches"].items()},
          "train_full_fold": {k: lm_fold[k] for k in (
              "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-             "bound_by", "max_abs_err")}},
+             "bound_by", "max_abs_err")},
+         "launches_dryrun": _dry_launches(dry, "qwen3-0.6b", "train_4k",
+                                          "fedavg_accum")},
         {**row("dequant_merge", "dequant_merge.cu",
                "src/repro/kernels/dequant_merge.py:46",
                mesh_launches["dequant_merge"], max_err2, timing2),
@@ -3772,12 +4089,18 @@ def main() -> int:
          "serve_vlm_shape": {k: timing4_vlm[k] for k in (
              "shape_q", "shape_kv", "ms", "plain_ms", "library_ms",
              "bound_ms", "bound_by")},
+         "launches_dryrun": _dry_launches(dry, "qwen3-0.6b", "prefill_32k",
+                                          "flash_attention"),
+         "dryrun_32k": dry["kernels"]["flash_attention"],
          "path": "serve (qwen3-0.6b, granite-moe-3b-a800m and "
                  "internvl2-26b prefill, attn_impl='pallas')"},
         {**row("ssd", "ssd.cu", "src/repro/kernels/ssd.py:83",
                ssm["launches"]["ssd"], max(err5.values()), timing5),
          "launches_per_prefill": ssm["launches"]["ssd"],
          "launches_by_route": ssm["k5_routes_prefill"], "sass": sass5,
+         "launches_dryrun": _dry_launches(dry, "mamba2-2.7b", "prefill_32k",
+                                          "ssd"),
+         "dryrun_32k": dry["kernels"]["ssd"],
          "path": "serve SSM (mamba2-2.7b prefill, ssd_impl='pallas')"}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

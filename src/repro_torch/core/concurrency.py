@@ -28,6 +28,7 @@ name and memory of the card in use.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import ClassVar
 
 __all__ = [
     "DeviceSpec",
@@ -44,8 +45,10 @@ __all__ = [
 class DeviceSpec:
     """Per-card hardware description (defaults: NVIDIA H100 SXM, 80 GB).
 
-    ``peak_flops`` is the dense bf16 tensor-core peak and ``hbm_bw`` the
-    memory rate, both from NVIDIA's data sheet.  ``ici_bw`` and
+    ``peak_flops`` is the dense bf16 tensor-core peak, ``peak_flops_f32``
+    the f32 rate outside the tensor cores (f32 GEMMs run there with TF32
+    off, as the port sets it) and ``hbm_bw`` the memory rate, all from
+    NVIDIA's data sheet.  ``ici_bw`` and
     ``vmem_bytes`` keep the reference's field names but have no meaning
     on one card (no inter-chip links in the estimate, no software-managed
     vector memory) and are 0.  ``reserved_fraction`` is the share of
@@ -55,6 +58,9 @@ class DeviceSpec:
     name: str = "NVIDIA H100 80GB HBM3"
     hbm_bytes: int = 80 * 10 ** 9
     peak_flops: float = 989e12          # bf16, dense
+    # f32 without the tensor cores; a class constant, so the fields stay
+    # the reference's.
+    peak_flops_f32: ClassVar[float] = 67e12
     hbm_bw: float = 3.35e12             # bytes/s
     ici_bw: float = 0.0                 # no H100 meaning
     vmem_bytes: int = 0                 # no H100 meaning

@@ -478,11 +478,16 @@ class FederatedEngine:
         self._nested = any(isinstance(v, dict) for v in init_params.values())
         params = {k: torch.as_tensor(v).to(self.device)
                   for k, v in flatten_tree(init_params).items()}
-        # The global model as one flat buffer with per-leaf views: every
-        # round program flattens it for free.
+        # The global model as one flat buffer (one per dtype group) with
+        # per-leaf views: every round program flattens it for free.  Only
+        # the fused round takes a tree of several dtypes.
         self._layout = FlatLayout(params)
+        if config.mesh_workers >= 2 or not strategy.associative:
+            self._layout.require_single(
+                "the mesh path" if config.mesh_workers >= 2
+                else "the gather path")
         self.params = params
-        self.device = self._params.flat.device    # "cuda" -> "cuda:0"
+        self.device = self._params.device         # "cuda" -> "cuda:0"
         self.optimizer = optimizer
         self.placement = placement
         self.sampler = sampler
@@ -1014,14 +1019,14 @@ class FederatedEngine:
     def params(self, value: dict) -> None:
         if not (isinstance(value, FlatTree) and value.layout == self._layout):
             value = flatten_tree(value)
-            value = self._layout.views(self._layout.flatten(
+            value = self._layout.views(self._layout.flatten_groups(
                 {k: torch.as_tensor(value[k]).to(self.device)
                  for k in self._layout.names}))
         self._params = value
 
     def _params_on(self, device, cache: dict) -> FlatTree:
         """The global model on ``device`` (copied once per round)."""
-        if device == self._params.flat.device:
+        if device == self._params.device:
             return self._params
         if device not in cache:
             cache[device] = _moved(self._params, device)

@@ -15,7 +15,11 @@ steps as a Python loop:
 
 * every lane's client parameters, optimizer state and running partial live
   in one flat ``[L, N]`` buffer each (``N`` = parameter count), so one
-  launch of the K1 kernel folds every lane and every leaf per step;
+  launch of the K1 kernel folds every lane and every leaf per step; a tree
+  of several dtypes (bf16 matrices beside f32 norms) keeps one ``[L, n_g]``
+  buffer per dtype group (:class:`~repro_torch.kernels.layout.FlatLayout`),
+  each in its own dtype as the reference keeps each leaf, and K1 folds
+  each group once a step;
 * the forward runs on per-leaf views of the flat parameters — batched GEMMs
   over the lane dim — and the backward of the *sum* of the lane losses
   gives every lane exactly its own gradient;
@@ -106,25 +110,25 @@ def _stack_state(state, lanes: int):
 
 def _local_step(loss_fn, optimizer, grad_clip, layout: FlatLayout, theta,
                 opt_state, batch, m):
-    """One local SGD/Adam step of every lane: ``theta [L, N]`` and its
-    optimizer state advance where the step mask ``m [L]`` is set; a masked
-    lane keeps both exactly.  Returns ``(theta, opt_state, loss [L])``."""
-    L = theta.shape[0]
+    """One local SGD/Adam step of every lane: ``theta`` (``{key: [L,
+    n_g]}``, one buffer per dtype group) and its optimizer state advance
+    where the step mask ``m [L]`` is set; a masked lane keeps both exactly.
+    Returns ``(theta, opt_state, loss [L])``."""
+    L = m.shape[0]
     leaves = {k: v.detach().requires_grad_()
               for k, v in layout.views(theta).items()}
     with torch.enable_grad():
         loss = loss_fn(leaves, batch)
         grads = torch.autograd.grad(loss.sum(),
                                     [leaves[k] for k in layout.names])
-    grads = {"flat": layout.flatten(dict(zip(layout.names, grads)),
-                                    lead=(L,))}
+    grads = layout.flatten_groups(dict(zip(layout.names, grads)), lead=(L,))
     if grad_clip is not None:
         grads, _ = clip_by_global_norm(grads, grad_clip, batch_dims=1)
-    updates, new_opt = optimizer.update(grads, opt_state, {"flat": theta})
+    updates, new_opt = optimizer.update(grads, opt_state, theta)
     mcol = m[:, None]
+    # The mask is cast per buffer, as the reference casts it per leaf.
     theta = apply_updates(
-        {"flat": theta},
-        {k: u * mcol.to(u.dtype) for k, u in updates.items()})["flat"]
+        theta, {k: u * mcol.to(u.dtype) for k, u in updates.items()})
     # Masked steps keep the old optimizer state (exact no-op).
     return theta, _tree_select(m > 0, new_opt, opt_state), loss.detach()
 
@@ -139,15 +143,15 @@ def _make_lane_scan(loss_fn, optimizer, *, agg_impl: str = "kernel",
     """
 
     @torch.no_grad()
-    def lane_scan(layout: FlatLayout, global_flat, lane_batches, mask,
+    def lane_scan(layout: FlatLayout, global_flats, lane_batches, mask,
                   boundary, weight):
         L, S = mask.shape
-        theta0 = global_flat.expand(L, -1)
-        theta = theta0.clone()
-        opt0 = _stack_state(optimizer.init({"flat": global_flat}), L)
+        theta0 = {k: g.expand(L, -1) for k, g in global_flats.items()}
+        theta = {k: t.clone() for k, t in theta0.items()}
+        opt0 = _stack_state(optimizer.init(global_flats), L)
         opt_state = opt0
-        partial = partial_init({"flat": theta}, lanes=L)
-        loss_sum = torch.zeros(L, dtype=torch.float32, device=theta.device)
+        partial = partial_init(theta, lanes=L)
+        loss_sum = torch.zeros(L, dtype=torch.float32, device=mask.device)
         for s in range(S):
             m, bnd, w = mask[:, s], boundary[:, s], weight[:, s]
             theta, opt_state, loss = _local_step(
@@ -157,8 +161,7 @@ def _make_lane_scan(loss_fn, optimizer, *, agg_impl: str = "kernel",
             # keeps masked/padded steps BITWISE no-ops on the partial (Eq. 1
             # rescales by N/(N+0), which can flip the last bit).
             nk = w * bnd
-            folded = partial_update(partial, {"flat": theta}, nk,
-                                    impl=agg_impl)
+            folded = partial_update(partial, theta, nk, impl=agg_impl)
             partial = _tree_select(nk > 0, folded, partial)
             # Reset the lane to the global model for the next client.
             theta = _tree_select(bnd > 0, theta0, theta)
@@ -183,29 +186,32 @@ def make_round_step(loss_fn, optimizer, *, agg_impl: str = "kernel",
     @torch.no_grad()
     def round_step(global_params, batches, step_mask, boundary, weight):
         layout = FlatLayout.of(global_params)
-        gflat = layout.flatten(global_params)
-        partial, lane_losses = _scan_lanes(lane_scan, layout, gflat, batches,
-                                           step_mask, boundary, weight)
-        new_flat, metrics = _reduce_partials(
-            {"flat": gflat}, partial.theta, partial.weight, lane_losses,
-            step_mask, boundary, weight)
-        return layout.views(new_flat["flat"]), metrics
+        gflats = layout.flatten_groups(global_params)
+        partial, lane_losses = _scan_lanes(lane_scan, layout, gflats,
+                                           batches, step_mask, boundary,
+                                           weight)
+        new_flats, metrics = _reduce_partials(
+            gflats, partial.theta, partial.weight, lane_losses, step_mask,
+            boundary, weight)
+        return layout.views(new_flats), metrics
 
     return round_step
 
 
-def _scan_lanes(lane_scan, layout, gflat, batches, step_mask, boundary,
+def _scan_lanes(lane_scan, layout, gflats, batches, step_mask, boundary,
                 weight):
     """Run ``lane_scan`` over a ``[W, P, S, ...]`` block as ``L = W·P``
-    lanes; returns what it returns (the fused scan: the lanes' partial,
-    ``{"flat": [L, N]}`` and ``[L]``, and their loss totals ``[L]``)."""
+    lanes from the global model's group buffers ``gflats``; returns what
+    it returns (the fused scan: the lanes' partial, ``{key: [L, n_g]}``
+    and ``[L]``, and their loss totals ``[L]``)."""
     W, P = step_mask.shape[:2]
     L = W * P
 
     def lanes(x):
         return x.reshape((L,) + tuple(x.shape[2:]))
 
-    return lane_scan(layout, gflat, {k: lanes(v) for k, v in batches.items()},
+    return lane_scan(layout, gflats,
+                     {k: lanes(v) for k, v in batches.items()},
                      lanes(step_mask), lanes(boundary), lanes(weight))
 
 
@@ -230,8 +236,8 @@ def make_worker_round_step(loss_fn, optimizer, *, agg_impl: str = "kernel",
         W, P = step_mask.shape[:2]
         layout = FlatLayout.of(global_params)
         partial, lane_losses = _scan_lanes(
-            lane_scan, layout, layout.flatten(global_params), batches,
-            step_mask, boundary, weight)
+            lane_scan, layout, {"flat": layout.flatten(global_params)},
+            batches, step_mask, boundary, weight)
         theta = layout.views(partial.theta["flat"].reshape(W, P, layout.n))
         return theta, partial.weight.reshape(W, P), lane_losses.reshape(W, P)
 
@@ -430,26 +436,26 @@ def make_gather_round_step(loss_fn, optimizer, *,
     """
 
     @torch.no_grad()
-    def gather_scan(layout, global_flat, lane_batches, mask, boundary,
+    def gather_scan(layout, global_flats, lane_batches, mask, boundary,
                     weight):
         L, S = mask.shape
-        theta = global_flat.expand(L, -1).clone()
-        opt_state = _stack_state(optimizer.init({"flat": global_flat}), L)
-        loss_sum = torch.zeros(L, dtype=torch.float32, device=theta.device)
+        theta = {k: g.expand(L, -1).clone() for k, g in global_flats.items()}
+        opt_state = _stack_state(optimizer.init(global_flats), L)
+        loss_sum = torch.zeros(L, dtype=torch.float32, device=mask.device)
         for s in range(S):
             m = mask[:, s]
             theta, opt_state, loss = _local_step(
                 loss_fn, optimizer, grad_clip, layout, theta, opt_state,
                 {k: v[:, s] for k, v in lane_batches.items()}, m)
             loss_sum = loss_sum + loss * m
-        return theta, (boundary * weight).sum(-1), loss_sum
+        return theta["flat"], (boundary * weight).sum(-1), loss_sum
 
     @torch.no_grad()
     def round_step(global_params, batches, step_mask, boundary, weight):
         layout = FlatLayout.of(global_params)
         thetas, ws, lane_losses = _scan_lanes(
-            gather_scan, layout, layout.flatten(global_params), batches,
-            step_mask, boundary, weight)
+            gather_scan, layout, {"flat": layout.flatten(global_params)},
+            batches, step_mask, boundary, weight)
         n_steps = step_mask.sum()
         metrics = RoundMetrics(
             loss=_ordered_sum(lane_losses) / torch.clamp(n_steps, min=1.0),

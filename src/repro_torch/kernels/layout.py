@@ -10,6 +10,16 @@ buffer, which it keeps as ``.flat``: :meth:`FlatLayout.flatten` hands that
 buffer back without a copy, so trees can pass between the round's programs
 as dicts (as the reference's pytrees do) while every program works on one
 flat tensor.
+
+A tree of several dtypes (a published LM config: bf16 matrices beside f32
+norm scales and Mamba rows) is laid out per dtype group: each group is a
+single-dtype layout of its own leaves, in the same sorted order, with its
+own flat buffer.  :meth:`FlatLayout.flatten_groups` and :meth:`FlatLayout
+.views` take ``{key: buffer}`` dicts, one entry per group (``"flat"`` for
+a single-dtype tree, the dtype's name otherwise), and a mixed tree's
+buffers are its ``.flats``.  The one-buffer methods (``flatten``,
+``.flat``, the leaf offsets and scale tables that the mesh's combine
+programs use) refuse a mixed layout.
 """
 
 from __future__ import annotations
@@ -42,10 +52,21 @@ class ReadOnlyTree(dict):
 
 
 class FlatTree(ReadOnlyTree):
-    """``{name: view}`` over one flat ``lead + [N]`` buffer (``.flat``),
-    laid out by ``.layout``; read-only (:class:`ReadOnlyTree`)."""
+    """``{name: view}`` over one flat ``lead + [n_g]`` buffer per dtype
+    group (``.flats``; ``.flat`` for a single-dtype tree), laid out by
+    ``.layout``; read-only (:class:`ReadOnlyTree`)."""
 
-    __slots__ = ("flat", "layout")
+    __slots__ = ("flats", "layout")
+
+    @property
+    def flat(self) -> torch.Tensor:
+        """The one flat buffer of a single-dtype tree."""
+        self.layout.require_single("a FlatTree's .flat")
+        return self.flats["flat"]
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.flats.values())).device
 
 
 def flatten_tree(tree: dict) -> dict:
@@ -80,7 +101,9 @@ def _frozen(tree: dict) -> ReadOnlyTree:
 
 
 class FlatLayout:
-    """Leaf names, shapes and offsets of a param dict laid out flat."""
+    """Leaf names, shapes, dtypes and offsets of a param dict laid out
+    flat: one buffer for a single-dtype dict, one per dtype group (each a
+    single-dtype :class:`FlatLayout`, ``.groups``) for a mixed one."""
 
     def __init__(self, params: dict, *, lead: int = 0):
         """``params``: ``{name: tensor}``; the first ``lead`` dims of every
@@ -88,24 +111,48 @@ class FlatLayout:
         self.names = sorted(params)
         self.shapes = [tuple(params[k].shape[lead:]) for k in self.names]
         self.sizes = [math.prod(s) for s in self.shapes]
-        self.offsets = [0]
-        for size in self.sizes:
-            self.offsets.append(self.offsets[-1] + size)
-        self.n = self.offsets[-1]
-        dtypes = {params[k].dtype for k in self.names}
-        if len(dtypes) != 1:
-            raise TypeError(f"a flat layout needs one dtype, got "
-                            f"{sorted(map(str, dtypes))}")
+        self.dtypes = [params[k].dtype for k in self.names]
+        self.n = sum(self.sizes)
+        kinds = list(dict.fromkeys(self.dtypes))
+        self.mixed = len(kinds) > 1
+        if self.mixed:
+            # Groups in the order their dtype first appears in leaf order.
+            self.groups = tuple(
+                FlatLayout({k: params[k] for k, d in zip(self.names,
+                                                         self.dtypes)
+                            if d == kind}, lead=lead)
+                for kind in kinds)
+            self.keys = tuple(str(kind).removeprefix("torch.")
+                              for kind in kinds)
+            self.offsets = None
+        else:
+            self.groups = (self,)
+            self.keys = ("flat",)
+            self.offsets = [0]
+            for size in self.sizes:
+                self.offsets.append(self.offsets[-1] + size)
         self._offsets_on: dict = {}
         self._leaf_index_on: dict = {}
         self._scalars: FlatLayout | None = None
 
     def __eq__(self, other) -> bool:
         return (isinstance(other, FlatLayout) and self.names == other.names
-                and self.shapes == other.shapes)
+                and self.shapes == other.shapes
+                and self.dtypes == other.dtypes)
 
     def __hash__(self) -> int:
-        return hash((tuple(self.names), tuple(self.shapes)))
+        return hash((tuple(self.names), tuple(self.shapes),
+                     tuple(self.dtypes)))
+
+    def require_single(self, what: str) -> None:
+        """Raise unless the layout holds one dtype: ``what`` works on one
+        flat buffer."""
+        if self.mixed:
+            raise NotImplementedError(
+                f"{what} needs a single-dtype tree, got dtype groups "
+                f"{list(self.keys)}: the mesh, combine, compression and "
+                f"gather programs take one flat buffer (ROADMAP, left over "
+                f"from M15b: mixed-dtype trees beyond the fused path)")
 
     @classmethod
     def of(cls, tree: dict, *, lead: int = 0) -> "FlatLayout":
@@ -117,26 +164,50 @@ class FlatLayout:
     def flatten(self, tree: dict, lead: tuple = ()) -> torch.Tensor:
         """Leaves shaped ``lead + shape`` -> one ``lead + [N]`` tensor (the
         tree's own buffer, without a copy, for a :class:`FlatTree`)."""
+        self.require_single("FlatLayout.flatten")
         lead = tuple(lead)
         if (isinstance(tree, FlatTree)
-                and tuple(tree.flat.shape) == lead + (self.n,)):
-            return tree.flat
+                and tuple(tree.flats["flat"].shape) == lead + (self.n,)):
+            return tree.flats["flat"]
         return torch.cat([tree[k].reshape(lead + (-1,)) for k in self.names],
                          dim=-1)
 
-    def views(self, flat: torch.Tensor) -> FlatTree:
-        """``[..., N]`` -> ``{name: [..., *shape]}`` views (no copies)."""
-        lead = tuple(flat.shape[:-1])
-        out = FlatTree(
-            (k, flat[..., off:off + size].view(lead + shape))
-            for k, shape, off, size in zip(self.names, self.shapes,
-                                           self.offsets, self.sizes))
-        out.flat = flat
+    def flatten_groups(self, tree: dict, lead: tuple = ()) -> dict:
+        """Leaves shaped ``lead + shape`` -> ``{key: lead + [n_g]}``, one
+        buffer per dtype group (a :class:`FlatTree`'s own, without a
+        copy)."""
+        if isinstance(tree, FlatTree) and tree.layout == self and all(
+                tuple(f.shape[:-1]) == tuple(lead)
+                for f in tree.flats.values()):
+            return dict(tree.flats)
+        return {key: g.flatten(tree, lead)
+                for key, g in zip(self.keys, self.groups)}
+
+    def views(self, flat) -> FlatTree:
+        """``[..., N]`` (or ``{key: [..., n_g]}``, one buffer per dtype
+        group) -> ``{name: [..., *shape]}`` views (no copies)."""
+        if not isinstance(flat, dict):
+            self.require_single("FlatLayout.views of one buffer")
+        flats = flat if isinstance(flat, dict) else {"flat": flat}
+        if self.mixed:
+            out = FlatTree(sorted(
+                ((k, v) for key, g in zip(self.keys, self.groups)
+                 for k, v in g.views(flats[key]).items()),
+                key=lambda kv: kv[0]))
+        else:
+            flat = flats["flat"]
+            lead = tuple(flat.shape[:-1])
+            out = FlatTree(
+                (k, flat[..., off:off + size].view(lead + shape))
+                for k, shape, off, size in zip(self.names, self.shapes,
+                                               self.offsets, self.sizes))
+        out.flats = flats
         out.layout = self
         return out
 
     def scalars(self) -> "FlatLayout":
         """The layout of one scalar per leaf (the int8 payload's scales)."""
+        self.require_single("FlatLayout.scalars")
         if self._scalars is None:
             self._scalars = FlatLayout({k: torch.empty(())
                                         for k in self.names})
@@ -145,6 +216,7 @@ class FlatLayout:
     def offsets_on(self, device) -> torch.Tensor:
         """The leaf offsets ``[n_leaves + 1]`` as int64 on ``device``
         (K2's leaf table), made once per device."""
+        self.require_single("FlatLayout.offsets_on")
         device = torch.device(device)
         t = self._offsets_on.get(device)
         if t is None:
@@ -156,6 +228,7 @@ class FlatLayout:
         """One value per leaf ``[..., n_leaves]`` -> ``[..., N]``, each
         repeated over its leaf: one gather through a cached leaf index
         (``repeat_interleave`` recomputes its index every call)."""
+        self.require_single("FlatLayout.per_element")
         device = values.device
         index = self._leaf_index_on.get(device)
         if index is None:
@@ -168,11 +241,13 @@ class FlatLayout:
 
 def tree_cat(trees: list, dim: int = 0) -> dict:
     """Concatenate trees leaf by leaf along a lead dim ``dim``; flat trees
-    of one layout concatenate as one buffer."""
+    of one layout concatenate buffer by buffer."""
     first = trees[0]
     if all(isinstance(t, FlatTree) and t.layout == first.layout
            for t in trees):
-        return first.layout.views(torch.cat([t.flat for t in trees], dim=dim))
+        return first.layout.views({
+            key: torch.cat([t.flats[key] for t in trees], dim=dim)
+            for key in first.flats})
     return {k: torch.cat([t[k] for t in trees], dim=dim) for k in first}
 
 
@@ -181,5 +256,7 @@ def tree_stack(trees: list) -> dict:
     first = trees[0]
     if all(isinstance(t, FlatTree) and t.layout == first.layout
            for t in trees):
-        return first.layout.views(torch.stack([t.flat for t in trees]))
+        return first.layout.views({
+            key: torch.stack([t.flats[key] for t in trees])
+            for key in first.flats})
     return {k: torch.stack([t[k] for t in trees]) for k in first}

@@ -2,7 +2,11 @@
 
 They adapt any-shape leaves to the kernel layouts.  A tensor on the CPU
 takes the plain version (``ref``); a CUDA tensor launches the hand-written
-kernel or raises — there is no fallback.
+kernel or raises — there is no fallback.  A meta tensor (a step counted by
+:mod:`repro_torch.launch.op_cost`) computes nothing: the route returns
+empty meta outputs of the kernel's shapes and reports the call's work
+(:mod:`repro_torch.kernels.work`) to the active counter.  A meta call is
+not a launch; any other device raises.
 
     fedavg_accum(acc, theta, n_old, n_k)          — any-shape leaf, or a
                                                     lane-stacked [L, ...]
@@ -28,6 +32,7 @@ from repro_torch.kernels import flash_attention as _fl
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd as _ssd
+from repro_torch.kernels import work
 
 __all__ = ["fedavg_accum", "dequant_merge", "dequant_merge_flat", "rmsnorm",
            "flash_attention", "padded_kv_len", "ssd", "ssd_chunk",
@@ -71,6 +76,9 @@ def fedavg_accum(acc, theta, n_old, n_k):
     theta = theta.to(acc.dtype)
     if acc.device.type == "cpu":
         return ref.fedavg_accum_ref(acc, theta, n_old, n_k)
+    if acc.device.type == "meta":
+        work.record("fedavg_accum", work.fedavg_accum(acc.shape, acc.dtype))
+        return torch.empty_like(acc)
     if acc.device.type != "cuda":
         raise ValueError(f"no fedavg_accum kernel for device {acc.device}")
     per_lane = any(torch.is_tensor(w) and w.ndim == 1 for w in (n_old, n_k))
@@ -91,6 +99,9 @@ def dequant_merge_flat(acc, q, g, scales, offsets, n_old, n_k):
     if acc.device.type == "cpu":
         return ref.dequant_merge_flat_ref(acc, q, g, scales, offsets,
                                           n_old, n_k)
+    if acc.device.type == "meta":
+        work.record("dequant_merge", work.dequant_merge(acc.numel()))
+        return torch.empty_like(acc)
     if acc.device.type != "cuda":
         raise ValueError(f"no dequant_merge kernel for device {acc.device}")
     dev = acc.device
@@ -119,9 +130,12 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
     ``repro.kernels.ops.rmsnorm``: f32 math, output in ``x.dtype``."""
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, scale, eps=eps)
+    d = x.shape[-1]
+    if x.device.type == "meta":
+        work.record("rmsnorm", work.rmsnorm(x.numel() // d, d, x.dtype))
+        return torch.empty_like(x)
     if x.device.type != "cuda":
         raise ValueError(f"no rmsnorm kernel for device {x.device}")
-    d = x.shape[-1]
     out = _rn.rmsnorm_rows(x.reshape(-1, d).contiguous(),
                            scale.to(torch.float32).contiguous(), eps)
     return out.reshape(x.shape)
@@ -151,6 +165,10 @@ def flash_attention(q, k, v, *, causal: bool = True):
                                   "a block multiple upstream")
     if q.device.type == "cpu":
         return ref.flash_attention_bshd_ref(q, k, v, causal=causal, t_pad=tp)
+    if q.device.type == "meta":
+        work.record("flash_attention", work.flash_attention(
+            q.shape, k.shape, q.dtype, causal=causal))
+        return torch.empty_like(q, memory_format=torch.contiguous_format)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for device {q.device}")
     return _fl.flash_attention_bshd(q, k, v, causal=causal, t_pad=tp)
@@ -183,6 +201,13 @@ def ssd(x, dt, A_log, B, C, D, *, chunk: int = 128,
     A_log, D = A_log.float(), D.float()
     if x.device.type == "cpu":
         y, state = ref.ssd_chunks_ref(x, dt, A_log, B, C, D, chunk=ck)
+        return (y, state) if return_state else y
+    if x.device.type == "meta":
+        work.record("ssd", work.ssd(x.shape, B.shape, x.dtype, dt.dtype,
+                                    chunk=ck, state=return_state))
+        y = torch.empty_like(x, memory_format=torch.contiguous_format)
+        b, _, h, p = x.shape
+        state = x.new_empty((b, h, p, B.shape[-1]), dtype=torch.float32)
         return (y, state) if return_state else y
     if x.device.type != "cuda":
         raise ValueError(f"no ssd kernel for device {x.device}")

@@ -1,0 +1,149 @@
+"""The steps: the function each dry-run cell runs, bound to its inputs —
+port of ``repro/launch/steps.py``.
+
+* train   → Pollen's federated round (Fig. 5b): W workers × P lanes × S
+            local steps, per-lane streaming partial aggregation (Eq. 1, K1),
+            the weighted-mean reduce — :func:`~repro_torch.fl.round
+            .make_round_step` bound to the arch's loss and the paper's
+            client optimizer (SGD momentum, A.1);
+* prefill → the full-prompt forward returning (last logits, filled cache);
+* decode  → one-token serve step against a KV/SSM cache of ``seq_len``.
+
+The reference jits these with the plan's shardings and lowers them on
+``ShapeDtypeStruct`` stand-ins; :func:`build_step` binds them to tensors on
+a device instead: meta tensors (nothing allocated, nothing computed) for
+the cost counter, or random inputs on the card for a run.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+# The engine (``repro_torch.core``) imports the round module, which imports
+# ``core.aggregation``: loading ``core`` first resolves that cycle.
+from repro_torch.core import EngineConfig  # noqa: F401
+from repro_torch.fl.round import make_round_step
+from repro_torch.kernels.layout import flatten_tree
+from repro_torch.launch.plan import Plan, input_specs, meta_params
+from repro_torch.models import lm, make_lane_loss_fn
+from repro_torch.optim import sgd
+
+__all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
+           "build_step", "device_params", "CLIENT_LR", "CLIENT_MOMENTUM"]
+
+# Paper A.1 client optimizer (IC/SR task family); LM archs reuse it — the FL
+# round semantics, not the LM hyperparameters, are what the cell exercises.
+CLIENT_LR = 0.05
+CLIENT_MOMENTUM = 0.9
+
+
+def make_train_step(plan: Plan, *, agg_impl: str = "kernel"):
+    """The round step; its folds go through K1 (the plain version on CPU
+    tensors, the kernel's work on meta ones)."""
+    return make_round_step(make_lane_loss_fn(plan.cfg),
+                           sgd(CLIENT_LR, momentum=CLIENT_MOMENTUM),
+                           agg_impl=agg_impl)
+
+
+def make_prefill_step(plan: Plan, device):
+    cfg = plan.cfg
+
+    def prefill_step(params, batch):
+        return lm.prefill(params, batch, cfg, device=device)
+
+    return prefill_step
+
+
+def make_decode_step(plan: Plan, device):
+    """One token at the cache's last slot (``seq_len - 1``): the reference
+    passes a traced position, the port's ``decode_step`` an int."""
+    cfg = plan.cfg
+    pos = plan.seq_len - 1
+
+    def serve_step(params, cache, tokens):
+        return lm.decode_step(params, cache, tokens, pos, cfg, device=device)
+
+    return serve_step
+
+
+def device_params(cfg, seed: int, device) -> dict:
+    """Random weights of ``cfg`` drawn on ``device`` from ``seed``, in the
+    dtypes :func:`~repro_torch.models.lm.init_params` gives: its fixed
+    leaves (:func:`~repro_torch.models.lm.fixed_leaf`) as it makes them;
+    every other leaf N(0, 1) clipped at ±2 times its scale (``1/√fan_in``;
+    0.02 for embeddings and learned positions), the truncated normal of
+    ``dense_init`` clipped instead of redrawn, so that billions of weights
+    cost no host time.  The weights differ from ``init_params(seed)``'s."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+
+    def leaf(name, shape):
+        dtype = lm.leaf_dtype(name, cfg)
+        fixed = lm.fixed_leaf(name, shape, dtype)
+        if fixed is not None:
+            return fixed.to(dtype).to(device)
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        scale = 0.02 if name in ("embed", "pos_embed") \
+            else 1.0 / math.sqrt(fan_in)
+        w = torch.randn(shape, generator=gen, device=device)
+        return w.clamp_(-2.0, 2.0).mul_(scale).to(dtype)
+
+    def build(shapes):
+        return {k: build(v) if isinstance(v, dict) else leaf(k, tuple(v))
+                for k, v in shapes.items()}
+
+    return build(lm.param_shapes(cfg))
+
+
+def _fill(spec: torch.Tensor, cfg, gen) -> torch.Tensor:
+    """Random values for one input of ``spec``'s shape and dtype: token ids
+    below the vocab size, N(0, 1) stubs."""
+    if spec.dtype == torch.int32:
+        return torch.randint(0, cfg.vocab_size, spec.shape, generator=gen,
+                             dtype=torch.int32, device=spec.device)
+    return torch.randn(spec.shape, generator=gen,
+                       device=spec.device).to(spec.dtype)
+
+
+def build_step(plan: Plan, device="meta", *, params: dict | None = None,
+               seed: int = 0):
+    """``(fn, args)``: the plan's step and its inputs on ``device``.
+
+    On meta (the default) the parameters are :func:`~repro_torch.launch
+    .plan.meta_params` and every input an empty tensor of the reference's
+    shape and dtype.  On another device ``params`` (the nested tree;
+    default :func:`device_params`) and random inputs from ``seed``: a train
+    cell's lanes each hold one client of S real steps (mask 1, the
+    boundary and the weight ``b`` at the last step), a decode cell starts
+    from a zeroed cache."""
+    device = torch.device(device)
+    meta = device.type == "meta"
+    cfg = plan.cfg
+    if params is None:
+        params = meta_params(cfg) if meta else device_params(cfg, seed,
+                                                             device)
+    specs = input_specs(plan, device)
+    gen = None if meta else torch.Generator(device=device).manual_seed(
+        int(seed) + 1)
+    if plan.kind == "train":
+        batches = specs["batches"]
+        step_mask, boundary, weight = (specs[k] for k in ("step_mask",
+                                                          "boundary",
+                                                          "weight"))
+        if not meta:
+            batches = {k: _fill(v, cfg, gen) for k, v in batches.items()}
+            step_mask = torch.ones_like(step_mask)
+            boundary = torch.zeros_like(boundary)
+            boundary[..., -1] = 1.0
+            weight = boundary * float(plan.b)
+        return make_train_step(plan), (flatten_tree(params), batches,
+                                       step_mask, boundary, weight)
+    if plan.kind == "prefill":
+        batch = specs["batch"]
+        if not meta:
+            batch = {k: _fill(v, cfg, gen) for k, v in batch.items()}
+        return make_prefill_step(plan, device), (params, batch)
+    tokens = specs["tokens"] if meta else _fill(specs["tokens"], cfg, gen)
+    return make_decode_step(plan, device), (params, specs["cache"], tokens)

@@ -63,9 +63,9 @@ from repro_torch.models.layers import (decode_attention, dense_init,
                                        gelu_mlp, gqa_attention, moe_layer_3d,
                                        norm_init, rms_norm, rope, swiglu)
 
-__all__ = ["init_params", "param_shapes", "forward", "loss_fn", "init_cache",
-           "prefill", "decode_step", "layer_plan", "LayerKind", "param_count",
-           "require_ported"]
+__all__ = ["init_params", "param_shapes", "leaf_dtype", "forward", "loss_fn",
+           "init_cache", "prefill", "decode_step", "layer_plan", "LayerKind",
+           "param_count", "require_ported"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -202,12 +202,23 @@ def _block_shapes(cfg: ArchConfig, kind: LayerKind) -> dict:
     return sh
 
 
-def _init_leaf(gen: torch.Generator, name: str, shape, dtype):
-    """The reference's init of one (stacked) leaf: norm scales 1 and
-    biases 0; the Mamba rows ``A_log = log(linspace(1, 16, h))``, ``dt_bias
-    = softplus^-1`` of dt log-spaced in ``[1e-3, 1e-1]`` and ``D = 1``, all
-    three in f32 whatever ``dtype`` is; the rest drawn by
-    :func:`dense_init`."""
+_F32_ROWS = ("mamba_A", "mamba_dt_bias", "mamba_D")
+
+
+def leaf_dtype(name: str, cfg: ArchConfig) -> torch.dtype:
+    """The dtype :func:`init_params` gives the leaf whose last key is
+    ``name``: f32 for norm scales and the Mamba per-head rows, ``cfg.dtype``
+    for every other leaf (as the reference's ``init_params``)."""
+    if "norm" in name or name in _F32_ROWS:
+        return torch.float32
+    return _DTYPES[cfg.dtype]
+
+
+def fixed_leaf(name: str, shape, dtype):
+    """The reference's init of a leaf that draws nothing, or None: norm
+    scales 1 and biases 0; the Mamba rows ``A_log = log(linspace(1, 16,
+    h))``, ``dt_bias = softplus^-1`` of dt log-spaced in ``[1e-3, 1e-1]``
+    and ``D = 1``, all three in f32 whatever ``dtype`` is."""
     if "norm" in name:
         return norm_init(shape)
     if name.startswith(("b", "xb")) and len(shape) == 1:
@@ -223,7 +234,14 @@ def _init_leaf(gen: torch.Generator, name: str, shape, dtype):
         return torch.log(torch.expm1(dt)).expand(shape).contiguous()
     if name == "mamba_D":
         return torch.ones(shape, dtype=f32)
-    return dense_init(gen, shape, dtype)
+    return None
+
+
+def _init_leaf(gen: torch.Generator, name: str, shape, dtype):
+    """The reference's init of one (stacked) leaf: :func:`fixed_leaf`, or
+    drawn by :func:`dense_init`."""
+    fixed = fixed_leaf(name, shape, dtype)
+    return dense_init(gen, shape, dtype) if fixed is None else fixed
 
 
 def _stack_shapes(cfg: ArchConfig, plan) -> dict:
@@ -587,16 +605,44 @@ def _run_encoder(params, batch, cfg: ArchConfig, device):
     return rms_norm(x, enc["final_norm"], eps=cfg.norm_eps)
 
 
+class _F32Logits(torch.autograd.Function):
+    """``h [n, d] @ w [d, V]`` -> f32 ``[n, V]`` from ``cfg.dtype``
+    operands (cuBLAS' ``out_dtype``, f32 accumulation), with a backward:
+    ``torch.mm`` has none for ``out_dtype``.  The backward rounds the f32
+    logit gradient to the operands' dtype and takes its two products the
+    same way (tensor cores, f32 accumulation, results in the operands'
+    dtype); the reference multiplies the f32 gradient by the bf16 operand
+    in f32, so a bf16 gradient here can differ from it by a bf16 rounding
+    of that product's input."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return torch.mm(h, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g = g.to(h.dtype)
+        gh = gw = None
+        if ctx.needs_input_grad[0]:
+            gh = torch.mm(g, w.t(), out_dtype=torch.float32).to(h.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = torch.mm(h.t(), g, out_dtype=torch.float32).to(w.dtype)
+        return gh, gw
+
+
 def _lm_head(params, h, cfg: ArchConfig):
     """f32 logits from ``cfg.dtype`` operands, as the reference's
     ``preferred_element_type=f32`` (a bf16 matmul would round the logits to
     bf16).  On the card cuBLAS writes f32 straight from bf16 operands
-    (``out_dtype``), so the [vocab, d] table is never upcast; the CPU has
-    no such op, so there both operands are upcast (products of bf16 values
-    are exact in f32)."""
+    (:class:`_F32Logits`), so the [vocab, d] table is never upcast; the CPU
+    has no such op, so there both operands are upcast (products of bf16
+    values are exact in f32).  A counted step on meta tensors takes the
+    card's route."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    if h.device.type == "cuda" and h.dtype != torch.float32:
-        out = torch.mm(h.reshape(-1, h.shape[-1]), w, out_dtype=torch.float32)
+    if h.device.type in ("cuda", "meta") and h.dtype != torch.float32:
+        out = _F32Logits.apply(h.reshape(-1, h.shape[-1]), w)
         return out.reshape(*h.shape[:-1], w.shape[-1])
     return h.float() @ w.float()
 

@@ -19,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
+from _torch_devices import Elsewhere  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import fedavg_accum as tfa  # noqa: E402
@@ -120,7 +121,7 @@ def test_kernel_entry_refuses_cpu_tensors():
 
 
 def test_wrapper_refuses_other_devices():
-    acc = torch.zeros(8, device="meta")
+    acc = Elsewhere(8)
     with pytest.raises(ValueError, match="no fedavg_accum kernel"):
         tops.fedavg_accum(acc, acc, 1.0, 1.0)
 
@@ -239,9 +240,8 @@ def test_new_kernel_entries_refuse_cpu_tensors():
         trn.rmsnorm_rows(x.reshape(8, 16), torch.ones(16), 1e-6)
     with pytest.raises(ValueError, match="CUDA"):
         tfl.flash_attention_bshd(x, x, x, causal=True, t_pad=1)
-    meta = torch.zeros(2, 8, device="meta")
     with pytest.raises(ValueError, match="no rmsnorm kernel"):
-        tops.rmsnorm(meta, torch.ones(8, device="meta"))
+        tops.rmsnorm(Elsewhere(2, 8), Elsewhere(8))
 
 
 # -- K4's wgmma route: its numerics in its tile order ---------------------------

@@ -33,6 +33,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
+from _torch_devices import Elsewhere  # noqa: E402
 from _torch_parity import one_intra_op_thread  # noqa: E402,F401
 from repro import configs as jconfigs  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
@@ -133,7 +134,7 @@ def test_ssd_chunk_is_the_reference_wrappers():
     assert tops.ssd_chunk(100, 32) == 32
     _, t = _ssd_inputs(1, 4, 2, 16, 1, 16, seed=1)
     with pytest.raises(ValueError, match="no ssd kernel"):
-        tops.ssd(*(a.to("meta") for a in t))
+        tops.ssd(*(Elsewhere(*a.shape) for a in t))
 
 
 # -- K5's wgmma route: its rounding, emulated ---------------------------------
