@@ -22,7 +22,9 @@ counts on a laptop) or on real ones.  Its rules are ``hlo_cost.py``'s:
   meta branch) adds its work from :mod:`repro_torch.kernels.work`;
 * ``peak_live_bytes`` — the step's arguments plus the most bytes of
   storages it allocated that were alive at once, tracked at allocation and
-  at free (a storage's finalizer).
+  at free (a storage's finalizer), plus, during an op, the workspace it
+  allocates and frees inside itself where PyTorch's CUDA implementation
+  is known to (:func:`_workspace`).
 
 An operation whose result depends on data on meta tensors (a value read
 back to the host, an output whose shape depends on values) cannot be
@@ -62,6 +64,31 @@ _NO_FLOPS = {"clone", "copy", "copy_", "_to_copy", "lift_fresh_copy",
              "ones_like", "full", "full_like", "new_zeros", "new_ones",
              "new_full"}
 _TAG_DATA = (torch.Tag.data_dependent_output, torch.Tag.dynamic_output_shape)
+_SOFTMAX = {"_softmax", "_log_softmax", "_softmax_backward_data",
+            "_log_softmax_backward_data"}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _workspace(name: str, ins: list, outs: list) -> int:
+    """Bytes an op holds inside itself beyond its inputs and outputs, on
+    the card, where PyTorch's CUDA implementation is known to: the softmax
+    kernels copy each non-contiguous operand to a contiguous one
+    (``host_softmax``, ``host_softmax_backward``), the softmax backward
+    first forms ``grad * output`` at the output's size, and ``logsumexp``
+    holds ``exp(x - max)`` at its input's size.  A count of the storages
+    alive between ops cannot see them; the softmax backward of dense
+    attention scores is the largest buffer of a train step."""
+    if name in _SOFTMAX:
+        extra = sum(_nbytes(t) for t in ins if not t.is_contiguous())
+        if name == "_softmax_backward_data":
+            extra += _nbytes(outs[0])
+        return extra
+    if name == "logsumexp" and ins:
+        return _nbytes(ins[0])
+    return 0
 
 
 class DataDependentOp(RuntimeError):
@@ -182,6 +209,10 @@ class _Counter(TorchDispatchMode):
             self.cost.peak_live_bytes = max(self.cost.peak_live_bytes,
                                             self.live)
             weakref.finalize(st, self._free, key, nbytes)
+        extra = _workspace(name, ins, outs)
+        if extra:
+            self.cost.peak_live_bytes = max(self.cost.peak_live_bytes,
+                                            self.live + extra)
         mutates = func._schema.is_mutable
         if not mutates and outs and all(_storage_key(t) in in_keys
                                          for t in outs):

@@ -623,6 +623,80 @@ def test_lm_head_writes_f32_logits_from_bf16_on_card(dev):
     assert torch.allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
+def test_f32_logits_backward_tracks_the_f32_product_on_card(dev):
+    """The card's LM head backward (``_F32Logits``) rounds the f32 logit
+    gradient to bf16 and writes each product's result in bf16: against
+    the gradients of the f32 product ``h.float() @ w.float()`` each is
+    within 2^-7 in relative norm (one bf16 rounding of the gradient and
+    one of the result, ~2^-9 each); a transposed, dropped or mis-scaled
+    gradient is off by ~1."""
+    from repro_torch.models import lm
+    h = _rand((96, 64), torch.bfloat16, dev, 31).requires_grad_()
+    w = _rand((64, 200), torch.bfloat16, dev, 32).requires_grad_()
+    g = _rand((96, 200), torch.float32, dev, 33)
+    out = lm._F32Logits.apply(h, w)
+    assert out.dtype == torch.float32
+    got = torch.autograd.grad(out, (h, w), g)
+    hf, wf = (x.detach().float().requires_grad_() for x in (h, w))
+    want = torch.autograd.grad(hf @ wf, (hf, wf), g)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert float((a.float() - b).norm() / b.norm()) <= 2.0 ** -7
+
+
+# One bf16 round against another sound bf16 implementation: each dtype
+# group's update (new minus initial params) within this share of the
+# other's in relative norm.  tests/test_torch_mixed_dtype.py holds the port
+# to the reference on the CPU by the same measure.
+BF16_UPDATE_RTOL = 0.1
+
+
+def _group_update_rel(new, want, init):
+    """``||Δnew − Δwant|| / ||Δwant||`` by dtype group, Δ from ``init``."""
+    num, den = {}, {}
+    for k, w in want.items():
+        key = str(w.dtype)
+        d = want[k].float() - init[k].float()
+        num[key] = num.get(key, 0.0) + float(
+            (new[k].float() - want[k].float()).square().sum())
+        den[key] = den.get(key, 0.0) + float(d.square().sum())
+    return {k: (num[k] / den[k]) ** 0.5 for k in den}
+
+
+def test_bf16_lm_round_on_card_tracks_the_cpu(dev):
+    """Two rounds of reduced qwen3 in bf16 on the card (the LM head through
+    ``_F32Logits``, K1 once per dtype group a lane-loop step) against the
+    same on the CPU: losses within rtol 1e-3, each dtype group's update
+    within ``BF16_UPDATE_RTOL``, where unchanged params are off by 1."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.layout import flatten_tree
+    from repro_torch.launch.train import build_engine
+    cfg = replace(get_arch("qwen3-0.6b").reduced(), dtype="bfloat16")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        eng = build_engine(lm_cfg=cfg, device=device, cohort=4, steps_cap=2)
+        init = {k: v.cpu().clone()
+                for k, v in flatten_tree(eng.params).items()}
+        tops.reset_launch_counts()
+        res = eng.run(2)
+        launches = tops.launch_counts()["fedavg_accum"]
+        final = {k: v.cpu() for k, v in flatten_tree(eng.params).items()}
+        runs[device] = ([r.loss for r in res], init, final)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert launches == 2 * sum(r.s_steps for r in res)
+    (card, card_init, card_params), (cpu, init, cpu_params) = (
+        runs["cuda"], runs["cpu"])
+    assert all(torch.equal(card_init[k], v) for k, v in init.items())
+    assert {v.dtype for v in cpu_params.values()} == {torch.bfloat16,
+                                                       torch.float32}
+    np.testing.assert_allclose(card, cpu, rtol=1e-3)
+    rel = _group_update_rel(card_params, cpu_params, init)
+    assert len(rel) == 2 and max(rel.values()) <= BF16_UPDATE_RTOL, rel
+    assert min(_group_update_rel(init, cpu_params, init).values()) == 1.0
+
+
 # -- K5 -----------------------------------------------------------------------
 # (b, s, h, p, g, n, chunk): tests/test_kernels.py's sweep; s = 100 at the
 # wrapper's own chunk (round_up(100, 8) = 104, no multiple of 16); a ragged

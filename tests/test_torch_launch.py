@@ -261,6 +261,30 @@ def test_views_move_no_bytes_and_peak_is_exact():
     assert cost.by_op["aten.add"]["bytes"] == 8192
 
 
+def test_peak_holds_the_softmax_and_logsumexp_workspace():
+    """The peak adds, during an op, the buffers PyTorch's CUDA softmax and
+    logsumexp hold inside themselves: a contiguous copy of a non-contiguous
+    operand, the backward's ``grad * output``, ``exp(x - max)``."""
+    kb16 = 64 * 64 * 4
+
+    def backward(x, g):
+        y = torch._softmax(x, -1, False)          # contiguous: no copy
+        return torch._softmax_backward_data(g.t(), y, -1, torch.float32)
+
+    x, g = (torch.empty(64, 64, device="meta") for _ in range(2))
+    cost = op_cost.analyze_step(backward, x, g)
+    # arguments, y and the output, then g.t()'s copy and grad * output
+    assert cost.peak_live_bytes == 2 * kb16 + 2 * kb16 + 2 * kb16
+    cost = op_cost.analyze_step(lambda x, g: torch._softmax_backward_data(
+        g, x, -1, torch.float32), x, g)
+    assert cost.peak_live_bytes == 2 * kb16 + kb16 + kb16
+    cost = op_cost.analyze_step(lambda x: torch.logsumexp(x, -1), x)
+    assert cost.peak_live_bytes == kb16 + 64 * 4 + kb16
+    cost = op_cost.analyze_step(lambda x: torch._softmax(x.t(), -1, False),
+                                x)
+    assert cost.peak_live_bytes == kb16 + kb16 + kb16
+
+
 def test_counter_names_a_data_dependent_op():
     with pytest.raises(op_cost.DataDependentOp) as e:
         op_cost.analyze_step(lambda x: float(x.sum()),

@@ -12,13 +12,25 @@ Tolerances, and why:
 
 * a single-dtype layout, its buffers and every f32 round: exactly as before
   (the f32 tests of the other files hold them bitwise);
-* one round of a reduced config in bf16, loss rtol 1e-3 and params atol
-  ``BF16_PARAM_ATOL`` = 2^-7 (one bf16 ulp at |w| < 2): both packages
-  round each bf16 operation, but XLA may keep a fused chain's
-  intermediates in f32 (its excess-precision rule) where PyTorch rounds
-  every op, and the GEMMs sum in other orders.  Measured on these inputs:
-  params within 9.8e-4 (qwen3) and 1.95e-3 (mamba2), losses within 1.0e-5
-  and 5.9e-5 relative, the same for both fold routes.
+* one round of a reduced config in bf16, loss rtol 1e-3, params atol
+  ``BF16_PARAM_ATOL`` = 2^-7 (one bf16 ulp at |w| < 2), and the round's
+  update (new minus initial params) within ``BF16_UPDATE_RTOL`` = 0.1 of
+  the reference's in relative norm over each dtype group and within
+  ``BF16_LEAF_UPDATE_RTOL`` = 0.3 over each leaf: both packages round
+  each bf16 operation, but XLA may keep a fused chain's intermediates in
+  f32 (its excess-precision rule) where PyTorch rounds every op, and the
+  GEMMs sum in other orders.  Measured on these inputs: params within
+  9.8e-4 (qwen3) and 1.95e-3 (mamba2), losses within 1.0e-5 and 5.9e-5
+  relative, group updates within 0.043 and 0.049 (bf16) and 0.018 and
+  0.028 (f32), leaf updates within 0.165 and 0.167, the same for both fold
+  routes.  Unchanged params are off by 1, a round that folded one of its
+  two workers by 0.99 in its bf16 group (held to ``_CONTROL_MIN`` = 0.5 or
+  more by test_update_measure_rejects_wrong_rounds);
+* the fold and the lanes' weighted mean alone, on bf16 lane buffers:
+  bitwise the reference's, route for route — ``"plain"`` rounds each
+  bf16 operation as ``_accum_leaf_xla`` does, ``"kernel"`` computes in f32
+  and rounds once as the Pallas kernel does — and the two routes differ
+  (a round's training noise hides that difference).
 """
 
 from dataclasses import replace
@@ -32,6 +44,7 @@ jnp = jax.numpy
 
 from _torch_parity import one_intra_op_thread  # noqa: E402,F401
 from repro import configs as jconfigs  # noqa: E402
+from repro.core import aggregation as jagg  # noqa: E402
 from repro.fl.round import make_round_step as jround_step  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.models import make_loss_fn as jmake_loss_fn  # noqa: E402
@@ -47,6 +60,8 @@ from repro_torch.optim import sgd as tsgd  # noqa: E402
 
 BF16_LOSS_RTOL = 1e-3
 BF16_PARAM_ATOL = 2.0 ** -7
+BF16_UPDATE_RTOL = 0.1
+BF16_LEAF_UPDATE_RTOL = 0.3
 # What one round measured on this file's inputs (max |Δ| over all params,
 # |Δloss| / loss), recorded beside the tolerances it is held to.
 _MEASURED = {}
@@ -150,6 +165,42 @@ def test_optimizer_state_dtypes_per_group():
 
 
 # -- one round against the reference -------------------------------------------------
+def _ref_round(name, jimpl, weight_scale=(1.0, 1.0)):
+    """The reference's round on this file's inputs: ``({path: f32 numpy},
+    loss)``; ``weight_scale`` multiplies each worker's client weights."""
+    jcfg, _ = _cfgs(name)
+    jp, _ = _ref_params(jcfg)
+    batch, ones, boundary, weight = _round_inputs(jcfg)
+    weight = weight * np.asarray(weight_scale, np.float32)[:, None, None]
+    jstep = jround_step(jmake_loss_fn(jcfg), jsgd(0.05, 0.9), agg_impl=jimpl)
+    jnew, jm = jstep(jp, {k: jnp.asarray(v) for k, v in batch.items()},
+                     jnp.asarray(ones), jnp.asarray(boundary),
+                     jnp.asarray(weight))
+    return ({k: _as_f32(v) for k, v in zip(_paths(jnew),
+                                           jax.tree.leaves(jnew))},
+            float(jm.loss), float(jm.total_weight))
+
+
+def _update_rel(new, want, init):
+    """``||Δnew − Δwant|| / ||Δwant||``, Δ the update from ``init``
+    (``{path: f32 numpy}`` each): ``({dtype group: r}, {leaf: r})``."""
+    num, den, leaf = {}, {}, {}
+    for k, w in want.items():
+        key = str(init[k].dtype)
+        d2 = float(np.square(new[k] - w).sum())
+        w2 = float(np.square(w - init[k].float().numpy()).sum())
+        num[key] = num.get(key, 0.0) + d2
+        den[key] = den.get(key, 0.0) + w2
+        leaf[k] = (d2 / w2) ** 0.5 if w2 else float(d2 > 0)
+    return {k: (num[k] / den[k]) ** 0.5 for k in den}, leaf
+
+
+def _within(rel) -> bool:
+    groups, leaves = rel
+    return max(groups.values()) <= BF16_UPDATE_RTOL and \
+        max(leaves.values()) <= BF16_LEAF_UPDATE_RTOL
+
+
 @pytest.mark.parametrize("name", ["qwen3-0.6b", "mamba2-2.7b"])
 @pytest.mark.parametrize("impls", [("plain", "xla"), ("kernel", "pallas")])
 def test_mixed_round_matches_reference(name, impls):
@@ -159,28 +210,109 @@ def test_mixed_round_matches_reference(name, impls):
     the CPU: f32 math, cast back) against ``"pallas"`` in interpret mode."""
     timpl, jimpl = impls
     jcfg, tcfg = _cfgs(name)
-    jp, tp = _ref_params(jcfg)
+    _, tp = _ref_params(jcfg)
     batch, ones, boundary, weight = _round_inputs(jcfg)
-    jstep = jround_step(jmake_loss_fn(jcfg), jsgd(0.05, 0.9), agg_impl=jimpl)
-    jnew, jm = jstep(jp, {k: jnp.asarray(v) for k, v in batch.items()},
-                     jnp.asarray(ones), jnp.asarray(boundary),
-                     jnp.asarray(weight))
+    want, jloss, jweight = _ref_round(name, jimpl)
     tstep = tround_step(tmodels.make_lane_loss_fn(tcfg), tsgd(0.05, 0.9),
                         agg_impl=timpl)
     tnew, tm = tstep(tp, {k: torch.from_numpy(v) for k, v in batch.items()},
                      *(torch.from_numpy(a) for a in (ones, boundary, weight)))
-    loss_rel = abs(float(tm.loss) - float(jm.loss)) / abs(float(jm.loss))
+    loss_rel = abs(float(tm.loss) - jloss) / abs(jloss)
     assert loss_rel <= BF16_LOSS_RTOL
-    assert float(tm.total_weight) == float(jm.total_weight) == 8.0
-    worst, moved = 0.0, 0.0
-    for k, v in zip(_paths(jnew), jax.tree.leaves(jnew)):
-        assert str(tnew[k].dtype).removeprefix("torch.") == str(v.dtype), k
-        got, want = tnew[k].float().numpy(), _as_f32(v)
-        worst = max(worst, float(np.abs(got - want).max()))
-        moved += float(np.abs(want - tp[k].float().numpy()).sum())
-    _MEASURED[(name, timpl)] = (worst, loss_rel)
+    assert float(tm.total_weight) == jweight == 8.0
+    got = {}
+    for k, v in want.items():
+        assert tnew[k].dtype == tp[k].dtype, k
+        got[k] = tnew[k].float().numpy()
+    worst = max(float(np.abs(got[k] - v).max()) for k, v in want.items())
+    rel = _update_rel(got, want, tp)
+    _MEASURED[(name, timpl)] = (worst, loss_rel, rel[0],
+                                max(rel[1].values()))
     assert worst <= BF16_PARAM_ATOL, (worst, _MEASURED)
-    assert moved > 0
+    assert _within(rel), _MEASURED[(name, timpl)]
+
+
+# A wrong round is off by at least this much in the update measure.
+_CONTROL_MIN = 0.5
+
+
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "mamba2-2.7b"])
+def test_update_measure_rejects_wrong_rounds(name):
+    """The update measure tells a wrong round from a right one: params left
+    as they were, and a round that folded only one of its two workers (the
+    other's weight zeroed), both fail ``_within`` by ``_CONTROL_MIN`` or
+    more; the reference's largest update is several times the params'
+    absolute tolerance."""
+    jcfg, _ = _cfgs(name)
+    _, tp = _ref_params(jcfg)
+    want, _, _ = _ref_round(name, "xla")
+    init = {k: tp[k].float().numpy() for k in want}
+    assert max(float(np.abs(w - init[k]).max())
+               for k, w in want.items()) >= 2 * BF16_PARAM_ATOL
+    assert min(_update_rel(init, want, tp)[0].values()) == 1.0
+    one, _, total = _ref_round(name, "xla", weight_scale=(1.0, 0.0))
+    assert total == 4.0
+    groups, leaves = _update_rel(one, want, tp)
+    assert not _within((groups, leaves))
+    assert groups["torch.bfloat16"] >= _CONTROL_MIN, groups
+
+
+# -- the fold alone -------------------------------------------------------------
+def _lane_inputs():
+    rng = np.random.default_rng(5)
+    acc, theta = (rng.standard_normal((3, 4096)).astype(np.float32)
+                  for _ in range(2))
+    return (acc, theta, np.array([3.0, 0.0, 7.0], np.float32),
+            np.array([5.0, 2.0, 0.0], np.float32))
+
+
+def _ref_fold(jimpl):
+    acc, theta, n_old, n_k = _lane_inputs()
+    ja, jt = (jnp.asarray(x, jnp.bfloat16) for x in (acc, theta))
+    out = []
+    for lane in range(acc.shape[0]):
+        p = jagg.PartialAggregate({"w": ja[lane]}, jnp.float32(n_old[lane]))
+        out.append(_as_f32(jagg.partial_update(p, {"w": jt[lane]},
+                                               n_k[lane],
+                                               impl=jimpl).theta["w"]))
+    return np.stack(out)
+
+
+def _port_fold(timpl):
+    acc, theta, n_old, n_k = _lane_inputs()
+    p = tagg.PartialAggregate(
+        {"bfloat16": torch.from_numpy(acc).bfloat16()},
+        torch.from_numpy(n_old))
+    out = tagg.partial_update(p, {"bfloat16": torch.from_numpy(theta)
+                                  .bfloat16()}, torch.from_numpy(n_k),
+                              impl=timpl)
+    assert out.theta["bfloat16"].dtype == torch.bfloat16
+    return out.theta["bfloat16"].float().numpy()
+
+
+@pytest.mark.parametrize("impls", [("plain", "xla"), ("kernel", "pallas")])
+def test_bf16_fold_routes_match_reference_bitwise(impls):
+    """Eq. 1 on bf16 lane buffers with per-lane weights (a blend, a cold
+    start, a skipped lane): each port route bitwise its reference route,
+    and the other route differs from it, so the two folds are told
+    apart."""
+    timpl, jimpl = impls
+    got = _port_fold(timpl)
+    np.testing.assert_array_equal(got, _ref_fold(jimpl))
+    other = _port_fold({"plain": "kernel", "kernel": "plain"}[timpl])
+    assert (got != other).mean() > 0.05
+
+
+def test_bf16_lane_mean_matches_reference_bitwise():
+    """The round's reduce (``tree_weighted_mean``) on bf16 lanes."""
+    acc, _, n_old, _ = _lane_inputs()
+    w = n_old + 1.0
+    want = _as_f32(jagg.tree_weighted_mean(
+        {"w": jnp.asarray(acc, jnp.bfloat16)}, jnp.asarray(w))["w"])
+    got = tagg.tree_weighted_mean({"w": torch.from_numpy(acc).bfloat16()},
+                                  torch.from_numpy(w))["w"]
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 def test_mixed_round_folds_once_per_dtype_group(monkeypatch):
