@@ -59,7 +59,8 @@ Phases, one JSON object per line on stdout:
              CPU (rtol 1e-4: GEMM sums are ordered differently);
 9. serve   — the LM serve path: qwen3-0.6b at its published widths and
              full depth in bf16 with ``attn_impl="pallas"``, weights from
-             ``init_params(0)``; with the launch counts zeroed just before
+             ``launch.steps.device_params(cfg, 0)`` drawn on the card; with
+             the launch counts zeroed just before
              and read just after: one prefill of 4 × 2,048 tokens (K4
              exactly 28 launches), 16 greedy decode steps (no K4), and K3
              through ``rms_norm(impl="pallas")`` on the serve path's own
@@ -71,8 +72,8 @@ Phases, one JSON object per line on stdout:
 10. agree LM — the reduced qwen3-0.6b serve path on the card against the
              same on the CPU (``AGREE_LM_TOL``);
 11. serve SSM — mamba2-2.7b at its published widths and full depth in bf16
-             with ``ssd_impl="pallas"``, weights from ``init_params(0)``
-             (2.7 B drawn on the CPU), the same traffic as phase 9, with
+             with ``ssd_impl="pallas"``, its 2.7 B weights drawn on the
+             card, the same traffic as phase 9, with
              the launch counts zeroed just before and read just after: K5
              exactly 64 launches in the prefill, all on its wgmma route,
              and none in decode; finite
@@ -87,8 +88,8 @@ Phases, one JSON object per line on stdout:
 12. agree SSM — the reduced mamba2-2.7b serve path on the card against the
              same on the CPU (``AGREE_LM_TOL``);
 13. serve MoE — granite-moe-3b-a800m at its published widths and full
-             depth in bf16 (3,299,182,080 params from ``init_params(0)``,
-             drawn on the CPU) with ``attn_impl="pallas"`` and
+             depth in bf16 (3,299,182,080 params drawn on the card) with
+             ``attn_impl="pallas"`` and
              ``moe_impl="scatter"``, the same traffic as phase 9, the
              launch counts zeroed just before and read just after: K4
              exactly 32 launches in the prefill, all on its wgmma route,
@@ -152,6 +153,19 @@ Phases, one JSON object per line on stdout:
              against its plain version (bitwise) and timed with
              ``torch.lerp`` beside the bound, and K2 on the fl100m
              payload's fold (bitwise, timed);
+19b. train LM full-width mesh — qwen3-0.6b at its published widths and
+             dtypes (8 bf16 leaves of 596,115,456 values, 5 f32 of 65,536)
+             through ``build_engine(lm_cfg=get_arch(...))`` on the tree +
+             int8 mesh (``FULL_MESH``: the fl100m batches, cohort 4 over 4
+             one-lane workers, 2 shards), 2 rounds at depths 1 and 0, the
+             launch counts zeroed just before each run and read just
+             after: finite, bit-identical losses, both dtypes kept after
+             every round, K1 once per dtype group per worker-program step,
+             K2 once per shard a round, ``combine_bytes`` 2 ×
+             596,181,052; ``exec_time`` per round and the allocator's
+             peak; then K2 on that payload's f32 twin ``[596,180,992]``
+             over 13 leaves against its plain version (bitwise), timed
+             beside its bound;
 20. agree train — a reduced qwen3-0.6b training engine, 2 rounds on the
              card against the same on the CPU: losses within
              ``AGREE_TRAIN_RTOL``, the final params leaf by leaf within
@@ -400,8 +414,9 @@ AUDIO_PROMPT = 448
 # The VLM: internvl2-26b (arXiv:2404.16821) at every published width, bf16,
 # attn_impl="pallas"; 4 requests of 256 patch embeddings (one ViT tile,
 # InternViT-6B width 3,200, the stub of its vision tower) in front of 2,048
-# tokens.  Cut to 12 of its 48 layers: the weights are drawn on the CPU at
-# ~36-46 M values/s, and 19.9 B would take 430-550 s of the script's time.
+# tokens.  Cut to 12 of its 48 layers (19.9 B weights took 430-550 s to
+# draw on the CPU when the phase was written; it keeps the cut, and every
+# check as it was, now that the weights are drawn on the card).
 VLM_ARCH = "internvl2-26b"
 VLM_LAYERS = 12
 VLM_PARAMS = 5_839_411_200    # the reference's count at 12 layers
@@ -421,6 +436,17 @@ LM_MESH_ROUNDS = 2
 FULL = dict(preset="fl100m", cohort=4, workers=1, concurrency=2,
             steps_cap=4, seed=0)
 FULL_ROUNDS = 2
+# qwen3-0.6b at its published widths AND dtypes (bf16 matrices, f32 norm
+# scales: 13 leaves) on the mesh path: the fl100m batches of 8 x 256
+# tokens, cohort 4 over 4 workers of one lane each (up to 8 local steps a
+# client, the S = 8 bucket), 2 shards, tree combine, int8 uploads; 2
+# rounds at depths 1 and 0.
+FULL_MESH = dict(preset="fl100m", cohort=4, workers=4, concurrency=1,
+                 steps_cap=8, seed=0, mesh_workers=2, combine_mode="tree",
+                 combine_compress="int8")
+FULL_MESH_ROUNDS = 2
+FULL_LEAVES = {"bfloat16": (8, 596_115_456), "float32": (5, 65_536)}
+FULL_INT8_PAYLOAD = 596_181_052   # N int8 codes + 13 f32 scales + 8 B
 # Card vs CPU on a reduced LM engine: the same math, GEMM and reduction
 # sums in another order, over 2 rounds of SGD.  The final params are held
 # leaf by leaf at the tolerance the CPU tests hold the port's engine to
@@ -1302,9 +1328,10 @@ def phase_serve(torch) -> dict:
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import ops
     from repro_torch.models import lm
+    from repro_torch.launch.steps import device_params
     dev = torch.device("cuda")
     cfg = _serve_cfg()
-    params, init_s = _sync_s(torch, lambda: lm.init_params(0, cfg))
+    params, init_s = _sync_s(torch, lambda: device_params(cfg, 0, dev))
     n_params = lm.param_count(params)
     check(n_params == SERVE_PARAMS, f"{SERVE_ARCH}: {n_params} params")
     gen = torch.Generator().manual_seed(10)
@@ -1499,7 +1526,7 @@ def _ssm_route_checks(torch, params, cfg, tokens, generated, main,
 
 def phase_serve_ssm(torch) -> dict:
     """The SSM serve path: mamba2-2.7b at its published widths and depth,
-    bf16, ``ssd_impl="pallas"``, weights from ``init_params(0)``: one
+    bf16, ``ssd_impl="pallas"``, weights drawn on the card: one
     prefill of 4 x 2,048 tokens (K5 exactly once per layer) and 16 greedy
     decode steps (no K5), with the launch counts zeroed just before and read
     just after; finite logits; then the pallas prefill against the chunked
@@ -1511,9 +1538,10 @@ def phase_serve_ssm(torch) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd as k5
     from repro_torch.models import lm
+    from repro_torch.launch.steps import device_params
     dev = torch.device("cuda")
     cfg = _ssm_cfg()
-    params, init_s = _sync_s(torch, lambda: lm.init_params(0, cfg))
+    params, init_s = _sync_s(torch, lambda: device_params(cfg, 0, dev))
     n_params = lm.param_count(params)
     check(n_params == SSM_PARAMS, f"{SSM_ARCH}: {n_params} params")
     gen = torch.Generator().manual_seed(14)
@@ -1737,7 +1765,7 @@ def _moe_route_checks(torch, params, cfg, tokens, generated, tol,
 def phase_serve_moe(torch) -> dict:
     """The MoE serve path: granite-moe-3b-a800m at its published widths and
     depth, bf16, ``attn_impl="pallas"``, ``moe_impl="scatter"``, weights
-    from ``init_params(0)``: one prefill of 4 x 2,048 tokens (K4 exactly
+    drawn on the card: one prefill of 4 x 2,048 tokens (K4 exactly
     once per layer, all on its wgmma route) and 16 greedy decode steps (no
     K4), with the launch counts zeroed just before and read just after;
     finite logits; the prefill's dropped-slot share at capacity factor
@@ -1748,9 +1776,10 @@ def phase_serve_moe(torch) -> dict:
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import ops
     from repro_torch.models import lm
+    from repro_torch.launch.steps import device_params
     dev = torch.device("cuda")
     cfg = _moe_cfg()
-    params, init_s = _sync_s(torch, lambda: lm.init_params(0, cfg))
+    params, init_s = _sync_s(torch, lambda: device_params(cfg, 0, dev))
     n_params = lm.param_count(params)
     check(n_params == MOE_PARAMS, f"{MOE_ARCH}: {n_params} params")
     gen = torch.Generator().manual_seed(15)
@@ -1854,7 +1883,7 @@ def _serve_record(cfg, n_params, init_s, prefill_s, step_s, positions,
 
 def phase_serve_audio(torch) -> dict:
     """The audio encoder-decoder: whisper-base at its published size, bf16,
-    ``attn_impl="dense"``, weights from ``init_params(0)``: 4 clips of
+    ``attn_impl="dense"``, weights drawn on the card: 4 clips of
     1,500 random frame embeddings with 448-token prompts, one prefill
     (the encoder, then the decoder with its cross-attention k/v cached) and
     16 greedy decode steps, with the launch counts zeroed just before and
@@ -1864,9 +1893,10 @@ def phase_serve_audio(torch) -> dict:
     before any launch, as in the reference."""
     from repro_torch.kernels import ops
     from repro_torch.models import lm
+    from repro_torch.launch.steps import device_params
     dev = torch.device("cuda")
     cfg = _audio_cfg()
-    params, init_s = _sync_s(torch, lambda: lm.init_params(0, cfg))
+    params, init_s = _sync_s(torch, lambda: device_params(cfg, 0, dev))
     n_params = lm.param_count(params)
     check(n_params == AUDIO_PARAMS, f"{AUDIO_ARCH}: {n_params} params")
     gen = torch.Generator().manual_seed(27)
@@ -1930,8 +1960,8 @@ def phase_serve_audio(torch) -> dict:
 
 def phase_serve_vlm(torch) -> dict:
     """The VLM: internvl2-26b at its published widths cut to 12 of 48
-    layers, bf16, ``attn_impl="pallas"``, weights from ``init_params(0)``
-    (5.8 B drawn on the CPU): 4 requests of 256 random patch embeddings
+    layers, bf16, ``attn_impl="pallas"``, weights drawn on the card
+    (5.8 B drawn on the card): 4 requests of 256 random patch embeddings
     and 2,048 tokens, one prefill over their 2,304 positions (K4 exactly
     once per layer, all on its wgmma route) and 16 greedy decode steps
     from position 2,304 (no K4), with the launch counts zeroed just before
@@ -1941,10 +1971,11 @@ def phase_serve_vlm(torch) -> dict:
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import ops
     from repro_torch.models import lm
+    from repro_torch.launch.steps import device_params
     dev = torch.device("cuda")
     cfg = _vlm_cfg()
     positions = _vlm_positions(cfg)
-    params, init_s = _sync_s(torch, lambda: lm.init_params(0, cfg))
+    params, init_s = _sync_s(torch, lambda: device_params(cfg, 0, dev))
     n_params = lm.param_count(params)
     check(n_params == VLM_PARAMS, f"{VLM_ARCH}: {n_params} params")
     gen = torch.Generator().manual_seed(28)
@@ -2684,6 +2715,158 @@ def phase_k2_lm(torch, device_name: str) -> dict:
                                       f"{float((got - want).abs().max())}")
     del acc, q, g, got, want
     return phase_timing_k2(torch, layout, device_name)
+
+
+def phase_train_full_mesh(torch) -> dict:
+    """qwen3-0.6b at its published widths and dtypes through
+    ``build_engine(lm_cfg=get_arch(...))`` on the tree + int8 mesh
+    (``FULL_MESH``): 2 rounds at depths 1 and 0, bit-identical losses, the
+    params bf16 and f32 after every round, K1 once per dtype group per
+    worker-program step, K2 once per shard a round over the f32 twin of
+    all 13 leaves, ``combine_bytes`` 2 × the int8 payload; ``exec_time``
+    per round and the allocator's peak."""
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.layout import flatten_tree
+    from repro_torch.launch.train import PRESETS, build_engine
+    cfg = get_arch(SERVE_ARCH)
+    shards = FULL_MESH["mesh_workers"]
+    runs = {}
+    for depth in (1, 0):
+        t0 = time.perf_counter()
+        eng = build_engine(lm_cfg=cfg, pipeline_depth=depth, **FULL_MESH)
+        build_s = time.perf_counter() - t0
+        groups = {}
+        for leaf in flatten_tree(eng.params).values():
+            key = str(leaf.dtype).removeprefix("torch.")
+            n_leaves, n_vals = groups.get(key, (0, 0))
+            groups[key] = (n_leaves + 1, n_vals + leaf.numel())
+        del leaf
+        check(groups == FULL_LEAVES, f"qwen3-0.6b leaves by dtype: {groups}")
+        worker_steps, dtypes = [], []
+
+        def observe(prep, result, eng=eng):
+            worker_steps.append(sum(p[4][1].shape[-1]
+                                    for p in prep.worker_programs
+                                    if p[4] is not None))
+            dtypes.append(sorted({str(v.dtype) for v in
+                                  flatten_tree(eng.params).values()}))
+
+        eng._round_observer = observe
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()     # the model, and any leftover
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res = eng.run(FULL_MESH_ROUNDS)
+        launches = ops.launch_counts()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        for r in res:
+            emit({"phase": "train_full_mesh", "depth": depth,
+                  "round": r.round_idx, "loss": r.loss, "s_steps": r.s_steps,
+                  "padded_steps": r.padded_steps,
+                  "exec_time": r.exec_time, "wall_time": r.wall_time,
+                  "pack_time": r.pack_time, "combine_bytes": r.combine_bytes,
+                  "residual_norm": r.residual_norm})
+        losses = [r.loss for r in res]
+        check(all(math.isfinite(x) for x in losses),
+              f"full-width mesh depth {depth}: losses {losses}")
+        check(dtypes == [["torch.bfloat16", "torch.float32"]]
+              * FULL_MESH_ROUNDS, f"full-width mesh: param dtypes {dtypes}")
+        check(launches["fedavg_accum"] == 2 * sum(worker_steps),
+              f"full-width mesh: K1 launched {launches['fedavg_accum']} "
+              f"times for 2 dtype groups x {sum(worker_steps)} "
+              f"worker-program steps")
+        check(launches["dequant_merge"] == shards * FULL_MESH_ROUNDS,
+              f"full-width mesh: K2 launched {launches['dequant_merge']}, "
+              f"want {shards} a round")
+        check(all(r.combine_bytes == shards * FULL_INT8_PAYLOAD
+                  for r in res), f"full-width mesh: combine_bytes "
+              f"{[r.combine_bytes for r in res]}")
+        _finite_params(torch, eng)
+        runs[depth] = {"losses": losses, "launches": launches,
+                       "worker_program_steps": worker_steps,
+                       "allocated_before_bytes": held, "peak_bytes": peak,
+                       "exec_time": [r.exec_time for r in res],
+                       "wall_time": [r.wall_time for r in res],
+                       "build_s": build_s}
+        del eng, res, observe
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(runs[1]["losses"] == runs[0]["losses"],
+          f"full-width mesh: depth 1 and 0 losses differ: "
+          f"{runs[1]['losses']} vs {runs[0]['losses']}")
+    out = {"launches": runs[1]["launches"],
+           "peak_gb": runs[1]["peak_bytes"] / 1e9,
+           "exec_time": runs[1]["exec_time"],
+           "combine_bytes_per_round": shards * FULL_INT8_PAYLOAD}
+    emit({"phase": "train_full_mesh_summary", "arch": SERVE_ARCH,
+          "n_params": SERVE_PARAMS, "leaves": FULL_LEAVES, **FULL_MESH,
+          "seq_len": PRESETS[FULL_MESH["preset"]]["seq_len"],
+          "batch": PRESETS[FULL_MESH["preset"]]["batch_size"],
+          "rounds": FULL_MESH_ROUNDS, "bit_identical_depth_0_1": True,
+          "reduced": {"rounds": FULL_MESH_ROUNDS},
+          "depth1": runs[1], "depth0": runs[0], **out})
+    return out
+
+
+def phase_k2_full(torch, device_name: str) -> dict:
+    """K2 on one shard's fold of the full-width qwen3-0.6b payload: the f32
+    twin of its 13 leaves, ``[596,180,992]``, one scale a leaf; bitwise
+    against its plain version at the weight edges, then timed with it
+    beside the bytes bound.  Inputs are drawn on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import dequant_merge as dm
+    from repro_torch.kernels import ops, ref, work
+    from repro_torch.kernels.layout import FlatLayout
+    shapes = _lm_shapes(get_arch(SERVE_ARCH))
+    twin = FlatLayout({k: torch.empty(s, device="meta")
+                       for k, s in shapes.items()})
+    n = twin.n
+    check(n == SERVE_PARAMS and len(twin.names) == 13,
+          f"full-width twin: {n} values in {len(twin.names)} leaves")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    acc = torch.randn(n, generator=gen, device=dev)
+    g = torch.randn(n, generator=gen, device=dev)
+    q = torch.randint(-127, 128, (n,), generator=gen, device=dev,
+                      dtype=torch.int8)
+    scales = torch.rand(len(twin.names), generator=gen, device=dev) * 0.02
+    offsets = twin.offsets_on(dev)
+    err = 0.0
+    for edge in EDGES:
+        n_old, n_k = (torch.tensor(w, device=dev) for w in edge)
+        got = ops.dequant_merge_flat(acc, q, g, scales, offsets, n_old, n_k)
+        want = ref.dequant_merge_flat_ref(acc, q, g, scales, offsets,
+                                          n_old, n_k)
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max()))
+        check(torch.equal(got, want), f"K2 full-width payload {edge}: "
+                                      f"max err {err}")
+        del got, want
+    n_old = torch.tensor(6.0, device=dev).reshape(1)
+    n_k = torch.tensor(3.0, device=dev).reshape(1)
+    runs = {"kernel": lambda: dm.dequant_merge_flat(acc, q, g, scales,
+                                                    offsets, n_old, n_k),
+            "plain": lambda: ref.dequant_merge_flat_ref(
+                acc, q, g, scales, offsets, n_old, n_k)}
+    best = _best_of(runs, (("kernel", "plain"), ("plain", "kernel"),
+                           ("kernel", "plain")), iters=10)
+    w = work.dequant_merge(n)
+    bytes_ms = w.bytes / mem_bw(device_name) * 1e3
+    ops_ms = w.flops / peak_flops(w.dtype) * 1e3
+    out = {"shape": [n], "leaves": len(twin.names), "max_abs_err": err,
+           "ms": best["kernel"], "plain_ms": best["plain"],
+           "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": w.bytes}
+    out["roofline_share"] = out["bound_ms"] / best["kernel"]
+    emit({"phase": "timing", "kernel": "dequant_merge",
+          "path": "train LM full width, mesh", **out})
+    del acc, g, q
+    torch.cuda.empty_cache()
+    return out
 
 
 def _worst_ratio(got: dict, want: dict, rtol: float, atol: float) -> float:
@@ -4015,6 +4198,9 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
     train_full = phase_train_full(torch)
     lm_fold = phase_lm_fold(torch, name)
     k2_lm = phase_k2_lm(torch, name)
+    torch.cuda.empty_cache()
+    full_mesh = phase_train_full_mesh(torch)
+    k2_full = phase_k2_full(torch, name)
     phase_agree_train(torch)
     tasks = phase_train_tasks(torch, name)
     fedmedian = phase_fedmedian(torch)
@@ -4050,6 +4236,7 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
                                for a, v in train_lm.items()},
          "launches_train_lm_mesh": train_mesh["launches"]["fedavg_accum"],
          "launches_train_full": train_full["launches"],
+         "launches_train_full_mesh": full_mesh["launches"]["fedavg_accum"],
          "launches_train_tasks": {t: v["launches"] for t, v in tasks.items()},
          "train_tasks_fold": {t: v["fold"] for t, v in tasks.items()},
          "launches_fedmedian": fedmedian["launches_depth1"]["fedavg_accum"],
@@ -4079,6 +4266,7 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
                mesh_launches["dequant_merge"], max_err2, timing2),
          "launches_per_round": mesh_launches["dequant_merge"] / len(mesh_res),
          "launches_train_lm_mesh": train_mesh["launches"]["dequant_merge"],
+         "launches_train_full_mesh": full_mesh["launches"]["dequant_merge"],
          "launches_resume_mesh": resume["mesh_int8"]["launches_resumed"][
              "dequant_merge"],
          "launches_control_mesh": control["mesh"]["tree_int8"]["launches"][
@@ -4087,6 +4275,9 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
              "dequant_merge"],
          "lm_payload": {k: k2_lm[k] for k in (
              "shape", "leaves", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "full_width_payload": {k: k2_full[k] for k in (
+             "shape", "leaves", "ms", "plain_ms", "bound_ms", "bound_by",
+             "max_abs_err")},
          "path": "mesh"},
         {**row("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:30",
                serve["launches"]["rmsnorm"], max(err3.values()),

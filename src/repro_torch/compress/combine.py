@@ -13,6 +13,11 @@ error-feedback residual:
 so the compression error is delayed, never dropped.  The root rebuilds
 ``g + dequant(payload)`` inside the combine (K2 for int8).
 
+All of it is f32 for every leaf, as in the reference: ``u``, the payload's
+scales and the residuals live on the f32 twin of the params' layout
+(:attr:`~repro_torch.kernels.layout.FlatLayout.twin`), whatever dtype each
+leaf trains in.
+
 Residuals live in one :class:`CombineCompressor` per engine and change at
 one site, the consumer's mesh combine, in strict round order.  They ride a
 checkpoint's ``.aux.npz`` sidecar (:meth:`CombineCompressor.state_aux`,
@@ -56,28 +61,28 @@ def make_encode_step(mode: str, frac: float):
     """The per-shard encoder
     ``encode(global_params, theta, residual) -> (payload, new_residual)``.
 
-    ``theta`` is the shard's merged partial, ``residual`` its carried error
-    (f32), both params-shaped.  The payload is ``(int8 tree, scales tree)``
-    or a tree of ``(idx, vals)`` per leaf."""
+    ``theta`` is the shard's merged partial (params-shaped, in the params'
+    dtypes), ``residual`` its carried error (the f32 twin).  The payload is
+    ``(int8 tree, scales tree)`` or a tree of ``(idx, vals)`` per leaf, over
+    the twin's layout."""
     if mode == "int8":
 
         def encode(global_params, theta, residual):
             layout = FlatLayout.of(global_params)
-            u = (layout.flatten(theta).float()
-                 - layout.flatten(global_params).float()
-                 + layout.flatten(residual).float())
-            q, scales = int8_quantize(layout.views(u))
-            new_res = u - q.flat.float() * layout.per_element(scales.flat)
-            return (q, scales), layout.views(new_res)
+            twin = layout.twin
+            u = (layout.to_twin(theta) - layout.to_twin(global_params)
+                 + twin.flatten(residual))
+            q, scales = int8_quantize(twin.views(u))
+            new_res = u - q.flat.float() * twin.per_element(scales.flat)
+            return (q, scales), twin.views(new_res)
 
         return encode
     if mode == "topk":
 
         def encode(global_params, theta, residual):
             layout = FlatLayout.of(global_params)
-            delta = (layout.flatten(theta).float()
-                     - layout.flatten(global_params).float())
-            payload, state = topk_compress(layout.views(delta),
+            delta = layout.to_twin(theta) - layout.to_twin(global_params)
+            payload, state = topk_compress(layout.twin.views(delta),
                                            TopKState(residual), frac=frac)
             return payload, state.error
 
@@ -97,13 +102,14 @@ class CombineCompressor:
                              f"{mode!r}")
         self.mode = mode
         self.frac = float(topk_frac)
-        self._layout = FlatLayout.of(like_params)
+        self._layout = FlatLayout.of(like_params).twin
         self._device = next(iter(like_params.values())).device
         self.payload_bytes = payload_nbytes(like_params, mode, self.frac)
         self._residuals: dict[int, dict] = {}
 
     def residual(self, shard: int) -> dict:
-        """The shard's carried error tree (zeros on first sight)."""
+        """The shard's carried error tree, the f32 twin of the params
+        (zeros on first sight)."""
         r = self._residuals.get(shard)
         return self._zeros() if r is None else r
 

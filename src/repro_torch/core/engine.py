@@ -152,14 +152,13 @@ def _cat_parts(outs):
 def _first_lane(theta: FlatTree) -> FlatTree:
     """Lane ``[0, 0]`` of a ``[W, P, ...]`` flat tree, params-shaped (a
     merged shard partial is ``[1, 1, ...]``)."""
-    return theta.layout.views(theta.flat[0, 0])
+    return theta.map(lambda f: f[0, 0])
 
 
 def _moved(x, device):
     """``x`` (a tensor, flat tree, tuple or dict of them) on ``device``."""
     if isinstance(x, FlatTree):
-        return x if x.flat.device == device else x.layout.views(
-            x.flat.to(device))
+        return x if x.device == device else x.map(lambda f: f.to(device))
     if torch.is_tensor(x):
         return x.to(device)
     if isinstance(x, tuple):
@@ -180,13 +179,31 @@ def _stack_payloads(mode: str, payloads: list):
 
 def _partial_to_numpy(part):
     """Wire form of one host's ``(theta, n, loss)`` partial for the
-    process-per-host exchange: numpy (pickle-safe; f32 → numpy → f32 is
-    bit-exact, so the trip through the coordinator never perturbs the
-    reduction).  ``None`` (an all-holes block) passes through."""
+    process-per-host exchange: numpy, pickle-safe, one array per dtype
+    group.  numpy has no bf16, so a bf16 buffer crosses as the int16 view
+    of its bits; every trip is bit-exact, so the coordinator never perturbs
+    the reduction.  ``None`` (an all-holes block) passes through."""
     if part is None:
         return None
     theta, n, loss = part
-    return (theta.flat.cpu().numpy(), n.cpu().numpy(), loss.cpu().numpy())
+    flats = {k: (f.view(torch.int16) if f.dtype == torch.bfloat16 else f)
+             .cpu().numpy() for k, f in theta.flats.items()}
+    return (flats, n.cpu().numpy(), loss.cpu().numpy())
+
+
+def _partial_from_numpy(layout: FlatLayout, part, device):
+    """Inverse of :func:`_partial_to_numpy` over ``layout`` (the group
+    dtypes say which int16 arrays are bf16 bits)."""
+    flats, n, loss = part
+    dtypes = {key: g.dtypes[0] for key, g in zip(layout.keys, layout.groups)}
+    theta = {}
+    for key, a in flats.items():
+        t = torch.from_numpy(a)
+        if dtypes[key] == torch.bfloat16:
+            t = t.view(torch.bfloat16)
+        theta[key] = t.to(device)
+    return (layout.views(theta), torch.from_numpy(n).to(device),
+            torch.from_numpy(loss).to(device))
 
 
 def _probe_row_bytes(dataset, *, batch_size=None, seq_len=None) -> int:
@@ -478,14 +495,9 @@ class FederatedEngine:
         self._nested = any(isinstance(v, dict) for v in init_params.values())
         params = {k: torch.as_tensor(v).to(self.device)
                   for k, v in flatten_tree(init_params).items()}
-        # The global model as one flat buffer (one per dtype group) with
-        # per-leaf views: every round program flattens it for free.  Only
-        # the fused round takes a tree of several dtypes.
+        # The global model as one flat buffer per dtype group with per-leaf
+        # views: every round program flattens it for free.
         self._layout = FlatLayout(params)
-        if config.mesh_workers >= 2 or not strategy.associative:
-            self._layout.require_single(
-                "the mesh path" if config.mesh_workers >= 2
-                else "the gather path")
         self.params = params
         self.device = self._params.device         # "cuda" -> "cuda:0"
         self.optimizer = optimizer
@@ -1000,10 +1012,10 @@ class FederatedEngine:
                 return metrics
             stacked, ws, metrics = self._gather_step(
                 self._params, batches, step_mask, boundary, weight)
-            # Coordinate-wise reduces see the [W·P, N] models as one leaf.
-            new = self.strategy.reduce({"flat": stacked}, ws,
-                                       {"flat": self._params.flat})
-            self._params = self._layout.views(new["flat"])
+            # Coordinate-wise reduces see the [W·P, n_g] models of each
+            # dtype group as one leaf.
+            self._params = self._layout.views(self.strategy.reduce(
+                stacked, ws, self._params.flats))
             return metrics
 
     @property
@@ -1151,7 +1163,7 @@ class FederatedEngine:
         """Delta-encode a shard's merged partial through its error-feedback
         residual (on the shard's device); stages the new residual."""
         theta = _first_lane(merged[0])
-        dev = theta.flat.device
+        dev = theta.device
         encode = self._encode_step.lookup(("encode",))
         payload, staged[shard] = encode(
             self._params_on(dev, on_dev), theta,
@@ -1213,7 +1225,7 @@ class FederatedEngine:
             if self._compress is not None:
                 payload = self._encode(shard, m, on_dev, staged)
                 decode = self._decode_step.lookup(("decode",))
-                theta = decode(self._params_on(theta.flat.device, on_dev),
+                theta = decode(self._params_on(theta.device, on_dev),
                                payload)
             slots[shard] = self._to_root((theta, m[1][0, 0], m[2][0, 0]))
         host_parts: list = [None] * hm.n_hosts
@@ -1231,13 +1243,15 @@ class FederatedEngine:
         if self._host_exchange is not None:
             # Every rank gets every host's partial and runs the same root
             # reduction, so params stay bitwise equal on every host.
+            # Decoded partials are the f32 twin of the params.
+            layout = (self._layout if self._compress is None
+                      else self._layout.twin)
             gathered = self._host_exchange(
                 prep.t, own, _partial_to_numpy(host_parts[own]))
             for h, p in enumerate(gathered):
                 if h != own and p is not None:
-                    flat, n, loss = (torch.from_numpy(a).to(self.device)
-                                     for a in p)
-                    host_parts[h] = (self._layout.views(flat), n, loss)
+                    host_parts[h] = _partial_from_numpy(layout, p,
+                                                        self.device)
         live = sum(1 for p in host_parts if p is not None)
         if live == 0:
             raise RuntimeError(f"round {prep.t}: no live shard partials "
@@ -1245,7 +1259,7 @@ class FederatedEngine:
         prep.combine_bytes = live * self._partial_bytes
         theta, n, loss = HostShardMap.pairwise_reduce(host_parts, node)
         metrics = self._combine(
-            prep, theta.layout.views(theta.flat.reshape(1, 1, -1)),
+            prep, theta.map(lambda f: f.reshape(1, 1, -1)),
             n.reshape(1, 1), loss.reshape(1, 1))
         if self._compress is not None:
             self._commit_residuals(prep, staged)

@@ -43,8 +43,12 @@ shard, or the canonical pairwise tree of :func:`make_host_node_merge_step`
 over host blocks, or the compressed combine
 (:func:`make_compressed_combine_step`, K2 for int8 payloads).  Trees pass
 between these programs as dicts whose leaves are views of one flat buffer
-(:class:`~repro_torch.kernels.layout.FlatTree`), so each program works on
-one flat tensor.
+per dtype group (:class:`~repro_torch.kernels.layout.FlatTree`), so each
+program works on a few flat tensors, each in its own dtype, as the
+reference maps over leaves each in its own.  The compression family
+(encode, decode, the compressed combine) computes in f32 for every leaf,
+as the reference does, on the layout's f32 twin; its result is cast back
+to each leaf's dtype.
 
 Non-associative strategies (FedMedian) take the gather path instead:
 :func:`make_gather_round_step` trains the same lanes and returns every
@@ -223,7 +227,8 @@ def make_worker_round_step(loss_fn, optimizer, *, agg_impl: str = "kernel",
 
     ``worker_step(global_params, batches, step_mask, boundary, weight) ->
     (theta_wp, n_wp, lane_losses)`` with leaves ``[W_k, P, ...]`` (views of
-    one flat buffer), ``[W_k, P]`` and ``[W_k, P]``.  Each lane's numbers
+    one ``[W_k, P, n_g]`` buffer per dtype group), ``[W_k, P]`` and ``[W_k,
+    P]``.  Each lane's numbers
     are the fused step's: the lane loop is shared, and on the card the
     batched GEMMs give every lane the same bits for any lane count from 2
     up (on an H100; ``chip_smoke.py``'s decomposition phase checks it).
@@ -236,9 +241,10 @@ def make_worker_round_step(loss_fn, optimizer, *, agg_impl: str = "kernel",
         W, P = step_mask.shape[:2]
         layout = FlatLayout.of(global_params)
         partial, lane_losses = _scan_lanes(
-            lane_scan, layout, {"flat": layout.flatten(global_params)},
+            lane_scan, layout, layout.flatten_groups(global_params),
             batches, step_mask, boundary, weight)
-        theta = layout.views(partial.theta["flat"].reshape(W, P, layout.n))
+        theta = layout.views({k: t.reshape(W, P, -1)
+                              for k, t in partial.theta.items()})
         return theta, partial.weight.reshape(W, P), lane_losses.reshape(W, P)
 
     return worker_step
@@ -250,19 +256,25 @@ def make_combine_step():
 
     ``combine(global_params, theta_wp, n_wp, lane_losses, step_mask,
     boundary, weight) -> (new_global, metrics)`` — exactly the fused step's
-    tail (:func:`_reduce_partials`) on the same ``[W·P, N]`` buffer, which
-    is what keeps the flat mesh combine bitwise equal to the fused step."""
+    tail (:func:`_reduce_partials`) on the same ``[W·P, n_g]`` buffers,
+    which is what keeps the flat mesh combine bitwise equal to the fused
+    step.  Partials decoded from compressed payloads (the host hierarchy)
+    come as the f32 twin: their mean is taken in f32 and cast back to each
+    leaf's dtype, as the reference's ``m_.astype(g.dtype)`` does."""
 
     @torch.no_grad()
     def combine(global_params, theta_wp, n_wp, lane_losses, step_mask,
                 boundary, weight):
         layout = FlatLayout.of(global_params)
         W, P = n_wp.shape
-        theta = layout.flatten(theta_wp, lead=(W, P)).reshape(W * P, layout.n)
-        new_flat, metrics = _reduce_partials(
-            {"flat": layout.flatten(global_params)}, {"flat": theta},
-            n_wp.reshape(-1), lane_losses, step_mask, boundary, weight)
-        return layout.views(new_flat["flat"]), metrics
+        tlay = FlatLayout.of(theta_wp, lead=2)
+        theta = {k: t.reshape(W * P, -1)
+                 for k, t in tlay.flatten_groups(theta_wp, (W, P)).items()}
+        new_flats, metrics = _reduce_partials(
+            layout.flatten_groups(global_params), theta, n_wp.reshape(-1),
+            lane_losses, step_mask, boundary, weight,
+            twin_of=layout if tlay != layout else None)
+        return layout.views(new_flats), metrics
 
     return combine
 
@@ -274,25 +286,27 @@ def make_shard_merge_step():
     ``merge(theta_wp, n_wp, lane_losses) -> (theta, n, loss)`` folds a
     shard's ``[W_s, P, ...]`` lane partials into one ``[1, 1, ...]``
     partial by :func:`partial_merge`, left to right in dispatch order, and
-    sums the lane loss totals in the same order.  The grouping
+    sums the lane loss totals in the same order.  Each dtype group merges
+    in its own dtype, as the reference merges each leaf in its own.  The grouping
     re-associates the cross-lane mean: tree losses match the flat combine
     to float tolerance, not bitwise."""
 
     @torch.no_grad()
     def merge(theta_wp, n_wp, lane_losses):
         layout = FlatLayout.of(theta_wp, lead=n_wp.ndim)
-        flat = layout.flatten(theta_wp, lead=tuple(n_wp.shape))
-        flat = flat.reshape(-1, layout.n)
+        flats = {k: f.reshape(-1, f.shape[-1]) for k, f in
+                 layout.flatten_groups(theta_wp, tuple(n_wp.shape)).items()}
         flat_n = n_wp.reshape(-1)
         flat_loss = lane_losses.reshape(-1)
-        acc = partial_init({"flat": flat[0]})
+        acc = partial_init({k: f[0] for k, f in flats.items()})
         loss_sum = torch.zeros((), dtype=flat_loss.dtype,
                                device=flat_loss.device)
-        for i in range(flat.shape[0]):
-            acc = partial_merge(acc, PartialAggregate({"flat": flat[i]},
-                                                      flat_n[i]))
+        for i in range(flat_n.shape[0]):
+            acc = partial_merge(acc, PartialAggregate(
+                {k: f[i] for k, f in flats.items()}, flat_n[i]))
             loss_sum = loss_sum + flat_loss[i]
-        theta = layout.views(acc.theta["flat"].reshape(1, 1, layout.n))
+        theta = layout.views({k: t.reshape(1, 1, -1)
+                              for k, t in acc.theta.items()})
         return theta, acc.weight.reshape(1, 1), loss_sum.reshape(1, 1)
 
     return merge
@@ -311,18 +325,17 @@ def make_host_node_merge_step():
     def node(theta_a, n_a, loss_a, theta_b, n_b, loss_b):
         layout = FlatLayout.of(theta_a)
         merged = partial_merge(
-            PartialAggregate({"flat": layout.flatten(theta_a)}, n_a),
-            PartialAggregate({"flat": layout.flatten(theta_b)}, n_b))
-        return layout.views(merged.theta["flat"]), merged.weight, \
-            loss_a + loss_b
+            PartialAggregate(layout.flatten_groups(theta_a), n_a),
+            PartialAggregate(layout.flatten_groups(theta_b), n_b))
+        return layout.views(merged.theta), merged.weight, loss_a + loss_b
 
     return node
 
 
 def _topk_delta(layout: FlatLayout, payload: dict, gf, k=None):
-    """The dense f32 ``[N]`` delta a topk payload carries (shard ``k`` of
-    a stacked payload when ``k`` is given): its ``(idx, vals)`` pairs
-    scattered per leaf."""
+    """The dense f32 ``[N]`` delta a topk payload carries over the f32
+    twin ``layout`` (shard ``k`` of a stacked payload when ``k`` is
+    given): its ``(idx, vals)`` pairs scattered per leaf."""
     delta = torch.zeros_like(gf)
     for name, off, size in zip(layout.names, layout.offsets, layout.sizes):
         idx, vals = payload[name]
@@ -336,24 +349,25 @@ def make_payload_decode_step(mode: str):
     """Per-shard payload reconstruction for the host-hierarchy combine
     (``hosts >= 1`` with ``combine_compress != "none"``).
 
-    ``decode(global_params, payload) -> dense f32 params tree`` rebuilds
-    the shard's partial ``g + dequant(payload)`` as a dense tree the
-    pairwise nodes can merge.  Plain PyTorch, as the reference computes it
-    outside any Pallas kernel."""
+    ``decode(global_params, payload) -> dense f32 params tree`` (the f32
+    twin of the params' layout) rebuilds the shard's partial ``g +
+    dequant(payload)`` as a dense tree the pairwise nodes can merge.  Plain
+    PyTorch, as the reference computes it outside any Pallas kernel."""
     if mode not in ("int8", "topk"):
         raise ValueError(f"no decode step for mode {mode!r}")
 
     @torch.no_grad()
     def decode(global_params, payload):
         layout = FlatLayout.of(global_params)
-        gf = layout.flatten(global_params).float()
+        twin = layout.twin
+        gf = layout.to_twin(global_params)
         if mode == "int8":
             q, scales = payload
-            delta = (layout.flatten(q).float()
-                     * layout.per_element(layout.scalars().flatten(scales)))
+            delta = (twin.flatten(q).float()
+                     * twin.per_element(twin.scalars().flatten(scales)))
         else:
-            delta = _topk_delta(layout, payload, gf)
-        return layout.views(gf + delta)
+            delta = _topk_delta(twin, payload, gf)
+        return twin.views(gf + delta)
 
     return decode
 
@@ -369,6 +383,8 @@ def make_compressed_combine_step(mode: str):
 
         acc <- (acc*N + (g + dequant(payload_k))*n_k) / (N + n_k)
 
+    The fold runs on the f32 twin of the params' layout, over every leaf
+    of every dtype, and the result is cast back to each leaf's dtype.
     With ``mode="int8"`` each fold is ONE launch of the hand-written K2
     over the shard's whole flat payload (the plain version only on CPU
     tensors).  ``topk`` payloads scatter into a dense delta and blend in
@@ -387,16 +403,17 @@ def make_compressed_combine_step(mode: str):
     def combine(global_params, payload, n_stack, loss_stack, step_mask,
                 boundary, weight):
         layout = FlatLayout.of(global_params)
-        g = layout.flatten(global_params)
-        gf = g.float()
+        twin = layout.twin
+        gflats = layout.flatten_groups(global_params)
+        gf = layout.to_twin(global_params)
         K = n_stack.shape[0]
         acc = torch.zeros_like(gf)
         total_w = torch.zeros((), dtype=torch.float32, device=gf.device)
         if mode == "int8":
             q, scales = payload
-            qf = layout.flatten(q, (K,))
-            sf = layout.scalars().flatten(scales, (K,))
-            offsets = layout.offsets_on(gf.device)
+            qf = twin.flatten(q, (K,))
+            sf = twin.scalars().flatten(scales, (K,))
+            offsets = twin.offsets_on(gf.device)
         for k in range(K):
             n_k = n_stack[k]
             if mode == "int8":
@@ -404,15 +421,16 @@ def make_compressed_combine_step(mode: str):
                                               total_w, n_k)
             else:
                 acc = fedavg_accum_ref(
-                    acc, gf + _topk_delta(layout, payload, gf, k), total_w,
+                    acc, gf + _topk_delta(twin, payload, gf, k), total_w,
                     n_k)
             total_w = total_w + n_k
-        new_flat = torch.where(total_w > 0, acc.to(g.dtype), g)
+        new_flats = {k: torch.where(total_w > 0, a, gflats[k])
+                     for k, a in layout.from_twin(acc).items()}
         n_steps = step_mask.sum()
         metrics = RoundMetrics(
             loss=_ordered_sum(loss_stack) / torch.clamp(n_steps, min=1.0),
             steps=n_steps, clients=boundary.sum(), total_weight=total_w)
-        return layout.views(new_flat), metrics
+        return layout.views(new_flats), metrics
 
     return combine
 
@@ -424,9 +442,9 @@ def make_gather_round_step(loss_fn, optimizer, *,
     them in one shot (FedMedian).  No kernel runs here: nothing folds.
 
     ``round_step(global_params, batches, step_mask, boundary, weight) ->
-    (stacked [W·P, N], weights [W·P], metrics)``: the lanes' trained models
-    as one flat buffer (the params' :class:`FlatLayout`), each lane's
-    weight ``(boundary · weight).sum()``, and the round metrics; the caller
+    (stacked, weights [W·P], metrics)``: the lanes' trained models as
+    ``{key: [W·P, n_g]}``, one buffer per dtype group of the params'
+    :class:`FlatLayout`, each lane's weight ``(boundary · weight).sum()``, and the round metrics; the caller
     applies the strategy's reduce.
 
     As in the reference (``repro/fl/round.py:471-512``), a lane is NOT
@@ -448,13 +466,13 @@ def make_gather_round_step(loss_fn, optimizer, *,
                 loss_fn, optimizer, grad_clip, layout, theta, opt_state,
                 {k: v[:, s] for k, v in lane_batches.items()}, m)
             loss_sum = loss_sum + loss * m
-        return theta["flat"], (boundary * weight).sum(-1), loss_sum
+        return theta, (boundary * weight).sum(-1), loss_sum
 
     @torch.no_grad()
     def round_step(global_params, batches, step_mask, boundary, weight):
         layout = FlatLayout.of(global_params)
         thetas, ws, lane_losses = _scan_lanes(
-            gather_scan, layout, {"flat": layout.flatten(global_params)},
+            gather_scan, layout, layout.flatten_groups(global_params),
             batches, step_mask, boundary, weight)
         n_steps = step_mask.sum()
         metrics = RoundMetrics(
@@ -476,13 +494,17 @@ def _ordered_sum(v):
 
 
 def _reduce_partials(global_params, theta_l, n_l, lane_losses, step_mask,
-                     boundary, weight):
+                     boundary, weight, *, twin_of: FlatLayout | None = None):
     """The round's reduction tail: weighted mean of the lane partials
     (leaves ``[L, ...]``, weights ``[L]``) plus the round metrics.  The mask
     and boundary sums add exact 0/1 floats and client weights are
-    integer-valued, so only the loss sum needs a fixed order."""
+    integer-valued, so only the loss sum needs a fixed order.  With
+    ``twin_of``, ``theta_l`` is that layout's f32 twin ``{"flat": [L,
+    N]}``, and its mean is cast back to the layout's group buffers."""
     total_w = n_l.sum()
     mean = tree_weighted_mean(theta_l, n_l)
+    if twin_of is not None:
+        mean = twin_of.from_twin(mean["flat"])
     # If the round somehow folded nothing, keep the old global model.
     new_global = {k: torch.where(total_w > 0, mean[k].to(g.dtype), g)
                   for k, g in global_params.items()}

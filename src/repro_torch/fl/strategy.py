@@ -4,8 +4,11 @@ Associative strategies (FedAvg) ride the partial-aggregation fast path;
 non-associative ones (FedMedian) use the gather path, where the round step
 returns every lane's trained model and :meth:`Strategy.reduce` aggregates
 them in one shot.  Trees are ``{name: Tensor}`` dicts; the engine hands
-``reduce`` the round's models as one flat ``[L, N]`` leaf, which is the
-same coordinate-wise function.
+``reduce`` the round's models as one flat ``[L, n_g]`` leaf per dtype
+group (``{key: buffer}``, :class:`~repro_torch.kernels.layout.FlatLayout`)
+and the global model's group buffers beside them: each reduce is
+coordinate-wise, so it is the same function on these, and every group
+reduces in its own dtype, as the reference reduces each leaf in its own.
 """
 
 from __future__ import annotations

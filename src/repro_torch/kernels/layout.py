@@ -17,9 +17,16 @@ single-dtype layout of its own leaves, in the same sorted order, with its
 own flat buffer.  :meth:`FlatLayout.flatten_groups` and :meth:`FlatLayout
 .views` take ``{key: buffer}`` dicts, one entry per group (``"flat"`` for
 a single-dtype tree, the dtype's name otherwise), and a mixed tree's
-buffers are its ``.flats``.  The one-buffer methods (``flatten``,
-``.flat``, the leaf offsets and scale tables that the mesh's combine
-programs use) refuse a mixed layout.
+buffers are its ``.flats``: every round program works on these.
+
+The compression family computes in f32 for every leaf, as the reference
+does.  It works on a layout's f32 twin (:attr:`FlatLayout.twin`): the same
+names and shapes in the same order as one single-dtype f32 layout.
+:meth:`FlatLayout.to_twin` upcasts each leaf into it (exact from bf16), and
+:meth:`FlatLayout.from_twin` casts a twin buffer back to the group
+buffers, each leaf to its own dtype.  The one-buffer methods (``flatten``,
+``.flat``, the leaf offsets and scale tables) need a single-dtype layout,
+and raise on a mixed one.
 """
 
 from __future__ import annotations
@@ -67,6 +74,11 @@ class FlatTree(ReadOnlyTree):
     @property
     def device(self) -> torch.device:
         return next(iter(self.flats.values())).device
+
+    def map(self, fn) -> "FlatTree":
+        """A tree of the same layout over ``fn(buffer)`` of each group's
+        buffer (a lane picked out, a reshape, a move to another device)."""
+        return self.layout.views({k: fn(f) for k, f in self.flats.items()})
 
 
 def flatten_tree(tree: dict) -> dict:
@@ -134,6 +146,7 @@ class FlatLayout:
         self._offsets_on: dict = {}
         self._leaf_index_on: dict = {}
         self._scalars: FlatLayout | None = None
+        self._twin: FlatLayout | None = None
 
     def __eq__(self, other) -> bool:
         return (isinstance(other, FlatLayout) and self.names == other.names
@@ -146,13 +159,46 @@ class FlatLayout:
 
     def require_single(self, what: str) -> None:
         """Raise unless the layout holds one dtype: ``what`` works on one
-        flat buffer."""
+        flat buffer, which a mixed layout does not have."""
         if self.mixed:
-            raise NotImplementedError(
-                f"{what} needs a single-dtype tree, got dtype groups "
-                f"{list(self.keys)}: the mesh, combine, compression and "
-                f"gather programs take one flat buffer (ROADMAP, left over "
-                f"from M15b: mixed-dtype trees beyond the fused path)")
+            raise ValueError(
+                f"{what} needs a single-dtype layout, got dtype groups "
+                f"{list(self.keys)}: use the group buffers "
+                f"(flatten_groups, views of a dict) or the f32 twin")
+
+    @property
+    def twin(self) -> "FlatLayout":
+        """The f32 twin: this layout's names and shapes as one single-dtype
+        f32 layout (the layout itself when it is one already)."""
+        if self._twin is None:
+            if not self.mixed and self.dtypes[0] == torch.float32:
+                self._twin = self
+            else:
+                self._twin = FlatLayout(
+                    {k: torch.empty(s, dtype=torch.float32, device="meta")
+                     for k, s in zip(self.names, self.shapes)})
+        return self._twin
+
+    def to_twin(self, tree: dict, lead: tuple = ()) -> torch.Tensor:
+        """Leaves shaped ``lead + shape`` -> one f32 ``lead + [N]`` buffer
+        of the twin, each leaf upcast (the tree's own buffer, without a
+        copy, for a single-dtype f32 tree)."""
+        if not self.mixed:
+            return self.flatten(tree, lead).float()
+        lead = tuple(lead)
+        return torch.cat([tree[k].reshape(lead + (-1,)).float()
+                          for k in self.names], dim=-1)
+
+    def from_twin(self, flat: torch.Tensor) -> dict:
+        """A twin buffer ``[..., N]`` -> ``{key: [..., n_g]}``, one buffer
+        per dtype group, each leaf cast to its own dtype."""
+        if not self.mixed:
+            return {"flat": flat.to(self.dtypes[0])}
+        start = dict(zip(self.names, self.twin.offsets))
+        return {key: torch.cat([flat[..., start[k]:start[k] + size]
+                                for k, size in zip(g.names, g.sizes)],
+                               dim=-1).to(g.dtypes[0])
+                for key, g in zip(self.keys, self.groups)}
 
     @classmethod
     def of(cls, tree: dict, *, lead: int = 0) -> "FlatLayout":

@@ -13,7 +13,8 @@ spawned OS processes, one per host group:
   programs for its own host block only (``engine._host_rank``); foreign
   blocks stay ``None`` holes.
 * **All-gather over pipes** — at the combine, each rank ships its ONE
-  merged host partial (numpy, f32-exact) to the coordinator, which
+  merged host partial (numpy, one array per dtype group, bit-exact) to
+  the coordinator, which
   gathers the ``H`` partials and broadcasts the full list back
   (``engine._host_exchange``).  Every rank then runs the identical
   pairwise root reduction, so the model stays bitwise equal on every
@@ -46,8 +47,10 @@ its own CUDA context; every rank maps shard ``s`` to ``cuda:(s %
 device_count)``, so on one card all of them share it.  The parent builds
 the CUDA kernels once before spawning; each rank makes its results
 deterministic (:func:`~repro_torch.launch.train.set_deterministic`) before
-its first GEMM.  A host partial crosses as ``.cpu().numpy()`` and comes
-back through ``torch.from_numpy``, an exact f32 round trip.
+its first GEMM.  A host partial crosses as ``.cpu().numpy()``, one array
+per dtype group (a bf16 buffer as the int16 view of its bits, since numpy
+has no bf16), and comes back through ``torch.from_numpy`` (and
+``.view(torch.bfloat16)``): an exact round trip in every dtype.
 
 Wire protocol (child → coordinator, one ``Connection`` per rank)::
 
@@ -103,6 +106,15 @@ class MultihostResult:
     def replay_telemetry(self, *, policy: str = "reuse"):
         """Replay the sidecar records into a fresh ``MeasuredTelemetry``."""
         return replay_records(self.records, policy=policy)
+
+
+def _part_nbytes(part) -> int:
+    """Bytes of one rank's wire partial (0 for an all-holes block): its
+    group arrays, weight and loss."""
+    if part is None:
+        return 0
+    flats, n, loss = part
+    return sum(a.nbytes for a in flats.values()) + n.nbytes + loss.nbytes
 
 
 def _child_main(conn, rank, builder, kwargs, rounds, resume, kill_at):
@@ -264,9 +276,7 @@ def run_multihost(builder, kwargs, *, hosts, rounds, resume=False,
                         _abort(f"host {rank} died at broadcast: {e}")
                         return out
                 out.exchange_s.append(xchg_s + time.perf_counter() - t0)
-                out.exchange_bytes.append(
-                    [0 if p is None else sum(a.nbytes for a in p)
-                     for p in parts])
+                out.exchange_bytes.append([_part_nbytes(p) for p in parts])
                 out.rounds_completed = t + 1
     finally:
         # A timed join: a rank torn down mid-call must not hold the

@@ -697,6 +697,157 @@ def test_bf16_lm_round_on_card_tracks_the_cpu(dev):
     assert min(_group_update_rel(init, cpu_params, init).values()) == 1.0
 
 
+# The mesh path of a bf16 config: 4 workers of 2 lanes over 2 shards, tree
+# combine, int8 uploads.
+BF16_MESH = dict(workers=4, mesh_workers=2, combine_mode="tree",
+                 combine_compress="int8")
+
+
+def test_bf16_int8_mesh_on_card_tracks_the_cpu(dev):
+    """Two rounds of reduced qwen3 in bf16 on the tree + int8 mesh on the
+    card against the same on the CPU, by the bounds of the fused bf16 test
+    above: losses within rtol 1e-3, each dtype group's update within
+    ``BF16_UPDATE_RTOL``; on the card K1 folds each dtype group once per
+    worker-program step and K2 runs once per shard a round, over the f32
+    twin of both groups."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.layout import flatten_tree
+    from repro_torch.launch.train import build_engine
+    cfg = replace(get_arch("qwen3-0.6b").reduced(), dtype="bfloat16")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        eng = build_engine(lm_cfg=cfg, device=device, cohort=4, steps_cap=2,
+                           **BF16_MESH)
+        init = {k: v.cpu().clone()
+                for k, v in flatten_tree(eng.params).items()}
+        tops.reset_launch_counts()
+        res = eng.run(2)
+        launches = tops.launch_counts()
+        final = {k: v.cpu() for k, v in flatten_tree(eng.params).items()}
+        runs[device] = ([r.loss for r in res], init, final)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            steps = BF16_MESH["workers"] * sum(r.s_steps for r in res)
+            assert launches["fedavg_accum"] == 2 * steps
+            assert launches["dequant_merge"] == 2 * 2
+    (card, _, card_params), (cpu, init, cpu_params) = (runs["cuda"],
+                                                       runs["cpu"])
+    assert {v.dtype for v in card_params.values()} == {torch.bfloat16,
+                                                        torch.float32}
+    np.testing.assert_allclose(card, cpu, rtol=1e-3)
+    rel = _group_update_rel(card_params, cpu_params, init)
+    assert len(rel) == 2 and max(rel.values()) <= BF16_UPDATE_RTOL, rel
+
+
+def _mixed_layout():
+    """The layout of reduced qwen3 in bf16 (bf16 matrices, f32 norms)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.layout import FlatLayout, flatten_tree
+    from repro_torch.models import lm
+    cfg = replace(get_arch("qwen3-0.6b").reduced(), dtype="bfloat16")
+    return FlatLayout(flatten_tree(lm.init_params(0, cfg, device="cpu")))
+
+
+def test_fedmedian_mixed_tree_on_card(dev):
+    """The median of each dtype group, in its dtype, is bitwise the CPU's
+    on 4 and 5 lanes, with a NaN, ±inf and an all-inf column in each
+    group; a FedMedian engine on the bf16 config trains on the card with
+    no kernel launched and keeps both dtypes."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.fl.strategy import FedMedian
+    from repro_torch.kernels.layout import flatten_tree
+    from repro_torch.launch.train import build_engine
+    layout = _mixed_layout()
+    for lanes in (4, 5):
+        stacked = {}
+        for i, (key, g) in enumerate(zip(layout.keys, layout.groups)):
+            x = _rand((lanes, g.n), g.dtypes[0], "cpu", 50 + i + lanes)
+            x[1, 0], x[0, 1], x[2, 2] = (float("nan"), float("inf"),
+                                         float("-inf"))
+            x[:, 3] = float("inf")
+            stacked[key] = x
+        glob = {k: v[0].clone() for k, v in stacked.items()}
+        want = FedMedian().reduce(stacked, None, glob)
+        got = FedMedian().reduce({k: v.to(dev) for k, v in stacked.items()},
+                                 None, {k: v.to(dev) for k, v in
+                                        glob.items()})
+        for k, w in want.items():
+            assert got[k].dtype == w.dtype == glob[k].dtype
+            g = got[k].cpu()
+            assert torch.equal(torch.isnan(g), torch.isnan(w)), k
+            assert torch.isnan(w[0]) and torch.equal(g[1:4], w[1:4])
+            finite = ~torch.isnan(w)
+            assert torch.equal(g[finite], w[finite]), k
+    cfg = replace(get_arch("qwen3-0.6b").reduced(), dtype="bfloat16")
+    eng = build_engine(lm_cfg=cfg, device="cuda", cohort=4, steps_cap=2,
+                       strategy="fedmedian")
+    tops.reset_launch_counts()
+    losses = [r.loss for r in eng.run(2)]
+    torch.cuda.synchronize()
+    assert all(np.isfinite(losses))
+    assert sum(tops.launch_counts().values()) == 0
+    assert {v.dtype for v in flatten_tree(eng.params).values()} == {
+        torch.bfloat16, torch.float32}
+
+
+def test_k2_on_a_mixed_trees_f32_twin_on_card(dev):
+    """K2 over the f32 twin of a mixed tree (every leaf of both dtypes, one
+    scale a leaf) against its plain version, bitwise at the weight edges;
+    the int8 compressed combine step on the card bitwise the CPU's, one K2
+    launch a shard, its result in each leaf's dtype."""
+    import repro_torch.core  # noqa: F401 (loads fl.round through the engine)
+    from repro_torch.compress import make_encode_step
+    from repro_torch.fl.round import make_compressed_combine_step
+    from repro_torch.kernels.layout import tree_stack
+    layout = _mixed_layout()
+    twin = layout.twin
+    assert not twin.mixed and twin.names == layout.names
+
+    def tree(seed, scale=1.0):
+        return layout.views({key: _rand((g.n,), g.dtypes[0], "cpu", seed + i)
+                             * scale for i, (key, g) in
+                             enumerate(zip(layout.keys, layout.groups))})
+
+    g = tree(60)
+    theta = layout.views({k: (f.float() + tree(62, 0.01).flats[k].float())
+                          .to(f.dtype) for k, f in g.flats.items()})
+    encode = make_encode_step("int8", 0.05)
+    pays = [encode(g, theta, twin.views(
+        _rand((twin.n,), torch.float32, "cpu", 64 + s) * 1e-3))[0]
+        for s in range(2)]
+    q, scales = pays[0]
+    gf = layout.to_twin(g).to(dev)
+    acc = _rand((twin.n,), torch.float32, dev, 66)
+    offsets = twin.offsets_on(dev)
+    for n_old, n_k in EDGES:
+        args = (acc, q.flat.to(dev), gf, scales.flat.to(dev), offsets,
+                torch.tensor(n_old, device=dev),
+                torch.tensor(n_k, device=dev))
+        tops.reset_launch_counts()
+        got = tops.dequant_merge_flat(*args)
+        torch.cuda.synchronize()
+        assert tops.launch_counts()["dequant_merge"] == 1
+        assert torch.equal(got, tref.dequant_merge_flat_ref(*args))
+    payload = (tree_stack([p[0] for p in pays]),
+               tree_stack([p[1] for p in pays]))
+    n = torch.tensor([4.0, 6.0])
+    ls = torch.tensor([0.5, 1.25])
+    masks = [torch.ones(2, 2, 3)] * 3
+    combine = make_compressed_combine_step("int8")
+    want, _ = combine(g, payload, n, ls, *masks)
+    tops.reset_launch_counts()
+    got, _ = combine(g.map(lambda f: f.to(dev)),
+                     tuple(t.map(lambda f: f.to(dev)) for t in payload),
+                     n.to(dev), ls.to(dev), *(m.to(dev) for m in masks))
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["dequant_merge"] == 2
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and torch.equal(got[k].cpu(), w), k
+
+
 # -- K5 -----------------------------------------------------------------------
 # (b, s, h, p, g, n, chunk): tests/test_kernels.py's sweep; s = 100 at the
 # wrapper's own chunk (round_up(100, 8) = 104, no multiple of 16); a ragged

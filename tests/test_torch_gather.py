@@ -165,13 +165,13 @@ def test_gather_step_matches_the_reference(opt):
                         *[torch.from_numpy(x) for x in args[1:]])
     from repro_torch.kernels.layout import FlatLayout
     layout = FlatLayout.of(params)
-    assert tth.shape == (4, layout.n)
+    assert list(tth) == ["flat"] and tth["flat"].shape == (4, layout.n)
     got = layout.views(tth)
     for k in p_np:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(jth[k]), **TOL)
     np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
     idle = int(np.flatnonzero(a.boundary.sum(-1).reshape(-1) == 0)[0])
-    assert torch.equal(tth[idle], layout.flatten(params))
+    assert torch.equal(tth["flat"][idle], layout.flatten(params))
     np.testing.assert_allclose(float(tm.loss), float(jm.loss), **TOL)
     for f in ("steps", "clients", "total_weight"):
         assert float(getattr(tm, f)) == float(getattr(jm, f))
