@@ -22,24 +22,25 @@ Phases, one JSON object per line on stdout:
              bitwise; ``N+n == 0`` returns ``acc`` bit for bit); K3 and K4
              over the reference's sweeps in f32 and bf16 and at the serve
              path's shapes (2e-5 f32, 2e-2 bf16, as tests/test_kernels.py;
-             K4 at the qwen3, granite-moe and internvl2 serve shapes, 8e-3
-             in bf16),
+             K4 at the qwen3, granite-moe, internvl2 and jamba serve
+             shapes, 8e-3 in bf16),
              K4 also on its wgmma route's bf16 cases (d 64 and 128, ragged
              s and t, GQA groups 1-8, non-causal, fused q/k/v views), each
              case on the route its dtype and head dim name, and a
              misaligned bf16 input must raise;
              K5, y and the final state, over the reference's sweep in f32
-             and bf16, at the SSM serve shape in f32 and bf16 and a
-             1,000-row prompt, and on its wgmma route's bf16 cases (p 64:
+             and bf16, at the mamba2 and jamba serve shapes in f32 and
+             bf16 and a 1,000-row prompt, and on its wgmma route's bf16 cases (p 64:
              chunks shorter than 128, GQA groups, n 16 and 40, a prompt
              shorter than a chunk), each case on the route its dtype and
              widths name (``SSD_TOL``);
 4. timing  — each kernel, its plain version and, where one exists, one
              library call at the main paths' shapes (CUDA events, best of
-             3 interleaved), beside the bytes/ops bound; K4 at the three
+             3 interleaved), beside the bytes/ops bound; K4 at the four
              serve shapes (qwen3: 16 heads of 128; granite-moe: 24 of 64,
              group 3; internvl2: 48 of 128 over 2,304 positions, group
-             6);
+             6; jamba: 32 of 128, group 4); K5 at mamba2's (80 heads,
+             state 128) and jamba's (128 heads, state 16);
 5. main    — ``build_engine(task="sr")`` at the published SR widths on
              ``cuda``: rounds at pipeline depth 1 and again at depth 0 from
              the same seed, with the launch counts zeroed just before each
@@ -105,6 +106,25 @@ Phases, one JSON object per line on stdout:
 14. agree MoE — the reduced granite-moe, qwen3-moe (scatter) and jamba
              (K5 and MoE in one stack) serve paths on the card against the
              same on the CPU (``AGREE_LM_TOL``);
+14b. serve hybrid — jamba-v0.1-52b at its published widths and dtypes cut
+             to one 8-layer period (13,267,598,848 params drawn on the
+             card: 7 Mamba-2 layers, 1 attention layer, 4 MoE layers of 16
+             experts top-2, 14,336 wide) with ``attn_impl`` and
+             ``ssd_impl`` ``"pallas"`` and ``moe_impl="scatter"``, the same
+             traffic as phase 9, the launch counts zeroed just before and
+             read just after: K4 exactly once and K5 exactly 7 times in the
+             prefill, all on their wgmma routes, neither in decode; finite
+             logits; the dropped-slot share at capacity 1.25; the pallas
+             prefill against dense attention + the chunked SSD, a dropless
+             prefill + decode against a dropless ``forward`` and a
+             1,000-token prompt, in bf16 (``MOE_BF16_TOL``, prefill +
+             decode at ``HYBRID_DECODE_BF16_TOL``, on tokens whose experts
+             agree) and with the weights upcast to f32 on 2 of the prompts
+             (``MOE_F32_TOL`` on tokens clear of near-ties), with the
+             routing decisions that differ; a profiled prefill and decode
+             step (idle share; K4's, K5's, the dispatch passes' and the
+             GEMMs' shares); the prefill's allocator peak, broken down by
+             where it was allocated (``_peak_breakdown``);
 15. serve audio — whisper-base at its published size (73,596,928 params,
              bf16, ``attn_impl="dense"``): 4 clips of 1,500 frame
              embeddings with 448-token prompts, one prefill and 16 greedy
@@ -134,7 +154,8 @@ Phases, one JSON object per line on stdout:
              just before each run and read just after: finite losses,
              bit-identical across depths, K1 exactly once per lane-loop
              step; ``exec_time`` per round and the run's peak memory; the
-             granite loss holds its load-balance term;
+             granite loss holds its load-balance term, and the peak of one
+             more granite round is broken down;
 18. train LM mesh — the same qwen3 with ``--workers 4 --mesh-workers 2
              --combine-mode tree --combine-compress int8``, 2 rounds at
              depths 1 and 0: bit-identical losses, K2 once per live shard
@@ -149,7 +170,8 @@ Phases, one JSON object per line on stdout:
              bit-identical losses, K1 once per step over ``[2,
              596,180,992]`` f32, peak device memory, ``exec_time`` and its
              time per real lane step, a profiled round (device busy, idle
-             share, top kernels, K1's share); then K1 at that shape
+             share, top kernels, K1's share) and the peak of a fourth
+             broken down; then K1 at that shape
              against its plain version (bitwise) and timed with
              ``torch.lerp`` beside the bound, and K2 on the fl100m
              payload's fold (bitwise, timed);
@@ -163,7 +185,8 @@ Phases, one JSON object per line on stdout:
              every round, K1 once per dtype group per worker-program step,
              K2 once per shard a round, ``combine_bytes`` 2 ×
              596,181,052; ``exec_time`` per round and the allocator's
-             peak; then K2 on that payload's f32 twin ``[596,180,992]``
+             peak, and that of one more round broken down; then K2 on
+             that payload's f32 twin ``[596,180,992]``
              over 13 leaves against its plain version (bitwise), timed
              beside its bound;
 20. agree train — a reduced qwen3-0.6b training engine, 2 rounds on the
@@ -178,8 +201,8 @@ Phases, one JSON object per line on stdout:
              launch counts zeroed just before each run and read just
              after: finite losses, bit-identical across depths, K1 exactly
              once per lane-loop step; ``exec_time`` per round, peak
-             memory, a profiled round, and K1 timed at the task's ``[4,
-             N]`` lane buffer;
+             memory, a profiled round (MLM: and one more, its peak broken
+             down), and K1 timed at the task's ``[4, N]`` lane buffer;
 22. fedmedian — ``build_engine(task="sr", strategy="fedmedian")`` at the
              published widths, 3 rounds at depths 0 and 1: bit-identical
              losses, no kernel launched (the gather path folds nothing),
@@ -247,8 +270,9 @@ Phases, one JSON object per line on stdout:
              processes started after the build; 32 cells must be ``ok``
              or ``fail`` with the op named, the 8 ``long_500k`` skips
              carry the reference's reason.  Four cells run on the card
-             (``DRYRUN_RUNS``): qwen3-0.6b train_4k (S=32, b=8; bf16 and
-             f32 leaves, K1 twice a step), qwen3-0.6b and mamba2-2.7b
+             (``DRYRUN_RUNS``): qwen3-0.6b train_4k (S=32, b=8, 7 of 28
+             layers; bf16 and f32 leaves, K1 twice a step), qwen3-0.6b
+             and mamba2-2.7b
              prefill_32k (one prompt through K4 and K5, all ``wgmma``),
              mamba2-2.7b long_500k; each must fit by the count, not run
              out of memory nor pass the counted peak by more than 5 %,
@@ -263,8 +287,9 @@ Phases, one JSON object per line on stdout:
              K5's plain version;
 32. the ``kernels`` line (K1-K5; K1's and K2's launches on the LM training,
    task, FedMedian, resume and cache paths beside the main ones, K1 timed
-   at the tasks' lane buffers, K4's launches on the MoE and VLM serve paths
-   and its timing at those shapes, K1's, K4's and K5's dry-run launches),
+   at the tasks' lane buffers, K4's launches on the MoE, VLM and hybrid
+   serve paths and its timing at those shapes, K5's on the hybrid path and
+   its timing at jamba's shape, K1's, K4's and K5's dry-run launches),
    then the card line and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -346,6 +371,9 @@ SSD_SWEEP = [(2, 64, 4, 16, 2, 32, 16), (1, 100, 8, 32, 1, 64, 32),
              (2, 128, 4, 64, 4, 16, 128)]
 SSD_SERVE = (SERVE_BATCH, SERVE_PROMPT, 80, 64, 1, 128, 128)
 SSD_RAGGED = (1, RAGGED_PROMPT, 80, 64, 1, 128, 128)
+# jamba-v0.1-52b's serve shape: 128 heads of 64 (d_inner 8,192), one
+# group, state 16: the smallest state K5's wgmma route takes.
+SSD_HYBRID = (SERVE_BATCH, SERVE_PROMPT, 128, 64, 1, 16, 128)
 # K5's wgmma route (bf16 at p 64) beyond those: a chunk of 32 padded to 128
 # rows, GQA groups with n 64, a prompt shorter than one chunk, jamba's n 16,
 # and n 40 (zero-padded to 64 columns) at chunk 16.
@@ -394,6 +422,21 @@ MOE_PARAMS = 3_299_182_080    # the reference's count (49,408-row embed)
 MOE_F32_TOL = SSM_F32_TOL
 MOE_BF16_TOL = SSM_BF16_TOL
 MOE_F32_TIE_GAP = 1e-5
+# A bf16 reroute moves granite's token (top-8 of 40 experts 512 wide) by a
+# few hundredths on the logits, and every compared token is held.  jamba
+# routes a token to 2 of 16 experts 14,336 wide, so a reroute swaps half of
+# its MoE output: its bf16 checks hold the compared tokens whose experts
+# agree in both routes at every MoE layer (reporting the rerouted ones), as
+# its f32 checks hold those clear of near-ties.  Its bf16 prefill + decode
+# against forward (no kernel on either side: the decode steps take the
+# recurrent SSM step and M = 4 GEMMs) is held wider, from what an H100
+# measured: the f32 routes agree within 4.4e-5 on logits up to 4.8, so the
+# decode path is right, while each bf16 prefill lies up to 1.59 from the f32
+# one (bf16 roundings grown through 14,336-wide experts, and reroutes of
+# earlier tokens reaching later ones through the SSM state and attention)
+# and the two bf16 routes differ by up to 0.59.  The kernel routes (K4 + K5
+# against dense attention + the chunked SSD) stay at MOE_BF16_TOL.
+HYBRID_DECODE_BF16_TOL = dict(atol=1.0, rtol=0.05)
 # Kernel-name fragments of the MoE dispatch passes in a profile: the
 # router's top-k sort and the scatter's index sort, the position cumsum,
 # the one-hot, and the scatter-add and gather of the token rows.
@@ -420,6 +463,28 @@ AUDIO_PROMPT = 448
 VLM_ARCH = "internvl2-26b"
 VLM_LAYERS = 12
 VLM_PARAMS = 5_839_411_200    # the reference's count at 12 layers
+# The hybrid: jamba-v0.1-52b (arXiv:2403.19887) at every published width and
+# dtype (bf16 matrices; f32 norms and Mamba A, D and dt-bias rows) with
+# attn_impl and ssd_impl "pallas" and its own moe_impl "scatter": the one
+# shipped arch whose stack holds Mamba-2 (K5), attention (K4) and a routed
+# MoE (16 experts top-2, 14,336 wide).  Cut to one 8-layer period of its 32
+# (7 Mamba-2 layers, 1 attention layer, 4 MoE layers; 26.5 GB in bf16): the
+# whole model is 103 GB.  The same traffic as the other serve phases.
+HYBRID_ARCH = "jamba-v0.1-52b"
+HYBRID_LAYERS = 8
+HYBRID_PARAMS = 13_267_598_848   # the reference's count at 8 layers
+# The f32 route checks hold the period's weights upcast (53.07 GB; the bf16
+# copy is freed first).  A dropless f32 MoE over all 4 prompts would add
+# ~23 GB of [16, 8256, 14336] expert buffers beside them, past the card's
+# 80 GB, so the f32 checks serve the first HYBRID_F32_BATCH prompts (~12 GB).
+HYBRID_F32_BATCH = 2
+# Kernel-name fragments of cuBLAS' GEMMs in a profile.
+GEMM_KERNELS = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
+# The peak breakdowns: trace entries kept while one call is recorded (a call
+# that makes more fails), and how close the groups must sum to the
+# allocator's peak of the same call.
+HISTORY_ENTRIES = 2_000_000
+BREAKDOWN_RTOL = 0.01
 # Federated LM training (--arch, f32 as the reference trains): the
 # reference's fl100m preset through the CLI (qwen3 for 3 rounds, mamba2,
 # granite-moe, whisper and internvl2 for 2, its default cohort 8 over 2
@@ -517,10 +582,11 @@ MULTIHOST_ROUNDS = 4
 # the earlier phases run), and four cells run on the card at their
 # published widths and dtypes with the overrides each needs: qwen3's
 # planned b=64 holds ~69 GB of dense f32 attention scores a layer, so its
-# round runs 32 steps of 8; the 32k prefills take one prompt through K4
-# and K5.
+# round runs 32 steps of 8 (the same 256 sequences of 4,096 tokens), cut to
+# 7 of its 28 layers to fit the script's time (the whole depth took 148 s
+# a round); the 32k prefills take one prompt through K4 and K5.
 DRYRUN_WORKERS = 4
-DRYRUN_RUNS = (("qwen3-0.6b", "train_4k", {"S": 32, "b": 8}),
+DRYRUN_RUNS = (("qwen3-0.6b", "train_4k", {"S": 32, "b": 8, "n_layers": 7}),
                ("qwen3-0.6b", "prefill_32k", {"b": 1, "attn_impl": "pallas"}),
                ("mamba2-2.7b", "prefill_32k", {"b": 1, "ssd_impl": "pallas"}),
                ("mamba2-2.7b", "long_500k", {}))
@@ -543,6 +609,15 @@ SSD_32K = (1, 32768, 80, 64, 1, 128, 128)  # mamba2's b, s, h, p, g, n, chunk
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def clock(after: str) -> None:
+    """The script's seconds so far, after the phases named ``after``."""
+    emit({"phase": "clock", "after": after,
+          "s": time.perf_counter() - T_START})
 
 
 def check(ok: bool, msg: str) -> None:
@@ -933,8 +1008,8 @@ def _fused_qkv(torch, b, s, hq, hkv, d, dt, gen, dev):
 
 def phase_check_k4(torch) -> dict:
     """K4 against its plain version: the reference's sweep (causal) in f32
-    and bf16, the qwen3, granite-moe and internvl2 serve shapes in f32 and
-    bf16, one
+    and bf16, the qwen3, granite-moe, internvl2 and jamba serve shapes in
+    f32 and bf16, one
     ragged causal prompt in bf16, non-causal cases, causal queries longer than their keys (the
     zero keys of the reference's padding), and the wgmma route's bf16 cases
     (d 64 and 128, GQA groups 1, 2, 4 and 8, q/k/v as views of one fused
@@ -959,6 +1034,9 @@ def phase_check_k4(torch) -> dict:
     vlm = _vlm_cfg()
     serve_vlm = (SERVE_BATCH, _vlm_positions(vlm), vlm.n_heads,
                  vlm.n_kv_heads, vlm.resolved_head_dim)
+    hyb = _hybrid_cfg()
+    serve_hyb = (SERVE_BATCH, SERVE_PROMPT, hyb.n_heads, hyb.n_kv_heads,
+                 hyb.resolved_head_dim)
     cases += [(serve, SERVE_PROMPT, True, torch.float32, False),
               (serve, SERVE_PROMPT, True, bf16, False),
               (ragged, RAGGED_PROMPT, True, bf16, False),
@@ -968,6 +1046,9 @@ def phase_check_k4(torch) -> dict:
               # internvl2's: 2,304 positions (9 kv blocks of 256), group 6
               (serve_vlm, serve_vlm[1], True, torch.float32, False),
               (serve_vlm, serve_vlm[1], True, bf16, False),
+              # jamba's: 32 heads of 128, group 4
+              (serve_hyb, SERVE_PROMPT, True, torch.float32, False),
+              (serve_hyb, SERVE_PROMPT, True, bf16, False),
               ((2, 256, 4, 2, 64), 256, False, torch.float32, False),
               ((1, 300, 4, 2, 64), 200, True, torch.float32, False),
               # the wgmma route: ragged with t < s, GQA groups 1 and 8,
@@ -986,7 +1067,8 @@ def phase_check_k4(torch) -> dict:
         key = str(dt).split(".")[-1]
         tol = _tol(torch, dt)
         if dt == bf16 and (b, s, hq_, hkv_, d) in (serve, ragged,
-                                                   serve_moe, serve_vlm):
+                                                   serve_moe, serve_vlm,
+                                                   serve_hyb):
             key, tol = "bfloat16_serve_shapes", SERVE_ATTN_BF16_TOL
         if fused:
             q, k, v = _fused_qkv(torch, b, s, hq_, hkv_, d, dt, gen, dev)
@@ -1166,8 +1248,8 @@ def _ssd_inputs(torch, shape, dtype, gen, *, model_like: bool):
 
 def phase_check_k5(torch) -> dict:
     """K5 against its plain version, y and the final state: the reference's
-    sweep in f32 and bf16, the serve shape in f32 and bf16, a ragged
-    1,000-row prompt in bf16, and the wgmma route's cases in bf16
+    sweep in f32 and bf16, the mamba2 and jamba serve shapes in f32 and
+    bf16, a ragged 1,000-row prompt in bf16, and the wgmma route's cases in bf16
     (``SSD_TOL``).  Every case must take the route its dtype and widths
     name."""
     from repro_torch.kernels import ops, ref
@@ -1177,7 +1259,9 @@ def phase_check_k5(torch) -> dict:
              for shape in SSD_SWEEP]
     cases += [(SSD_SERVE, torch.float32, True),
               (SSD_SERVE, torch.bfloat16, True),
-              (SSD_RAGGED, torch.bfloat16, True)]
+              (SSD_RAGGED, torch.bfloat16, True),
+              (SSD_HYBRID, torch.float32, True),
+              (SSD_HYBRID, torch.bfloat16, True)]
     cases += [(shape, torch.bfloat16, True) for shape in SSD_WGMMA]
     errs = {"float32": 0.0, "bfloat16": 0.0, "state": 0.0}
     magnitude = {"float32": 0.0, "bfloat16": 0.0, "state": 0.0}
@@ -1217,16 +1301,15 @@ def phase_check_k5(torch) -> dict:
     return errs
 
 
-def phase_timing_k5(torch, device_name: str) -> dict:
-    """K5 and its plain version at the serve shape (bf16, the state
-    returned, as prefill calls it).  No single PyTorch call computes the
-    SSD, so there is no library time."""
+def phase_timing_k5(torch, device_name: str, shape=SSD_SERVE) -> dict:
+    """K5 and its plain version at a serve shape (default mamba2's; bf16,
+    the state returned, as prefill calls it).  No single PyTorch call
+    computes the SSD, so there is no library time."""
     from repro_torch.kernels import ops, ref, work
     from repro_torch.kernels import ssd as k5
     gen = torch.Generator().manual_seed(13)
-    args = _ssd_inputs(torch, SSD_SERVE, torch.bfloat16, gen,
-                       model_like=True)
-    ck = SSD_SERVE[6]
+    args = _ssd_inputs(torch, shape, torch.bfloat16, gen, model_like=True)
+    ck = shape[6]
     runs = {"kernel": lambda: k5.ssd_bshp(*args, chunk=ck, want_state=True),
             "plain": lambda: ref.ssd_chunks_ref(*args, chunk=ck)}
     best = _best_of(runs, (("kernel", "plain"), ("plain", "kernel"),
@@ -1240,7 +1323,7 @@ def phase_timing_k5(torch, device_name: str) -> dict:
     out = {"ms": best["kernel"], "plain_ms": best["plain"],
            "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "shape": list(SSD_SERVE), "dtype": "bfloat16", "bytes": nbytes,
+           "shape": list(shape), "dtype": "bfloat16", "bytes": nbytes,
            "flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms}
     out["roofline_share"] = out["bound_ms"] / best["kernel"]
     out["achieved_tflops"] = flops / (best["kernel"] * 1e-3) / 1e12
@@ -1451,6 +1534,24 @@ def _vlm_cfg(impl: str = "pallas"):
 def _vlm_positions(cfg) -> int:
     """The VLM prompt's hidden length: its patches, then its tokens."""
     return cfg.frontend_len + SERVE_PROMPT
+
+
+def _hybrid_cfg(dtype: str = "bfloat16"):
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    return replace(get_arch(HYBRID_ARCH), n_layers=HYBRID_LAYERS,
+                   attn_impl="pallas", ssd_impl="pallas", dtype=dtype)
+
+
+def _layer_counts(cfg) -> dict:
+    """The layers of each kind in ``cfg``'s stack, from its layer plan:
+    attention and Mamba-2 mixers, MoE MLPs."""
+    from repro_torch.models import lm
+    plan = lm.layer_plan(cfg)
+    periods = cfg.n_layers // len(plan)
+    return {"attn": periods * sum(k.mixer == "attn" for k in plan),
+            "mamba": periods * sum(k.mixer == "mamba" for k in plan),
+            "moe": periods * sum(k.mlp == "moe" for k in plan)}
 
 
 def _stub_inputs(torch, cfg, b: int, gen) -> dict:
@@ -1683,19 +1784,26 @@ def _route_grid(torch, calls, n_moe: int, b: int) -> dict:
 
 
 def _route_compare(torch, calls_a, calls_b, n_moe: int, positions, a, b,
-                   tol: dict, tie_gap: float) -> dict:
+                   tol: dict, tie_gap: float,
+                   hold_rerouted: bool = True) -> dict:
     """Logits ``a`` and ``b`` (``[batch, len(positions), vocab]``) of two
     routes, held at ``tol`` on the compared tokens whose routing gap is at
-    least ``tie_gap`` at every MoE layer in both routes (0: all of them);
-    with the count of (token, layer) routing decisions that differ."""
+    least ``tie_gap`` at every MoE layer in both routes (0: all of them),
+    and, unless ``hold_rerouted``, whose experts are the same in both
+    routes at every MoE layer; with the count of (token, layer) routing
+    decisions that differ."""
     ga = _route_grid(torch, calls_a, n_moe, a.shape[0])
     gb = _route_grid(torch, calls_b, n_moe, a.shape[0])
     differ = (ga["experts"] != gb["experts"]).any(-1)         # [L, b, S]
     near = (ga["gap"] < tie_gap) | (gb["gap"] < tie_gap)
     clear = ~near[:, :, positions].any(0)                      # [b, P]
-    res = _compare(torch, a[clear], b[clear], tol)
-    res.update({"compared_tokens": int(clear.sum()),
+    rerouted = differ[:, :, positions].any(0)
+    skipped = torch.zeros_like(clear) if hold_rerouted else clear & rerouted
+    held = clear & ~skipped
+    res = _compare(torch, a[held], b[held], tol)
+    res.update({"compared_tokens": int(held.sum()),
                 "near_tie_tokens_skipped": int((~clear).sum()),
+                "rerouted_tokens_skipped": int(skipped.sum()),
                 "routing_decisions": differ.numel(),
                 "routing_decisions_differ": int(differ.sum()),
                 "compared_tokens_whose_routing_differs": int(
@@ -1704,20 +1812,23 @@ def _route_compare(torch, calls_a, calls_b, n_moe: int, positions, a, b,
 
 
 def _moe_route_checks(torch, params, cfg, tokens, generated, tol,
-                      tie_gap) -> dict:
+                      tie_gap, hold_rerouted: bool = True,
+                      decode_tol: dict | None = None) -> dict:
     """The MoE serve path's routes against each other (``_route_compare``):
-    the pallas prefill against the dense one at the served capacity
-    factor; a dropless prefill + decode (teacher-forced with
+    the pallas prefill (K4, and K5 where the stack has Mamba-2 layers)
+    against the plain one (dense attention, the chunked SSD) at the served
+    capacity factor; a dropless prefill + decode (teacher-forced with
     ``generated``) against a dropless ``forward``, as
-    tests/test_archs.py:80 compares them; a 1,000-token prompt through
-    both attentions.  Also the dropped-slot share of the pallas prefill,
-    and the two prefills' logits (``pallas_logits``, ``dense_logits``)."""
+    tests/test_archs.py:80 compares them (at ``decode_tol`` where given);
+    a 1,000-token prompt through both routes, with its kernel launches.  Also the dropped-slot share of
+    the pallas prefill, and the two prefills' logits (``pallas_logits``,
+    ``dense_logits``)."""
     from dataclasses import replace
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     b, s = tokens.shape
-    n_moe = cfg.n_layers               # every granite layer is an MoE layer
-    dense = replace(cfg, attn_impl="dense")
+    n_moe = _layer_counts(cfg)["moe"]
+    dense = replace(cfg, attn_impl="dense", ssd_impl="chunked")
     dropless = replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
 
     def prefill(c, toks):
@@ -1728,7 +1839,8 @@ def _moe_route_checks(torch, params, cfg, tokens, generated, tol,
     lp, rp = prefill(cfg, tokens)
     ld, rd = prefill(dense, tokens)
     out = {"pallas_vs_dense_prefill": _route_compare(
-               torch, rp, rd, n_moe, [s - 1], lp, ld, tol, tie_gap),
+               torch, rp, rd, n_moe, [s - 1], lp, ld, tol, tie_gap,
+               hold_rerouted),
            "dropped_slots_prefill": _dropped_slots(torch, rp),
            "pallas_logits": lp[:, 0], "dense_logits": ld[:, 0]}
     del rp, rd
@@ -1747,7 +1859,7 @@ def _moe_route_checks(torch, params, cfg, tokens, generated, tol,
     positions = list(range(s - 1, s + len(generated)))
     out["prefill_decode_vs_forward"] = _route_compare(
         torch, r.calls, rf.calls, n_moe, positions, served,
-        full[:, s - 1:], tol, tie_gap)
+        full[:, s - 1:], decode_tol or tol, tie_gap, hold_rerouted)
     out["dropless_capacity"] = {"prefill": r.calls[0]["capacity"],
                                 "decode": r.calls[-1]["capacity"],
                                 "forward": rf.calls[0]["capacity"]}
@@ -1755,11 +1867,30 @@ def _moe_route_checks(torch, params, cfg, tokens, generated, tol,
     ops.reset_launch_counts()
     lr, rr = prefill(cfg, tokens[:, :RAGGED_PROMPT])
     out["ragged_k4_launches"] = ops.launch_counts()["flash_attention"]
+    out["ragged_k5_launches"] = ops.launch_counts()["ssd"]
     lrd, rrd = prefill(dense, tokens[:, :RAGGED_PROMPT])
     out["ragged_s"] = RAGGED_PROMPT
     out["ragged_pallas_vs_dense"] = _route_compare(
-        torch, rr, rrd, n_moe, [RAGGED_PROMPT - 1], lr, lrd, tol, tie_gap)
+        torch, rr, rrd, n_moe, [RAGGED_PROMPT - 1], lr, lrd, tol, tie_gap,
+        hold_rerouted)
     return out
+
+
+def _check_moe_routes(label: str, res: dict, cfg) -> None:
+    """Every route comparison of ``_moe_route_checks`` held, each on some
+    tokens, and the ragged prompt's launches one K4 per attention layer
+    and one K5 per Mamba-2 layer (``cfg`` routes both through their
+    kernels)."""
+    for key, val in res.items():
+        if isinstance(val, dict) and "close" in val:
+            check(val["close"], f"{label} {key}: {val}")
+            check(val["compared_tokens"] > 0,
+                  f"{label} {key}: no token compared")
+    n = _layer_counts(cfg)
+    check(res["ragged_k4_launches"] == n["attn"]
+          and res["ragged_k5_launches"] == n["mamba"],
+          f"{label} ragged prefill: K4 {res['ragged_k4_launches']}, K5 "
+          f"{res['ragged_k5_launches']} for {n}")
 
 
 def phase_serve_moe(torch) -> dict:
@@ -1853,18 +1984,144 @@ def phase_serve_moe(torch) -> dict:
           "bfloat16": bf16, "float32": f32,
           "bf16_vs_f32_prefill": bf16_vs_f32})
     for name, res in (("bf16", bf16), ("f32", f32)):
-        for key, val in res.items():
-            if isinstance(val, dict) and "close" in val:
-                check(val["close"], f"MoE serve {name} {key}: {val}")
-                check(val["compared_tokens"] > 0,
-                      f"MoE serve {name} {key}: no token compared")
-        check(res["ragged_k4_launches"] == cfg.n_layers,
-              f"{name} ragged prefill: K4 {res['ragged_k4_launches']}")
+        _check_moe_routes(f"MoE serve {name}", res, cfg)
     return {"params": params, "tokens": tokens, "launches": after_prefill,
             "k4_routes_prefill": routes_prefill,
             "dropped_share": bf16["dropped_slots_prefill"]["share"],
             "prefill_ms": prefill_s * 1e3,
             "decode_ms_per_step": sum(step_s) / len(step_s) * 1e3}
+
+
+def phase_serve_hybrid(torch) -> dict:
+    """The hybrid serve path: jamba-v0.1-52b at its published widths and
+    dtypes cut to one 8-layer period, ``attn_impl`` and ``ssd_impl``
+    ``"pallas"``, ``moe_impl="scatter"``, weights drawn on the card: one
+    prefill of 4 x 2,048 tokens (K4 once per attention layer and K5 once
+    per Mamba-2 layer, all on their wgmma routes) and 16 greedy decode
+    steps (neither kernel), the launch counts zeroed just before and read
+    just after; finite logits; the prefill's dropped-slot share at capacity
+    factor 1.25; then the route checks (``_moe_route_checks``) in bf16
+    (``MOE_BF16_TOL``; prefill + decode against ``forward`` at
+    ``HYBRID_DECODE_BF16_TOL``), on the tokens whose experts agree in both
+    routes; the peak of one more prefill broken down.  The f32 checks follow in :func:`phase_serve_hybrid_f32`, on
+    these weights upcast."""
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd as k5
+    from repro_torch.models import lm
+    from repro_torch.launch.steps import device_params
+    dev = torch.device("cuda")
+    cfg = _hybrid_cfg()
+    n = _layer_counts(cfg)
+    params, init_s = _sync_s(torch, lambda: device_params(cfg, 0, dev))
+    n_params = lm.param_count(params)
+    check(n_params == HYBRID_PARAMS, f"{HYBRID_ARCH}: {n_params} params")
+    gen = torch.Generator().manual_seed(25)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=gen).to(dev)
+    lm.prefill(params, {"tokens": tokens[:, :128]}, cfg, max_len=144)  # warm
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    (logits, cache), prefill_s = _sync_s(
+        torch, lambda: lm.prefill(params, {"tokens": tokens}, cfg,
+                                  max_len=SERVE_MAX_LEN))
+    after_prefill = ops.launch_counts()
+    k4_prefill, k5_prefill = dict(fl.ROUTE_LAUNCHES), dict(k5.ROUTE_LAUNCHES)
+    prefill_peak = torch.cuda.max_memory_allocated()
+    generated, step_logits, step_s = _greedy_decode(
+        torch, params, cache, logits, SERVE_PROMPT, cfg)
+    launches = ops.launch_counts()
+    k4_decode = {k: v - k4_prefill[k] for k, v in fl.ROUTE_LAUNCHES.items()}
+    k5_decode = {k: v - k5_prefill[k] for k, v in k5.ROUTE_LAUNCHES.items()}
+    del cache
+    check(after_prefill["flash_attention"] == n["attn"]
+          and after_prefill["ssd"] == n["mamba"],
+          f"{HYBRID_ARCH} prefill launched {after_prefill} for {n}")
+    check(k4_prefill == {"simt": 0, "wgmma": n["attn"]}
+          and k5_prefill == {"simt": 0, "wgmma": n["mamba"]},
+          f"prefill launches by route: K4 {k4_prefill}, K5 {k5_prefill}")
+    check(launches["flash_attention"] == n["attn"]
+          and launches["ssd"] == n["mamba"],
+          f"{HYBRID_ARCH}: a kernel launched in decode: {launches}")
+    check(k4_decode == k5_decode == {"simt": 0, "wgmma": 0},
+          f"decode launches by route: K4 {k4_decode}, K5 {k5_decode}")
+    _check_logits(torch, step_logits, cfg)
+    emit({"phase": "serve_hybrid", "arch": HYBRID_ARCH,
+          "attn_impl": cfg.attn_impl, "ssd_impl": cfg.ssd_impl,
+          "moe_impl": cfg.moe_impl, "dtype": cfg.dtype,
+          "n_layers": cfg.n_layers, "layers": n, "n_params": n_params,
+          "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+          "capacity_factor": cfg.capacity_factor, "batch": SERVE_BATCH,
+          "prompt": SERVE_PROMPT, "decode_steps": SERVE_DECODE,
+          "reduced": {"n_layers": f"{HYBRID_LAYERS} of 32: one period of "
+                      f"every layer kind (the whole model is 103 GB in "
+                      f"bf16, the period 26.5 GB)",
+                      "f32_batch": f"the f32 route checks serve "
+                      f"{HYBRID_F32_BATCH} of the {SERVE_BATCH} prompts "
+                      f"(53.07 GB of f32 weights leave no room for the "
+                      f"dropless buckets of all 4)"},
+          "init_params_s": init_s, "prefill_ms": prefill_s * 1e3,
+          "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_s,
+          "decode_ms_per_step": sum(step_s) / len(step_s) * 1e3,
+          "decode_ms_steps": [x * 1e3 for x in step_s],
+          "decode_tokens_per_s": SERVE_BATCH * len(step_s) / sum(step_s),
+          "prefill_peak_bytes": prefill_peak,
+          "launches_prefill": after_prefill,
+          "launches_decode": {k: launches[k] - after_prefill[k]
+                              for k in launches},
+          "k4_routes_prefill": k4_prefill, "k5_routes_prefill": k5_prefill,
+          "k4_routes_decode": k4_decode, "k5_routes_decode": k5_decode})
+    bf16 = _moe_route_checks(torch, params, cfg, tokens, generated,
+                             MOE_BF16_TOL, 0.0, hold_rerouted=False,
+                             decode_tol=HYBRID_DECODE_BF16_TOL)
+    check(torch.equal(bf16["pallas_logits"], _vocab(logits, cfg)),
+          "a second pallas prefill differs from the first")
+    _check_moe_routes("hybrid serve bf16", bf16, cfg)
+    _peak_breakdown(torch, lambda: lm.prefill(params, {"tokens": tokens}, cfg,
+                                              max_len=SERVE_MAX_LEN),
+                    f"serve_hybrid: {HYBRID_ARCH} prefill")
+    return {"params": params, "tokens": tokens, "generated": generated,
+            "bf16": bf16, "launches": after_prefill,
+            "k4_routes_prefill": k4_prefill, "k5_routes_prefill": k5_prefill,
+            "dropped_share": bf16["dropped_slots_prefill"]["share"],
+            "prefill_ms": prefill_s * 1e3, "prefill_peak_bytes": prefill_peak,
+            "decode_ms_per_step": sum(step_s) / len(step_s) * 1e3}
+
+
+def phase_serve_hybrid_f32(torch, hybrid: dict) -> dict:
+    """The hybrid route checks again with ``hybrid``'s weights upcast to
+    f32 in place (the bf16 copy freed leaf by leaf), on its first
+    ``HYBRID_F32_BATCH`` prompts, within ``MOE_F32_TOL`` on the tokens
+    clear of routing near-ties; each bf16 prefill's distance from the f32
+    one over those prompts.  The weights are freed at the end."""
+    params, bf16 = hybrid.pop("params"), hybrid.pop("bf16")
+    for key, val in list(params.items()):
+        if key == "stack":
+            for block in val.values():
+                for name in list(block):
+                    block[name] = block[name].float()
+        else:
+            params[key] = val.float()
+    cfg = _hybrid_cfg("float32")
+    b = HYBRID_F32_BATCH
+    f32 = _moe_route_checks(torch, params, cfg, hybrid["tokens"][:b],
+                            [g[:b] for g in hybrid["generated"]],
+                            MOE_F32_TOL, MOE_F32_TIE_GAP)
+    del params
+    torch.cuda.empty_cache()
+    bf16_vs_f32 = {route: _compare(torch, bf16.pop(f"{route}_logits")[:b],
+                                   f32.pop(f"{route}_logits"), MOE_BF16_TOL)
+                   for route in ("pallas", "dense")}
+    emit({"phase": "serve_hybrid_checks", "tolerance": {
+              "bfloat16": MOE_BF16_TOL,
+              "bfloat16_prefill_decode_vs_forward": HYBRID_DECODE_BF16_TOL,
+              "float32": MOE_F32_TOL},
+          "tie_gap": {"bfloat16": 0.0, "float32": MOE_F32_TIE_GAP},
+          "batch": {"bfloat16": SERVE_BATCH, "float32": b},
+          "bfloat16": bf16, "float32": f32,
+          "bf16_vs_f32_prefill": bf16_vs_f32})
+    _check_moe_routes("hybrid serve f32", f32, cfg)
+    return {"bfloat16": bf16, "float32": f32}
 
 
 def _serve_record(cfg, n_params, init_s, prefill_s, step_s, positions,
@@ -2097,6 +2354,91 @@ def _device_profile(torch, fn, label: str = "k4",
         ms = sum(us for us, k, _ in rows if any(f in k for f in frags)) / 1e3
         out[f"{name}_ms"] = ms
         out[f"{name}_share_of_busy"] = ms / (busy * 1e3) if busy else None
+    return out
+
+
+def _frame_group(frames) -> str:
+    """An allocation's group: its innermost frame under ``src/repro_torch/``
+    (``path:line function``), else its innermost Python frame, else none
+    (the allocation ran in C++ with no Python caller, as a backward's
+    built-in autograd nodes do on the autograd engine's device thread)."""
+    mark = "src/repro_torch/"
+    for f in frames:
+        path = f["filename"].replace("\\", "/")
+        if mark in path:
+            return f"{path.split(mark, 1)[1]}:{f['line']} {f['name']}"
+    if frames:
+        f = frames[0]
+        return (f"(outside the port) {Path(f['filename']).name}:{f['line']}"
+                f" {f['name']}")
+    return "(no Python frame)"
+
+
+def _peak_breakdown(torch, fn, label: str, top: int = 10) -> dict:
+    """Where the allocator's peak of one untimed call of ``fn`` lies.  The
+    call runs under ``torch.cuda.memory._record_memory_history`` (Python
+    stacks of every allocation); the snapshot's trace of this device is
+    replayed from the bytes allocated before the call (an allocation adds
+    its block, a free request takes it away, as ``memory_allocated``
+    counts them) to the instant the sum peaks, and the blocks live then are
+    grouped by :func:`_frame_group`, the blocks live before the call as one
+    group.  The groups must sum to within ``BREAKDOWN_RTOL`` of
+    ``max_memory_allocated`` of the same call.  Emits and returns GB per
+    group, largest first, and the largest blocks."""
+    import gc
+    record = torch.cuda.memory._record_memory_history
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    record("all", context="alloc", stacks="python",
+           max_entries=HISTORY_ENTRIES, clear_history=True)
+    try:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        record(None)
+    peak = torch.cuda.max_memory_allocated()
+    trace = snap["device_traces"][torch.cuda.current_device()]
+    check(len(trace) < HISTORY_ENTRIES,
+          f"{label}: {len(trace)} trace entries, the history overflowed")
+    cur, best, at = base, base, -1
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            cur += e["size"]
+            if cur > best:
+                best, at = cur, i
+        elif e["action"] == "free_requested":
+            cur -= e["size"]
+    live, before = {}, base
+    for e in trace[:at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] == "free_requested" \
+                and live.pop(e["addr"], None) is None:
+            before -= e["size"]
+    groups = {"(live before the call)": before}
+    for e in live.values():
+        key = _frame_group(e.get("frames") or [])
+        groups[key] = groups.get(key, 0) + e["size"]
+    total = sum(groups.values())
+    blocks = sorted(live.values(), key=lambda e: -e["size"])[:top]
+    out = {"phase": "peak_breakdown", "call": label, "call_s": call_s,
+           "peak_gb": peak / 1e9, "replayed_peak_gb": best / 1e9,
+           "groups_sum_gb": total / 1e9, "before_call_gb": base / 1e9,
+           "trace_entries": len(trace), "peak_at_entry": at,
+           "groups_gb": [[round(v / 1e9, 4), k] for k, v in
+                         sorted(groups.items(), key=lambda kv: -kv[1])],
+           "largest_blocks_gb": [[round(e["size"] / 1e9, 4),
+                                  _frame_group(e.get("frames") or [])]
+                                 for e in blocks]}
+    emit(out)
+    check(abs(total - peak) <= BREAKDOWN_RTOL * peak,
+          f"{label}: the groups sum to {total} B, the allocator's peak is "
+          f"{peak} B")
     return out
 
 
@@ -2473,8 +2815,10 @@ def _moe_aux_in_loss(torch) -> dict:
 def phase_train_lm(torch) -> dict:
     """``--arch ... --preset fl100m`` through the CLI at depths 1 and 0:
     finite losses, bit-identical across depths, K1 once per lane-loop
-    step; the MoE arch's loss holds its load-balance term."""
-    from repro_torch.launch.train import lm_config
+    step; the MoE arch's loss holds its load-balance term, and the peak of
+    one more of its rounds is broken down."""
+    import gc
+    from repro_torch.launch.train import build_engine, lm_config
     out = {}
     for arch, rounds in LM_TRAIN:
         argv = ["--arch", arch, "--preset", "fl100m", "--rounds", str(rounds)]
@@ -2518,6 +2862,14 @@ def phase_train_lm(torch) -> dict:
               **({"aux_in_loss": _moe_aux_in_loss(torch)}
                  if arch == MOE_ARCH else {}),
               **out[arch]})
+    # The MoE arch's engine built as the CLI builds it (build_engine's
+    # defaults), one round at depth 1 broken down.
+    eng = build_engine(arch=MOE_ARCH, preset="fl100m")
+    _peak_breakdown(torch, lambda: eng.run(1),
+                    f"train_lm {MOE_ARCH} fl100m: one round at depth 1")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2574,7 +2926,8 @@ def phase_train_full(torch) -> dict:
     """qwen3-0.6b at its published widths in f32 through ``build_engine``
     (``lm_cfg``): 2 rounds at depths 1 and 0, bit-identical losses, K1
     once per step over the ``[2, 596,180,992]`` lane buffer; peak memory,
-    ``exec_time``, and a profiled third round at depth 1."""
+    ``exec_time``, a profiled third round at depth 1, and a fourth whose
+    peak is broken down (``_peak_breakdown``)."""
     import gc
     from dataclasses import replace
     from repro_torch.configs import get_arch
@@ -2616,6 +2969,8 @@ def phase_train_full(torch) -> dict:
             prof = _device_profile(torch, lambda: eng.run(1), label="k1",
                                    match="fedavg", top=12)
             emit({"phase": "train_full_profile", "rounds": 1, **prof})
+            _peak_breakdown(torch, lambda: eng.run(1),
+                            "train_full: one more round at depth 1")
         runs[depth] = {"losses": losses, "launches": launches["fedavg_accum"],
                        "steps": steps, "real_lane_steps": real,
                        "peak_bytes": peak,
@@ -2724,7 +3079,8 @@ def phase_train_full_mesh(torch) -> dict:
     params bf16 and f32 after every round, K1 once per dtype group per
     worker-program step, K2 once per shard a round over the f32 twin of
     all 13 leaves, ``combine_bytes`` 2 × the int8 payload; ``exec_time``
-    per round and the allocator's peak."""
+    per round and the allocator's peak, and the peak of one more round at
+    depth 1 broken down (``_peak_breakdown``)."""
     import gc
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
@@ -2785,6 +3141,10 @@ def phase_train_full_mesh(torch) -> dict:
                   for r in res), f"full-width mesh: combine_bytes "
               f"{[r.combine_bytes for r in res]}")
         _finite_params(torch, eng)
+        if depth == 1:
+            eng._round_observer = None
+            _peak_breakdown(torch, lambda: eng.run(1),
+                            "train_full_mesh: one more round at depth 1")
         runs[depth] = {"losses": losses, "launches": launches,
                        "worker_program_steps": worker_steps,
                        "allocated_before_bytes": held, "peak_bytes": peak,
@@ -2928,8 +3288,9 @@ def phase_train_tasks(torch, device_name: str) -> dict:
     """IC, TG and MLM at their full sizes through ``build_engine(task=t)``
     at depths 1 and 0: finite losses, bitwise across depths, K1 once per
     lane-loop step; the parameter count, ``exec_time`` per round, peak
-    memory, a profiled round, and K1 timed at the task's ``[4, N]`` lane
-    buffer beside its plain version, ``torch.lerp`` and the bound."""
+    memory, a profiled round (MLM: and one more whose peak is broken down),
+    and K1 timed at the task's ``[4, N]`` lane buffer beside its plain
+    version, ``torch.lerp`` and the bound."""
     import gc
     out = {}
     for task in ("ic", "tg", "mlm"):
@@ -2963,6 +3324,10 @@ def phase_train_tasks(torch, device_name: str) -> dict:
                                        match="fedavg", top=8,
                                        host=task != "tg")
                 prof["seconds"] = time.perf_counter() - tp
+                if task == "mlm":
+                    _peak_breakdown(torch, lambda: eng.run(1),
+                                    "train_tasks mlm: one more round at "
+                                    "depth 1")
             del eng, res
             gc.collect()
             torch.cuda.empty_cache()
@@ -4161,11 +4526,15 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
     timing4_moe = phase_timing_k4(torch, name, _moe_cfg())
     timing4_vlm = phase_timing_k4(torch, name, _vlm_cfg(),
                                   _vlm_positions(_vlm_cfg()))
+    timing4_hyb = phase_timing_k4(torch, name, _hybrid_cfg())
     timing5 = phase_timing_k5(torch, name)
+    timing5_hyb = phase_timing_k5(torch, name, SSD_HYBRID)
+    clock("check, timing")
     launches, steps, res = phase_main(torch, args.rounds)
     mesh_launches, mesh_res = phase_mesh(torch, MESH_ROUNDS)
     phase_decomposition(torch)
     phase_agree(torch)
+    clock("main, mesh, decomposition, agree")
     serve = phase_serve(torch)
     phase_serve_profile(torch, serve)
     del serve["params"]
@@ -4180,8 +4549,17 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
                         groups=MOE_DISPATCH_KERNELS)
     del moe["params"]
     for arch, impl in ((MOE_ARCH, {}), ("qwen3-moe-235b-a22b", {}),
-                       ("jamba-v0.1-52b", {"ssd_impl": "pallas"})):
+                       (HYBRID_ARCH, {"ssd_impl": "pallas"})):
         phase_agree_lm(torch, arch, attn_impl="pallas", **impl)
+    clock("serve, serve SSM, serve MoE")
+    hybrid = phase_serve_hybrid(torch)
+    phase_serve_profile(torch, hybrid, _hybrid_cfg(),
+                        phase="serve_hybrid_profile",
+                        groups={"k5": ("ssd_fwd",), **MOE_DISPATCH_KERNELS,
+                                "gemm": GEMM_KERNELS})
+    phase_serve_hybrid_f32(torch, hybrid)
+    torch.cuda.empty_cache()
+    clock("serve hybrid")
     audio = phase_serve_audio(torch)
     phase_serve_profile(torch, audio, _audio_cfg(),
                         phase="serve_audio_profile")
@@ -4192,7 +4570,9 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
     del vlm["params"]
     torch.cuda.empty_cache()
     phase_agree_lm(torch, VLM_ARCH, attn_impl="pallas")
+    clock("serve audio, serve VLM")
     train_lm = phase_train_lm(torch)
+    clock("train LM")
     train_mesh = phase_train_lm_mesh(torch)
     torch.cuda.empty_cache()
     train_full = phase_train_full(torch)
@@ -4202,7 +4582,9 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
     full_mesh = phase_train_full_mesh(torch)
     k2_full = phase_k2_full(torch, name)
     phase_agree_train(torch)
+    clock("train LM mesh, full width, full-width mesh, agree train")
     tasks = phase_train_tasks(torch, name)
+    clock("train tasks")
     fedmedian = phase_fedmedian(torch)
     resume = phase_resume(torch)
     phase_agree_tasks(torch)
@@ -4213,7 +4595,9 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
     cache_mesh = phase_cache_mesh(torch)
     multihost = phase_multihost(torch)
     torch.cuda.empty_cache()
+    clock("fedmedian ... multihost")
     dry = phase_dryrun(torch, pool, pending, name, smi, args.dryrun_out)
+    clock("dryrun")
     if args.profile_out:
         phase_profile(torch, args.profile_out, "fused")
         phase_profile(torch, args.profile_out, "mesh", **MESH)
@@ -4302,19 +4686,30 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
          "serve_vlm_shape": {k: timing4_vlm[k] for k in (
              "shape_q", "shape_kv", "ms", "plain_ms", "library_ms",
              "bound_ms", "bound_by")},
+         "launches_serve_hybrid": hybrid["launches"]["flash_attention"],
+         "launches_by_route_serve_hybrid": hybrid["k4_routes_prefill"],
+         "serve_hybrid_shape": {k: timing4_hyb[k] for k in (
+             "shape_q", "shape_kv", "ms", "plain_ms", "library_ms",
+             "bound_ms", "bound_by")},
          "launches_dryrun": _dry_launches(dry, "qwen3-0.6b", "prefill_32k",
                                           "flash_attention"),
          "dryrun_32k": dry["kernels"]["flash_attention"],
-         "path": "serve (qwen3-0.6b, granite-moe-3b-a800m and "
-                 "internvl2-26b prefill, attn_impl='pallas')"},
+         "path": "serve (qwen3-0.6b, granite-moe-3b-a800m, internvl2-26b "
+                 "and jamba-v0.1-52b prefill, attn_impl='pallas')"},
         {**row("ssd", "ssd.cu", "src/repro/kernels/ssd.py:83",
                ssm["launches"]["ssd"], max(err5.values()), timing5),
          "launches_per_prefill": ssm["launches"]["ssd"],
          "launches_by_route": ssm["k5_routes_prefill"], "sass": sass5,
+         "launches_serve_hybrid": hybrid["launches"]["ssd"],
+         "launches_by_route_serve_hybrid": hybrid["k5_routes_prefill"],
+         "serve_hybrid_shape": {k: timing5_hyb[k] for k in (
+             "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_by")},
          "launches_dryrun": _dry_launches(dry, "mamba2-2.7b", "prefill_32k",
                                           "ssd"),
          "dryrun_32k": dry["kernels"]["ssd"],
-         "path": "serve SSM (mamba2-2.7b prefill, ssd_impl='pallas')"}]})
+         "path": "serve SSM and hybrid (mamba2-2.7b and jamba-v0.1-52b "
+                 "prefill, ssd_impl='pallas')"}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,12 @@ The files are the reference's: a leaf's key in the npz is its path in the
 tree, each step written as JAX's key types print (``['stem']`` for a dict
 key, ``[0]`` for a sequence index, ``.name`` for a named-tuple field),
 joined with ``/``.  So either package restores the other's checkpoints.
+
+A bf16 leaf is written as the reference writes one: its 16 bits under the
+``.npy`` descr ``<V2`` (what ``np.savez`` makes of an ``ml_dtypes``
+bfloat16 array), byte for byte.  numpy reads that back as raw 2-byte
+words with no cast to a float, so neither package restores such a leaf:
+:func:`load_pytree` raises ``ValueError``, as the reference's does.
 """
 
 from __future__ import annotations
@@ -19,9 +25,11 @@ from __future__ import annotations
 import json
 import os
 import tempfile
+import zipfile
 
 import numpy as np
 import torch
+from numpy.lib import format as npy_format
 
 __all__ = ["save_pytree", "load_pytree", "CheckpointStore"]
 
@@ -48,10 +56,48 @@ def _leaves_with_paths(tree, prefix=()):
     return [("/".join(prefix), tree)]
 
 
+# A bf16 leaf's 16 bits, and the descr the reference's files give them.
+_BITS16 = np.dtype("V2")
+_BF16_DESCR = "<V2"
+
+
 def _to_numpy(leaf) -> np.ndarray:
     if torch.is_tensor(leaf):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BITS16)
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _savez(f, arrays: dict) -> None:
+    """``np.savez(f, **arrays)``, with each 2-byte raw (bf16) array written
+    under the descr ``<V2`` as the reference's files hold it (numpy would
+    write ``|V2``)."""
+    with zipfile.ZipFile(f, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in arrays.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as member:
+                if arr.dtype != _BITS16:
+                    npy_format.write_array(member, arr)
+                    continue
+                npy_format.write_array_header_1_0(
+                    member, {"descr": _BF16_DESCR, "fortran_order": False,
+                             "shape": arr.shape})
+                member.write(np.ascontiguousarray(arr).tobytes())
+
+
+def _leaf_array(arrays: dict, key: str) -> np.ndarray:
+    """The saved array of leaf ``key``; raw 2-byte words (a bf16 leaf)
+    raise ``ValueError``: numpy has no cast from them to a number."""
+    arr = np.asarray(arrays[key])
+    if arr.dtype.kind == "V":
+        raise ValueError(
+            f"checkpoint leaf {key!r} holds raw {arr.dtype.itemsize}-byte "
+            f"words (a bfloat16 leaf, saved as its bits): numpy has no cast "
+            f"from them to a number, so it cannot be restored (the "
+            f"reference's load_pytree raises on it too)")
+    return arr
 
 
 def _rebuild(like, arrays: dict, prefix=()):
@@ -70,10 +116,10 @@ def _rebuild(like, arrays: dict, prefix=()):
     key = "/".join(prefix)
     if key not in arrays:
         raise KeyError(f"checkpoint missing leaf {key!r}")
+    arr = _leaf_array(arrays, key)
     if torch.is_tensor(like):
-        arr = np.asarray(arrays[key])
         return torch.from_numpy(arr.copy()).to(like.device, like.dtype)
-    return np.asarray(arrays[key], dtype=np.asarray(like).dtype)
+    return np.asarray(arr, dtype=np.asarray(like).dtype)
 
 
 def save_pytree(path: str, tree) -> None:
@@ -84,7 +130,7 @@ def save_pytree(path: str, tree) -> None:
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")
     try:
         with os.fdopen(fd, "wb") as f:
-            np.savez(f, **arrays)
+            _savez(f, arrays)
         os.replace(tmp, path)
     except BaseException:
         if os.path.exists(tmp):

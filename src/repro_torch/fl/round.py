@@ -163,10 +163,14 @@ def _make_lane_scan(loss_fn, optimizer, *, agg_impl: str = "kernel",
                 {k: v[:, s] for k, v in lane_batches.items()}, m)
             # Fold the trained client at its boundary, behind a select that
             # keeps masked/padded steps BITWISE no-ops on the partial (Eq. 1
-            # rescales by N/(N+0), which can flip the last bit).
+            # rescales by N/(N+0), which can flip the last bit).  The folded
+            # partial lives only as the select's input: bound to a name it
+            # would stay alive through the next step's forward and backward
+            # (one more [L, n_g] buffer per group at the round's peak).
             nk = w * bnd
-            folded = partial_update(partial, theta, nk, impl=agg_impl)
-            partial = _tree_select(nk > 0, folded, partial)
+            partial = _tree_select(
+                nk > 0, partial_update(partial, theta, nk, impl=agg_impl),
+                partial)
             # Reset the lane to the global model for the next client.
             theta = _tree_select(bnd > 0, theta0, theta)
             opt_state = _tree_select(bnd > 0, opt0, opt_state)

@@ -144,7 +144,6 @@ class FlatLayout:
             for size in self.sizes:
                 self.offsets.append(self.offsets[-1] + size)
         self._offsets_on: dict = {}
-        self._leaf_index_on: dict = {}
         self._scalars: FlatLayout | None = None
         self._twin: FlatLayout | None = None
 
@@ -272,17 +271,14 @@ class FlatLayout:
 
     def per_element(self, values: torch.Tensor) -> torch.Tensor:
         """One value per leaf ``[..., n_leaves]`` -> ``[..., N]``, each
-        repeated over its leaf: one gather through a cached leaf index
-        (``repeat_interleave`` recomputes its index every call)."""
+        repeated over its leaf: each value broadcast over its leaf and the
+        leaves concatenated.  No per-element index is built or kept: a
+        cached one would hold 4 bytes a parameter on the device between
+        rounds."""
         self.require_single("FlatLayout.per_element")
-        device = values.device
-        index = self._leaf_index_on.get(device)
-        if index is None:
-            index = torch.repeat_interleave(
-                torch.arange(len(self.names), dtype=torch.int32),
-                torch.tensor(self.sizes)).to(device)
-            self._leaf_index_on[device] = index
-        return values.index_select(-1, index)
+        lead = tuple(values.shape[:-1])
+        return torch.cat([values[..., i:i + 1].expand(lead + (n,))
+                          for i, n in enumerate(self.sizes)], dim=-1)
 
 
 def tree_cat(trees: list, dim: int = 0) -> dict:

@@ -88,6 +88,91 @@ def test_save_pytree_keys_and_files_interchange(tmp_path):
         tstore.load_pytree(str(tmp_path / "t.npz"), {"nope": torch.zeros(1)})
 
 
+def _members(path):
+    """``{member name: its bytes}`` of an ``.npz``."""
+    import zipfile
+    with zipfile.ZipFile(path) as z:
+        return {n: z.read(n) for n in z.namelist()}
+
+
+def _mixed_trees():
+    """One mixed bf16/f32 tree for each package: the reference's leaves as
+    ``ml_dtypes.bfloat16`` arrays, the port's as tensors of the same
+    values (bf16 bits carried exactly)."""
+    rng = np.random.default_rng(3)
+    ref = {"embed": jnp.asarray(rng.standard_normal((5, 4)), jnp.bfloat16),
+           "norm": jnp.asarray(rng.standard_normal(4), jnp.float32),
+           "stack": {"p0": {"w": jnp.asarray(rng.standard_normal((2, 4, 3)),
+                                             jnp.bfloat16)}},
+           "scalar": jnp.asarray(1.5, jnp.bfloat16)}
+    ref = jax.tree.map(np.asarray, ref)
+    from repro_torch.models import lm_params_from_numpy
+    return ref, lm_params_from_numpy(ref, device="cpu")
+
+
+def test_bf16_leaves_are_saved_as_the_reference_saves_them(tmp_path):
+    """A mixed bf16/f32 tree saved by each package: the same members, byte
+    for byte (a bf16 leaf as its 16 bits under the descr ``<V2``)."""
+    ref, port = _mixed_trees()
+    jstore.save_pytree(str(tmp_path / "j.npz"), ref)
+    tstore.save_pytree(str(tmp_path / "t.npz"), port)
+    j, t = _members(tmp_path / "j.npz"), _members(tmp_path / "t.npz")
+    assert sorted(t) == sorted(j)
+    for name in j:
+        assert t[name] == j[name], name
+    assert b"'descr': '<V2'" in t["['embed'].npy"]
+    with np.load(tmp_path / "t.npz") as f:
+        bits = f["['embed']"].view(np.uint16)
+    np.testing.assert_array_equal(
+        bits, port["embed"].view(torch.int16).numpy().view(np.uint16))
+
+
+def test_bf16_leaves_do_not_restore_in_either_package(tmp_path):
+    """Restoring a bf16 leaf raises in both packages, whichever wrote it:
+    numpy has no cast from the raw 2-byte words; the port's message names
+    the leaf and the cause.  The f32 leaves alone still restore."""
+    ref, port = _mixed_trees()
+    jstore.save_pytree(str(tmp_path / "j.npz"), ref)
+    tstore.save_pytree(str(tmp_path / "t.npz"), port)
+    for path in (tmp_path / "j.npz", tmp_path / "t.npz"):
+        with pytest.raises(ValueError, match="No cast function"):
+            jstore.load_pytree(str(path), ref)
+        with pytest.raises(ValueError, match=r"\['embed'\].*bfloat16"):
+            tstore.load_pytree(str(path), port)
+        with pytest.raises(ValueError, match="bfloat16"):
+            tstore.load_pytree(str(path), {"embed": np.zeros((5, 4),
+                                                             np.float32)})
+        got = tstore.load_pytree(str(path), {"norm": torch.zeros(4)})
+        assert torch.equal(got["norm"], port["norm"])
+
+
+def test_bf16_engine_saves_its_checkpoint(tmp_path):
+    """A reduced qwen3 engine at the published mixed dtypes with a
+    checkpoint store saves at its checkpoint round; the model file holds
+    each leaf as the reference's ``save_pytree`` writes the same values."""
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm_params_to_numpy
+    cfg = replace(get_arch("qwen3-0.6b").reduced(), dtype="bfloat16")
+    eng = ttrain.build_engine(lm_cfg=cfg, device="cpu", cohort=4,
+                              steps_cap=2, ckpt_dir=str(tmp_path / "ck"),
+                              rounds_per_checkpoint=2)
+    res = eng.run(2)
+    assert all(np.isfinite(r.loss) for r in res)
+    store = tstore.CheckpointStore(str(tmp_path / "ck"))
+    assert store.latest_round() == 2
+    path = tmp_path / "ck" / "round_00000002.npz"
+    jstore.save_pytree(str(tmp_path / "j.npz"),
+                       lm_params_to_numpy(eng.params))
+    got, want = _members(path), _members(tmp_path / "j.npz")
+    assert sorted(got) == sorted(want)
+    assert any(b"'descr': '<V2'" in v for v in got.values())
+    for name in want:
+        assert got[name] == want[name], name
+    with pytest.raises(ValueError, match="bfloat16"):
+        store.restore(eng.params)
+
+
 def test_store_manifest_keep_and_atomic_writes(tmp_path):
     store = tstore.CheckpointStore(str(tmp_path), keep=3)
     assert store.latest_round() is None

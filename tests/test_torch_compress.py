@@ -103,6 +103,40 @@ def test_dequant_merge_flat_is_the_per_leaf_fold():
         np.testing.assert_array_equal(got[sl].numpy(), np.asarray(want))
 
 
+def _tensors_in(obj, seen=None):
+    """Every tensor reachable from ``obj``'s attributes, dicts and
+    sequences."""
+    seen = set() if seen is None else seen
+    if id(obj) in seen:
+        return []
+    seen.add(id(obj))
+    if torch.is_tensor(obj):
+        return [obj]
+    if isinstance(obj, dict):
+        items = list(obj.values())
+    elif isinstance(obj, (list, tuple)):
+        items = list(obj)
+    elif hasattr(obj, "__dict__"):
+        items = list(vars(obj).values())
+    else:
+        return []
+    return [t for x in items for t in _tensors_in(x, seen)]
+
+
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_per_element_repeats_each_leaf_value_and_keeps_no_buffer(lead):
+    """``per_element`` is ``repeat_interleave`` over the leaf sizes, and the
+    layout keeps nothing of it: a per-element buffer cached between rounds
+    would hold 4 bytes a parameter on the device (2.38 GB for
+    qwen3-0.6b's f32 twin)."""
+    layout = FlatLayout({k: torch.zeros(s) for k, s in TREE.items()})
+    values = torch.randn(lead + (len(TREE),))
+    got = layout.per_element(values)
+    want = torch.repeat_interleave(values, torch.tensor(layout.sizes), dim=-1)
+    assert got.shape == lead + (layout.n,) and torch.equal(got, want)
+    assert all(t.numel() < layout.n for t in _tensors_in(layout))
+
+
 def test_plain_path_counts_no_launch():
     tops.reset_launch_counts()
     tops.dequant_merge(*_t(*_payload((9,), 6)), 0.1, 1.0, 1.0)

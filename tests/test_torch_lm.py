@@ -133,6 +133,55 @@ def test_param_count_matches_the_published_size(name, n_layers, count):
     assert sum(int(np.prod(v)) for v in got.values()) == count
 
 
+# jamba-v0.1-52b at its published widths: one 8-layer period (the serve
+# cut) and the whole 32 layers; the reference's counts, 100 leaves each.
+JAMBA_PUBLISHED = [(8, 13_267_598_848), (32, 51_459_770_368)]
+
+
+def _ref_leaves(jcfg) -> dict:
+    """``{path: (shape, dtype name)}`` of the reference's ``init_params``
+    under ``jax.eval_shape`` (nothing drawn)."""
+    ref = jax.eval_shape(lambda k: jlm.init_params(k, jcfg),
+                         jax.random.key(0))
+    return {"/".join(k.key for k in path): (leaf.shape, leaf.dtype.name)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(ref)[0]}
+
+
+@pytest.mark.parametrize("n_layers,count", JAMBA_PUBLISHED)
+def test_jamba_param_shapes_and_dtypes_at_published_widths(n_layers, count):
+    """jamba's ``param_shapes`` with each leaf's ``leaf_dtype``: the
+    reference's tree leaf by leaf, in name, shape and dtype (bf16
+    matrices; f32 norms and Mamba A, D and dt-bias rows)."""
+    j = replace(jconfigs.get_arch("jamba-v0.1-52b"), n_layers=n_layers)
+    t = replace(tconfigs.get_arch("jamba-v0.1-52b"), n_layers=n_layers)
+    shapes = jax.tree_util.tree_flatten_with_path(tlm.param_shapes(t),
+                                                  is_leaf=_is_shape)[0]
+    got = {"/".join(k.key for k in path): (
+               leaf, str(tlm.leaf_dtype(path[-1].key, t)).split(".")[-1])
+           for path, leaf in shapes}
+    want = _ref_leaves(j)
+    assert list(got) == list(want)
+    assert got == want
+    assert len(got) == 100
+    assert sum(int(np.prod(s)) for s, _ in got.values()) == count
+    assert {d for _, d in got.values()} == {"bfloat16", "float32"}
+
+
+def test_jamba_device_params_have_the_reference_layout():
+    """``launch.steps.device_params`` of jamba at reduced widths in bf16 on
+    the CPU: the reference's tree, shapes and dtypes, leaf by leaf."""
+    from repro_torch.kernels.layout import flatten_tree
+    from repro_torch.launch.steps import device_params
+    jcfg, tcfg = _cfgs("jamba-v0.1-52b", dtype="bfloat16")
+    got = flatten_tree(device_params(tcfg, 0, "cpu"))
+    want = _ref_leaves(jcfg)
+    assert sorted(got) == sorted(want)
+    for k, (shape, dtype) in want.items():
+        assert tuple(got[k].shape) == shape, k
+        assert str(got[k].dtype).split(".")[-1] == dtype, k
+        assert got[k].device.type == "cpu"
+
+
 # -- layers -------------------------------------------------------------------
 F32_EPS = float(np.finfo(np.float32).eps)
 ROPE_CASES = [(10_000.0, 16, 40), (1_000_000.0, 128, 2064)]

@@ -167,6 +167,34 @@ def test_masked_steps_are_bitwise_no_ops(round_inputs):
         assert torch.equal(a_new[k], b_new[k]), k
 
 
+def test_lane_loop_frees_each_folded_partial(round_inputs, monkeypatch):
+    """The lane loop keeps no folded partial past its select: when a local
+    step's forward and backward run, every partial ``partial_update`` made
+    in an earlier step is gone (held, one would add an ``[L, n_g]`` buffer
+    per group to the round's peak)."""
+    import weakref
+    params, arr = round_inputs
+    made, alive_at_steps = [], []
+
+    def spy(*a, **k):
+        out = tagg.partial_update(*a, **k)
+        made.extend(weakref.ref(t) for t in out.theta.values())
+        return out
+
+    def loss_fn(p, b):
+        alive_at_steps.append(sum(r() is not None for r in made))
+        return TASK_MODELS["sr"].loss_fn(p, b)
+
+    monkeypatch.setattr(tround, "partial_update", spy)
+    step = tround.make_round_step(
+        loss_fn, tsgd(par.LR, momentum=par.MOMENTUM, weight_decay=par.WD))
+    step(par.to_torch(params), par.to_torch(arr.batches),
+         *(torch.from_numpy(a.copy()) for a in
+           (arr.step_mask, arr.boundary, arr.weight)))
+    assert len(alive_at_steps) == arr.step_mask.shape[2] > 1
+    assert made and alive_at_steps == [0] * len(alive_at_steps)
+
+
 def test_eq1_variants_agree_bitwise_in_the_round(round_inputs):
     """In the round the fold only counts where N+n > 0, where the kernel
     variant and the plain (XLA) variant compute the same f32 ops."""
