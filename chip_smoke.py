@@ -125,6 +125,23 @@ Phases, one JSON object per line on stdout:
              step (idle share; K4's, K5's, the dispatch passes' and the
              GEMMs' shares); the prefill's allocator peak, broken down by
              where it was allocated (``_peak_breakdown``);
+14b. serve hybrid mesh — the same 8-layer jamba split over a (data 1,
+             model 2) mesh of 2 gloo ranks sharing the card (``launch.mesh
+             .run_on_mesh``): each rank draws every leaf as phase 14 drew it
+             and keeps its ``fsdp_tp`` shard (its parameter bytes must be
+             the specs' arithmetic), the MoE layers go through the plan's
+             ``make_ep_dispatch`` (8 of 16 experts a rank); one prefill of
+             the same 4 x 2,048 tokens and ``MESH_DECODE`` greedy steps,
+             the launch counts zeroed just before and read just after: K4
+             once and K5 7 times a prefill on each rank, all wgmma, neither
+             in decode; logits and tokens against phase 14's run (a routed
+             pass of it) at ``MOE_BF16_TOL`` (prefill) and
+             ``HYBRID_DECODE_BF16_TOL`` (prefill + decode) on the tokens
+             whose routes and kept slots agree in both runs; each rank's
+             peak, its time in gloo collectives; ``make_ep_dispatch`` in
+             f32 at one MoE layer's widths over the same 2 ranks against
+             ``moe_layer_3d("scatter")`` (``MESH_EP_TOL``), and on a (1, 1)
+             NCCL mesh bitwise;
 15. serve audio — whisper-base at its published size (73,596,928 params,
              bf16, ``attn_impl="dense"``): 4 clips of 1,500 frame
              embeddings with 448-token prompts, one prefill and 16 greedy
@@ -478,6 +495,21 @@ HYBRID_PARAMS = 13_267_598_848   # the reference's count at 8 layers
 # ~23 GB of [16, 8256, 14336] expert buffers beside them, past the card's
 # 80 GB, so the f32 checks serve the first HYBRID_F32_BATCH prompts (~12 GB).
 HYBRID_F32_BATCH = 2
+# The hybrid split over a (data 1, model 2) mesh of 2 gloo ranks sharing the
+# card (NCCL refuses two ranks on one card): each rank holds half of every
+# split leaf under the plan's fsdp_tp specs and 8 of the 16 experts, and
+# computes each layer whole (its weights all-gathered through the host),
+# the MoE layers through the plan's make_ep_dispatch (seq_chunk 2048).  The
+# same prompts as phase_serve_hybrid; MESH_DECODE greedy steps; the phase's
+# share of the script's time limit.
+MESH_SHAPE, MESH_AXES = (1, 2), ("data", "model")
+MESH_DECODE = 8
+MESH_TIMEOUT_S = 300
+# The expert-parallel dispatch alone, in f32 at one jamba MoE layer's widths
+# ([16, 4096, 14336] experts), against moe_layer_3d("scatter") in one
+# process: the k-sum is split over the ranks (rtol 1e-4).
+MESH_EP_TOKENS = (2, 2048)
+MESH_EP_TOL = dict(rtol=1e-4, atol=1e-5)
 # Kernel-name fragments of cuBLAS' GEMMs in a profile.
 GEMM_KERNELS = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
 # The peak breakdowns: trace entries kept while one call is recorded (a call
@@ -2080,7 +2112,25 @@ def phase_serve_hybrid(torch) -> dict:
     _peak_breakdown(torch, lambda: lm.prefill(params, {"tokens": tokens}, cfg,
                                               max_len=SERVE_MAX_LEN),
                     f"serve_hybrid: {HYBRID_ARCH} prefill")
+    # The run the mesh phase is held to, with its routes: the same prefill
+    # and the first MESH_DECODE steps, fed the tokens generated above.
+    with _Kept(torch) as kept:
+        lg, cache = lm.prefill(params, {"tokens": tokens}, cfg,
+                               max_len=SERVE_MAX_LEN)
+        steps = [lg]
+        for i, nxt in enumerate(generated[:MESH_DECODE]):
+            lg, cache = lm.decode_step(params, cache, nxt, SERVE_PROMPT + i,
+                                       cfg)
+            steps.append(lg)
+    del cache
+    mesh_ref = {"logits": torch.stack([_vocab(x, cfg) for x in steps],
+                                      dim=1).cpu(),
+                "generated": torch.cat(generated[:MESH_DECODE], 1).cpu(),
+                "calls": kept.host_calls()}
+    check(torch.equal(mesh_ref["logits"][:, 0], _vocab(logits, cfg).cpu()),
+          "the routed prefill differs from the timed one")
     return {"params": params, "tokens": tokens, "generated": generated,
+            "mesh_ref": mesh_ref,
             "bf16": bf16, "launches": after_prefill,
             "k4_routes_prefill": k4_prefill, "k5_routes_prefill": k5_prefill,
             "dropped_share": bf16["dropped_slots_prefill"]["share"],
@@ -2122,6 +2172,326 @@ def phase_serve_hybrid_f32(torch, hybrid: dict) -> dict:
           "bf16_vs_f32_prefill": bf16_vs_f32})
     _check_moe_routes("hybrid serve f32", f32, cfg)
     return {"bfloat16": bf16, "float32": f32}
+
+
+class _Kept:
+    """While active, records every routing decision made through
+    ``repro_torch.models.layers._route`` (the one-process dispatch and the
+    expert-parallel one both route there): per call, each token's k
+    experts in the router's order beside whether each slot was kept (its
+    position under its expert's capacity), as ``experts [T, 2k]``.  It
+    reads what the router computed and changes nothing."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self._layers, inner = layers, layers._route
+        self._inner = inner
+
+        def record(x, router_w, *, top_k, capacity_factor):
+            out = inner(x, router_w, top_k=top_k,
+                        capacity_factor=capacity_factor)
+            _, _, idx, C, pos = out
+            slot_pos = pos.gather(1, idx.reshape(-1, 1))[:, 0]
+            kept = (slot_pos < C).reshape(idx.shape).long()
+            self.calls.append(self.torch.cat([idx, kept], dim=1))
+            return out
+
+        layers._route = record
+        return self
+
+    def __exit__(self, *exc):
+        self._layers._route = self._inner
+
+    def host_calls(self) -> list:
+        """The calls as ``_route_grid`` reads them, on the host (no
+        near-tie gap: every token counts)."""
+        torch = self.torch
+        return [{"experts": c.cpu(), "gap": torch.ones(c.shape[0])}
+                for c in self.calls]
+
+
+def _timed_collectives(torch, seconds: list):
+    """Wrap the gloo collectives of ``distributed.collectives`` so that each
+    call's wall seconds (host staging included) add to ``seconds[-1]``;
+    returns the undo."""
+    from repro_torch.distributed import collectives as coll
+    inner = {name: getattr(coll, name) for name in ("_all_reduce",
+                                                    "_gather")}
+
+    def wrap(fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            seconds[-1] += time.perf_counter() - t0
+            return out
+        return timed
+
+    for name, fn in inner.items():
+        setattr(coll, name, wrap(fn))
+    return lambda: [setattr(coll, n, f) for n, f in inner.items()]
+
+
+def _ep_weights(torch, dev, gen):
+    """One jamba MoE layer in f32 (router ``[4096, 16]``, experts ``[16,
+    4096, 14336]``) and its tokens, drawn on the card from ``gen`` leaf by
+    leaf: ``(name, tensor)`` in draw order."""
+    D, E, Fm = 4096, 16, 14336
+    shapes = (("x", MESH_EP_TOKENS + (D,), 1.0),
+              ("router", (D, E), D ** -0.5),
+              ("gate", (E, D, Fm), D ** -0.5), ("up", (E, D, Fm), D ** -0.5),
+              ("down", (E, Fm, D), Fm ** -0.5))
+    for name, shape, scale in shapes:
+        yield name, torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+
+EP_SPECS = {"x": (), "router": (), "gate": ("model", "data", None),
+            "up": ("model", "data", None), "down": ("model", None, "data")}
+
+
+def _mesh_rank(mesh, tokens, n_decode: int) -> dict:
+    """One rank of ``phase_serve_hybrid_mesh``: the f32 dispatch check,
+    then the jamba period served from this rank's shards."""
+    import torch
+    from dataclasses import replace
+    from repro_torch.distributed.ep_dispatch import make_ep_dispatch
+    from repro_torch.distributed.sharding import shard_leaf, tree_paths
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd as k5
+    from repro_torch.launch import plan as tplan
+    from repro_torch.launch.steps import device_params
+    from repro_torch.models import lm
+    dev = mesh.device
+    out = {"coords": mesh.coords}
+    # -- the dispatch alone, f32, one MoE layer's widths --------------------
+    gen = torch.Generator(device=dev).manual_seed(26)
+    w = {name: shard_leaf(t, EP_SPECS[name], mesh)
+         for name, t in _ep_weights(torch, dev, gen)}
+    disp = make_ep_dispatch(mesh, batch_axes=("data",), fsdp_axis="data",
+                            seq_chunk=2048)
+    ep_out, ep_aux = disp(w["x"], w["router"], w["gate"], w["up"], w["down"],
+                          top_k=2, capacity_factor=1.25)
+    out["ep"] = {"out": ep_out, "aux": ep_aux}
+    del w, ep_out
+    torch.cuda.empty_cache()
+    # -- the plan of the cut config on this mesh ---------------------------
+    base = _hybrid_cfg()
+    plan = tplan.make_plan(base, "prefill_32k", mesh)
+    cfg = replace(base, moe_dispatch=plan.cfg.moe_dispatch)
+    shard = tplan.sharding_specs(plan, mesh)
+    b, s = tokens.shape
+    max_len = s + n_decode
+    specs = {"params": shard["params"],
+             "cache": tplan.cache_specs(cfg, shard["rules"], b, max_len,
+                                        mesh)}
+    pspec = dict(tree_paths(shard["params"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = device_params(cfg, 0, dev, keep=lambda path, x: shard_leaf(
+        x, pspec[path], mesh))
+    torch.cuda.synchronize()
+    out.update(init_s=time.perf_counter() - t0, policy=plan.policy,
+               batch_axes=list(plan.batch_axes),
+               seq_chunk=2048 if cfg.moe_d_ff >= 4096 else 0,
+               local_experts=params["stack"]["p1"]["moe_gate"].shape[1],
+               param_bytes=sum(x.numel() * x.element_size()
+                               for _, x in tree_paths(params)),
+               param_bytes_specs=tplan.param_bytes_per_card(plan, mesh))
+    kw = dict(mesh=mesh, specs=specs)
+    toks = tokens.to(dev)
+    lm.prefill(params, {"tokens": toks[:, :128]}, cfg, max_len=144, **kw)
+    gloo = [0.0]
+    undo = _timed_collectives(torch, gloo)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with _Kept(torch) as kept:
+        (logits, cache), prefill_s = _sync_s(torch, lambda: lm.prefill(
+            params, {"tokens": toks}, cfg, max_len=max_len, **kw))
+        launches = ops.launch_counts()
+        routes = {"k4": dict(fl.ROUTE_LAUNCHES), "k5": dict(k5.ROUTE_LAUNCHES)}
+        prefill_peak = torch.cuda.max_memory_allocated()
+        gloo_prefill = gloo[-1]
+        steps, generated, step_s, gloo_steps = [logits], [], [], []
+        for i in range(n_decode):
+            nxt = steps[-1][:, :cfg.vocab_size].argmax(-1, keepdim=True)
+            generated.append(nxt)
+            gloo.append(0.0)
+            (lg, cache), dt = _sync_s(torch, lambda: lm.decode_step(
+                params, cache, nxt, s + i, cfg, **kw))
+            steps.append(lg)
+            step_s.append(dt)
+            gloo_steps.append(gloo[-1])
+    undo()
+    after = ops.launch_counts()
+    out.update(
+        logits=torch.stack([_vocab(x, cfg) for x in steps], dim=1),
+        generated=torch.cat(generated, dim=1), calls=kept.host_calls(),
+        launches_prefill=launches,
+        launches_decode={k: after[k] - launches[k] for k in after},
+        routes_prefill=routes,
+        routes_decode={"k4": {k: v - routes["k4"][k]
+                              for k, v in fl.ROUTE_LAUNCHES.items()},
+                       "k5": {k: v - routes["k5"][k]
+                              for k, v in k5.ROUTE_LAUNCHES.items()}},
+        prefill_ms=prefill_s * 1e3, decode_ms_steps=[x * 1e3 for x in step_s],
+        gloo_ms_prefill=gloo_prefill * 1e3,
+        gloo_ms_steps=[x * 1e3 for x in gloo_steps],
+        prefill_peak_bytes=prefill_peak,
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        finite=all(bool(torch.isfinite(_vocab(x, cfg)).all())
+                   for x in steps))
+    return out
+
+
+def _nccl_one_rank(torch, w: dict, want) -> bool:
+    """The dispatch on a (1, 1) NCCL mesh (this process, world size 1) on
+    ``w`` against ``want`` (``moe_layer_3d("scatter")``), bitwise."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.distributed.ep_dispatch import make_ep_dispatch
+    from repro_torch.launch.mesh import free_port, make_mesh
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120),
+        device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh((1, 1), MESH_AXES, backend="nccl",
+                         device=torch.device("cuda", 0))
+        disp = make_ep_dispatch(mesh, batch_axes=("data",), fsdp_axis="data",
+                                seq_chunk=2048)
+        got = disp(w["x"], w["router"], w["gate"], w["up"], w["down"],
+                   top_k=2, capacity_factor=1.25)
+        return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_serve_hybrid_mesh(torch, ref: dict) -> dict:
+    """The hybrid served from two ranks (see phase 14b): ``ref`` is phase
+    14's routed run (``mesh_ref``).  The dispatch's one-process reference
+    and the NCCL check run here first, then the ranks."""
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.models import layers
+    dev = torch.device("cuda")
+    cfg = _hybrid_cfg()
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(26)
+    w = dict(_ep_weights(torch, dev, gen))
+    with torch.no_grad():
+        want = layers.moe_layer_3d(w["x"], w["router"], w["gate"], w["up"],
+                                   w["down"], top_k=2, capacity_factor=1.25,
+                                   impl="scatter", seq_chunk=2048)
+    nccl_bitwise = _nccl_one_rank(torch, w, want)
+    ep_want = (want[0].cpu(), float(want[1]))
+    del w, want
+    torch.cuda.empty_cache()
+    tokens = ref["tokens"]
+    res = run_on_mesh(_mesh_rank, MESH_SHAPE, MESH_AXES, backend="gloo",
+                      device="cuda:0", args=(tokens, MESH_DECODE),
+                      timeout_s=MESH_TIMEOUT_S)
+    n = _layer_counts(cfg)
+    r0 = res[0]
+    for r in res:
+        check(r["param_bytes"] == r["param_bytes_specs"],
+              f"rank {r['coords']}: {r['param_bytes']} parameter bytes, "
+              f"the specs give {r['param_bytes_specs']}")
+        check(r["local_experts"] == cfg.n_experts // MESH_SHAPE[1],
+              f"rank {r['coords']} holds {r['local_experts']} experts")
+        check(r["launches_prefill"]["flash_attention"] == n["attn"]
+              and r["launches_prefill"]["ssd"] == n["mamba"],
+              f"rank {r['coords']} prefill launched {r['launches_prefill']}")
+        check(r["routes_prefill"] == {
+            "k4": {"simt": 0, "wgmma": n["attn"]},
+            "k5": {"simt": 0, "wgmma": n["mamba"]}},
+            f"rank {r['coords']} prefill routes {r['routes_prefill']}")
+        check(r["launches_decode"]["flash_attention"] == 0
+              and r["launches_decode"]["ssd"] == 0,
+              f"rank {r['coords']}: a kernel launched in decode")
+        check(r["finite"], f"rank {r['coords']}: non-finite logits")
+        check(torch.equal(r["logits"], r0["logits"]),
+              f"rank {r['coords']}'s logits differ from rank 0's")
+        ep_close = torch.allclose(r["ep"]["out"], ep_want[0], **MESH_EP_TOL)
+        check(ep_close, f"rank {r['coords']}: the f32 dispatch is "
+              f"{_max_err(torch, r['ep']['out'], ep_want[0])} from "
+              f"scatter")
+    check(nccl_bitwise, "the (1, 1) NCCL dispatch differs from scatter")
+    cmp = _mesh_compare(torch, ref, r0, cfg, n["moe"])
+    check(cmp["prefill"]["close"] and cmp["prefill_decode"]["close"],
+          f"mesh vs one process: {cmp}")
+    check(cmp["prefill"]["compared_tokens"] > 0
+          and cmp["prefill_decode"]["compared_tokens"] > 0,
+          f"mesh vs one process: nothing compared: {cmp}")
+    phase_s = time.perf_counter() - t_phase
+    rec = {"phase": "serve_hybrid_mesh", "arch": HYBRID_ARCH,
+           "mesh": dict(zip(MESH_AXES, MESH_SHAPE)), "backend": "gloo",
+           "ranks_share": "cuda:0", "policy": r0["policy"],
+           "batch_axes": r0["batch_axes"], "seq_chunk": r0["seq_chunk"],
+           "local_experts": r0["local_experts"], "batch": SERVE_BATCH,
+           "prompt": SERVE_PROMPT, "decode_steps": MESH_DECODE,
+           "tolerance": {"prefill": MOE_BF16_TOL,
+                         "prefill_decode": HYBRID_DECODE_BF16_TOL,
+                         "ep_f32": MESH_EP_TOL},
+           "vs_one_process": cmp,
+           "ep_f32": {"tokens": list(MESH_EP_TOKENS),
+                      "max_abs_diff": [_max_err(torch, r["ep"]["out"],
+                                                ep_want[0]) for r in res],
+                      "aux": [float(r["ep"]["aux"]) for r in res],
+                      "aux_one_process": ep_want[1]},
+           "nccl_1x1_bitwise": nccl_bitwise, "phase_s": phase_s,
+           "ranks": [{k: r[k] for k in (
+               "coords", "param_bytes", "init_s", "prefill_ms",
+               "decode_ms_steps", "gloo_ms_prefill", "gloo_ms_steps",
+               "prefill_peak_bytes", "peak_bytes", "launches_prefill",
+               "launches_decode", "routes_prefill", "routes_decode")}
+               for r in res]}
+    emit(rec)
+    return {"launches": [r["launches_prefill"] for r in res],
+            "routes": [r["routes_prefill"] for r in res],
+            "launches_decode": [r["launches_decode"] for r in res],
+            "phase_s": phase_s}
+
+
+def _mesh_compare(torch, ref: dict, got: dict, cfg, n_moe: int) -> dict:
+    """The mesh run's logits ``[b, 1 + steps, vocab]`` against the one
+    process's, on the (sequence, position) pairs whose routes and kept
+    slots agree at every MoE layer in both runs and whose inputs are the
+    same (every token generated before them agrees): the prefill's last
+    position at ``MOE_BF16_TOL``, all positions at
+    ``HYBRID_DECODE_BF16_TOL``; with the counts left out."""
+    b = ref["logits"].shape[0]
+    s = SERVE_PROMPT
+    steps = ref["logits"].shape[1] - 1
+    ga = _route_grid(torch, ref["calls"], n_moe, b)["experts"]
+    gb = _route_grid(torch, got["calls"], n_moe, b)["experts"]
+    positions = list(range(s - 1, s + steps))
+    differ = (ga != gb).any(-1)[:, :, positions].any(0)     # [b, P]
+    same_tok = (got["generated"] == ref["generated"])        # [b, steps]
+    inputs = torch.cat([torch.ones(b, 1, dtype=torch.bool),
+                        same_tok.cumprod(1).bool()], dim=1)  # [b, P]
+    held = ~differ & inputs
+    out = {}
+    for key, cols, tol in (("prefill", slice(0, 1), MOE_BF16_TOL),
+                           ("prefill_decode", slice(None), 
+                            HYBRID_DECODE_BF16_TOL)):
+        h = held[:, cols]
+        res = _compare(torch, got["logits"][:, cols][h],
+                       ref["logits"][:, cols][h], tol)
+        res.update(compared_tokens=int(h.sum()),
+                   rerouted_tokens_skipped=int(differ[:, cols].sum()),
+                   diverged_tokens_skipped=int((~inputs[:, cols]
+                                                & ~differ[:, cols]).sum()))
+        out[key] = res
+    out["generated_tokens_equal"] = int(same_tok.sum())
+    out["generated_tokens"] = same_tok.numel()
+    out["routing_decisions_differ"] = int((ga != gb).any(-1).sum())
+    out["routing_decisions"] = int(ga.shape[0] * ga.shape[1] * ga.shape[2])
+    out["bitwise_equal_logits"] = bool(torch.equal(got["logits"],
+                                                   ref["logits"]))
+    return out
 
 
 def _serve_record(cfg, n_params, init_s, prefill_s, step_s, positions,
@@ -4560,6 +4930,11 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
     phase_serve_hybrid_f32(torch, hybrid)
     torch.cuda.empty_cache()
     clock("serve hybrid")
+    hybrid["mesh_ref"]["tokens"] = hybrid["tokens"].cpu()
+    del hybrid["tokens"], hybrid["generated"]
+    torch.cuda.empty_cache()
+    mesh = phase_serve_hybrid_mesh(torch, hybrid["mesh_ref"])
+    clock("serve hybrid mesh")
     audio = phase_serve_audio(torch)
     phase_serve_profile(torch, audio, _audio_cfg(),
                         phase="serve_audio_profile")
@@ -4688,6 +5063,10 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
              "bound_ms", "bound_by")},
          "launches_serve_hybrid": hybrid["launches"]["flash_attention"],
          "launches_by_route_serve_hybrid": hybrid["k4_routes_prefill"],
+         "launches_serve_hybrid_mesh_per_rank": [
+             c["flash_attention"] for c in mesh["launches"]],
+         "launches_by_route_serve_hybrid_mesh_per_rank": [
+             r["k4"] for r in mesh["routes"]],
          "serve_hybrid_shape": {k: timing4_hyb[k] for k in (
              "shape_q", "shape_kv", "ms", "plain_ms", "library_ms",
              "bound_ms", "bound_by")},
@@ -4695,13 +5074,18 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
                                           "flash_attention"),
          "dryrun_32k": dry["kernels"]["flash_attention"],
          "path": "serve (qwen3-0.6b, granite-moe-3b-a800m, internvl2-26b "
-                 "and jamba-v0.1-52b prefill, attn_impl='pallas')"},
+                 "and jamba-v0.1-52b prefill, attn_impl='pallas'; jamba's "
+                 "also on each rank of a (1, 2) mesh)"},
         {**row("ssd", "ssd.cu", "src/repro/kernels/ssd.py:83",
                ssm["launches"]["ssd"], max(err5.values()), timing5),
          "launches_per_prefill": ssm["launches"]["ssd"],
          "launches_by_route": ssm["k5_routes_prefill"], "sass": sass5,
          "launches_serve_hybrid": hybrid["launches"]["ssd"],
          "launches_by_route_serve_hybrid": hybrid["k5_routes_prefill"],
+         "launches_serve_hybrid_mesh_per_rank": [
+             c["ssd"] for c in mesh["launches"]],
+         "launches_by_route_serve_hybrid_mesh_per_rank": [
+             r["k5"] for r in mesh["routes"]],
          "serve_hybrid_shape": {k: timing5_hyb[k] for k in (
              "shape", "ms", "plain_ms", "library_ms", "bound_ms",
              "bound_by")},
@@ -4709,7 +5093,8 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
                                           "ssd"),
          "dryrun_32k": dry["kernels"]["ssd"],
          "path": "serve SSM and hybrid (mamba2-2.7b and jamba-v0.1-52b "
-                 "prefill, ssd_impl='pallas')"}]})
+                 "prefill, ssd_impl='pallas'; jamba's also on each rank of "
+                 "a (1, 2) mesh)"}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

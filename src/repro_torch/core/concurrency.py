@@ -61,6 +61,13 @@ class DeviceSpec:
     # f32 without the tensor cores; a class constant, so the fields stay
     # the reference's.
     peak_flops_f32: ClassVar[float] = 67e12
+    # Links, NVIDIA's published H100 SXM figures (a specification, not a
+    # measurement): NVLink 4 moves 900 GB/s per GPU both ways, 450 GB/s
+    # each way, inside an NVLink domain (up to 256 GPUs through the NVLink
+    # Switch System: the reference's 16 x 16 pod); between domains one
+    # ConnectX-7 NDR InfiniBand port per GPU, 400 Gb/s = 50 GB/s.
+    nvlink_bw: ClassVar[float] = 450e9
+    ib_bw: ClassVar[float] = 50e9
     hbm_bw: float = 3.35e12             # bytes/s
     ici_bw: float = 0.0                 # no H100 meaning
     vmem_bytes: int = 0                 # no H100 meaning

@@ -1,20 +1,49 @@
-"""Worker and host shard maps of the mesh execution path — the pure-logic
-part of ``repro/distributed/sharding.py`` (``WorkerShardMap``,
-``HostShardMap``), copied.  The reference's ``ShardingRules`` and the
-functions after it build JAX mesh ``PartitionSpec``s and stay out of the
-port (ROADMAP M15).
+"""Sharding rules and the worker/host shard maps — port of
+``repro/distributed/sharding.py``.
 
-A *shard* is the mesh path's unit of program dispatch and device placement:
-workers map to shards by ``wid % n_shards``, so a worker keeps its shard
-across elastic churn of other workers.  Devices here are ``torch.device``s
-(:func:`repro_torch.launch.mesh.fl_shard_devices`).
+**Rules.**  Model parameters are nested dicts whose leaf *paths* (keys
+joined with ``/``) follow :mod:`repro_torch.models.lm`'s naming (e.g.
+``stack/p0/wq``, ``embed``, ``stack/p1/moe_up``).  A :class:`ShardingRules`
+is an ordered list of (path regex, spec template); the first match wins.
+A template names *logical* axes, resolved to mesh axes through the
+policy's axis map:
+
+    logical axes:  "tp"   — tensor-parallel (heads / ffn / vocab dims)
+                   "fsdp" — fully-sharded param dim (usually d_model)
+                   "ep"   — expert-parallel (MoE expert dim)
+                   "fl"   — the FL-worker dim of round arrays
+                   None   — replicated
+
+Policies: ``tp`` (params replicated over data/pod), ``fsdp_tp`` and
+``fsdp_tp_ep`` (FSDP over data/pod, experts over the model axis),
+``fsdp_tp_noep`` (experts split like dense layers).  A *spec* is a tuple
+with one entry per dim — a mesh axis name, a tuple of names, or ``None`` —
+exactly a ``PartitionSpec``'s entries.  :func:`filter_spec` drops an axis
+from a dim it does not divide; :func:`shard_tree` gives a rank its slice
+of every leaf (the reference's ``named_shardings`` + ``device_put``) and
+:func:`gather_leaf` puts a leaf back together.
+
+**Shard maps.**  A *shard* is the FL mesh path's unit of program dispatch
+and device placement: workers map to shards by ``wid % n_shards``, so a
+worker keeps its shard across elastic churn of other workers.  Devices
+here are ``torch.device``s (:func:`repro_torch.launch.mesh
+.fl_shard_devices`).
 """
 
 from __future__ import annotations
 
+import math
+import re
 from dataclasses import dataclass
 
-__all__ = ["WorkerShardMap", "HostShardMap"]
+import torch
+
+from repro_torch.distributed import collectives
+
+__all__ = ["ShardingRules", "make_sharding_rules", "spec_for_tree",
+           "filter_spec", "filtered_specs", "local_shape", "global_shape",
+           "shard_leaf", "shard_tree", "gather_leaf", "write_local", "tree_paths", "WorkerShardMap",
+           "HostShardMap"]
 
 
 @dataclass(frozen=True)
@@ -136,3 +165,268 @@ class HostShardMap:
                 nxt.append(slots[-1])
             slots = nxt
         return slots[0]
+
+
+# ---------------------------------------------------------------------------
+# sharding rules
+# ---------------------------------------------------------------------------
+def _axis_names(mesh) -> tuple:
+    """The axis names of a Mesh, of an ``{axis: size}`` dict, or of a tuple
+    of names."""
+    names = getattr(mesh, "axis_names", mesh)
+    return tuple(names)
+
+
+def _leaf_ndim(leaf) -> int:
+    return leaf.ndim if isinstance(leaf, torch.Tensor) else len(leaf)
+
+
+def tree_paths(tree, prefix: str = ""):
+    """``(path, leaf)`` of every leaf of a nested dict, keys joined with
+    ``/`` — the reference's leaf-path convention."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from tree_paths(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _map_paths(fn, tree, prefix: str = ""):
+    return {k: _map_paths(fn, v, f"{prefix}{k}/") if isinstance(v, dict)
+            else fn(f"{prefix}{k}", v) for k, v in tree.items()}
+
+
+@dataclass
+class ShardingRules:
+    """Ordered (regex, template) rules + logical→mesh axis resolution."""
+
+    rules: list  # [(compiled_regex, tuple_of_logical_axes_or_None)]
+    axis_map: dict  # logical -> mesh axis name (str) | tuple | None
+    default: tuple = ()
+
+    def resolve(self, template) -> tuple:
+        out = []
+        for ax in template:
+            m = self.axis_map.get(ax, None) if ax is not None else None
+            if isinstance(m, tuple) and len(m) == 1:
+                m = m[0]
+            out.append(m)
+        return tuple(out)
+
+    def spec_for_path(self, path: str) -> tuple:
+        for rx, template in self.rules:
+            if rx.search(path):
+                return self.resolve(template)
+        return ()
+
+    def tree_specs(self, tree) -> dict:
+        """The spec of every leaf of ``tree`` (a nested dict of tensors or
+        shape tuples) by its path, cut to the leaf's rank."""
+        return _map_paths(lambda path, leaf: self.spec_for_path(path)[
+            :_leaf_ndim(leaf)], tree)
+
+
+def _compile(rules):
+    return [(re.compile(rx), tpl) for rx, tpl in rules]
+
+
+# Leaf names (see repro_torch/models/lm.py): layer-stacked leaves live under
+# "stack/p<i>/" with a leading n_periods dim; embeddings and final norms are
+# unstacked.  embed [V,D] · lm_head [D,V] · wq|wk|wv [L,D,H*hd] · wo
+# [L,H*hd,D] · w_gate|w_up [L,D,F] · w_down [L,F,D] · moe_{gate,up,down}
+# [L,E,...] · router [L,D,E] · mamba_* · norms/biases replicated.
+def make_sharding_rules(policy: str, mesh, *, fl_axes=("data",),
+                        extra_rules=None) -> dict:
+    """Rules for params, round arrays and serve-time caches, the
+    reference's: ``{"params", "arrays", "kv": ShardingRules, "policy"}``.
+    ``mesh``: a Mesh, an ``{axis: size}`` dict or the axis names."""
+    axes = set(_axis_names(mesh))
+    fl_axes = tuple(a for a in fl_axes if a in axes)
+    # FSDP must not reuse an FL-worker axis (the worker dim owns it).
+    fsdp_axes = tuple(a for a in ("pod", "data")
+                      if a in axes and a not in fl_axes)
+    fl = fl_axes if fl_axes else None
+    if policy == "tp":
+        # Experts are not expert-parallel; the per-expert hidden dim F
+        # carries the TP shard (valid for any expert count).
+        axis_map = {"tp": "model", "fsdp": None, "ep": None,
+                    "moe_f": "model", "fl": fl}
+    elif policy in ("fsdp_tp", "fsdp_tp_ep"):
+        axis_map = {"tp": "model", "fsdp": fsdp_axes or None, "ep": "model",
+                    "moe_f": None, "fl": fl}
+    elif policy == "fsdp_tp_noep":
+        axis_map = {"tp": "model", "fsdp": fsdp_axes or None, "ep": None,
+                    "moe_f": "model", "fl": fl}
+    else:
+        raise ValueError(f"unknown sharding policy {policy!r}")
+
+    param_rules = _compile((extra_rules or []) + [
+        (r"(^|/)embed$",        ("tp", "fsdp")),         # [V, D]
+        (r"(^|/)lm_head$",      ("fsdp", "tp")),         # [D, V]
+        (r"(^|/)pos_embed$",    (None, None)),
+        (r"(^|/)patch_proj$",   ("fsdp", "tp")),         # [d_vit, D]
+        (r"/x?b[qkv]$",         (None, "tp")),
+        (r"/x?bo$|/b_down$",    (None,)),
+        (r"/b_up$",             (None, "tp")),
+        (r"/wq$|/wk$|/wv$",     (None, "fsdp", "tp")),   # [L, D, H*hd]
+        (r"/wo$",               (None, "tp", "fsdp")),   # [L, H*hd, D]
+        (r"/w_gate$|/w_up$",    (None, "fsdp", "tp")),   # [L, D, F]
+        (r"/w_down$",           (None, "tp", "fsdp")),   # [L, F, D]
+        (r"/moe_gate$|/moe_up$", (None, "ep", "fsdp", "moe_f")),
+        (r"/moe_down$",          (None, "ep", "moe_f", "fsdp")),
+        (r"/router$",            (None, "fsdp", None)),  # [L, D, E]
+        (r"/mamba_in$",         (None, "fsdp", "tp")),
+        (r"/mamba_out$",        (None, "tp", "fsdp")),
+        (r"/mamba_conv$",       (None, None, "tp")),
+        (r"/mamba_(A|dt_bias|D)$", (None, "tp")),
+        (r"norm|bias|scale|ln_",  ()),
+    ])
+    array_rules = _compile([(r".*", ("fl",))])
+    # Cache [p{i}][leaf], leading n_periods dim: k/v/xk/xv [np, B, T, Hkv,
+    # hd] batch over data(+pod), length over model; conv [np, B, k-1, C]
+    # channels over model; ssm [np, B, H, p, n] heads over model.
+    kv_rules = _compile([
+        (r"/(k|v|xk|xv)$", (None, "kvbatch", "kvseq", None, None)),
+        (r"/conv$",        (None, "kvbatch", None, "tp")),
+        (r"/ssm$",         (None, "kvbatch", "tp", None, None)),
+        (r".*", ("kvbatch",)),
+    ])
+    kv_axis_map = dict(axis_map)
+    kv_axis_map.update({
+        "kvbatch": tuple(a for a in ("pod", "data") if a in axes) or None,
+        "kvseq": "model",
+    })
+    return {
+        "params": ShardingRules(rules=param_rules, axis_map=axis_map),
+        "arrays": ShardingRules(rules=array_rules, axis_map=axis_map),
+        "kv": ShardingRules(rules=kv_rules, axis_map=kv_axis_map),
+        "policy": policy,
+    }
+
+
+def spec_for_tree(rules: ShardingRules, tree) -> dict:
+    return rules.tree_specs(tree)
+
+
+# ---------------------------------------------------------------------------
+# specs on shapes: filter, local shapes, slices, gathers
+# ---------------------------------------------------------------------------
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def filter_spec(spec, shape, ax: dict) -> tuple:
+    """Drop mesh axes from dims they do not evenly divide (batch-1 cells,
+    whisper's 1,500 frames, ...) and axes of size 1 — the reference's
+    ``_filter_spec``: sharding must follow shape."""
+    out = []
+    for i, entry in enumerate(spec):
+        if entry is None or i >= len(shape):
+            out.append(entry)
+            continue
+        keep, size = [], shape[i]
+        for a in _entry_axes(entry):
+            n = ax.get(a, 1)
+            if size % n == 0 and n > 1:
+                keep.append(a)
+                size //= n
+        out.append(tuple(keep) if len(keep) > 1 else (keep[0] if keep
+                                                      else None))
+    return tuple(out)
+
+
+def filtered_specs(spec_tree, shape_tree, mesh) -> dict:
+    """:func:`filter_spec` of every leaf (the reference's
+    ``_filtered_ns``); ``shape_tree`` holds tensors or shape tuples."""
+    from repro_torch.launch.mesh import axis_sizes
+    ax = axis_sizes(mesh)
+
+    def walk(specs, shapes):
+        return {k: walk(specs[k], v) if isinstance(v, dict) else
+                filter_spec(specs[k], tuple(getattr(v, "shape", v)), ax)
+                for k, v in shapes.items()}
+
+    return walk(spec_tree, shape_tree)
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    """A rank's shard shape of a leaf of ``shape`` under ``spec`` (the
+    reference's ``NamedSharding.shard_shape``)."""
+    from repro_torch.launch.mesh import axis_sizes
+    ax = axis_sizes(mesh)
+    out = list(shape)
+    for i, entry in enumerate(spec):
+        n = math.prod(ax[a] for a in _entry_axes(entry))
+        if out[i] % n:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not divide "
+                             f"over {entry} ({n})")
+        out[i] //= n
+    return tuple(out)
+
+
+def _block(entry, mesh) -> tuple:
+    """(this rank's block index, the block count) along a dim split over
+    ``entry``'s axes, the first axis outermost."""
+    idx, n = 0, 1
+    for a in _entry_axes(entry):
+        idx = idx * mesh.axis_size(a) + mesh.axis_index(a)
+        n *= mesh.axis_size(a)
+    return idx, n
+
+
+def global_shape(shape, spec, mesh) -> tuple:
+    """The whole leaf's shape from a rank's shard ``shape``."""
+    return tuple(d * _block(spec[i], mesh)[1] if i < len(spec) else d
+                 for i, d in enumerate(shape))
+
+
+def shard_leaf(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's slice of ``x`` under ``spec``, as a tensor of its own
+    (the full ``x`` can be freed)."""
+    for i, entry in enumerate(spec):
+        idx, n = _block(entry, mesh)
+        if n == 1:
+            continue
+        if x.shape[i] % n:
+            raise ValueError(f"dim {i} of {tuple(x.shape)} does not divide "
+                             f"over {entry} ({n})")
+        block = x.shape[i] // n
+        x = x.narrow(i, idx * block, block)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def shard_tree(tree, specs, mesh) -> dict:
+    """This rank's slice of every leaf of ``tree`` under ``specs``."""
+    return {k: shard_tree(v, specs[k], mesh) if isinstance(v, dict)
+            else shard_leaf(v, specs[k], mesh) for k, v in tree.items()}
+
+
+def gather_leaf(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole leaf from this rank's slice ``x``: all-gathered over the
+    axes of each dim, the last axis of a tuple first (its blocks are the
+    innermost); an axis of one rank gathers nothing."""
+    for i, entry in enumerate(spec):
+        for a in reversed(_entry_axes(entry)):
+            if mesh.axis_size(a) > 1:
+                x = collectives.all_gather(x, mesh, a, dim=i)
+    return x
+
+
+def write_local(local: torch.Tensor, val: torch.Tensor, spec, mesh,
+                start: int = 0, dim: int = 1) -> None:
+    """Copy into this rank's slice ``local`` (under ``spec``) the part of
+    ``val`` it holds: ``val`` spans the whole leaf along every dim but
+    ``dim``, where it covers ``[start, start + val.shape[dim])``."""
+    dst, src = local, val
+    for i in range(local.ndim):
+        idx, _ = _block(spec[i] if i < len(spec) else None, mesh)
+        lo, blk = idx * local.shape[i], local.shape[i]
+        off = start if i == dim else 0
+        a, b = max(lo, off), min(lo + blk, off + val.shape[i])
+        if b <= a:
+            return
+        dst = dst.narrow(i, a - lo, b - a)
+        src = src.narrow(i, a - off, b - a)
+    dst.copy_(src)

@@ -15,15 +15,24 @@ the kernels' launches, device time by kernel from ``torch.profiler``, the
 model-FLOPs share of the card's peak (``mfu``) and the roofline fraction
 (the counted lower bound over the measured time).
 
+With ``--mesh pod`` (or ``multipod``) a serve cell is counted per card of
+the reference's production mesh, (16, 16) ("data", "model") or (2, 16, 16)
+("pod", "data", "model"), on a ``"meta"`` mesh
+(:func:`repro_torch.launch.mesh.make_production_mesh`): the plan of that
+mesh (FSDP/TP policy, the expert-parallel dispatch), one card's shards of
+the parameters, batch and cache, the step of one rank — each layer
+gathered whole — and the collectives it runs, their ring wire bytes
+turned into the roofline's ``collective_s``; ``fits`` is judged per card.
+Train cells are recorded as skipped there (the sharded training step is
+the next slice's).  ``--mesh one``, the default, counts one card holding
+everything, as before.
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun            # all cells
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
         --shape train_4k --set S=32 --set b=8 --run
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh pod
     PYTHONPATH=src python -m repro_torch.launch.report
-
-The reference lowers each cell for 256- and 512-chip TPU meshes
-(``--mesh``); the port runs one card, so there is no mesh flag, and the
-plan is made for a mesh of one device.
 """
 
 from __future__ import annotations
@@ -42,20 +51,35 @@ from repro_torch.configs import ARCH_NAMES, SHAPES, get_arch
 from repro_torch.core.concurrency import DeviceSpec
 from repro_torch.launch.op_cost import (MATMUL_OPS, DataDependentOp,
                                         analyze_step)
-from repro_torch.launch.plan import (make_plan, param_bytes, runnable,
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.plan import (make_plan, param_bytes,
+                                     param_bytes_per_card, runnable,
                                      skip_reason)
 from repro_torch.launch.roofline import HW, model_flops, roofline_terms
 from repro_torch.launch.steps import build_step, device_params
 
 __all__ = ["run_cell", "measure_cell", "skip_record", "first_step",
-           "parse_overrides", "main"]
+           "parse_overrides", "main", "MESHES", "MESH_SKIP"]
+
+MESHES = ("one", "pod", "multipod")
+MESH_SKIP = ("the sharded training step is not ported yet: a train cell on "
+             "a mesh of several cards waits for it (ROADMAP Queue 1)")
 
 _PROFILED_MATMULS = tuple(f"aten::{n}" for n in MATMUL_OPS)
 
 
-def skip_record(arch: str, shape: str) -> dict:
-    return {"arch": arch, "shape": shape, "status": "skip",
-            "reason": skip_reason(get_arch(arch), shape)}
+def skip_record(arch: str, shape: str, mesh: str = "one") -> dict:
+    reason = skip_reason(get_arch(arch), shape)
+    rec = {"arch": arch, "shape": shape, "status": "skip",
+           "reason": reason or MESH_SKIP}
+    if mesh != "one":
+        rec["mesh"] = mesh
+    return rec
+
+
+def _skipped(arch: str, shape: str, mesh: str) -> bool:
+    return not runnable(get_arch(arch), shape) or (
+        mesh != "one" and SHAPES[shape].kind == "train")
 
 
 def first_step(plan, args: tuple) -> tuple:
@@ -89,12 +113,23 @@ def _plan_of(rec: dict):
 
 def run_cell(arch: str, shape: str, *, run: bool = False,
              overrides: dict | None = None, device=None,
-             seed: int = 0) -> dict:
+             seed: int = 0, mesh: str = "one") -> dict:
     """Count one cell on meta tensors and return its record; with ``run``
     also measure it on ``device`` (default ``cuda``; see
-    :func:`measure_cell`).  A step the counter cannot follow (a value read
-    back to the host, a shape made from data) gives ``"status": "fail"``
-    with the op named."""
+    :func:`measure_cell`).  ``mesh`` ``"pod"`` or ``"multipod"`` counts a
+    serve cell per card of the reference's production mesh (a train cell
+    there gives a skip record).  A step the counter cannot follow (a value
+    read back to the host, a shape made from data) gives ``"status":
+    "fail"`` with the op named."""
+    if mesh not in MESHES:
+        raise ValueError(f"mesh must be one of {MESHES}, got {mesh!r}")
+    if mesh != "one":
+        if run:
+            raise ValueError("--run measures one card; a mesh cell is "
+                             "counted only")
+        if _skipped(arch, shape, mesh):
+            return skip_record(arch, shape, mesh)
+        return _run_mesh_cell(arch, shape, mesh, overrides)
     if run:
         device = _card(device)
     plan = make_plan(arch, shape, overrides=overrides)
@@ -144,6 +179,68 @@ def run_cell(arch: str, shape: str, *, run: bool = False,
     if run:
         rec["run"] = measure_cell(rec, device=device, seed=seed)
     return rec
+
+
+def _run_mesh_cell(arch: str, shape: str, mesh_kind: str,
+                   overrides: dict | None) -> dict:
+    """:func:`run_cell` per card of a production mesh (meta backend)."""
+    mesh = make_production_mesh(multi_pod=mesh_kind == "multipod",
+                                backend="meta")
+    n_dev = mesh.size
+    plan = make_plan(arch, shape, mesh, overrides=overrides)
+    t0 = time.perf_counter()
+    fn, args = build_step(plan, "meta", mesh=mesh)
+    try:
+        cost = analyze_step(fn, *args)
+    except DataDependentOp as e:
+        return {"arch": arch, "shape": shape, "mesh": mesh_kind,
+                "status": "fail", "op": e.op, "error": str(e),
+                "overrides": _jsonable(overrides)}
+    count_s = time.perf_counter() - t0
+    spec = DeviceSpec()
+    hw = HW.from_spec(spec)
+    tokens = plan.global_batch * (plan.seq_len if plan.kind != "decode"
+                                  else 1)
+    mf = model_flops(plan.cfg, tokens, "serve")
+    flops = cost.total_flops
+    terms = roofline_terms(flops_per_device=cost.flops,
+                           bytes_per_device=cost.bytes,
+                           wire_ici=cost.wire_bytes_ici,
+                           wire_dcn=cost.wire_bytes_dcn, hw=hw)
+    budget = _budget(spec)
+    return {
+        "arch": arch, "shape": shape, "mesh": mesh_kind, "devices": n_dev,
+        "axes": dict(zip(mesh.axis_names, mesh.shape)), "kind": plan.kind,
+        "policy": plan.policy, "W": plan.W, "P": plan.P, "S": plan.S,
+        "b": plan.b, "batch_axes": list(plan.batch_axes),
+        "moe_dispatch": plan.cfg.moe_dispatch is not None,
+        "overrides": _jsonable(overrides),
+        "param_bytes": param_bytes(plan.cfg),
+        "param_bytes_per_card": param_bytes_per_card(plan, mesh),
+        "count_s": count_s, "ops": cost.ops,
+        "memory_analysis": {
+            "argument_size_in_bytes": cost.argument_bytes,
+            "output_size_in_bytes": cost.output_bytes,
+            "temp_size_in_bytes": cost.peak_live_bytes - cost.argument_bytes,
+            "peak_live_bytes": cost.peak_live_bytes},
+        "budget_bytes": budget, "fits": cost.peak_live_bytes <= budget,
+        "flops_per_device": flops, "flops_by_dtype": cost.flops,
+        "matmul_flops": cost.matmul_flops,
+        "bytes_per_device": cost.bytes, "kernels": cost.kernels,
+        "collectives": {"count": sum(c["count"] for c in
+                                     cost.collectives.values()),
+                        "wire_bytes_ici": cost.wire_bytes_ici,
+                        "wire_bytes_dcn": cost.wire_bytes_dcn,
+                        "by_kind": cost.collectives},
+        "model_flops_total": mf, "model_flops_per_device": mf / n_dev,
+        "useful_ratio": (mf / n_dev) / flops if flops else 0.0,
+        "roofline": terms, "hw": {"name": spec.name,
+                                  "peak_flops": hw.peak_flops,
+                                  "hbm_bw": hw.hbm_bw,
+                                  "link_bw": hw.link_bw,
+                                  "dcn_bw": hw.dcn_bw},
+        "status": "ok",
+    }
 
 
 def _card(device) -> torch.device:
@@ -284,6 +381,10 @@ def main(argv=None) -> int:
                     help="suffix for the output json (variant runs)")
     ap.add_argument("--run", action="store_true",
                     help="also run each cell on the card")
+    ap.add_argument("--mesh", choices=MESHES, default="one",
+                    help="one card (default), or count serve cells per card "
+                         "of the reference's 16x16 (pod) or 2x16x16 "
+                         "(multipod) mesh")
     args = ap.parse_args(argv)
     overrides = parse_overrides(args.set)
     archs = [args.arch] if args.arch else ARCH_NAMES
@@ -294,14 +395,17 @@ def main(argv=None) -> int:
         for shape in shapes:
             tag = f"{arch:24s} {shape:12s}"
             suffix = f"__{args.tag}" if args.tag else ""
+            if args.mesh != "one":
+                suffix = f"__{args.mesh}{suffix}"
             path = os.path.join(args.out, f"{arch}__{shape}{suffix}.json")
-            if not runnable(get_arch(arch), shape):
-                rec = skip_record(arch, shape)
+            if _skipped(arch, shape, args.mesh):
+                rec = skip_record(arch, shape, args.mesh)
                 print(f"SKIP {tag} ({rec['reason'][:60]}...)")
             else:
                 try:
                     rec = run_cell(arch, shape, run=args.run,
-                                   overrides=overrides or None)
+                                   overrides=overrides or None,
+                                   mesh=args.mesh)
                 except Exception as e:  # noqa: BLE001 — record, go on
                     rec = {"arch": arch, "shape": shape, "status": "fail",
                            "error": repr(e), "overrides": _jsonable(overrides),

@@ -20,6 +20,10 @@ counts on a laptop) or on real ones.  Its rules are ``hlo_cost.py``'s:
   allocation move none;
 * each hand-written kernel's call (a meta tensor takes the kernel route's
   meta branch) adds its work from :mod:`repro_torch.kernels.work`;
+* each collective a meta mesh runs (:mod:`repro_torch.distributed
+  .collectives`) adds its count, payload and ring wire bytes per rank
+  (``collectives``; ``wire_bytes_ici`` inside a pod, ``wire_bytes_dcn``
+  over the ``pod`` axis), and the buffer it returns counts as live;
 * ``peak_live_bytes`` — the step's arguments plus the most bytes of
   storages it allocated that were alive at once, tracked at allocation and
   at free (a storage's finalizer), plus, during an op, the workspace it
@@ -41,6 +45,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import set_checkpoint_early_stop
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import work
 
 __all__ = ["OpCost", "DataDependentOp", "analyze_step", "MATMUL_OPS"]
@@ -112,6 +117,9 @@ class OpCost:
     ops: int = 0
     by_op: dict = field(default_factory=dict)    # op -> count/flops/bytes
     kernels: dict = field(default_factory=dict)  # kernel -> calls/flops/bytes
+    collectives: dict = field(default_factory=dict)  # kind -> count/bytes/wire
+    wire_bytes_ici: float = 0.0                  # per rank, inside a pod
+    wire_bytes_dcn: float = 0.0                  # per rank, over "pod"
 
     @property
     def total_flops(self) -> float:
@@ -181,6 +189,17 @@ class _Counter(TorchDispatchMode):
         row["flops"] += w.flops
         row["bytes"] += w.bytes
         self._add(f"kernel:{kernel}", w.flops, w.bytes, _name(w.dtype))
+
+    def collective(self, c: coll.Collective):
+        row = self.cost.collectives.setdefault(c.kind, {
+            "count": 0, "bytes": 0, "wire_bytes": 0.0})
+        row["count"] += 1
+        row["bytes"] += c.bytes
+        row["wire_bytes"] += c.wire_bytes
+        if c.axis == "pod":
+            self.cost.wire_bytes_dcn += c.wire_bytes
+        else:
+            self.cost.wire_bytes_ici += c.wire_bytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -261,8 +280,8 @@ def analyze_step(fn, *args, **kwargs) -> OpCost:
     # early (at its last saved tensor); the step run plainly recomputes
     # each region whole (its profile's matrix products say so), so the
     # count does too.
-    with work.counting(counter.kernel), set_checkpoint_early_stop(False), \
-            counter:
+    with work.counting(counter.kernel), coll.counting(counter.collective), \
+            set_checkpoint_early_stop(False), counter:
         out = fn(*args, **kwargs)
     cost.peak_live_bytes += cost.argument_bytes
     outs = {}

@@ -1,27 +1,33 @@
-"""Per-(arch × shape) execution planning — port of ``repro/launch/plan.py``.
+"""Per-(arch × shape × mesh) execution planning — port of
+``repro/launch/plan.py``.
 
 ``make_plan`` decides, for one dry-run or training cell, what the
-reference decides from its mesh's axis sizes (``axis_sizes(mesh)``, the
-only thing its logic reads), here given as a dict:
+reference decides from its mesh's axis sizes:
 
 * the FL worker topology: which axes index Pollen workers (W), lanes per
   worker (P), local steps (S), per-step batch (b), with W·P·S·b equal to
   the cell's global batch;
-* the sharding ``policy`` label: ``"tp"`` where one client copy fits a
-  worker, ``"fsdp_tp"`` for the archs above :data:`LARGE_PARAM_BYTES`;
+* the sharding ``policy``: ``"tp"`` where one client copy fits a worker,
+  ``"fsdp_tp"`` for the archs above :data:`LARGE_PARAM_BYTES`;
 * the implementation knobs (attention, MoE dispatch, remat, loss chunk,
-  SSD chunk, learned-position table) the reference sizes from napkin math.
+  SSD chunk, learned-position table) the reference sizes from napkin math;
+* given a :class:`~repro_torch.launch.mesh.Mesh`, the expert-parallel
+  ``moe_dispatch`` hook (:func:`~repro_torch.distributed.ep_dispatch
+  .make_ep_dispatch`) exactly where the reference sets it: large MoE archs
+  whose expert count divides the model axis, outside a vmapped train cell.
 
-The reference also injects sharding hooks (``act_shard``, ``act_gather``,
-``act_shard_logits``, ``act_shard_moe``, ``moe_dispatch``): they split one
-client's activations and weights over a TP/FSDP/EP mesh of several chips.
-The port places whole clients on one card, so the plan keeps the
-``policy`` label and leaves every hook unset (``docs/PORT.md``, the
-``ShardingRules`` decision).
+Given only axis sizes (a dict, or nothing: one card) the hooks stay unset,
+so the one-card dry-run counts what it counted before.  The reference's
+other hooks (``act_shard``, ``act_gather``, ``act_shard_logits``,
+``act_shard_moe``) are ``with_sharding_constraint``s: they change no
+value, only XLA's layout, and stay unset here (ROADMAP, the ``act_*``
+layouts).
 
-``input_specs`` gives meta tensors of the reference's shapes and dtypes for
-every input of the planned step; ``meta_params`` the parameters the same
-way, from :func:`~repro_torch.models.lm.param_shapes` (no weights drawn).
+:func:`sharding_specs` gives the filtered specs of the parameters and of
+each input of the planned step on a mesh; ``input_specs`` gives meta
+tensors of the reference's shapes and dtypes for every input;
+``meta_params`` the parameters the same way, from
+:func:`~repro_torch.models.lm.param_shapes` (no weights drawn).
 """
 
 from __future__ import annotations
@@ -32,11 +38,15 @@ from dataclasses import dataclass, replace
 import torch
 
 from repro_torch.configs import SHAPES, ArchConfig, get_arch
+from repro_torch.distributed.sharding import (filtered_specs,
+                                              make_sharding_rules)
+from repro_torch.launch.mesh import Mesh, axis_sizes
 from repro_torch.models import lm
 
 __all__ = ["make_plan", "input_specs", "Plan", "LARGE_PARAM_BYTES",
            "param_bytes", "param_leaves", "runnable", "skip_reason",
-           "meta_params", "DEFAULT_AXES"]
+           "meta_params", "DEFAULT_AXES", "sharding_specs", "cache_specs",
+           "param_bytes_per_card"]
 
 LARGE_PARAM_BYTES = 16e9      # bf16 bytes; above this one client = one pod
 # One card: a mesh of one device, as the reference's 1x1 test mesh.
@@ -77,6 +87,17 @@ def param_bytes(cfg: ArchConfig) -> int:
                for _, shape, dtype in param_leaves(cfg))
 
 
+def param_bytes_per_card(plan: "Plan", mesh) -> int:
+    """Bytes of one card's parameter shards under the plan's specs on
+    ``mesh`` (a Mesh or axis sizes): the reference's ``NamedSharding
+    .shard_shape`` of every leaf, times its item size."""
+    from repro_torch.distributed.sharding import local_shape, tree_paths
+    specs = dict(tree_paths(sharding_specs(plan, mesh)["params"]))
+    return sum(math.prod(local_shape(shape, specs[path], mesh))
+               * torch.empty((), dtype=dtype).element_size()
+               for path, shape, dtype in param_leaves(plan.cfg))
+
+
 def skip_reason(cfg: ArchConfig, shape_name: str) -> str | None:
     """The assignment's declared skips."""
     if shape_name not in SHAPES:
@@ -106,7 +127,7 @@ class Plan:
     seq_axes: tuple            # activation sequence sharding (SP)
     seq_len: int
     global_batch: int
-    cfg: ArchConfig            # knobs injected; sharding hooks unset
+    cfg: ArchConfig            # knobs (+ moe_dispatch on a mesh) injected
     large: bool
 
     @property
@@ -118,19 +139,21 @@ class Plan:
 
 
 def make_plan(arch: str | ArchConfig, shape_name: str,
-              axes: dict | None = None,
+              axes: dict | Mesh | None = None,
               overrides: dict | None = None) -> Plan:
-    """The plan of one cell on a mesh of ``axes`` (axis name -> size, in
-    mesh order; default one card).  ``overrides``: hillclimb knobs — plan
-    fields (W/P/S/b/worker_axes/batch_axes/seq_axes/policy) and/or
-    ArchConfig knob fields (attn_impl, moe_seq_chunk, loss_chunk, …)
-    applied on top of the default plan, as in the reference."""
+    """The plan of one cell on ``axes``: a :class:`Mesh` (the hooks are
+    made for it), or axis sizes ``{name: size}`` in mesh order (default
+    one card; no hooks).  ``overrides``: hillclimb knobs — plan fields
+    (W/P/S/b/worker_axes/batch_axes/seq_axes/policy) and/or ArchConfig knob
+    fields (attn_impl, moe_seq_chunk, loss_chunk, …) applied on top of the
+    default plan, as in the reference."""
     cfg = get_arch(arch) if isinstance(arch, str) else arch
     shape = SHAPES[shape_name]
     reason = skip_reason(cfg, shape_name)
     if reason:
         raise ValueError(f"{cfg.name} × {shape_name} skipped: {reason}")
-    ax = dict(DEFAULT_AXES if axes is None else axes)
+    mesh = axes if isinstance(axes, Mesh) else None
+    ax = axis_sizes(DEFAULT_AXES if axes is None else axes)
     has_pod = "pod" in ax
     large = param_bytes(cfg) > LARGE_PARAM_BYTES
     gb, seq = shape.global_batch, shape.seq_len
@@ -220,7 +243,18 @@ def make_plan(arch: str | ArchConfig, shape_name: str,
         if shape.kind == "train" and W * Pl * S * b != gb:
             raise ValueError(f"override does not factor {gb}: "
                              f"{W}·{Pl}·{S}·{b}")
-    cfg2 = replace(cfg, **knobs)
+    hooks = {}
+    n_model = ax.get("model", 1)
+    vmapped_train = shape.kind == "train" and not (W == 1 and Pl == 1)
+    if mesh is not None and cfg.moe and large \
+            and cfg.n_experts % n_model == 0 and not vmapped_train:
+        from repro_torch.distributed.ep_dispatch import make_ep_dispatch
+        # Wide experts (jamba's 14,336) need the seq-chunked dispatch.
+        hooks["moe_dispatch"] = make_ep_dispatch(
+            mesh, batch_axes=batch_axes or (), model_axis="model",
+            fsdp_axis=("data" if "data" not in worker_axes else None),
+            seq_chunk=2048 if cfg.moe_d_ff >= 4096 else 0)
+    cfg2 = replace(cfg, **knobs, **hooks)
     policy = (overrides or {}).get("policy",
                                    "fsdp_tp" if large else "tp")
     return Plan(arch=cfg.name, shape=shape_name, kind=shape.kind,
@@ -275,3 +309,50 @@ def input_specs(plan: Plan, device="meta") -> dict:
         "tokens": _spec((plan.b, 1), i32, device),
         "pos": _spec((), i32, device),
     }
+
+
+def cache_specs(cfg: ArchConfig, rules: dict, batch: int, max_len: int,
+                mesh) -> dict:
+    """The filtered kv specs of the serve cache of ``batch`` sequences of
+    ``max_len`` (the reference's ``kv`` rules on ``init_cache``'s tree)."""
+    cache = lm.init_cache(cfg, batch, max_len, device="meta")
+    return filtered_specs(rules["kv"].tree_specs(cache), cache, mesh)
+
+
+def sharding_specs(plan: Plan, mesh) -> dict:
+    """The filtered specs of the parameters (``params``) and of each input
+    group of the planned step on ``mesh`` (a Mesh or axis sizes) — the
+    reference's ``sharding_specs``, as spec tuples where it gives
+    ``NamedSharding``s: ``rules``, ``params_shapes``; a train cell's
+    ``batches`` and ``masks``; a prefill's ``batch`` and ``cache``; a
+    decode's ``cache``, ``tokens`` and ``logits``."""
+    from repro_torch.distributed.sharding import filter_spec
+    rules = make_sharding_rules(plan.policy, mesh, fl_axes=plan.worker_axes)
+    shapes = lm.param_shapes(plan.cfg)
+    out = {"params": filtered_specs(rules["params"].tree_specs(shapes),
+                                    shapes, mesh),
+           "rules": rules, "params_shapes": shapes}
+    ax = axis_sizes(mesh)
+    fl = plan.worker_axes or None
+    ba = plan.batch_axes or None
+    specs = input_specs(plan)
+
+    def lead(x, spec):
+        spec = tuple(spec) + (None,) * (x.ndim - len(spec))
+        return filter_spec(spec, tuple(x.shape), ax)
+
+    if plan.kind == "train":
+        out["batches"] = {k: lead(v, (fl, None, None, ba))
+                          for k, v in specs["batches"].items()}
+        out["masks"] = (fl, None, None)
+    elif plan.kind == "prefill":
+        out["batch"] = {k: lead(v, (ba,)) for k, v in specs["batch"].items()}
+        out["cache"] = cache_specs(plan.cfg, rules, plan.b, plan.seq_len,
+                                   mesh)
+    else:
+        out["cache"] = cache_specs(plan.cfg, rules, plan.b, plan.seq_len,
+                                   mesh)
+        out["tokens"] = filter_spec((ba, None), (plan.b, 1), ax)
+        out["logits"] = filter_spec((ba, "model"),
+                                    (plan.b, plan.cfg.padded_vocab), ax)
+    return out

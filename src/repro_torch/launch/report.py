@@ -6,7 +6,9 @@ port of ``repro/launch/report.py``.
 
 The memory budget is the card's (``budget_bytes`` in each record: its
 memory less the share the runtime keeps), and the model-FLOPs fraction is
-taken against the card's dense bf16 peak (``hw`` in each record).
+taken against the card's dense bf16 peak (``hw`` in each record).  A
+record counted per card of a mesh (``dryrun --mesh pod``) is labelled
+with its mesh; its collective term is its wire bytes over the link rates.
 """
 
 from __future__ import annotations
@@ -35,17 +37,23 @@ def _plan(r: dict) -> str:
     return f"b={r['b']} / {r['policy']}"
 
 
+def _cell(r: dict) -> str:
+    """``arch | shape``, the shape labelled with its mesh where it has one."""
+    mesh = f" @ {r['mesh']}" if r.get("mesh") else ""
+    return f"{r['arch']} | {r['shape']}{mesh}"
+
+
 def dryrun_table(recs) -> str:
     lines = ["| arch | shape | plan (W·P·S·b / policy) | peak live GB "
              "(args + temp) | fits | GFLOPs | GB moved | kernels |",
              "|---|---|---|---|---|---|---|---|"]
     for r in recs:
         if r.get("status") == "skip":
-            lines.append(f"| {r['arch']} | {r['shape']} | — | — | skip | — "
+            lines.append(f"| {_cell(r)} | — | — | skip | — "
                          f"| — | — |")
             continue
         if r.get("status") != "ok":
-            lines.append(f"| {r['arch']} | {r['shape']} | — | — | **FAIL** "
+            lines.append(f"| {_cell(r)} | — | — | **FAIL** "
                          f"({r.get('op') or r.get('error', '')[:40]}) | — "
                          f"| — | — |")
             continue
@@ -55,19 +63,19 @@ def dryrun_table(recs) -> str:
         kernels = ", ".join(f"{k} ×{v['calls']}"
                             for k, v in r["kernels"].items()) or "—"
         lines.append(
-            f"| {r['arch']} | {r['shape']} | {_plan(r)} | {peak / 1e9:.2f} "
+            f"| {_cell(r)} | {_plan(r)} | {peak / 1e9:.2f} "
             f"| {fits} | {r['flops_per_device'] / 1e9:.0f} "
             f"| {r['bytes_per_device'] / 1e9:.0f} | {kernels} |")
     return "\n".join(lines)
 
 
 def roofline_table(recs) -> str:
-    lines = ["| arch | shape | compute_s | memory_s | dominant | "
-             "MODEL/counted flops | roofline frac | model frac |",
-             "|---|---|---|---|---|---|---|---|"]
+    lines = ["| arch | shape | compute_s | memory_s | collective_s | "
+             "dominant | MODEL/counted flops | roofline frac | model frac |",
+             "|---|---|---|---|---|---|---|---|---|"]
     for r in recs:
         if r.get("status") == "skip":
-            lines.append(f"| {r['arch']} | {r['shape']} | — | — | skip | — "
+            lines.append(f"| {_cell(r)} | — | — | — | skip | — "
                          f"| — | — |")
             continue
         if r.get("status") != "ok":
@@ -78,8 +86,9 @@ def roofline_table(recs) -> str:
         model_frac = (r["model_flops_per_device"] / peak) / bound \
             if bound else 0.0
         lines.append(
-            f"| {r['arch']} | {r['shape']} | {t['compute_s']:.4g} "
-            f"| {t['memory_s']:.4g} | {t['dominant'].replace('_s', '')} "
+            f"| {_cell(r)} | {t['compute_s']:.4g} "
+            f"| {t['memory_s']:.4g} | {t['collective_s']:.4g} "
+            f"| {t['dominant'].replace('_s', '')} "
             f"| {r['useful_ratio']:.3f} | {t['roofline_fraction']:.4f} "
             f"| {model_frac:.4f} |")
     return "\n".join(lines)
@@ -98,7 +107,7 @@ def run_table(recs) -> str:
         over = ", ".join(f"{k}={v}" for k, v in r.get("overrides",
                                                       {}).items()) or "—"
         lines.append(
-            f"| {r['arch']} | {r['shape']} | {over} | {m['step_s']:.4g} "
+            f"| {_cell(r)} | {over} | {m['step_s']:.4g} "
             f"| {r['roofline']['step_lower_bound_s']:.4g} "
             f"| {m['roofline_fraction']:.4f} | {m['mfu']:.4f} "
             f"| {m['peak_bytes'] / 1e9:.2f} "
@@ -119,7 +128,7 @@ def main(argv=None) -> int:
         print("### Dry-run table\n")
         print(dryrun_table(recs))
     if args.section in ("roofline", "both"):
-        print("\n### Roofline table (one card)\n")
+        print("\n### Roofline table (per card)\n")
         print(roofline_table(recs))
     if args.section in ("run", "both"):
         print("\n### Cells run on the card\n")

@@ -12,7 +12,10 @@ port of ``repro/launch/steps.py``.
 The reference jits these with the plan's shardings and lowers them on
 ``ShapeDtypeStruct`` stand-ins; :func:`build_step` binds them to tensors on
 a device instead: meta tensors (nothing allocated, nothing computed) for
-the cost counter, or random inputs on the card for a run.
+the cost counter, or random inputs on the card for a run.  Given a mesh of
+several ranks it binds a serve step to this rank's shards (parameters,
+batch, cache) under the plan's specs; a train step on such a mesh is the
+next slice's (ROADMAP, the sharded training step).
 """
 
 from __future__ import annotations
@@ -26,7 +29,10 @@ import torch
 from repro_torch.core import EngineConfig  # noqa: F401
 from repro_torch.fl.round import make_round_step
 from repro_torch.kernels.layout import flatten_tree
-from repro_torch.launch.plan import Plan, input_specs, meta_params
+from repro_torch.distributed.sharding import (local_shape, shard_leaf,
+                                              shard_tree, tree_paths)
+from repro_torch.launch.plan import (Plan, input_specs, meta_params,
+                                     sharding_specs)
 from repro_torch.models import lm, make_lane_loss_fn
 from repro_torch.optim import sgd
 
@@ -47,35 +53,42 @@ def make_train_step(plan: Plan, *, agg_impl: str = "kernel"):
                            agg_impl=agg_impl)
 
 
-def make_prefill_step(plan: Plan, device):
+def make_prefill_step(plan: Plan, device, *, mesh=None, specs=None):
     cfg = plan.cfg
 
     def prefill_step(params, batch):
-        return lm.prefill(params, batch, cfg, device=device)
+        return lm.prefill(params, batch, cfg, device=device, mesh=mesh,
+                          specs=specs)
 
     return prefill_step
 
 
-def make_decode_step(plan: Plan, device):
+def make_decode_step(plan: Plan, device, *, mesh=None, specs=None):
     """One token at the cache's last slot (``seq_len - 1``): the reference
     passes a traced position, the port's ``decode_step`` an int."""
     cfg = plan.cfg
     pos = plan.seq_len - 1
 
     def serve_step(params, cache, tokens):
-        return lm.decode_step(params, cache, tokens, pos, cfg, device=device)
+        return lm.decode_step(params, cache, tokens, pos, cfg, device=device,
+                              mesh=mesh, specs=specs)
 
     return serve_step
 
 
-def device_params(cfg, seed: int, device) -> dict:
+def device_params(cfg, seed: int, device, *, keep=None) -> dict:
     """Random weights of ``cfg`` drawn on ``device`` from ``seed``, in the
     dtypes :func:`~repro_torch.models.lm.init_params` gives: its fixed
     leaves (:func:`~repro_torch.models.lm.fixed_leaf`) as it makes them;
     every other leaf N(0, 1) clipped at ±2 times its scale (``1/√fan_in``;
     0.02 for embeddings and learned positions), the truncated normal of
     ``dense_init`` clipped instead of redrawn, so that billions of weights
-    cost no host time.  The weights differ from ``init_params(seed)``'s."""
+    cost no host time.  The weights differ from ``init_params(seed)``'s.
+
+    ``keep(path, leaf)``, where given, is applied to each leaf as soon as it
+    is drawn (``path`` its keys joined with ``/``), and its result is kept:
+    a rank of a mesh keeps its shard, so the whole model never exists at
+    once, and draws every leaf as one process would."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
 
@@ -90,9 +103,16 @@ def device_params(cfg, seed: int, device) -> dict:
         w = torch.randn(shape, generator=gen, device=device)
         return w.clamp_(-2.0, 2.0).mul_(scale).to(dtype)
 
-    def build(shapes):
-        return {k: build(v) if isinstance(v, dict) else leaf(k, tuple(v))
-                for k, v in shapes.items()}
+    def build(shapes, prefix=""):
+        out = {}
+        for k, v in shapes.items():
+            if isinstance(v, dict):
+                out[k] = build(v, f"{prefix}{k}/")
+            else:
+                out[k] = leaf(k, tuple(v))
+                if keep is not None:
+                    out[k] = keep(f"{prefix}{k}", out[k])
+        return out
 
     return build(lm.param_shapes(cfg))
 
@@ -108,7 +128,7 @@ def _fill(spec: torch.Tensor, cfg, gen) -> torch.Tensor:
 
 
 def build_step(plan: Plan, device="meta", *, params: dict | None = None,
-               seed: int = 0):
+               seed: int = 0, mesh=None):
     """``(fn, args)``: the plan's step and its inputs on ``device``.
 
     On meta (the default) the parameters are :func:`~repro_torch.launch
@@ -117,8 +137,16 @@ def build_step(plan: Plan, device="meta", *, params: dict | None = None,
     default :func:`device_params`) and random inputs from ``seed``: a train
     cell's lanes each hold one client of S real steps (mask 1, the
     boundary and the weight ``b`` at the last step), a decode cell starts
-    from a zeroed cache."""
+    from a zeroed cache.
+
+    With ``mesh`` (of more than one rank) a serve step's parameters, batch
+    and cache are this rank's shards under :func:`~repro_torch.launch.plan
+    .sharding_specs` (``params``, where given, must be shards already);
+    inputs are drawn whole from ``seed`` and sliced, so every rank's slices
+    make one batch."""
     device = torch.device(device)
+    if mesh is not None and mesh.size > 1:
+        return _build_mesh_step(plan, device, params, seed, mesh)
     meta = device.type == "meta"
     cfg = plan.cfg
     if params is None:
@@ -147,3 +175,41 @@ def build_step(plan: Plan, device="meta", *, params: dict | None = None,
         return make_prefill_step(plan, device), (params, batch)
     tokens = specs["tokens"] if meta else _fill(specs["tokens"], cfg, gen)
     return make_decode_step(plan, device), (params, specs["cache"], tokens)
+
+
+def _build_mesh_step(plan: Plan, device, params, seed: int, mesh):
+    """:func:`build_step` on a mesh of several ranks (serve cells)."""
+    if plan.kind == "train":
+        raise NotImplementedError(
+            f"{plan.arch} × {plan.shape}: the sharded training step is not "
+            f"ported yet (ROADMAP Queue 1, the sharded training step)")
+    meta = device.type == "meta"
+    cfg = plan.cfg
+    specs = sharding_specs(plan, mesh)
+    if params is None:
+        if meta:
+            params = shard_tree(meta_params(cfg), specs["params"], mesh)
+        else:
+            pspec = dict(tree_paths(specs["params"]))
+            params = device_params(cfg, seed, device, keep=lambda path, x:
+                                   shard_leaf(x, pspec[path], mesh))
+    whole = input_specs(plan, "meta")
+    gen = None if meta else torch.Generator(device=device).manual_seed(
+        int(seed) + 1)
+
+    def draw(spec_t):
+        t = torch.empty(spec_t.shape, dtype=spec_t.dtype, device=device)
+        return t if meta else _fill(t, cfg, gen)
+
+    if plan.kind == "prefill":
+        batch = shard_tree({k: draw(v) for k, v in whole["batch"].items()},
+                           specs["batch"], mesh)
+        return (make_prefill_step(plan, device, mesh=mesh, specs=specs),
+                (params, batch))
+    cache = {key: {name: torch.zeros(
+        local_shape(leaf.shape, specs["cache"][key][name], mesh),
+        dtype=leaf.dtype, device=device) for name, leaf in block.items()}
+        for key, block in whole["cache"].items()}
+    tokens = shard_leaf(draw(whole["tokens"]), specs["tokens"], mesh)
+    return (make_decode_step(plan, device, mesh=mesh, specs=specs),
+            (params, cache, tokens))

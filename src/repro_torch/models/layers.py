@@ -348,27 +348,16 @@ def _moe_dispatch(x, router_w, moe_gate, moe_up, moe_down, *, top_k: int,
     """
     if ep_shard is not None:
         raise NotImplementedError(
-            "ep_shard: expert-parallel buffer sharding needs a mesh of "
-            "several cards; the port runs MoE on one card, where it is not "
-            "applicable (docs/PORT.md)")
-    T, D = x.shape
+            "ep_shard: the act_shard_moe layout hook (an XLA sharding "
+            "constraint on the [E, C, ...] buffers) is not ported: the port "
+            "splits experts over a mesh with moe_dispatch "
+            "(distributed/ep_dispatch.py) instead (ROADMAP, the act_* "
+            "layouts)")
     E = router_w.shape[-1]
-    logits = (x @ router_w).float()                         # [T, E]
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, gate_idx = _top_k(probs, top_k)              # [T, k]
-    gate_vals = gate_vals / torch.clamp(
-        gate_vals.sum(-1, keepdim=True), min=1e-9)          # renormalize
-    C = max(1, int(capacity_factor * top_k * T / E))
-
-    # position of each (token, k) within its expert's capacity buffer: a
-    # running count down the flat [T*k, E] one-hot, taken along the rows of
-    # its contiguous transpose (CUDA scans a column-wise cumsum with one
-    # thread a column: 16 ms a layer at 65,536 x 40).
-    flat_onehot = F.one_hot(gate_idx.reshape(T * top_k), E)  # [T*k, E]
-    counts = torch.cumsum(flat_onehot.T.contiguous(), dim=1).T
-    pos_in_expert = counts * flat_onehot - 1
-
+    probs, gate_vals, gate_idx, C, pos_in_expert = _route(
+        x, router_w, top_k=top_k, capacity_factor=capacity_factor)
     if impl == "einsum":
+        T = x.shape[0]
         # One-hot over C of each slot's position: -1 (not this expert) and
         # positions >= C (dropped) match no column, so their rows are zero
         # (``jax.nn.one_hot(-1, C)`` in the reference).
@@ -381,35 +370,78 @@ def _moe_dispatch(x, router_w, moe_gate, moe_up, moe_down, *, top_k: int,
         expert_out = torch.einsum("ecf,efd->ecd", h, moe_down)  # [E, C, D]
         out = torch.einsum("tkec,ecd->td", combine, expert_out)
     elif impl == "scatter":
-        flat_expert = gate_idx.reshape(-1)                       # [T*k]
-        flat_pos = pos_in_expert.gather(1, flat_expert[:, None])[:, 0]
-        ok = (flat_pos >= 0) & (flat_pos < C)
-        slot = torch.where(ok, flat_expert * C + flat_pos, E * C)
-        # The reference scatter-adds the tokens into [E*C + 1, D], every
-        # dropped slot onto the overflow row E*C.  Each kept slot has a row
-        # of its own, so that is a gather: ``src`` maps each buffer row to
-        # the token of the slot that lands there, or to a zero row (T).  It
-        # is built with unique indices (each dropped slot parked on a row
-        # of its own past the buffer): on the card a deterministic scatter
-        # serialises repeated indices, 15 ms a layer at granite's prefill.
-        n = T * top_k
-        arange = torch.arange(n, device=x.device)
-        dest = torch.where(ok, slot, E * C + arange)
-        src = torch.full((E * C + n,), T, dtype=torch.long, device=x.device)
-        src.index_copy_(0, dest, arange // top_k)
-        x_pad = torch.cat([x, x.new_zeros(1, D)])
-        expert_in = x_pad[src[:E * C]].reshape(E, C, D)
-        h = F.silu(torch.bmm(expert_in, moe_gate))
-        h = h * torch.bmm(expert_in, moe_up)
-        expert_out = torch.bmm(h, moe_down).reshape(E * C, D)
-        expert_out = torch.cat([expert_out, x.new_zeros(1, D)])
-        gathered = expert_out[slot]                              # [T*k, D]
-        out = (gathered.reshape(T, top_k, D)
-               * gate_vals[..., None].to(x.dtype)).sum(dim=1)
+        out = _scatter_experts(x, gate_vals, gate_idx, pos_in_expert, C,
+                               moe_gate, moe_up, moe_down)
     else:
         raise ValueError(f"unknown moe impl {impl!r}")
+    return out.to(x.dtype), _switch_aux(probs, gate_idx, E)
 
-    # Switch-style load-balance ingredients.
+
+def _route(x, router_w, *, top_k: int, capacity_factor: float):
+    """Routing of tokens ``x [T, D]`` over all ``E`` experts: ``(probs [T,
+    E] f32, gate_vals [T, k] renormalised, gate_idx [T, k], C,
+    pos_in_expert [T*k, E])`` — each (token, k) slot's position in its
+    expert's buffer (-1 in the other experts' columns), first come first
+    served in (token, k) order; capacity ``C = max(1, int(cf·k·T/E))``."""
+    T = x.shape[0]
+    E = router_w.shape[-1]
+    logits = (x @ router_w).float()                         # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = _top_k(probs, top_k)              # [T, k]
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(-1, keepdim=True), min=1e-9)          # renormalize
+    C = max(1, int(capacity_factor * top_k * T / E))
+    # A running count down the flat [T*k, E] one-hot, taken along the rows
+    # of its contiguous transpose (CUDA scans a column-wise cumsum with one
+    # thread a column: 16 ms a layer at 65,536 x 40).
+    flat_onehot = F.one_hot(gate_idx.reshape(T * top_k), E)  # [T*k, E]
+    counts = torch.cumsum(flat_onehot.T.contiguous(), dim=1).T
+    return probs, gate_vals, gate_idx, C, counts * flat_onehot - 1
+
+
+def _scatter_experts(x, gate_vals, gate_idx, pos_in_expert, C, moe_gate,
+                     moe_up, moe_down, *, e0: int = 0):
+    """The ``"scatter"`` dispatch's buffers, expert products and combine
+    for the experts ``e0 .. e0 + E_loc - 1`` that ``moe_gate`` ``[E_loc, D,
+    F]`` holds (all of them unless ``E_loc`` is fewer than the router's):
+    each kept slot of those experts gets a buffer row; the other slots
+    read a zero row and add nothing.  Returns ``[T, D]`` in ``x.dtype``."""
+    T, D = x.shape
+    top_k = gate_idx.shape[1]
+    E_loc = moe_gate.shape[0]
+    flat_expert = gate_idx.reshape(-1)                       # [T*k]
+    flat_pos = pos_in_expert.gather(1, flat_expert[:, None])[:, 0]
+    ok = (flat_pos >= 0) & (flat_pos < C)
+    if E_loc < pos_in_expert.shape[1]:
+        ok = ok & (flat_expert >= e0) & (flat_expert < e0 + E_loc)
+        flat_expert = flat_expert - e0
+    slot = torch.where(ok, flat_expert * C + flat_pos, E_loc * C)
+    # The reference scatter-adds the tokens into [E*C + 1, D], every
+    # dropped slot onto the overflow row E*C.  Each kept slot has a row of
+    # its own, so that is a gather: ``src`` maps each buffer row to the
+    # token of the slot that lands there, or to a zero row (T).  It is
+    # built with unique indices (each dropped slot parked on a row of its
+    # own past the buffer): on the card a deterministic scatter serialises
+    # repeated indices, 15 ms a layer at granite's prefill.
+    n = T * top_k
+    arange = torch.arange(n, device=x.device)
+    dest = torch.where(ok, slot, E_loc * C + arange)
+    src = torch.full((E_loc * C + n,), T, dtype=torch.long, device=x.device)
+    src.index_copy_(0, dest, arange // top_k)
+    x_pad = torch.cat([x, x.new_zeros(1, D)])
+    expert_in = x_pad[src[:E_loc * C]].reshape(E_loc, C, D)
+    h = F.silu(torch.bmm(expert_in, moe_gate))
+    h = h * torch.bmm(expert_in, moe_up)
+    expert_out = torch.bmm(h, moe_down).reshape(E_loc * C, D)
+    expert_out = torch.cat([expert_out, x.new_zeros(1, D)])
+    gathered = expert_out[slot]                              # [T*k, D]
+    out = (gathered.reshape(T, top_k, D)
+           * gate_vals[..., None].to(x.dtype)).sum(dim=1)
+    return out.to(x.dtype)
+
+
+def _switch_aux(probs, gate_idx, E: int):
+    """Switch-style load-balance term ``E · Σ_e density_e ·
+    mean_t(probs_e)``, density from each token's first choice."""
     density = F.one_hot(gate_idx[:, 0], E).float().mean(0)
-    aux = E * torch.sum(density * probs.mean(0))
-    return out.to(x.dtype), aux
+    return E * torch.sum(density * probs.mean(0))

@@ -19,8 +19,9 @@ cross-attention against an encoder stack (whisper), MLP ``swiglu`` |
 ``parallel_block``; the modality stubs: precomputed audio frames fed to
 the encoder (``batch["frames"]``), patch embeddings projected in front of
 the text (``batch["patch_embed"]``), and learned decoder positions.  A
-config that sets the expert-parallel ``moe_dispatch`` hook, which needs
-several cards, raises ``NotImplementedError`` naming ROADMAP M15c.
+config that sets ``moe_dispatch`` (the expert-parallel hook of
+:func:`repro_torch.distributed.ep_dispatch.make_ep_dispatch`) routes its
+MoE layers through it.
 
 Entry points (``cuda`` unless ``device="cpu"`` is passed; without a card and
 without that request they raise):
@@ -46,6 +47,18 @@ cross-attention k/v of the encoder output, and the conv tail and SSM state
 the reference runs it a second time for the cross k/v), and
 ``decode_step`` updates ``cache`` in place (and returns it): the cache
 is the largest buffer of the serve path and is never copied.
+
+**On a mesh.**  ``forward``, ``prefill`` and ``decode_step`` take ``mesh=``
+(a :class:`~repro_torch.launch.mesh.Mesh` of more than one rank) and
+``specs={"params": ..., "cache": ...}`` (the filtered specs of
+:func:`repro_torch.launch.plan.sharding_specs`).  Each rank then holds its
+shard of every parameter, its shard of the batch (split over the batch
+axes) and its shard of the cache, and computes each layer whole: the
+layer's weights and cache are all-gathered over the axes their specs name,
+one layer at a time, and dropped after use; the embedding, head and norms
+are gathered once a call.  MoE layers go through ``cfg.moe_dispatch``,
+which takes the rank's own experts.  The logits are the rank's batch's.
+A mesh of one rank is the path without a mesh.
 """
 
 from __future__ import annotations
@@ -58,6 +71,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shardlib
 from repro_torch.models import ssd as ssdlib
 from repro_torch.models.layers import (decode_attention, dense_init,
                                        gelu_mlp, gqa_attention, moe_layer_3d,
@@ -116,13 +130,13 @@ def layer_plan(cfg: ArchConfig, *, decoder: bool = True) -> list[LayerKind]:
 
 def require_ported(cfg: ArchConfig) -> list[LayerKind]:
     """The layer plan, or ``NotImplementedError`` where ``cfg`` sets the
-    expert-parallel ``moe_dispatch`` hook, which needs several cards
-    (ROADMAP M15c)."""
-    if cfg.moe_dispatch is not None:
+    ``act_shard_moe`` layout hook, which the port does not apply (ROADMAP,
+    the ``act_*`` layouts)."""
+    if cfg.act_shard_moe is not None:
         raise NotImplementedError(
-            f"{cfg.name}: moe_dispatch, the shard_map expert-parallel "
-            f"dispatch, needs a mesh of more than one card; the port routes "
-            f"MoE on one card through moe_impl (ROADMAP M15c)")
+            f"{cfg.name}: act_shard_moe, an XLA layout constraint on the "
+            f"expert buffers, is not ported; split experts over a mesh with "
+            f"moe_dispatch (ROADMAP, the act_* layouts)")
     return layer_plan(cfg)
 
 
@@ -350,6 +364,96 @@ def _on_device(params, device) -> torch.device:
 
 
 # ---------------------------------------------------------------------------
+# one rank's view of a client split over a mesh
+# ---------------------------------------------------------------------------
+_MOE_LEAVES = ("moe_gate", "moe_up", "moe_down")
+
+
+@dataclass(frozen=True)
+class _Shard:
+    """What a rank of a mesh needs to compute each layer whole: the mesh,
+    the parameter specs of the subtree at hand, the cache specs, and the
+    expert-parallel hook (its expert leaves stay local)."""
+
+    mesh: object
+    specs: dict
+    cache: dict | None
+    dispatch: object = None
+
+    def at(self, *keys) -> "_Shard":
+        specs = self.specs
+        for k in keys:
+            specs = specs[k]
+        return replace(self, specs=specs)
+
+    def tops(self, params, specs=None) -> dict:
+        """``params`` with every leaf outside a ``stack`` gathered whole."""
+        specs = self.specs if specs is None else specs
+        return {k: v if k == "stack" else
+                self.tops(v, specs[k]) if isinstance(v, dict) else
+                shardlib.gather_leaf(v, specs[k], self.mesh)
+                for k, v in params.items()}
+
+    def period(self, stack, key: str, n: int) -> dict:
+        """Period ``n``'s leaves of position ``key``, gathered whole; with
+        the hook, its experts as the hook takes them."""
+        out = {}
+        for name, leaf in stack[key].items():
+            spec = self.specs[key][name][1:]
+            if self.dispatch is not None and name in _MOE_LEAVES:
+                out[name] = self._experts(leaf[n], spec, name)
+            else:
+                out[name] = shardlib.gather_leaf(leaf[n], spec, self.mesh)
+        return out
+
+    def _experts(self, x, spec, name: str):
+        """This rank's expert shard as ``moe_dispatch`` splits it: experts
+        over its model axis, ``D`` over its FSDP axis; resharded where the
+        policy split them otherwise."""
+        d = self.dispatch
+        want = (d.model_axis, d.fsdp_axis, None) if name != "moe_down" \
+            else (d.model_axis, None, d.fsdp_axis)
+        whole = shardlib.global_shape(x.shape, spec, self.mesh)
+        want = shardlib.filter_spec(
+            want, whole, {a: self.mesh.axis_size(a)
+                          for a in self.mesh.axis_names})
+        if tuple(spec) == want:
+            return x
+        return shardlib.shard_leaf(shardlib.gather_leaf(x, spec, self.mesh),
+                                   want, self.mesh)
+
+    def _cache_spec(self, key: str, name: str) -> tuple:
+        """A cache leaf's spec for one period and the rank's own batch."""
+        spec = list(self.cache[key][name][1:])
+        spec[0] = None
+        return tuple(spec)
+
+    def cache_read(self, cache, key: str, name: str, n: int):
+        """Period ``n``'s cache leaf, gathered whole (over the rank's
+        batch)."""
+        return shardlib.gather_leaf(cache[key][name][n],
+                                    self._cache_spec(key, name), self.mesh)
+
+    def cache_write(self, cache, key: str, name: str, n: int, val,
+                    start: int = 0) -> None:
+        """Write ``val`` (whole but along dim 1 of the period, where it
+        starts at ``start``) into the rank's slice of period ``n``."""
+        shardlib.write_local(cache[key][name][n], val,
+                             self._cache_spec(key, name), self.mesh,
+                             start=start)
+
+
+def _shard_of(mesh, specs, cfg: ArchConfig) -> "_Shard | None":
+    """The rank's view for ``mesh`` (None without one, or with one rank)."""
+    if mesh is None or mesh.size == 1:
+        return None
+    if specs is None:
+        raise ValueError("a mesh needs specs= (launch.plan.sharding_specs)")
+    return _Shard(mesh, specs["params"], specs.get("cache"),
+                  cfg.moe_dispatch)
+
+
+# ---------------------------------------------------------------------------
 # block bodies
 # ---------------------------------------------------------------------------
 def _project_qkv(p, h, cfg: ArchConfig):
@@ -449,6 +553,10 @@ def _mlp_body(p, x, cfg: ArchConfig, kind: str, *, norm_key: str = "mlp_norm"):
             out = out + p["b_down"]
         return out, None
     if kind == "moe":
+        if cfg.moe_dispatch is not None:    # expert-parallel over a mesh
+            return cfg.moe_dispatch(
+                h, p["router"], p["moe_gate"], p["moe_up"], p["moe_down"],
+                top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
         return moe_layer_3d(h, p["router"], p["moe_gate"], p["moe_up"],
                             p["moe_down"], top_k=cfg.top_k,
                             capacity_factor=cfg.capacity_factor,
@@ -507,15 +615,18 @@ def _apply_block(p, x, cfg: ArchConfig, kind: LayerKind, *, causal: bool,
 # ---------------------------------------------------------------------------
 # stacks
 # ---------------------------------------------------------------------------
-def _period(stack: dict, key: str, n: int) -> dict:
+def _period(stack: dict, key: str, n: int, shard=None) -> dict:
     """Period ``n``'s parameters of position ``key`` (views, no copies):
     ``stack[key]`` maps names to stacked leaves or to their unbound
-    periods."""
+    periods.  With ``shard``, gathered whole from the rank's shards."""
+    if shard is not None:
+        return shard.period(stack, key, n)
     return {name: leaf[n] for name, leaf in stack[key].items()}
 
 
 def _period_blocks(periods, n: int, x, cfg: ArchConfig, plan, *,
-                   causal: bool, positions=None, enc_out=None, cache=None):
+                   causal: bool, positions=None, enc_out=None, cache=None,
+                   shard=None):
     """Period ``n``'s blocks: (x, the sum of its MoE load-balance terms, or
     None where it has no MoE block).  With ``cache``, each attention
     block's k/v fill its first ``s`` slots, a cross block's k/v of
@@ -525,16 +636,18 @@ def _period_blocks(periods, n: int, x, cfg: ArchConfig, plan, *,
     aux = None
     for i, kind in enumerate(plan):
         key = f"p{i}"
-        x, a, contrib = _apply_block(_period(periods, key, n), x, cfg, kind,
-                                     causal=causal, positions=positions,
-                                     enc_out=enc_out,
+        x, a, contrib = _apply_block(_period(periods, key, n, shard), x,
+                                     cfg, kind, causal=causal,
+                                     positions=positions, enc_out=enc_out,
                                      collect=cache is not None)
         if a is not None:
             aux = a if aux is None else aux + a
         if cache is None or contrib is None:
             continue
         for name, val in contrib.items():
-            if name in ("k", "v"):
+            if shard is not None:
+                shard.cache_write(cache, key, name, n, val)
+            elif name in ("k", "v"):
                 cache[key][name][n, :, :s] = val
             else:
                 cache[key][name][n] = val
@@ -542,7 +655,7 @@ def _period_blocks(periods, n: int, x, cfg: ArchConfig, plan, *,
 
 
 def _run_stack(stack, x, cfg: ArchConfig, plan, *, causal: bool,
-               positions=None, enc_out=None, cache=None):
+               positions=None, enc_out=None, cache=None, shard=None):
     """The blocks in order, period by period, cross blocks attending to
     ``enc_out``, filling ``cache`` (from :func:`init_cache`) when one is
     given: (x, the MoE load-balance terms summed over periods, 0.0 without
@@ -553,12 +666,17 @@ def _run_stack(stack, x, cfg: ArchConfig, plan, *, causal: bool,
     # Each stacked leaf unbound once: the backward of that one view stacks
     # the periods' gradients in a single pass, where indexing ``leaf[n]``
     # per period would add up ``n_periods`` zero-padded full-size
-    # gradients.
-    periods = {key: {name: leaf.unbind(0) for name, leaf in p.items()}
-               for key, p in stack.items()}
+    # gradients.  A rank's shards are gathered period by period instead.
+    periods = stack if shard is not None else {
+        key: {name: leaf.unbind(0) for name, leaf in p.items()}
+        for key, p in stack.items()}
     auxs = []
     for n in range(cfg.n_layers // len(plan)):
-        if cache is None and cfg.remat:
+        if shard is not None:
+            x, aux = _period_blocks(periods, n, x, cfg, plan, causal=causal,
+                                    positions=positions, enc_out=enc_out,
+                                    cache=cache, shard=shard)
+        elif cache is None and cfg.remat:
             x, aux = checkpoint(_period_blocks, periods, n, x, cfg, plan,
                                 causal=causal, positions=positions,
                                 enc_out=enc_out, use_reentrant=False)
@@ -591,7 +709,7 @@ def _embed_inputs(params, batch, cfg: ArchConfig, device):
     return x, loss_mask, positions
 
 
-def _run_encoder(params, batch, cfg: ArchConfig, device):
+def _run_encoder(params, batch, cfg: ArchConfig, device, shard=None):
     """The encoder over the frame stub: frames in ``cfg.dtype`` plus the
     encoder's learned positions, its (non-causal) stack, its final
     norm."""
@@ -601,7 +719,8 @@ def _run_encoder(params, batch, cfg: ArchConfig, device):
     enc = params["enc"]
     x = frames + enc["pos_embed"][:frames.shape[1]][None]
     x, _ = _run_stack(enc["stack"], x, enc_cfg,
-                      layer_plan(enc_cfg, decoder=False), causal=False)
+                      layer_plan(enc_cfg, decoder=False), causal=False,
+                      shard=shard and shard.at("enc", "stack"))
     return rms_norm(x, enc["final_norm"], eps=cfg.norm_eps)
 
 
@@ -647,16 +766,19 @@ def _lm_head(params, h, cfg: ArchConfig):
     return h.float() @ w.float()
 
 
-def _hidden(params, batch, cfg: ArchConfig, device, *, cache=None):
+def _hidden(params, batch, cfg: ArchConfig, device, *, cache=None,
+            shard=None):
     """(final-normed hidden states, the loss mask, the MoE load-balance
-    term)."""
+    term); with ``shard``, every ``stack`` of ``params`` holds a rank's
+    shards (the rest gathered by :meth:`_Shard.tops`)."""
     plan = require_ported(cfg)
     x, loss_mask, positions = _embed_inputs(params, batch, cfg, device)
     enc_out = None
     if cfg.enc_layers > 0:
-        enc_out = _run_encoder(params, batch, cfg, device)
+        enc_out = _run_encoder(params, batch, cfg, device, shard)
     x, aux = _run_stack(params["stack"], x, cfg, plan, causal=True,
-                        positions=positions, enc_out=enc_out, cache=cache)
+                        positions=positions, enc_out=enc_out, cache=cache,
+                        shard=shard and shard.at("stack"))
     h = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
     return h, loss_mask, aux
 
@@ -669,11 +791,16 @@ def _mask_vocab_pad(logits, cfg: ArchConfig):
 
 
 @torch.no_grad()
-def forward(params, batch, cfg: ArchConfig, *, device=None):
+def forward(params, batch, cfg: ArchConfig, *, device=None, mesh=None,
+            specs=None):
     """Full-sequence f32 logits ``[b, s, vocab_size]`` (pad columns sliced
-    off); ``s`` counts the patch positions too."""
+    off); ``s`` counts the patch positions too.  ``mesh``/``specs``: see
+    the module's docstring."""
     device = _on_device(params, device)
-    h, _, _ = _hidden(params, batch, cfg, device)
+    shard = _shard_of(mesh, specs, cfg)
+    if shard is not None:
+        params = shard.tops(params)
+    h, _, _ = _hidden(params, batch, cfg, device, shard=shard)
     return _lm_head(params, h, cfg)[..., :cfg.vocab_size]
 
 
@@ -770,22 +897,42 @@ def _new_cache(cfg: ArchConfig, batch: int, max_len: int, enc_len: int,
 
 @torch.no_grad()
 def prefill(params, batch, cfg: ArchConfig, *, max_len: int | None = None,
-            device=None):
+            device=None, mesh=None, specs=None):
     """Process the whole prompt; return (last-position logits ``[b,
     padded_vocab]`` f32 with pad columns at -1e30, cache).  The prompt is
     ``s`` positions: the patches (if any) and the tokens.  The cache holds
     its k/v in the first ``s`` slots, each cross block's k/v of the
     encoder output, and each Mamba block's conv tail and SSM state after
-    the prompt, so :func:`decode_step` continues at ``pos = s``."""
+    the prompt, so :func:`decode_step` continues at ``pos = s``.  On a
+    mesh the cache is the rank's shard under ``specs["cache"]`` (the
+    specs of the whole batch's cache of ``max_len``)."""
     device = _on_device(params, device)
+    shard = _shard_of(mesh, specs, cfg)
     b, s = batch["tokens"].shape
     if cfg.frontend == "patch" and "patch_embed" in batch:
         s += batch["patch_embed"].shape[1]
     enc_len = batch["frames"].shape[1] if cfg.enc_layers > 0 else 0
-    cache = _new_cache(cfg, b, max_len or s, enc_len, device)
-    h, _, _ = _hidden(params, batch, cfg, device, cache=cache)
+    if shard is None:
+        cache = _new_cache(cfg, b, max_len or s, enc_len, device)
+    else:
+        params = shard.tops(params)
+        cache = _local_cache(cfg, b, max_len or s, enc_len, device, shard)
+    h, _, _ = _hidden(params, batch, cfg, device, cache=cache, shard=shard)
     logits = _lm_head(params, h[:, -1:, :], cfg)[:, 0]
     return _mask_vocab_pad(logits, cfg), cache
+
+
+def _local_cache(cfg: ArchConfig, b: int, max_len: int, enc_len: int,
+                 device, shard: _Shard) -> dict:
+    """A rank's zeroed shard of the cache of the whole batch, whose specs
+    ``shard.cache`` are: ``b`` is the rank's share of the batch."""
+    some = next(iter(next(iter(shard.cache.values())).values()))
+    n_batch = shardlib.global_shape((b,), some[1:2], shard.mesh)[0]
+    whole = _new_cache(cfg, n_batch, max_len, enc_len, "meta")
+    return {key: {name: torch.zeros(
+        shardlib.local_shape(leaf.shape, shard.cache[key][name], shard.mesh),
+        dtype=leaf.dtype, device=device) for name, leaf in block.items()}
+        for key, block in whole.items()}
 
 
 def _decode_attn_block(p, x_t, c, n: int, cfg: ArchConfig, pos: int):
@@ -825,41 +972,69 @@ def _decode_mamba_block(p, x_t, c, n: int, cfg: ArchConfig):
 
 
 @torch.no_grad()
-def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *, device=None):
+def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *, device=None,
+                mesh=None, specs=None):
     """One-token decode.  tokens ``[b, 1]``; ``pos`` the slot of the new
     token (an int).  Returns (logits ``[b, padded_vocab]`` f32 with pad
     columns at -1e30, cache) — the same cache object, updated in place.
     MoE layers run dropless here: ``b`` tokens at ``capacity_factor =
-    n_experts / top_k`` give every expert room for all of them."""
+    n_experts / top_k`` give every expert room for all of them.  On a
+    mesh, ``cache`` is the rank's shard from :func:`prefill`."""
     device = _on_device(params, device)
     plan = require_ported(cfg)
     if cfg.moe:
         cfg = replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    shard = _shard_of(mesh, specs, cfg)
+    if shard is not None:
+        params = shard.tops(params)
     pos = int(pos)
     tokens = torch.as_tensor(tokens, device=device).long()
     x = params["embed"][tokens]                     # [b,1,D]
     if cfg.learned_pos:
         x = x + params["pos_embed"][pos:pos + 1][None]
     stack = params["stack"]
+    sh = shard and shard.at("stack")
     for n in range(cfg.n_layers // len(plan)):
         for i, kind in enumerate(plan):
             key = f"p{i}"
-            p = _period(stack, key, n)
+            p = _period(stack, key, n, sh)
+            c, m = cache.get(key), n
+            if sh is not None and c is not None:
+                # The period's cache gathered whole, written back after.
+                c = {name: sh.cache_read(cache, key, name, n)[None]
+                     for name in c}
+                m = 0
             if cfg.parallel_block and kind.mixer == "attn" \
                     and kind.mlp != "none":
-                attn_out = _decode_attn_block(p, x, cache[key], n, cfg, pos)
+                attn_out = _decode_attn_block(p, x, c, m, cfg, pos)
                 mlp_out, _ = _mlp_body(p, x, cfg, kind.mlp,
                                        norm_key="attn_norm")
                 x = x + attn_out + mlp_out
             else:
                 if kind.mixer == "attn":
-                    x = x + _decode_attn_block(p, x, cache[key], n, cfg, pos)
+                    x = x + _decode_attn_block(p, x, c, m, cfg, pos)
                 elif kind.mixer == "mamba":
-                    x = x + _decode_mamba_block(p, x, cache[key], n, cfg)
+                    x = x + _decode_mamba_block(p, x, c, m, cfg)
                 if kind.cross:
-                    x = x + _decode_cross_block(p, x, cache[key], n, cfg)
+                    x = x + _decode_cross_block(p, x, c, m, cfg)
                 if kind.mlp != "none":
                     x = x + _mlp_body(p, x, cfg, kind.mlp)[0]
+            if sh is not None and c is not None:
+                _write_back(sh, cache, key, n, c, kind, pos)
     h = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
     logits = _lm_head(params, h, cfg)[:, 0]
     return _mask_vocab_pad(logits, cfg), cache
+
+
+def _write_back(shard: _Shard, cache, key: str, n: int, c: dict,
+                kind: LayerKind, pos: int) -> None:
+    """What a decode step changed in period ``n``'s gathered cache ``c``,
+    into the rank's slices: the new token's k/v slot, the Mamba conv window
+    and SSM state."""
+    if kind.mixer == "attn":
+        for name in ("k", "v"):
+            shard.cache_write(cache, key, name, n, c[name][0][:, pos:pos + 1],
+                              start=pos)
+    elif kind.mixer == "mamba":
+        for name in ("conv", "ssm"):
+            shard.cache_write(cache, key, name, n, c[name][0])

@@ -46,6 +46,7 @@ from repro_torch.fl import round as tround  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import work  # noqa: E402
 from repro_torch.launch import dryrun, report, steps  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import op_cost  # noqa: E402
 from repro_torch.launch import plan as tplan  # noqa: E402
 from repro_torch.launch import roofline as troof  # noqa: E402
@@ -66,13 +67,25 @@ def _knobs(cfg):
     return {k: v for k, v in cfg.to_dict().items() if k not in HOOKS}
 
 
+def _tmesh(axes):
+    """The port's counting mesh of the same shape (no process group)."""
+    return tmesh.make_mesh(tuple(axes.values()), tuple(axes), backend="meta")
+
+
 def _same_plan(jp, tp):
+    """The same plan, the ``act_*`` layout hooks unset; where the port set
+    ``moe_dispatch`` (given a mesh), the reference set it too, with the
+    same FSDP axis."""
     for f in dataclasses.fields(jp):
         if f.name != "cfg":
             assert getattr(tp, f.name) == getattr(jp, f.name), f.name
     assert _knobs(tp.cfg) == _knobs(jp.cfg)
     assert all(getattr(tp.cfg, h) is getattr(tget(tp.arch), h)
-               for h in HOOKS)                     # hooks stay unset
+               for h in HOOKS - {"moe_dispatch"})  # act_* hooks stay unset
+    if tp.cfg.moe_dispatch is not None:
+        assert jp.cfg.moe_dispatch is not None
+        assert tp.cfg.moe_dispatch.fsdp_axis == (
+            "data" if "data" not in jp.worker_axes else None)
 
 
 # -- the planner -----------------------------------------------------------------
@@ -89,8 +102,14 @@ def test_plan_matches_reference_on_every_cell(arch, axes):
             with pytest.raises(ValueError, match="skipped"):
                 tplan.make_plan(arch, shape, axes)
             continue
-        _same_plan(jplan.make_plan(arch, shape, mesh),
-                   tplan.make_plan(arch, shape, axes))
+        jp = jplan.make_plan(arch, shape, mesh)
+        tp = tplan.make_plan(arch, shape, _tmesh(axes))
+        _same_plan(jp, tp)
+        assert (tp.cfg.moe_dispatch is None) == (jp.cfg.moe_dispatch is None)
+        # On axis sizes alone (the one-card dry-run) no hook is set.
+        flat = tplan.make_plan(arch, shape, axes)
+        _same_plan(jp, flat)
+        assert flat.cfg.moe_dispatch is None
 
 
 def test_plan_overrides_match_reference():

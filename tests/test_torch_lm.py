@@ -682,11 +682,21 @@ def test_frontend_init_params_have_the_reference_layout(name):
 
 
 def test_moe_dispatch_hook_still_raises():
-    """The one refusal left: the multi-card expert-parallel hook."""
+    """The MoE layers call ``moe_dispatch`` where it is set, so a hook that
+    raises raises from the model; the one refusal left is the
+    ``act_shard_moe`` layout hook."""
+    def hook(*a, **k):
+        raise NotImplementedError("moe_dispatch reached")
+
     cfg = replace(tconfigs.get_arch("granite-moe-3b-a800m").reduced(),
-                  moe_dispatch=lambda *a, **k: None)
-    with pytest.raises(NotImplementedError, match="moe_dispatch"):
-        tlm.init_params(0, cfg, device="cpu")
+                  moe_dispatch=hook)
+    params = tlm.init_params(0, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="moe_dispatch reached"):
+        tlm.forward(params, {"tokens": np.zeros((1, 4), np.int32)}, cfg,
+                    device="cpu")
+    with pytest.raises(NotImplementedError, match="act_shard_moe"):
+        tlm.init_params(0, replace(cfg, act_shard_moe=lambda t: t),
+                        device="cpu")
 
 
 def test_entry_points_run_on_the_card_by_default():

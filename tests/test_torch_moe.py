@@ -161,13 +161,34 @@ def test_duplicate_router_columns_route_as_the_reference(impl):
 
 
 def test_expert_parallel_hooks_raise():
+    """``ep_shard`` (the ``act_shard_moe`` layout hook, not ported) still
+    raises, at the dispatch and at the model; ``moe_dispatch`` runs: every
+    MoE layer of a reduced granite-moe goes through it, and a hook that
+    dispatches as ``moe_impl`` would gives the plain path's logits."""
     x, rw, g, u, d = (torch.from_numpy(a) for a in _moe_inputs())
     with pytest.raises(NotImplementedError, match="ep_shard"):
         tlayers._moe_dispatch(x, rw, g, u, d, top_k=K, ep_shard=lambda t: t)
-    cfg = replace(tconfigs.get_arch("granite-moe-3b-a800m").reduced(),
-                  moe_dispatch=lambda *a, **k: None)
-    with pytest.raises(NotImplementedError, match="more than one card"):
-        tlm.init_params(0, cfg, device="cpu")
+    base = replace(tconfigs.get_arch("granite-moe-3b-a800m").reduced(),
+                   moe_impl="scatter")
+    with pytest.raises(NotImplementedError, match="act_shard_moe"):
+        tlm.init_params(0, replace(base, act_shard_moe=lambda t: t),
+                        device="cpu")
+    calls = []
+
+    def hook(h, router, gate, up, down, *, top_k, capacity_factor):
+        calls.append(tuple(h.shape))
+        return tlayers.moe_layer_3d(h, router, gate, up, down, top_k=top_k,
+                                    capacity_factor=capacity_factor,
+                                    impl="scatter")
+
+    params = tlm.init_params(0, base, device="cpu")
+    toks = _tokens(base)
+    want = tlm.forward(params, {"tokens": toks}, base, device="cpu")
+    got = tlm.forward(params, {"tokens": toks}, replace(base,
+                                                        moe_dispatch=hook),
+                      device="cpu")
+    assert calls == [(2, 14, base.d_model)] * base.n_layers
+    assert torch.equal(got, want)
 
 
 # -- moe_layer, moe_layer_3d ------------------------------------------------------

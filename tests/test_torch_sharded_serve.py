@@ -1,0 +1,233 @@
+"""The sharded serve path: one client split over a (2, 2) ("data",
+"model") mesh of 4 gloo ranks on the CPU, against the reference's
+unsharded ``prefill``/``decode_step``/``forward`` on the same numpy
+weights; and the dry-run per card of the reference's production meshes.
+
+* Reduced jamba-v0.1-52b (hybrid: attention, Mamba-2, MoE) and reduced
+  qwen3-moe-235b-a22b (4 experts, 2 kv heads), f32, policy ``fsdp_tp``,
+  MoE through ``make_ep_dispatch``, dropless (``capacity_factor = E / k``,
+  so local routing is global routing): 4 sequences of 12 prompt tokens and
+  2 decode steps, each rank holding its shards of the weights, its 2
+  sequences and its shard of the cache.  Logits within 1e-5 of the
+  reference's; each rank's parameter bytes those of the specs.
+* ``--mesh pod``/``multipod``: one card's parameter bytes for one serve
+  cell per family equal the reference's ``NamedSharding.shard_shape``
+  arithmetic on its (16, 16) and (2, 16, 16) meshes (a subprocess with
+  512 host devices) — exact.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from dataclasses import replace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+jnp = jax.numpy
+
+import _torch_mesh_ranks as ranks  # noqa: E402
+from repro import configs as jconfigs  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro_torch.configs import get_arch as tget  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    filtered_specs, local_shape, make_sharding_rules, tree_paths)
+from repro_torch.launch import dryrun, report  # noqa: E402
+from repro_torch.launch import plan as tplan  # noqa: E402
+from repro_torch.launch.mesh import make_mesh, run_on_mesh  # noqa: E402
+from repro_torch.launch.steps import build_step  # noqa: E402
+from repro_torch.models import lm as tlm  # noqa: E402
+
+ARCHS = ["jamba-v0.1-52b", "qwen3-moe-235b-a22b"]
+TOL = dict(rtol=1e-5, atol=1e-5)
+PROMPT, TOTAL = 12, 14
+# One serve cell per family.
+FAMILY_CELLS = [("qwen3-0.6b", "decode_32k"), ("command-r-plus-104b",
+                                               "prefill_32k"),
+                ("mamba2-2.7b", "long_500k"), ("granite-moe-3b-a800m",
+                                               "decode_32k"),
+                ("qwen3-moe-235b-a22b", "prefill_32k"),
+                ("jamba-v0.1-52b", "long_500k"), ("whisper-base",
+                                                  "decode_32k"),
+                ("internvl2-26b", "prefill_32k")]
+
+REFERENCE_BYTES = r"""
+import json, sys
+import numpy as np
+import jax
+from jax.sharding import Mesh
+from repro.launch import plan as jplan
+out = {}
+devs = np.array(jax.devices())
+for kind, shape, axes in (("pod", (16, 16), ("data", "model")),
+                          ("multipod", (2, 16, 16), ("pod", "data", "model"))):
+    mesh = Mesh(devs[:int(np.prod(shape))].reshape(shape), axes)
+    for arch, cell in json.loads(sys.argv[1]):
+        plan = jplan.make_plan(arch, cell, mesh)
+        sh = jplan.sharding_specs(plan, mesh)
+        total = 0
+        for ns, leaf in zip(jax.tree.leaves(sh["params"]),
+                            jax.tree.leaves(sh["params_shapes"])):
+            total += int(np.prod(ns.shard_shape(leaf.shape))) \
+                * leaf.dtype.itemsize
+        out[f"{kind}/{arch}/{cell}"] = total
+print(json.dumps(out))
+"""
+
+
+def _cfg_kw(arch):
+    base = jconfigs.get_arch(arch).reduced()
+    return {"capacity_factor": base.n_experts / base.top_k,
+            "moe_impl": "scatter"}
+
+
+@pytest.fixture(scope="module")
+def cases():
+    """Per arch: the reference's weights (numpy), tokens, and its logits of
+    prefill + decode and of forward."""
+    out = []
+    for i, arch in enumerate(ARCHS):
+        kw = _cfg_kw(arch)
+        jcfg = replace(jconfigs.get_arch(arch).reduced(), **kw)
+        params = jlm.init_params(jax.random.key(i), jcfg)
+        toks = np.random.default_rng(7 + i).integers(
+            0, jcfg.vocab_size, (4, TOTAL)).astype(np.int32)
+        logits, cache = jlm.prefill(params, {"tokens": jnp.asarray(
+            toks[:, :PROMPT])}, jcfg, max_len=TOTAL)
+        steps = [np.asarray(logits)]
+        for t in range(PROMPT, TOTAL):
+            logits, cache = jlm.decode_step(params, cache, jnp.asarray(
+                toks[:, t:t + 1]), jnp.int32(t), jcfg)
+            steps.append(np.asarray(logits))
+        fwd = jlm.forward(params, {"tokens": jnp.asarray(toks)}, jcfg)
+        out.append({"arch": arch, "cfg": kw,
+                    "params": jax.tree.map(np.asarray, params),
+                    "tokens": toks, "prompt": PROMPT,
+                    "ref_steps": np.stack(steps, axis=1),
+                    "ref_forward": np.asarray(fwd)})
+    return out
+
+
+@pytest.fixture(scope="module")
+def served(cases):
+    send = [{k: c[k] for k in ("arch", "cfg", "params", "tokens", "prompt")}
+            for c in cases]
+    res = run_on_mesh(ranks.serve_rank, (2, 2), ("data", "model"),
+                      backend="gloo", device="cpu", args=(send,),
+                      timeout_s=300)
+    return {r["coords"]: r["cases"] for r in res}
+
+
+def _batch(served, i, key):
+    """The whole batch's logits: data shards in order, each model rank's
+    copy equal."""
+    for (d, m), c in served.items():
+        assert torch.equal(c[i][key], served[(d, 0)][i][key])
+    return np.concatenate([served[(d, 0)][i][key].numpy() for d in range(2)])
+
+
+@pytest.mark.parametrize("i", range(len(ARCHS)), ids=ARCHS)
+def test_sharded_prefill_decode_match_reference(i, cases, served):
+    got = _batch(served, i, "steps")
+    ref = cases[i]["ref_steps"]
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+@pytest.mark.parametrize("i", range(len(ARCHS)), ids=ARCHS)
+def test_sharded_forward_matches_reference(i, cases, served):
+    np.testing.assert_allclose(_batch(served, i, "forward"),
+                               cases[i]["ref_forward"], **TOL)
+
+
+@pytest.mark.parametrize("i", range(len(ARCHS)), ids=ARCHS)
+def test_rank_parameter_bytes_are_the_specs(i, cases, served):
+    """Each rank holds exactly its shards: the bytes the filtered specs
+    give, under a quarter of the whole plus the replicated leaves."""
+    cfg = replace(tget(ARCHS[i]).reduced(), **cases[i]["cfg"])
+    ax = {"data": 2, "model": 2}
+    rules = make_sharding_rules("fsdp_tp", ax, fl_axes=())
+    shapes = tlm.param_shapes(cfg)
+    specs = dict(tree_paths(filtered_specs(rules["params"].tree_specs(
+        shapes), shapes, ax)))
+    want = sum(int(np.prod(local_shape(shape, specs[path], ax)))
+               * torch.empty((), dtype=dtype).element_size()
+               for path, shape, dtype in tplan.param_leaves(cfg))
+    whole = tplan.param_bytes(cfg)
+    for c in served.values():
+        assert c[i]["param_bytes"] == want
+    assert whole / 4 <= want < whole / 2
+
+
+@pytest.fixture(scope="module")
+def reference_card_bytes():
+    env = dict(os.environ,
+               XLA_FLAGS="--xla_force_host_platform_device_count=512",
+               JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(os.path.dirname(__file__), "..", "src"),
+         env.get("PYTHONPATH", "")])
+    out = subprocess.run([sys.executable, "-c", REFERENCE_BYTES,
+                          json.dumps(FAMILY_CELLS)], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("kind", ["pod", "multipod"])
+@pytest.mark.parametrize("arch,cell", FAMILY_CELLS,
+                         ids=[a for a, _ in FAMILY_CELLS])
+def test_card_param_bytes_match_reference_shard_shape(arch, cell, kind,
+                                                      reference_card_bytes):
+    mesh = make_mesh((16, 16) if kind == "pod" else (2, 16, 16),
+                     ("data", "model") if kind == "pod"
+                     else ("pod", "data", "model"), backend="meta")
+    plan = tplan.make_plan(arch, cell, mesh)
+    assert tplan.param_bytes_per_card(plan, mesh) == \
+        reference_card_bytes[f"{kind}/{arch}/{cell}"]
+
+
+def test_mesh_pod_counts_a_cell_per_card(tmp_path):
+    """A pod serve cell is counted on one card's shards: its record's
+    per-card parameter bytes, the collectives the step ran (their wire
+    bytes over the NVLink rate are ``collective_s``), per-card ``fits``;
+    a train cell is skipped with its reason; ``--mesh one`` records keep
+    no mesh keys and a zero collective term."""
+    rec = dryrun.run_cell("jamba-v0.1-52b", "decode_32k", mesh="pod")
+    assert rec["status"] == "ok" and rec["devices"] == 256
+    assert rec["moe_dispatch"] and rec["policy"] == "fsdp_tp"
+    plan = tplan.make_plan("jamba-v0.1-52b", "decode_32k",
+                           make_mesh((16, 16), ("data", "model"),
+                                     backend="meta"))
+    assert rec["param_bytes_per_card"] == tplan.param_bytes_per_card(
+        plan, {"data": 16, "model": 16})
+    assert rec["param_bytes_per_card"] < rec["param_bytes"] / 100
+    coll = rec["collectives"]
+    assert coll["by_kind"]["all-gather"]["count"] > 0
+    assert coll["by_kind"]["all-reduce"]["count"] == 2 * 16   # MoE layers
+    assert rec["roofline"]["collective_s"] == pytest.approx(
+        coll["wire_bytes_ici"] / rec["hw"]["link_bw"])
+    assert rec["fits"] == (rec["memory_analysis"]["peak_live_bytes"]
+                           <= rec["budget_bytes"])
+    assert rec["kernels"] == {}              # decode launches no kernel
+    skip = dryrun.run_cell("jamba-v0.1-52b", "train_4k", mesh="pod")
+    assert skip["status"] == "skip" and "sharded training" in skip["reason"]
+    one = dryrun.run_cell("qwen3-0.6b", "decode_32k",
+                          overrides={"n_layers": 2})
+    assert "mesh" not in one and "collectives" not in one
+    assert one["roofline"]["collective_s"] == 0.0
+    for r in (rec, skip, one):
+        with open(tmp_path / f"{r['arch']}__{r['shape']}__x.json", "w") as f:
+            json.dump(r, f)
+    table = report.roofline_table(report.load(str(tmp_path)))
+    assert "collective_s" in table and "decode_32k @ pod" in table
+
+
+def test_train_step_on_a_mesh_is_the_next_slice():
+    mesh = make_mesh((2, 2), ("data", "model"), backend="meta")
+    plan = tplan.make_plan("qwen3-0.6b", "train_4k", mesh)
+    with pytest.raises(NotImplementedError, match="sharded training step"):
+        build_step(plan, "meta", mesh=mesh)
