@@ -131,7 +131,8 @@ Phases, one JSON object per line on stdout:
              and keeps its ``fsdp_tp`` shard (its parameter bytes must be
              the specs' arithmetic), the MoE layers go through the plan's
              ``make_ep_dispatch`` (8 of 16 experts a rank); one prefill of
-             the same 4 x 2,048 tokens and ``MESH_DECODE`` greedy steps,
+             the same 4 x 2,048 tokens and ``MESH_DECODE`` greedy steps
+             (into a cache of phase 14's length, ``SERVE_MAX_LEN``),
              the launch counts zeroed just before and read just after: K4
              once and K5 7 times a prefill on each rank, all wgmma, neither
              in decode; logits and tokens against phase 14's run (a routed
@@ -142,6 +143,29 @@ Phases, one JSON object per line on stdout:
              f32 at one MoE layer's widths over the same 2 ranks against
              ``moe_layer_3d("scatter")`` (``MESH_EP_TOL``), and on a (1, 1)
              NCCL mesh bitwise;
+14c. train sharded — the sharded training step: one federated round of
+             the reference's train_4k plan on a mesh of gloo ranks sharing
+             the card, at the published widths and dtypes, cut to 2 local
+             steps of 2 sequences of 4,096 tokens, one client a lane
+             (``TRAIN_SHARDED_RUNS``): (a) qwen3-0.6b, ``tp`` on (data 2,
+             model 2), two workers over data; (b) qwen3-moe-235b-a22b's
+             plan for its 94 layers, the config cut to 1 layer,
+             ``fsdp_tp`` on (data 1, model 2), 64 experts a rank through
+             the expert-parallel dispatch.  Each rank draws its shards as
+             one process draws the whole (``launch.steps.build_step`` with
+             ``mesh=``); the launch counts zeroed just before the round and
+             read just after: K1 2 × S times on every rank (once a local
+             step per dtype group) and no other kernel; each rank's
+             parameter bytes those of the plan; the new global parameters
+             (each rank's blocks) and the metrics against the one-process
+             round on the same card, weights and batches (run while the
+             ranks start, then freed): (a) bitwise, (b) the weights at
+             ``TRAIN_SHARDED_TOL`` and each leaf's update (θ_new - θ_0)
+             against the one-process update: its norm ratio within
+             ``TRAIN_SHARDED_UPDATE_RATIO``, its relative difference at
+             most ``TRAIN_SHARDED_UPDATE_RTOL``, where no update and the
+             mesh's update doubled must both fail that check; each rank's peak,
+             round time, time in gloo collectives and set-up;
 15. serve audio — whisper-base at its published size (73,596,928 params,
              bf16, ``attn_impl="dense"``): 4 clips of 1,500 frame
              embeddings with 448-token prompts, one prefill and 16 greedy
@@ -161,7 +185,7 @@ Phases, one JSON object per line on stdout:
              time goes); then the reduced internvl2 card vs CPU;
 17. train LM — federated LM training through the CLI,
              ``main(["--arch", A, "--preset", "fl100m", ...])`` for
-             qwen3-0.6b (3 rounds), mamba2-2.7b, granite-moe-3b-a800m,
+             qwen3-0.6b, mamba2-2.7b, granite-moe-3b-a800m,
              whisper-base and internvl2-26b (2 rounds each; granite: 12
              layers of 4 experts top-2, 2,048 wide, 269,998,848 params,
              the einsum dispatch; whisper: 2 encoder layers over 16
@@ -261,7 +285,7 @@ Phases, one JSON object per line on stdout:
              worker whose peak must stay within the estimate's budget;
 28. cache — the device batch cache (PR 22) on SR at its published widths
              under a Zipf draw of 64 clients a round (gradients clipped
-             at 1), 12 rounds: off, 512 rows, and a byte budget holding
+             at 1), 8 rounds: off, 512 rows, and a byte budget holding
              the whole population (7,656 batches of 5,200 B), each at
              depths 0/1/2: losses bitwise
              the cache-off run's, K1 = Σ ``s_steps``, bytes saved = hit
@@ -287,7 +311,7 @@ Phases, one JSON object per line on stdout:
              processes started after the build; 32 cells must be ``ok``
              or ``fail`` with the op named, the 8 ``long_500k`` skips
              carry the reference's reason.  Four cells run on the card
-             (``DRYRUN_RUNS``): qwen3-0.6b train_4k (S=32, b=8, 7 of 28
+             (``DRYRUN_RUNS``): qwen3-0.6b train_4k (S=32, b=8, 2 of 28
              layers; bf16 and f32 leaves, K1 twice a step), qwen3-0.6b
              and mamba2-2.7b
              prefill_32k (one prompt through K4 and K5, all ``wgmma``),
@@ -333,6 +357,7 @@ import json  # noqa: E402
 import math  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+import tempfile  # noqa: E402
 import time  # noqa: E402
 from pathlib import Path  # noqa: E402
 
@@ -500,16 +525,58 @@ HYBRID_F32_BATCH = 2
 # split leaf under the plan's fsdp_tp specs and 8 of the 16 experts, and
 # computes each layer whole (its weights all-gathered through the host),
 # the MoE layers through the plan's make_ep_dispatch (seq_chunk 2048).  The
-# same prompts as phase_serve_hybrid; MESH_DECODE greedy steps; the phase's
-# share of the script's time limit.
+# same prompts as phase_serve_hybrid; MESH_DECODE greedy steps into a cache
+# of phase_serve_hybrid's length (SERVE_MAX_LEN: the decode attention's sums
+# over the cache are then tiled as in the one process); the phase's share
+# of the script's time limit.
 MESH_SHAPE, MESH_AXES = (1, 2), ("data", "model")
-MESH_DECODE = 8
+MESH_DECODE = 4
 MESH_TIMEOUT_S = 300
 # The expert-parallel dispatch alone, in f32 at one jamba MoE layer's widths
 # ([16, 4096, 14336] experts), against moe_layer_3d("scatter") in one
 # process: the k-sum is split over the ranks (rtol 1e-4).
 MESH_EP_TOKENS = (2, 2048)
 MESH_EP_TOL = dict(rtol=1e-4, atol=1e-5)
+# The sharded training step (phase 14c): one federated round of the
+# reference's train_4k plan on a mesh of gloo ranks sharing the card, at the
+# published widths and dtypes, against the port's one-process round on the
+# same card, the same weights (drawn from TRAIN_SHARDED_SEED) and batches.
+# (a) qwen3-0.6b, tp on (data 2, model 2): two workers over data, each
+#     worker's parameters split over model; bitwise.
+# (b) qwen3-moe-235b-a22b, fsdp_tp on (data 1, model 2): the plan of the
+#     94-layer arch, its config cut to 1 layer (7.47 GB); 64 experts a rank
+#     through the expert-parallel dispatch.  The dispatch routes the whole
+#     sequence at once (the reference's plan: seq_chunk 0 below 4,096-wide
+#     experts) where a MoE layer without it routes blocks of moe_seq_chunk
+#     (512), and with capacity 1.25 the two drop different tokens: the
+#     one-process round routes the dispatch's groups.  Its k-sum over the
+#     ranks is rounded once from f32 where one process sums in bf16, so the
+#     bf16 weights may move by a few ulps: TRAIN_SHARDED_TOL, and the
+#     update TRAIN_SHARDED_UPDATE_RATIO and _RTOL.
+# Each cut S to 2 local steps, one client a lane; (a) b to 2 sequences, (b)
+# to 1: at b = 2 each rank computes all 64 heads' chunked attention whole
+# and peaks at ~38 GB, and two such ranks do not fit the card.
+TRAIN_SHARDED_RUNS = (
+    {"arch": "qwen3-0.6b", "mesh": (2, 2), "S": 2, "b": 2, "n_layers": None,
+     "dispatch": False, "bitwise": True},
+    {"arch": "qwen3-moe-235b-a22b", "mesh": (1, 2), "S": 2, "b": 1,
+     "n_layers": 1, "dispatch": True, "bitwise": False})
+TRAIN_SHARDED_SEED = 27
+TRAIN_SHARDED_TOL = dict(atol=1e-3, rtol=1e-2)
+TRAIN_SHARDED_LOSS_RTOL = 1e-3
+# The round's update is far below the weights' scale (lr 0.05 on gradients
+# of ~1e-4; most bf16 elements do not move), so the weights' tolerance
+# alone passes a round that left θ as it was.  Each leaf whose one-process
+# update Δ = θ_new - θ_0 is not zero is also held by the mesh update D:
+# |D| / |Δ| within TRAIN_SHARDED_UPDATE_RATIO (no update gives 0, a doubled
+# one 2) and |D - Δ| / |Δ| at most TRAIN_SHARDED_UPDATE_RTOL (no update
+# gives 1).  The latter is loose because a bf16 element moves only where
+# its update passes half an ulp: the last bits of the gradient decide which
+# elements move (measured at (b): ratios 0.9995-1.0026, |D - Δ| / |Δ| up
+# to 0.21, 0.045 on the f32 leaves).
+TRAIN_SHARDED_UPDATE_RATIO = (0.95, 1.05)
+TRAIN_SHARDED_UPDATE_RTOL = 0.4
+TRAIN_SHARDED_TIMEOUT_S = 600
 # Kernel-name fragments of cuBLAS' GEMMs in a profile.
 GEMM_KERNELS = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
 # The peak breakdowns: trace entries kept while one call is recorded (a call
@@ -518,14 +585,14 @@ GEMM_KERNELS = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
 HISTORY_ENTRIES = 2_000_000
 BREAKDOWN_RTOL = 0.01
 # Federated LM training (--arch, f32 as the reference trains): the
-# reference's fl100m preset through the CLI (qwen3 for 3 rounds, mamba2,
-# granite-moe, whisper and internvl2 for 2, its default cohort 8 over 2
+# reference's fl100m preset through the CLI (2 rounds each of qwen3,
+# mamba2, granite-moe, whisper and internvl2, its default cohort 8 over 2
 # workers x 2 lanes), the mesh path with
 # int8 shard uploads (4 workers over 2 shards), and qwen3-0.6b at its
 # published widths through the same builder at the fl100m preset's "lm"
 # batches of 8 x 256 tokens, cohort 4 on 1 worker x 2 lanes, 4 local steps
 # a client: 2 clients a lane fill the S = 8 bucket with no padded step.
-LM_TRAIN = (("qwen3-0.6b", 3), ("mamba2-2.7b", 2), (MOE_ARCH, 2),
+LM_TRAIN = (("qwen3-0.6b", 2), ("mamba2-2.7b", 2), (MOE_ARCH, 2),
             (AUDIO_ARCH, 2), (VLM_ARCH, 2))
 LM_MESH_ARGS = ["--workers", "4", "--mesh-workers", "2", "--combine-mode",
                 "tree", "--combine-compress", "int8"]
@@ -581,7 +648,7 @@ TASK_SMALL = {"ic": dict(width=32, n_blocks=2),
               "mlm": dict(vocab=512, d_model=32, n_layers=2, d_ff=64)}
 AGREE_TASKS_RTOL = 1e-5
 # The device batch cache (PR 22): SR at its published widths under a Zipf
-# draw of 64 clients a round (hot clients recur), 12 rounds; the cache off,
+# draw of 64 clients a round (hot clients recur), 8 rounds; the cache off,
 # 512 rows, and a byte budget that holds every batch of the population.
 # A batch row is x [20, 64] f32 + y [20] int32 (``_probe_row_bytes``).
 # The Zipf head draws clients whose local SGD diverges at SR's learning
@@ -590,7 +657,7 @@ AGREE_TASKS_RTOL = 1e-5
 # (``tests/_torch_sr_zipf_reference.py``).  So these runs clip each step's
 # gradient at global norm 1 (``--grad-clip 1.0``), as the reference's
 # heavier Zipf recipe (exponent 1.6) does; its cache recipe sets none.
-CACHE_ROUNDS, CACHE_COHORT, CACHE_ROWS = 12, 64, 512
+CACHE_ROUNDS, CACHE_COHORT, CACHE_ROWS = 8, 64, 512
 CACHE_KW = dict(sampler="zipf", grad_clip=1.0)
 SR_ROW_BYTES = 5_200
 # The cache on the mesh path: the int8 tree mesh with 256 rows over its 2
@@ -615,10 +682,11 @@ MULTIHOST_ROUNDS = 4
 # published widths and dtypes with the overrides each needs: qwen3's
 # planned b=64 holds ~69 GB of dense f32 attention scores a layer, so its
 # round runs 32 steps of 8 (the same 256 sequences of 4,096 tokens), cut to
-# 7 of its 28 layers to fit the script's time (the whole depth took 148 s
-# a round); the 32k prefills take one prompt through K4 and K5.
+# 2 of its 28 layers to fit the script's time (the whole depth took 148 s
+# a round, 7 layers 44 s, 4 layers 29 s); the 32k prefills take one prompt
+# through K4 and K5.
 DRYRUN_WORKERS = 4
-DRYRUN_RUNS = (("qwen3-0.6b", "train_4k", {"S": 32, "b": 8, "n_layers": 7}),
+DRYRUN_RUNS = (("qwen3-0.6b", "train_4k", {"S": 32, "b": 8, "n_layers": 2}),
                ("qwen3-0.6b", "prefill_32k", {"b": 1, "attn_impl": "pallas"}),
                ("mamba2-2.7b", "prefill_32k", {"b": 1, "ssd_impl": "pallas"}),
                ("mamba2-2.7b", "long_500k", {}))
@@ -2283,7 +2351,7 @@ def _mesh_rank(mesh, tokens, n_decode: int) -> dict:
     cfg = replace(base, moe_dispatch=plan.cfg.moe_dispatch)
     shard = tplan.sharding_specs(plan, mesh)
     b, s = tokens.shape
-    max_len = s + n_decode
+    max_len = SERVE_MAX_LEN
     specs = {"params": shard["params"],
              "cache": tplan.cache_specs(cfg, shard["rules"], b, max_len,
                                         mesh)}
@@ -2453,6 +2521,339 @@ def phase_serve_hybrid_mesh(torch, ref: dict) -> dict:
             "routes": [r["routes_prefill"] for r in res],
             "launches_decode": [r["launches_decode"] for r in res],
             "phase_s": phase_s}
+
+
+def _sharded_train_plan(run: dict, axes):
+    """The reference's train_4k plan of ``run["arch"]`` on ``axes`` (a
+    Mesh, whose hooks it makes, or axis sizes: no hooks, the one-process
+    round), its config cut to ``run["n_layers"]`` and its round to
+    ``run["S"]`` steps of ``run["b"]`` sequences (``TRAIN_SHARDED_RUNS``).
+    Where the mesh's MoE layers go through the dispatch, the one-process
+    round's route the dispatch's groups of tokens (``ep_seq_chunk``)."""
+    from dataclasses import replace
+    from repro_torch.launch import plan as tplan
+    plan = tplan.make_plan(run["arch"], "train_4k", axes)
+    cfg = plan.cfg if run["n_layers"] is None else replace(
+        plan.cfg, n_layers=run["n_layers"])
+    if run["dispatch"] and cfg.moe_dispatch is None:
+        cfg = replace(cfg, moe_seq_chunk=tplan.ep_seq_chunk(cfg))
+    return replace(plan, S=run["S"], b=run["b"], cfg=cfg)
+
+
+def _flat_args(args) -> tuple:
+    """A train step's arguments with its parameters laid out flat (a
+    ``FlatTree``): the round then works on them without another copy."""
+    from repro_torch.kernels.layout import FlatLayout
+    params, *rest = args
+    layout = FlatLayout.of(params)
+    return (layout.views(layout.flatten_groups(params)), *rest)
+
+
+def _train_sharded_ranks(mesh, runs: tuple, ref_paths: list) -> list:
+    """One rank of ``phase_train_sharded``: each run on its mesh (the first
+    ranks of ``mesh``, ``launch.mesh.sub_mesh``; one spawn for all runs),
+    None where the rank takes no part."""
+    import torch
+    from repro_torch.launch.mesh import sub_mesh
+    out = []
+    for run, ref_path in zip(runs, ref_paths):
+        sub = sub_mesh(mesh, run["mesh"])
+        out.append(None if sub is None else
+                   _train_sharded_rank(sub, run, ref_path))
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_sharded_rank(mesh, run: dict, ref_path: str) -> dict:
+    """One run on one rank: the step of the cut plan on this rank's shards
+    (drawn as one process draws the whole), one round with the launch
+    counts zeroed just before and read just after, then its new shards
+    and their update against the same blocks of the one-process round's
+    new parameters (saved at ``ref_path``)."""
+    import torch
+    from repro_torch.distributed.sharding import tree_paths
+    from repro_torch.kernels import ops
+    from repro_torch.launch import plan as tplan
+    from repro_torch.launch.steps import build_step
+    entered = time.time()
+    plan = _sharded_train_plan(run, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn, args = build_step(plan, mesh.device, seed=TRAIN_SHARDED_SEED,
+                          mesh=mesh)
+    args = _flat_args(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gloo = [0.0]
+    undo = _timed_collectives(torch, gloo)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    (new, metrics), round_s = _sync_s(torch, lambda: fn(*args))
+    launches = ops.launch_counts()
+    undo()
+    theta0 = args[0]
+    out = {"coords": mesh.coords, "policy": plan.policy, "W": plan.W,
+           "P": plan.P, "worker_axes": list(plan.worker_axes),
+           "batch_axes": list(plan.batch_axes),
+           "dispatch": plan.cfg.moe_dispatch is not None,
+           "groups": len(theta0.flats),
+           "param_bytes": sum(f.numel() * f.element_size()
+                              for f in theta0.flats.values()),
+           "param_bytes_specs": tplan.param_bytes_per_card(plan, mesh),
+           "init_s": init_s, "round_ms": round_s * 1e3,
+           "gloo_ms": gloo[-1] * 1e3,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches,
+           "metrics": {k: getattr(metrics, k) for k in metrics._fields}}
+    del fn, args
+    specs = dict(tree_paths(tplan.sharding_specs(plan, mesh)["params"]))
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    out["vs_one_process"] = _shard_compare(
+        torch, new, theta0, ref, specs, dict(zip(MESH_AXES, mesh.coords)),
+        dict(zip(MESH_AXES, mesh.shape)))
+    out.update(entered=entered, left=time.time())
+    return out
+
+
+def _block_of(x, spec, coords: dict, sizes: dict):
+    """The block of the whole leaf ``x`` that the rank at ``coords`` holds
+    under ``spec``."""
+    for i, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else (entry or ())
+        idx, n = 0, 1
+        for a in axes:
+            idx, n = idx * sizes[a] + coords[a], n * sizes[a]
+        if n > 1:
+            blk = x.shape[i] // n
+            x = x.narrow(i, idx * blk, blk)
+    return x
+
+
+def _shard_compare(torch, new, theta0, ref: dict, specs: dict, coords: dict,
+                   sizes: dict) -> dict:
+    """A rank's new shards ``new`` against the same blocks of the one-process
+    round's new parameters ``ref`` (whole leaves on the host), both from
+    this rank's old shards ``theta0``: the leaves and elements that differ,
+    the largest difference, whether every block is within
+    ``TRAIN_SHARDED_TOL``; and per leaf the sums that compare updates
+    (``_update_compare``): of the one-process update ``Δ = ref - theta0``
+    the sum of squares and the elements it moves, and for each candidate
+    update ``D`` (the mesh's ``new - theta0``; the controls: none, and the
+    mesh's doubled, rounded to the leaf's dtype) ``|D|²`` and
+    ``|D - Δ|²``.  A block that several ranks hold counts once over them."""
+    leaves = elements = 0
+    worst, close = 0.0, True
+    sums = {}
+    for path, got in new.items():
+        want = _block_of(ref[path], specs[path], coords, sizes).to(
+            got.device)
+        t0 = theta0[path].float()
+        g, w = got.float(), want.float()
+        # The ranks that hold this block: the axes its spec does not use.
+        used = {a for e in specs[path] for a in (
+            (e,) if isinstance(e, str) else (e or ()))}
+        copies = math.prod(n for a, n in sizes.items() if a not in used)
+        ref_d = w - t0
+        leaf = {"dtype": str(got.dtype).removeprefix("torch."),
+                "numel": got.numel() / copies,
+                "moved": int((ref_d != 0).sum()) / copies,
+                "ref": float(torch.linalg.vector_norm(ref_d)) ** 2 / copies}
+        mesh_d = g - t0
+        for name, d in (("mesh", mesh_d), ("zero", torch.zeros_like(t0)),
+                        ("double", (t0 + 2 * mesh_d).to(got.dtype).float()
+                         - t0)):
+            leaf[name] = [float(torch.linalg.vector_norm(x)) ** 2 / copies
+                          for x in (d, d - ref_d)]
+            del d
+        sums[path] = leaf
+        del t0, ref_d, mesh_d
+        if torch.equal(got, want):
+            continue
+        leaves += 1
+        diff = (g - w).abs()
+        elements += int((diff > 0).sum())
+        worst = max(worst, float(diff.max()))
+        close = close and torch.allclose(g, w, **TRAIN_SHARDED_TOL)
+    return {"bitwise": leaves == 0, "leaves_differing": leaves,
+            "elements_differing": elements, "max_abs_diff": worst,
+            "close": close, "sums": sums}
+
+
+def _update_compare(parts: list) -> dict:
+    """The ranks' ``_shard_compare`` sums joined per leaf, over the leaves
+    the one-process update ``Δ`` moves: per leaf its norm, share of moved
+    elements, and for the mesh's update ``D`` the norm ratio ``|D| / |Δ|``
+    and the relative difference ``|D - Δ| / |Δ|``; for the mesh and each control the worst leaf, and whether
+    every leaf's ratio is within ``TRAIN_SHARDED_UPDATE_RATIO`` and its
+    relative difference at most ``TRAIN_SHARDED_UPDATE_RTOL``."""
+    total: dict = {}
+    for part in parts:
+        for path, leaf in part["sums"].items():
+            acc = total.setdefault(path, {"dtype": leaf["dtype"]})
+            for k, v in leaf.items():
+                if k == "dtype":
+                    continue
+                if isinstance(v, list):
+                    acc[k] = [a + b for a, b in zip(acc.get(k, [0.0] * 2),
+                                                    v)]
+                else:
+                    acc[k] = acc.get(k, 0.0) + v
+    moved = {p: t for p, t in total.items() if t["ref"] > 0}
+    lo, hi = TRAIN_SHARDED_UPDATE_RATIO
+
+    def stats(t, k):
+        ratio, rel = (math.sqrt(x / t["ref"]) for x in t[k])
+        return {"ratio": ratio, "rel": rel,
+                "ok": lo <= ratio <= hi and rel <= TRAIN_SHARDED_UPDATE_RTOL}
+
+    out = {"update_norm": math.sqrt(sum(t["ref"] for t in total.values())),
+           "leaves": len(total), "leaves_moved": len(moved),
+           "per_leaf": {p: {"dtype": t["dtype"], "norm": math.sqrt(t["ref"]),
+                            "moved_share": t["moved"] / t["numel"],
+                            **{k: v for k, v in stats(t, "mesh").items()
+                               if k != "ok"}}
+                        for p, t in moved.items()}}
+    for k in ("mesh", "zero", "double"):
+        per = {p: stats(t, k) for p, t in moved.items()}
+        out[k] = {"close": all(v["ok"] for v in per.values()),
+                  "ratio": [min(v["ratio"] for v in per.values()),
+                            max(v["ratio"] for v in per.values())],
+                  "rel_max": max(v["rel"] for v in per.values())}
+    return out
+
+
+def phase_train_sharded(torch, smi: str) -> dict:
+    """The sharded training step (phase 14c): each run of
+    ``TRAIN_SHARDED_RUNS`` once in this process on the whole parameters
+    (the reference, saved to disk and freed while the ranks start), then
+    all runs in one spawn of gloo ranks sharing the card, each on its
+    mesh."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.launch.steps import build_step
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    refs = []
+
+    def references():
+        """The one-process rounds, while the ranks start: each saved where
+        the ranks read it, then freed before they touch the card."""
+        for run, path in zip(TRAIN_SHARDED_RUNS, paths):
+            t_ref = time.perf_counter()
+            sizes = dict(zip(MESH_AXES, run["mesh"]))
+            plan = _sharded_train_plan(run, sizes)
+            fn, args = build_step(plan, dev, seed=TRAIN_SHARDED_SEED)
+            args = _flat_args(args)
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            (new, metrics), ref_s = _sync_s(torch, lambda: fn(*args))
+            ref = {"plan": plan, "sizes": sizes, "ref_s": ref_s,
+                   "launches": ops.launch_counts(),
+                   "peak": torch.cuda.max_memory_allocated(),
+                   "groups": len(args[0].flats),
+                   "n_params": sum(f.numel() for f in args[0].flats.values()),
+                   "metrics": {k: getattr(metrics, k).cpu()
+                               for k in metrics._fields}}
+            torch.save({k: v.cpu() for k, v in new.items()}, path)
+            del fn, args, new, metrics
+            torch.cuda.empty_cache()
+            ref["one_process_s"] = time.perf_counter() - t_ref
+            refs.append(ref)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"ref{i}.pt")
+                 for i in range(len(TRAIN_SHARDED_RUNS))]
+        spawned = time.perf_counter()
+        res = run_on_mesh(_train_sharded_ranks, TRAIN_SHARDED_RUNS[0]["mesh"],
+                          MESH_AXES, backend="gloo", device="cuda:0",
+                          args=(TRAIN_SHARDED_RUNS, paths),
+                          timeout_s=TRAIN_SHARDED_TIMEOUT_S,
+                          meanwhile=references)
+        mesh_s = time.perf_counter() - spawned
+    launches = {}
+    for i, (run, ref) in enumerate(zip(TRAIN_SHARDED_RUNS, refs)):
+        plan, sizes, groups = ref["plan"], ref["sizes"], ref["groups"]
+        ref_m, ref_launches = ref["metrics"], ref["launches"]
+        res_i = [r[i] for r in res if r[i] is not None]
+        parts = [r["vs_one_process"] for r in res_i]
+        cmp = {"bitwise": all(c["bitwise"] for c in parts),
+               "leaves_differing": sum(c["leaves_differing"] for c in parts),
+               "elements_differing": sum(c["elements_differing"]
+                                         for c in parts),
+               "max_abs_diff": max(c["max_abs_diff"] for c in parts),
+               "close": all(c["close"] for c in parts)}
+        upd = _update_compare(parts)
+        r0 = res_i[0]
+        loss, loss_ref = float(r0["metrics"]["loss"]), float(ref_m["loss"])
+        emit({"phase": "train_sharded", "arch": run["arch"],
+              "mesh": sizes, "backend": "gloo", "ranks_share": "cuda:0",
+              "policy": r0["policy"], "W": r0["W"], "P": r0["P"],
+              "S": plan.S, "b": plan.b, "seq_len": plan.seq_len,
+              "n_layers": plan.cfg.n_layers, "params": ref["n_params"],
+              "worker_axes": r0["worker_axes"],
+              "batch_axes": r0["batch_axes"], "dispatch": r0["dispatch"],
+              "attn_impl": plan.cfg.attn_impl, "remat": plan.cfg.remat,
+              "loss_chunk": plan.cfg.loss_chunk, "dtype_groups": groups,
+              "loss": loss, "loss_one_process": loss_ref,
+              "vs_one_process": cmp, "update_vs_one_process": upd,
+              "tolerance": "bitwise" if run["bitwise"] else {
+                  **TRAIN_SHARDED_TOL, "loss_rtol": TRAIN_SHARDED_LOSS_RTOL,
+                  "update_ratio": TRAIN_SHARDED_UPDATE_RATIO,
+                  "update_rtol": TRAIN_SHARDED_UPDATE_RTOL},
+              "one_process": {"round_ms": ref["ref_s"] * 1e3,
+                              "peak_bytes": ref["peak"],
+                              "launches": ref_launches},
+              "ranks": [{k: r[k] for k in (
+                  "coords", "param_bytes", "init_s", "round_ms", "gloo_ms",
+                  "peak_bytes", "launches")} for r in res_i],
+              "rank_s": max(r["left"] - r["entered"] for r in res_i),
+              "one_process_s": ref["one_process_s"], "card": smi})
+        want_k1 = groups * plan.S
+        check(ref_launches["fedavg_accum"] == want_k1,
+              f"{run['arch']} one process: K1 launched "
+              f"{ref_launches['fedavg_accum']} times, not {want_k1}")
+        for r in res_i:
+            tag = f"{run['arch']} rank {r['coords']}"
+            check(r["param_bytes"] == r["param_bytes_specs"],
+                  f"{tag}: {r['param_bytes']} parameter bytes, the plan "
+                  f"gives {r['param_bytes_specs']}")
+            check(r["dispatch"] == run["dispatch"],
+                  f"{tag}: the dispatch {'not ' * run['dispatch']}used")
+            check(r["launches"]["fedavg_accum"] == want_k1
+                  and sum(r["launches"].values()) == want_k1,
+                  f"{tag}: launched {r['launches']}, K1 {want_k1} times "
+                  f"and nothing else expected")
+            check(bool(torch.isfinite(r["metrics"]["loss"])),
+                  f"{tag}: loss {r['metrics']['loss']}")
+            for k in ("steps", "clients", "total_weight"):
+                check(torch.equal(r["metrics"][k], ref_m[k]),
+                      f"{tag}: {k} {r['metrics'][k]}, one process "
+                      f"{ref_m[k]}")
+            check(torch.equal(r["metrics"]["loss"], r0["metrics"]["loss"]),
+                  f"{tag}: its loss differs from rank 0's")
+        # The update check must be able to fail: a rank that left θ as it
+        # was, or doubled its update, is not close.
+        check(upd["leaves_moved"] > 0 and not upd["zero"]["close"]
+              and not upd["double"]["close"],
+              f"{run['arch']}: the update check cannot tell a missing or "
+              f"doubled update: {upd}")
+        if run["bitwise"]:
+            check(cmp["bitwise"] and loss == loss_ref,
+                  f"{run['arch']} mesh vs one process not bitwise: {cmp}, "
+                  f"loss {loss} vs {loss_ref}")
+        else:
+            check(cmp["close"] and upd["mesh"]["close"]
+                  and abs(loss - loss_ref)
+                  <= TRAIN_SHARDED_LOSS_RTOL * abs(loss_ref),
+                  f"{run['arch']} mesh vs one process: {cmp}, update "
+                  f"{upd}, loss {loss} vs {loss_ref}")
+        launches[run["arch"]] = [r["launches"] for r in res_i]
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "train_sharded_summary", "phase_s": phase_s,
+          "mesh_s": mesh_s, "references_s": sum(r["one_process_s"]
+                                                for r in refs),
+          "card": smi})
+    return {"launches": launches, "phase_s": phase_s}
 
 
 def _mesh_compare(torch, ref: dict, got: dict, cfg, n_moe: int) -> dict:
@@ -4935,6 +5336,8 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
     torch.cuda.empty_cache()
     mesh = phase_serve_hybrid_mesh(torch, hybrid["mesh_ref"])
     clock("serve hybrid mesh")
+    sharded = phase_train_sharded(torch, smi)
+    clock("train sharded")
     audio = phase_serve_audio(torch)
     phase_serve_profile(torch, audio, _audio_cfg(),
                         phase="serve_audio_profile")
@@ -4996,6 +5399,9 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
          "launches_train_lm_mesh": train_mesh["launches"]["fedavg_accum"],
          "launches_train_full": train_full["launches"],
          "launches_train_full_mesh": full_mesh["launches"]["fedavg_accum"],
+         "launches_train_sharded_per_rank": {
+             a: [c["fedavg_accum"] for c in v]
+             for a, v in sharded["launches"].items()},
          "launches_train_tasks": {t: v["launches"] for t, v in tasks.items()},
          "train_tasks_fold": {t: v["fold"] for t, v in tasks.items()},
          "launches_fedmedian": fedmedian["launches_depth1"]["fedavg_accum"],

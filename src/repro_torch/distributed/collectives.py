@@ -14,7 +14,26 @@ their own shards of data add up.  So:
 * ``all_gather``'s sums the ranks' cotangents and keeps this rank's slice
   (a reduce-scatter, made of an all-reduce and a slice, since gloo has no
   reduce-scatter): each rank used the gathered tensor on its own data, as
-  FSDP's weight gather does.
+  FSDP's weight gather does;
+* ``all_gather(..., sum_grad=False)``'s keeps this rank's slice of its own
+  cotangent, with no sum and no traffic: the variant for an axis whose
+  ranks compute the same thing on the same data, where each rank's
+  cotangent already is the whole gradient and a sum would count it once
+  per rank;
+* ``sum_grad`` is the identity, and its backward sums the cotangent over
+  the axes it names: a tensor replicated over them that each rank used on
+  its own data.
+
+**The training rule.**  A rank of a training step computes each layer
+whole on its slice of the batch: the batch is split over the plan's
+*batch* axes and replicated over the others (``model``, and the *worker*
+axes, whose ranks train other clients).  So a parameter shard's gradient
+is summed over each batch axis, and over no other axis:
+:func:`repro_torch.distributed.sharding.gather_leaf` with ``batch_axes=``
+gathers over a batch axis with the summing ``all_gather``, over any other
+axis with ``sum_grad=False``, and passes a leaf replicated over a batch
+axis through ``sum_grad``.  The serve path and the expert-parallel
+dispatch keep the summing convention above.
 
 On a gloo mesh a CUDA tensor crosses through the host, and bf16 and f16
 are summed in f32 and rounded once, as one sum of them on the card would
@@ -33,8 +52,8 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["psum", "pmean", "all_gather", "axis_index", "Collective",
-           "counting", "wire_bytes"]
+__all__ = ["psum", "pmean", "all_gather", "sum_grad", "axis_index",
+           "Collective", "counting", "wire_bytes"]
 
 
 @dataclass(frozen=True)
@@ -151,15 +170,32 @@ class _PSum(torch.autograd.Function):
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis, dim):
+    def forward(ctx, x, mesh, axis, dim, sum_grad):
         ctx.mesh, ctx.axis, ctx.dim, ctx.n = mesh, axis, dim, x.shape[dim]
+        ctx.sum_grad = sum_grad
         return _gather(x, mesh, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
-        total = _all_reduce(g, ctx.mesh, ctx.axis)
+        if ctx.sum_grad:
+            g = _all_reduce(g, ctx.mesh, ctx.axis)
         i = ctx.mesh.axis_index(ctx.axis)
-        return total.narrow(ctx.dim, i * ctx.n, ctx.n), None, None, None
+        # A slice of its own storage: the whole cotangent can be freed.
+        return (g.narrow(ctx.dim, i * ctx.n, ctx.n).clone(
+            memory_format=torch.contiguous_format), None, None, None, None)
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        for a in ctx.axes:
+            g = _all_reduce(g, ctx.mesh, a)
+        return g, None, None
 
 
 def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -173,12 +209,21 @@ def pmean(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 
 
 def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0, *,
-               tiled: bool = True) -> torch.Tensor:
+               tiled: bool = True, sum_grad: bool = True) -> torch.Tensor:
     """The ranks' ``x`` along ``axis``, in rank order: concatenated on
-    ``dim`` (``tiled``) or stacked on a new ``dim``."""
+    ``dim`` (``tiled``) or stacked on a new ``dim``.  The backward sums
+    the ranks' cotangents, or with ``sum_grad=False`` keeps this rank's
+    slice of its own (see the module's docstring)."""
     if not tiled:
         x = x.unsqueeze(dim)
-    return _AllGather.apply(x, mesh, axis, dim)
+    return _AllGather.apply(x, mesh, axis, dim, sum_grad)
+
+
+def sum_grad(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` itself; its backward sums the cotangent over ``axes`` (those
+    of one rank are skipped)."""
+    axes = tuple(a for a in axes if mesh.axis_size(a) > 1)
+    return _SumGrad.apply(x, mesh, axes) if axes else x
 
 
 def axis_index(mesh, axis: str) -> int:

@@ -40,22 +40,6 @@ from repro_torch.models import layers
 __all__ = ["make_ep_dispatch"]
 
 
-class _Enter(torch.autograd.Function):
-    """Identity; the backward sums the cotangent over ``axes`` (an input
-    replicated over them, used by every rank on its own part)."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, axes):
-        ctx.mesh, ctx.axes = mesh, axes
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        for a in ctx.axes:
-            g = coll.psum(g, ctx.mesh, a)
-        return g, None, None
-
-
 class _Leave(torch.autograd.Function):
     """Identity; the backward divides the cotangent by the sizes of
     ``axes`` (an output replicated over them)."""
@@ -71,8 +55,9 @@ class _Leave(torch.autograd.Function):
 
 
 def _enter(x, mesh, axes):
-    axes = tuple(a for a in axes if mesh.axis_size(a) > 1)
-    return _Enter.apply(x, mesh, axes) if axes else x
+    """Identity; the backward sums the cotangent over ``axes`` (an input
+    replicated over them, used by every rank on its own part)."""
+    return coll.sum_grad(x, mesh, axes)
 
 
 def _leave(x, mesh, axes):
@@ -162,4 +147,5 @@ def make_ep_dispatch(mesh, *, batch_axes=("data",), model_axis="model",
 
     # What the serve path reads to hand the hook its expert shards.
     dispatch.model_axis, dispatch.fsdp_axis = model_axis, fsdp_axis
+    dispatch.seq_chunk = seq_chunk
     return dispatch

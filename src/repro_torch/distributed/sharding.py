@@ -42,8 +42,8 @@ from repro_torch.distributed import collectives
 
 __all__ = ["ShardingRules", "make_sharding_rules", "spec_for_tree",
            "filter_spec", "filtered_specs", "local_shape", "global_shape",
-           "shard_leaf", "shard_tree", "gather_leaf", "write_local", "tree_paths", "WorkerShardMap",
-           "HostShardMap"]
+           "shard_leaf", "shard_tree", "gather_leaf", "split_axes",
+           "write_local", "tree_paths", "WorkerShardMap", "HostShardMap"]
 
 
 @dataclass(frozen=True)
@@ -403,15 +403,50 @@ def shard_tree(tree, specs, mesh) -> dict:
             else shard_leaf(v, specs[k], mesh) for k, v in tree.items()}
 
 
-def gather_leaf(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+def gather_leaf(x: torch.Tensor, spec, mesh, *,
+                batch_axes=None) -> torch.Tensor:
     """The whole leaf from this rank's slice ``x``: all-gathered over the
     axes of each dim, the last axis of a tuple first (its blocks are the
-    innermost); an axis of one rank gathers nothing."""
+    innermost); an axis of one rank gathers nothing.
+
+    The backward sums the ranks' cotangents over every axis it gathered
+    (the serve convention of :mod:`~repro_torch.distributed.collectives`).
+    A training step passes its ``batch_axes`` (the axes its batch is split
+    over) for the training rule instead: the leaf's gradient is summed over
+    each batch axis, whether the leaf is split over it (a reduce-scatter)
+    or replicated (an all-reduce), and over no other axis, since there
+    each rank's cotangent already is the whole gradient."""
+    if batch_axes is not None:
+        held = {a for entry in spec for a in _entry_axes(entry)}
+        x = collectives.sum_grad(x, mesh, tuple(a for a in batch_axes
+                                                if a not in held))
     for i, entry in enumerate(spec):
         for a in reversed(_entry_axes(entry)):
             if mesh.axis_size(a) > 1:
-                x = collectives.all_gather(x, mesh, a, dim=i)
+                x = collectives.all_gather(
+                    x, mesh, a, dim=i,
+                    sum_grad=batch_axes is None or a in batch_axes)
     return x
+
+
+def split_axes(spec, axes) -> tuple:
+    """``(kept, dropped)``: ``spec`` without the mesh ``axes``, and ``spec``
+    with only them.  A training rank's lane holds its leaves under
+    ``kept`` (replicated over the worker axes, whose ranks train other
+    clients), so gathering ``x`` over ``dropped`` turns a shard under
+    ``spec`` into one under ``kept``.  A dropped axis must be the last of
+    its dim's axes: its blocks are then the innermost."""
+    kept, dropped = [], []
+    for entry in spec:
+        ax = _entry_axes(entry)
+        k = tuple(a for a in ax if a not in axes)
+        d = tuple(a for a in ax if a in axes)
+        if d and ax[len(k):] != d:
+            raise ValueError(f"spec {spec}: axes {d} are not the innermost "
+                             f"of {entry}")
+        kept.append(k if len(k) > 1 else (k[0] if k else None))
+        dropped.append(d if len(d) > 1 else (d[0] if d else None))
+    return tuple(kept), tuple(dropped)
 
 
 def write_local(local: torch.Tensor, val: torch.Tensor, spec, mesh,

@@ -50,6 +50,16 @@ reference maps over leaves each in its own.  The compression family
 as the reference does, on the layout's f32 twin; its result is cast back
 to each leaf's dtype.
 
+On a mesh of several ranks (:func:`make_round_step` with ``mesh=``) one
+client is split over the ranks, as the reference's plan splits it: each
+rank runs :func:`make_worker_round_step` on its own workers' lanes, its
+slice of their batch and its shards of θ (the loss gathers each layer,
+:func:`repro_torch.models.lm.loss_fn`), so the optimizer and K1 work on
+the rank's shards; then the ranks' lane partials, weights and loss totals
+are all-gathered over the worker axes, in worker-axis rank order, and
+reduced by the one-process tail (:func:`_reduce_partials`) on the same
+``[W·P, ...]`` operands.
+
 Non-associative strategies (FedMedian) take the gather path instead:
 :func:`make_gather_round_step` trains the same lanes and returns every
 lane's model unreduced.
@@ -112,6 +122,30 @@ def _stack_state(state, lanes: int):
     raise TypeError(f"cannot stack {type(state).__name__}")
 
 
+def _zero_state(optimizer, flats: dict):
+    """``optimizer.init(flats)`` without its memory: every optimizer of
+    :mod:`repro_torch.optim` starts from zeros, which the lane loop only
+    reads (each update makes new tensors), so each state tensor is one zero
+    viewed at the state's shape.  The state's structure comes from ``init``
+    on meta tensors."""
+    device = next(iter(flats.values())).device
+    meta = optimizer.init({k: torch.empty_like(f, device="meta")
+                           for k, f in flats.items()})
+
+    def zero(x):
+        if torch.is_tensor(x):
+            return torch.zeros((), dtype=x.dtype, device=device).expand(
+                x.shape)
+        if isinstance(x, dict):
+            return {k: zero(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            vals = [zero(v) for v in x]
+            return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+        raise TypeError(f"cannot zero {type(x).__name__}")
+
+    return zero(meta)
+
+
 def _local_step(loss_fn, optimizer, grad_clip, layout: FlatLayout, theta,
                 opt_state, batch, m):
     """One local SGD/Adam step of every lane: ``theta`` (``{key: [L,
@@ -129,10 +163,13 @@ def _local_step(loss_fn, optimizer, grad_clip, layout: FlatLayout, theta,
     if grad_clip is not None:
         grads, _ = clip_by_global_norm(grads, grad_clip, batch_dims=1)
     updates, new_opt = optimizer.update(grads, opt_state, theta)
+    del grads
     mcol = m[:, None]
-    # The mask is cast per buffer, as the reference casts it per leaf.
-    theta = apply_updates(
-        theta, {k: u * mcol.to(u.dtype) for k, u in updates.items()})
+    # The mask is cast per buffer, as the reference casts it per leaf.  Each
+    # name is rebound as soon as it is used, so that no more than one
+    # update-sized buffer is alive beside the new momentum.
+    updates = {k: u * mcol.to(u.dtype) for k, u in updates.items()}
+    theta = apply_updates(theta, updates)
     # Masked steps keep the old optimizer state (exact no-op).
     return theta, _tree_select(m > 0, new_opt, opt_state), loss.detach()
 
@@ -152,7 +189,7 @@ def _make_lane_scan(loss_fn, optimizer, *, agg_impl: str = "kernel",
         L, S = mask.shape
         theta0 = {k: g.expand(L, -1) for k, g in global_flats.items()}
         theta = {k: t.clone() for k, t in theta0.items()}
-        opt0 = _stack_state(optimizer.init(global_flats), L)
+        opt0 = _stack_state(_zero_state(optimizer, global_flats), L)
         opt_state = opt0
         partial = partial_init(theta, lanes=L)
         loss_sum = torch.zeros(L, dtype=torch.float32, device=mask.device)
@@ -182,12 +219,29 @@ def _make_lane_scan(loss_fn, optimizer, *, agg_impl: str = "kernel",
 
 
 def make_round_step(loss_fn, optimizer, *, agg_impl: str = "kernel",
-                    grad_clip: float | None = None):
+                    grad_clip: float | None = None, mesh=None,
+                    worker_axes: tuple = (), specs: dict | None = None):
     """Build the federated round function (see the module docstring).
 
     ``agg_impl``: ``"kernel"`` folds with the hand-written K1 (the plain
     version on CPU tensors); ``"plain"`` is the reference's XLA variant.
+
+    With ``mesh`` (of more than one rank) the round runs on this rank's
+    blocks: the params are its shards under ``specs`` (the parameter specs
+    of :func:`repro_torch.launch.plan.sharding_specs`, nested), the batches
+    and masks its ``[W_r, P, S, ...]`` block of the workers over
+    ``worker_axes``, and ``loss_fn`` the loss of a lane on those shards
+    (:func:`repro_torch.models.make_lane_loss_fn` with the lane specs).
+    It returns this rank's shards of the new global params and the whole
+    round's metrics.
     """
+    if mesh is not None and mesh.size > 1:
+        if grad_clip is not None:
+            raise NotImplementedError(
+                "gradient clipping on a mesh needs the global norm over "
+                "the ranks' shards, which is not ported")
+        return _make_mesh_round_step(loss_fn, optimizer, agg_impl, mesh,
+                                     worker_axes, specs)
     lane_scan = _make_lane_scan(loss_fn, optimizer, agg_impl=agg_impl,
                                 grad_clip=grad_clip)
 
@@ -202,6 +256,60 @@ def make_round_step(loss_fn, optimizer, *, agg_impl: str = "kernel",
             gflats, partial.theta, partial.weight, lane_losses, step_mask,
             boundary, weight)
         return layout.views(new_flats), metrics
+
+    return round_step
+
+
+# Columns of the group buffers reduced at a time on a mesh: the workers'
+# gathered partials of one chunk hold at most this many elements.
+MESH_REDUCE_ELEMS = 1 << 26
+
+
+def _make_mesh_round_step(loss_fn, optimizer, agg_impl, mesh, worker_axes,
+                          specs):
+    """:func:`make_round_step` on one rank of ``mesh``."""
+    from repro_torch.distributed.sharding import (gather_leaf, shard_leaf,
+                                                  split_axes, tree_paths)
+    worker_step = make_worker_round_step(loss_fn, optimizer,
+                                         agg_impl=agg_impl)
+    axes = tuple(a for a in worker_axes if mesh.axis_size(a) > 1)
+    # Worker axes that also split a leaf: a lane holds that leaf gathered
+    # over them (the per-chip workers hold whole clients).
+    split = {path: split_axes(spec, axes)[1]
+             for path, spec in tree_paths(specs or {})}
+    split = {k: v for k, v in split.items() if any(e is not None for e in v)}
+    workers = ((axes if len(axes) > 1 else axes[0]),) if axes else ()
+
+    def over_workers(x):
+        """``[W_r, ...]`` -> ``[W, ...]``, the workers in rank order."""
+        return gather_leaf(x, workers, mesh)
+
+    @torch.no_grad()
+    def round_step(global_params, batches, step_mask, boundary, weight):
+        layout = FlatLayout.of(global_params)
+        lane = global_params
+        if split:
+            lane = {k: gather_leaf(v, split[k], mesh) if k in split else v
+                    for k, v in global_params.items()}
+        lane_layout = FlatLayout.of(lane)
+        # One flat copy, which the worker step and the tail share.
+        gflats = lane_layout.flatten_groups(lane)
+        lane = lane_layout.views(gflats)
+        theta_wp, n_wp, lane_losses = worker_step(lane, batches, step_mask,
+                                                  boundary, weight)
+        L_r = n_wp.numel()
+        n_l = over_workers(n_wp).reshape(-1)
+        new_flats, metrics = _reduce_partials(
+            gflats, {k: t.reshape(L_r, -1) for k, t in theta_wp.flats.items()},
+            n_l, over_workers(lane_losses), over_workers(step_mask),
+            over_workers(boundary), None, lanes=over_workers,
+            cols=max(1, MESH_REDUCE_ELEMS // n_l.numel()))
+        new = lane_layout.views(new_flats)
+        if split:
+            new = layout.views(layout.flatten_groups(
+                {k: shard_leaf(v, split[k], mesh) if k in split else v
+                 for k, v in new.items()}))
+        return new, metrics
 
     return round_step
 
@@ -498,20 +606,40 @@ def _ordered_sum(v):
 
 
 def _reduce_partials(global_params, theta_l, n_l, lane_losses, step_mask,
-                     boundary, weight, *, twin_of: FlatLayout | None = None):
+                     boundary, weight, *, twin_of: FlatLayout | None = None,
+                     cols: int | None = None, lanes=None):
     """The round's reduction tail: weighted mean of the lane partials
-    (leaves ``[L, ...]``, weights ``[L]``) plus the round metrics.  The mask
-    and boundary sums add exact 0/1 floats and client weights are
+    (group buffers ``[L, n_g]``, weights ``[L]``) plus the round metrics.
+    The mask and boundary sums add exact 0/1 floats and client weights are
     integer-valued, so only the loss sum needs a fixed order.  With
     ``twin_of``, ``theta_l`` is that layout's f32 twin ``{"flat": [L,
-    N]}``, and its mean is cast back to the layout's group buffers."""
+    N]}``, and its mean is cast back to the layout's group buffers.
+
+    With ``cols`` (the mesh path) ``theta_l`` holds this rank's ``[L_r,
+    n_g]`` lanes: the mean is taken ``cols`` columns at a time, each block
+    first gathered by ``lanes`` into the one-process ``[L, cols]`` lane
+    order.  A column's mean is its own, so the blocks give the whole
+    buffer's bits."""
     total_w = n_l.sum()
-    mean = tree_weighted_mean(theta_l, n_l)
-    if twin_of is not None:
-        mean = twin_of.from_twin(mean["flat"])
-    # If the round somehow folded nothing, keep the old global model.
-    new_global = {k: torch.where(total_w > 0, mean[k].to(g.dtype), g)
-                  for k, g in global_params.items()}
+
+    def kept(mean, g):
+        # If the round somehow folded nothing, keep the old global model.
+        return torch.where(total_w > 0, mean.to(g.dtype), g)
+
+    if cols is None:
+        mean = tree_weighted_mean(theta_l, n_l)
+        if twin_of is not None:
+            mean = twin_of.from_twin(mean["flat"])
+        new_global = {k: kept(mean[k], g) for k, g in global_params.items()}
+    else:
+        new_global = {}
+        for k, g in global_params.items():
+            out = new_global[k] = torch.empty_like(g)
+            for lo in range(0, g.shape[-1], cols):
+                blk = slice(lo, lo + cols)
+                mean = tree_weighted_mean({k: lanes(theta_l[k][:, blk])},
+                                          n_l)
+                out[blk] = kept(mean[k], g[blk])
     n_steps = step_mask.sum()
     metrics = RoundMetrics(
         loss=_ordered_sum(lane_losses) / torch.clamp(n_steps, min=1.0),

@@ -15,17 +15,19 @@ the kernels' launches, device time by kernel from ``torch.profiler``, the
 model-FLOPs share of the card's peak (``mfu``) and the roofline fraction
 (the counted lower bound over the measured time).
 
-With ``--mesh pod`` (or ``multipod``) a serve cell is counted per card of
-the reference's production mesh, (16, 16) ("data", "model") or (2, 16, 16)
+With ``--mesh pod`` (or ``multipod``) a cell is counted per card of the
+reference's production mesh, (16, 16) ("data", "model") or (2, 16, 16)
 ("pod", "data", "model"), on a ``"meta"`` mesh
 (:func:`repro_torch.launch.mesh.make_production_mesh`): the plan of that
-mesh (FSDP/TP policy, the expert-parallel dispatch), one card's shards of
-the parameters, batch and cache, the step of one rank — each layer
-gathered whole — and the collectives it runs, their ring wire bytes
-turned into the roofline's ``collective_s``; ``fits`` is judged per card.
-Train cells are recorded as skipped there (the sharded training step is
-the next slice's).  ``--mesh one``, the default, counts one card holding
-everything, as before.
+mesh (workers, FSDP/TP policy, the expert-parallel dispatch), one card's
+shards of the parameters and its block of the inputs (a serve cell's
+batch and cache, a train cell's workers' batches), the step of one rank —
+each layer gathered whole, under remat gathered again in the backward —
+and the collectives it runs (a train cell's forward gathers, re-gathers,
+gradient reductions and the cross-worker reduce of the lane partials),
+their ring wire bytes turned into the roofline's ``collective_s``;
+``fits`` is judged per card.  ``--mesh one``, the default, counts one card
+holding everything, as before.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun            # all cells
@@ -59,27 +61,19 @@ from repro_torch.launch.roofline import HW, model_flops, roofline_terms
 from repro_torch.launch.steps import build_step, device_params
 
 __all__ = ["run_cell", "measure_cell", "skip_record", "first_step",
-           "parse_overrides", "main", "MESHES", "MESH_SKIP"]
+           "parse_overrides", "main", "MESHES"]
 
 MESHES = ("one", "pod", "multipod")
-MESH_SKIP = ("the sharded training step is not ported yet: a train cell on "
-             "a mesh of several cards waits for it (ROADMAP Queue 1)")
 
 _PROFILED_MATMULS = tuple(f"aten::{n}" for n in MATMUL_OPS)
 
 
 def skip_record(arch: str, shape: str, mesh: str = "one") -> dict:
-    reason = skip_reason(get_arch(arch), shape)
     rec = {"arch": arch, "shape": shape, "status": "skip",
-           "reason": reason or MESH_SKIP}
+           "reason": skip_reason(get_arch(arch), shape)}
     if mesh != "one":
         rec["mesh"] = mesh
     return rec
-
-
-def _skipped(arch: str, shape: str, mesh: str) -> bool:
-    return not runnable(get_arch(arch), shape) or (
-        mesh != "one" and SHAPES[shape].kind == "train")
 
 
 def first_step(plan, args: tuple) -> tuple:
@@ -116,18 +110,17 @@ def run_cell(arch: str, shape: str, *, run: bool = False,
              seed: int = 0, mesh: str = "one") -> dict:
     """Count one cell on meta tensors and return its record; with ``run``
     also measure it on ``device`` (default ``cuda``; see
-    :func:`measure_cell`).  ``mesh`` ``"pod"`` or ``"multipod"`` counts a
-    serve cell per card of the reference's production mesh (a train cell
-    there gives a skip record).  A step the counter cannot follow (a value
-    read back to the host, a shape made from data) gives ``"status":
-    "fail"`` with the op named."""
+    :func:`measure_cell`).  ``mesh`` ``"pod"`` or ``"multipod"`` counts the
+    cell per card of the reference's production mesh.  A step the counter
+    cannot follow (a value read back to the host, a shape made from data)
+    gives ``"status": "fail"`` with the op named."""
     if mesh not in MESHES:
         raise ValueError(f"mesh must be one of {MESHES}, got {mesh!r}")
     if mesh != "one":
         if run:
             raise ValueError("--run measures one card; a mesh cell is "
                              "counted only")
-        if _skipped(arch, shape, mesh):
+        if not runnable(get_arch(arch), shape):
             return skip_record(arch, shape, mesh)
         return _run_mesh_cell(arch, shape, mesh, overrides)
     if run:
@@ -201,7 +194,8 @@ def _run_mesh_cell(arch: str, shape: str, mesh_kind: str,
     hw = HW.from_spec(spec)
     tokens = plan.global_batch * (plan.seq_len if plan.kind != "decode"
                                   else 1)
-    mf = model_flops(plan.cfg, tokens, "serve")
+    mf = model_flops(plan.cfg, tokens,
+                     "train" if plan.kind == "train" else "serve")
     flops = cost.total_flops
     terms = roofline_terms(flops_per_device=cost.flops,
                            bytes_per_device=cost.bytes,
@@ -382,7 +376,7 @@ def main(argv=None) -> int:
     ap.add_argument("--run", action="store_true",
                     help="also run each cell on the card")
     ap.add_argument("--mesh", choices=MESHES, default="one",
-                    help="one card (default), or count serve cells per card "
+                    help="one card (default), or count each cell per card "
                          "of the reference's 16x16 (pod) or 2x16x16 "
                          "(multipod) mesh")
     args = ap.parse_args(argv)
@@ -398,7 +392,7 @@ def main(argv=None) -> int:
             if args.mesh != "one":
                 suffix = f"__{args.mesh}{suffix}"
             path = os.path.join(args.out, f"{arch}__{shape}{suffix}.json")
-            if _skipped(arch, shape, args.mesh):
+            if not runnable(get_arch(arch), shape):
                 rec = skip_record(arch, shape, args.mesh)
                 print(f"SKIP {tag} ({rec['reason'][:60]}...)")
             else:

@@ -41,9 +41,9 @@ from dataclasses import dataclass, field
 
 import torch
 
-__all__ = ["Mesh", "make_mesh", "make_test_mesh", "make_production_mesh",
-           "axis_sizes", "run_on_mesh", "free_port", "fl_shard_devices",
-           "fl_combine_topology", "BACKENDS"]
+__all__ = ["Mesh", "make_mesh", "sub_mesh", "make_test_mesh",
+           "make_production_mesh", "axis_sizes", "run_on_mesh", "free_port",
+           "fl_shard_devices", "fl_combine_topology", "BACKENDS"]
 
 BACKENDS = ("nccl", "gloo", "meta")
 
@@ -96,7 +96,8 @@ def make_mesh(shape, axes, *, backend: str | None = None,
     """A mesh of ``shape`` over ``axes``.  ``"nccl"`` and ``"gloo"`` need
     ``torch.distributed`` initialised with ``prod(shape)`` ranks; every rank
     must build the same meshes in the same order (each axis makes one
-    process group per line of ranks along it).  ``device`` is where this
+    process group per line of ranks along it; :func:`sub_mesh` makes a
+    smaller mesh on the same ranks).  ``device`` is where this
     rank computes (default: ``meta`` on a meta mesh, else ``cuda``)."""
     shape, axes = tuple(int(n) for n in shape), tuple(axes)
     if backend not in BACKENDS:
@@ -116,13 +117,36 @@ def make_mesh(shape, axes, *, backend: str | None = None,
     if world != math.prod(shape):
         raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks, the "
                          f"process group has {world}")
-    mesh = Mesh(shape, axes, backend, torch.device(device or "cuda"), rank)
-    ranks = torch.arange(world).reshape(shape)
-    for i, axis in enumerate(axes):
-        lines = ranks.movedim(i, -1).reshape(-1, shape[i])
+    return _with_groups(Mesh(shape, axes, backend,
+                             torch.device(device or "cuda"), rank))
+
+
+def sub_mesh(mesh: Mesh, shape) -> Mesh | None:
+    """The first ``prod(shape)`` ranks of ``mesh`` laid out row-major on
+    ``shape`` over the same axes, with groups of their own; ``None`` on the
+    ranks left out.  Every rank of ``mesh`` calls it, in the same order (a
+    process group is made by all ranks), so one set of spawned ranks can
+    serve meshes of several shapes."""
+    shape = tuple(int(n) for n in shape)
+    if shape == tuple(mesh.shape):
+        return mesh
+    if len(shape) != len(mesh.shape) or math.prod(shape) > mesh.size:
+        raise ValueError(f"sub_mesh {shape} does not fit mesh {mesh.shape}")
+    sub = _with_groups(Mesh(shape, mesh.axis_names, mesh.backend,
+                            mesh.device, mesh.rank))
+    return sub if mesh.rank < sub.size else None
+
+
+def _with_groups(mesh: Mesh) -> Mesh:
+    """``mesh`` with one process group per line of ranks along each axis
+    (ranks ``0 .. mesh.size - 1``, row-major); this rank keeps its own."""
+    import torch.distributed as dist
+    ranks = torch.arange(mesh.size).reshape(mesh.shape)
+    for i, axis in enumerate(mesh.axis_names):
+        lines = ranks.movedim(i, -1).reshape(-1, mesh.shape[i])
         for line in lines.tolist():
-            group = dist.new_group(line, backend=backend)
-            if rank in line:
+            group = dist.new_group(line, backend=mesh.backend)
+            if mesh.rank in line:
                 mesh.groups[axis] = group
     return mesh
 
@@ -161,9 +185,10 @@ def _to_bytes(obj) -> bytes:
 
 
 def _rank_main(conn, rank, world, port, backend, shape, axes, device, fn,
-               args, timeout_s):
-    """Spawn target: join the process group, build the mesh, run
-    ``fn(mesh, *args)``, send ``("ok", result)`` or ``("err", trace)``."""
+               args, timeout_s, go):
+    """Spawn target: join the process group, build the mesh, wait for
+    ``go`` (if any), run ``fn(mesh, *args)``, send ``("ok", result)`` or
+    ``("err", trace)``."""
     import datetime
 
     import torch.distributed as dist
@@ -182,6 +207,8 @@ def _rank_main(conn, rank, world, port, backend, shape, axes, device, fn,
             world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
         try:
             mesh = make_mesh(shape, axes, backend=backend, device=device)
+            if go is not None:
+                go.wait()
             conn.send(("ok", _to_bytes(fn(mesh, *args))))
         finally:
             dist.destroy_process_group()
@@ -192,12 +219,18 @@ def _rank_main(conn, rank, world, port, backend, shape, axes, device, fn,
 
 
 def run_on_mesh(fn, shape, axes, *, backend: str, device="cuda",
-                args: tuple = (), timeout_s: float = 600.0) -> list:
+                args: tuple = (), timeout_s: float = 600.0,
+                meanwhile=None) -> list:
     """Run ``fn(mesh, *args)`` on ``prod(shape)`` spawned ranks and return
     their results in rank order.  ``fn`` and ``args`` must be picklable
     (``fn`` a module-level function).  A rank that raises, dies or is not
     done within ``timeout_s`` fails the run: the others are killed and a
-    ``RuntimeError`` names it.  Every rank computes on ``device``."""
+    ``RuntimeError`` names it.  Every rank computes on ``device``.
+
+    With ``meanwhile``, this process calls ``meanwhile()`` once the ranks
+    are started, and they call ``fn`` only after it has returned: their
+    start-up (seconds a process on a card) overlaps it, and it may prepare
+    what they read.  If it raises, the ranks are killed."""
     import multiprocessing as mp
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"run_on_mesh spawns nccl or gloo ranks, not "
@@ -205,21 +238,27 @@ def run_on_mesh(fn, shape, axes, *, backend: str, device="cuda",
     world = math.prod(shape)
     ctx = mp.get_context("spawn")
     port = free_port()
+    go = None if meanwhile is None else ctx.Event()
     procs, conns = [], []
     for rank in range(world):
         parent_c, child_c = ctx.Pipe(duplex=False)
         p = ctx.Process(target=_rank_main, name=f"mesh-rank{rank}",
                         args=(child_c, rank, world, port, backend,
                               tuple(shape), tuple(axes), str(device), fn,
-                              tuple(args), timeout_s), daemon=True)
+                              tuple(args), timeout_s, go), daemon=True)
         p.start()
         child_c.close()
         procs.append(p)
         conns.append(parent_c)
     results: dict = {}
     error = None
-    deadline = time.monotonic() + timeout_s
     try:
+        if meanwhile is not None:
+            error = "meanwhile raised"     # the ranks are killed below
+            meanwhile()
+            error = None
+            go.set()
+        deadline = time.monotonic() + timeout_s
         while len(results) < world and error is None:
             left = deadline - time.monotonic()
             if left <= 0:

@@ -46,7 +46,7 @@ from repro_torch.models import lm
 __all__ = ["make_plan", "input_specs", "Plan", "LARGE_PARAM_BYTES",
            "param_bytes", "param_leaves", "runnable", "skip_reason",
            "meta_params", "DEFAULT_AXES", "sharding_specs", "cache_specs",
-           "param_bytes_per_card"]
+           "param_bytes_per_card", "lane_specs", "ep_seq_chunk"]
 
 LARGE_PARAM_BYTES = 16e9      # bf16 bytes; above this one client = one pod
 # One card: a mesh of one device, as the reference's 1x1 test mesh.
@@ -136,6 +136,16 @@ class Plan:
             return None
         return self.worker_axes if len(self.worker_axes) > 1 \
             else self.worker_axes[0]
+
+
+def ep_seq_chunk(cfg) -> int:
+    """The sequence block the plan's expert-parallel dispatch routes at once
+    (0: the whole sequence), as the reference sets it: wide experts
+    (jamba's 14,336) need blocks.  A MoE layer without the dispatch routes
+    blocks of ``cfg.moe_seq_chunk`` (512 in every plan) instead, so where
+    tokens are dropped the two route different groups of tokens and are
+    different functions (the reference's are too)."""
+    return 2048 if cfg.moe_d_ff >= 4096 else 0
 
 
 def make_plan(arch: str | ArchConfig, shape_name: str,
@@ -249,11 +259,10 @@ def make_plan(arch: str | ArchConfig, shape_name: str,
     if mesh is not None and cfg.moe and large \
             and cfg.n_experts % n_model == 0 and not vmapped_train:
         from repro_torch.distributed.ep_dispatch import make_ep_dispatch
-        # Wide experts (jamba's 14,336) need the seq-chunked dispatch.
         hooks["moe_dispatch"] = make_ep_dispatch(
             mesh, batch_axes=batch_axes or (), model_axis="model",
             fsdp_axis=("data" if "data" not in worker_axes else None),
-            seq_chunk=2048 if cfg.moe_d_ff >= 4096 else 0)
+            seq_chunk=ep_seq_chunk(cfg))
     cfg2 = replace(cfg, **knobs, **hooks)
     policy = (overrides or {}).get("policy",
                                    "fsdp_tp" if large else "tp")
@@ -319,13 +328,33 @@ def cache_specs(cfg: ArchConfig, rules: dict, batch: int, max_len: int,
     return filtered_specs(rules["kv"].tree_specs(cache), cache, mesh)
 
 
+def lane_specs(specs: dict, worker_axes) -> dict:
+    """What a lane of a training rank computes on: ``{"params": specs,
+    "batch_axes": axes}``, each parameter's spec without the worker axes
+    (a lane's client is replicated over them) and the axes the rank's
+    batch is split over, as the filtered spec of ``specs["batches"]``
+    gives them (an axis that does not divide ``b`` splits nothing)."""
+    from repro_torch.distributed.sharding import split_axes
+
+    def strip(tree):
+        return {k: strip(v) if isinstance(v, dict) else
+                split_axes(v, tuple(worker_axes))[0]
+                for k, v in tree.items()}
+
+    entry = specs["batches"]["tokens"][3]
+    batch_axes = () if entry is None else (
+        entry if isinstance(entry, tuple) else (entry,))
+    return {"params": strip(specs["params"]), "batch_axes": batch_axes}
+
+
 def sharding_specs(plan: Plan, mesh) -> dict:
     """The filtered specs of the parameters (``params``) and of each input
     group of the planned step on ``mesh`` (a Mesh or axis sizes) — the
     reference's ``sharding_specs``, as spec tuples where it gives
     ``NamedSharding``s: ``rules``, ``params_shapes``; a train cell's
-    ``batches`` and ``masks``; a prefill's ``batch`` and ``cache``; a
-    decode's ``cache``, ``tokens`` and ``logits``."""
+    ``batches`` and ``masks`` (and its ``lane``: :func:`lane_specs`); a
+    prefill's ``batch`` and ``cache``; a decode's ``cache``, ``tokens``
+    and ``logits``."""
     from repro_torch.distributed.sharding import filter_spec
     rules = make_sharding_rules(plan.policy, mesh, fl_axes=plan.worker_axes)
     shapes = lm.param_shapes(plan.cfg)
@@ -345,6 +374,7 @@ def sharding_specs(plan: Plan, mesh) -> dict:
         out["batches"] = {k: lead(v, (fl, None, None, ba))
                           for k, v in specs["batches"].items()}
         out["masks"] = (fl, None, None)
+        out["lane"] = lane_specs(out, plan.worker_axes)
     elif plan.kind == "prefill":
         out["batch"] = {k: lead(v, (ba,)) for k, v in specs["batch"].items()}
         out["cache"] = cache_specs(plan.cfg, rules, plan.b, plan.seq_len,

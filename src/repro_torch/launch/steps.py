@@ -13,9 +13,10 @@ The reference jits these with the plan's shardings and lowers them on
 ``ShapeDtypeStruct`` stand-ins; :func:`build_step` binds them to tensors on
 a device instead: meta tensors (nothing allocated, nothing computed) for
 the cost counter, or random inputs on the card for a run.  Given a mesh of
-several ranks it binds a serve step to this rank's shards (parameters,
-batch, cache) under the plan's specs; a train step on such a mesh is the
-next slice's (ROADMAP, the sharded training step).
+several ranks it binds the step to this rank's shards under the plan's
+specs: a serve step's parameters, batch and cache; a train step's
+parameters, its workers' block of the batches and masks, and the round of
+:func:`~repro_torch.fl.round.make_round_step` on a mesh.
 """
 
 from __future__ import annotations
@@ -45,12 +46,19 @@ CLIENT_LR = 0.05
 CLIENT_MOMENTUM = 0.9
 
 
-def make_train_step(plan: Plan, *, agg_impl: str = "kernel"):
+def make_train_step(plan: Plan, *, agg_impl: str = "kernel", mesh=None,
+                    specs=None):
     """The round step; its folds go through K1 (the plain version on CPU
-    tensors, the kernel's work on meta ones)."""
-    return make_round_step(make_lane_loss_fn(plan.cfg),
-                           sgd(CLIENT_LR, momentum=CLIENT_MOMENTUM),
-                           agg_impl=agg_impl)
+    tensors, the kernel's work on meta ones).  With ``mesh`` (and the
+    plan's ``specs`` on it, :func:`~repro_torch.launch.plan
+    .sharding_specs`) the round of one rank."""
+    if mesh is None or mesh.size == 1:
+        mesh = specs = None
+    return make_round_step(
+        make_lane_loss_fn(plan.cfg, mesh=mesh, specs=specs and specs["lane"]),
+        sgd(CLIENT_LR, momentum=CLIENT_MOMENTUM), agg_impl=agg_impl,
+        mesh=mesh, worker_axes=plan.worker_axes,
+        specs=specs and specs["params"])
 
 
 def make_prefill_step(plan: Plan, device, *, mesh=None, specs=None):
@@ -139,11 +147,12 @@ def build_step(plan: Plan, device="meta", *, params: dict | None = None,
     boundary and the weight ``b`` at the last step), a decode cell starts
     from a zeroed cache.
 
-    With ``mesh`` (of more than one rank) a serve step's parameters, batch
-    and cache are this rank's shards under :func:`~repro_torch.launch.plan
-    .sharding_specs` (``params``, where given, must be shards already);
-    inputs are drawn whole from ``seed`` and sliced, so every rank's slices
-    make one batch."""
+    With ``mesh`` (of more than one rank) the parameters and inputs are
+    this rank's shards under :func:`~repro_torch.launch.plan
+    .sharding_specs` (``params``, where given, must be shards already): a
+    serve step's batch and cache, a train step's block of the batches and
+    masks.  Inputs are drawn whole from ``seed`` and sliced, so every
+    rank's slices make one batch, the batch of the one-card step."""
     device = torch.device(device)
     if mesh is not None and mesh.size > 1:
         return _build_mesh_step(plan, device, params, seed, mesh)
@@ -162,10 +171,7 @@ def build_step(plan: Plan, device="meta", *, params: dict | None = None,
                                                           "weight"))
         if not meta:
             batches = {k: _fill(v, cfg, gen) for k, v in batches.items()}
-            step_mask = torch.ones_like(step_mask)
-            boundary = torch.zeros_like(boundary)
-            boundary[..., -1] = 1.0
-            weight = boundary * float(plan.b)
+            step_mask, boundary, weight = _train_masks(plan, device)
         return make_train_step(plan), (flatten_tree(params), batches,
                                        step_mask, boundary, weight)
     if plan.kind == "prefill":
@@ -177,12 +183,17 @@ def build_step(plan: Plan, device="meta", *, params: dict | None = None,
     return make_decode_step(plan, device), (params, specs["cache"], tokens)
 
 
+def _train_masks(plan: Plan, device):
+    """``(step_mask, boundary, weight)`` of a run: every step real, one
+    client a lane ending at its last step, weighted ``b``."""
+    step_mask = torch.ones((plan.W, plan.P, plan.S), device=device)
+    boundary = torch.zeros_like(step_mask)
+    boundary[..., -1] = 1.0
+    return step_mask, boundary, boundary * float(plan.b)
+
+
 def _build_mesh_step(plan: Plan, device, params, seed: int, mesh):
-    """:func:`build_step` on a mesh of several ranks (serve cells)."""
-    if plan.kind == "train":
-        raise NotImplementedError(
-            f"{plan.arch} × {plan.shape}: the sharded training step is not "
-            f"ported yet (ROADMAP Queue 1, the sharded training step)")
+    """:func:`build_step` on a mesh of several ranks."""
     meta = device.type == "meta"
     cfg = plan.cfg
     specs = sharding_specs(plan, mesh)
@@ -201,6 +212,15 @@ def _build_mesh_step(plan: Plan, device, params, seed: int, mesh):
         t = torch.empty(spec_t.shape, dtype=spec_t.dtype, device=device)
         return t if meta else _fill(t, cfg, gen)
 
+    if plan.kind == "train":
+        batches = shard_tree({k: draw(v) for k, v in
+                              whole["batches"].items()},
+                             specs["batches"], mesh)
+        masks = tuple(whole[k] for k in ("step_mask", "boundary", "weight")) \
+            if meta else _train_masks(plan, device)
+        masks = tuple(shard_leaf(m, specs["masks"], mesh) for m in masks)
+        return (make_train_step(plan, mesh=mesh, specs=specs),
+                (flatten_tree(params), batches) + masks)
     if plan.kind == "prefill":
         batch = shard_tree({k: draw(v) for k, v in whole["batch"].items()},
                            specs["batch"], mesh)

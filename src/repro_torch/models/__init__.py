@@ -31,18 +31,21 @@ def _device_of(tree):
     return tree.device
 
 
-def make_loss_fn(cfg):
+def make_loss_fn(cfg, *, mesh=None, specs=None):
     """Bind the arch config: ``loss(params, batch)`` of one model (the
     nested tree) -> scalar, as ``repro.models.make_loss_fn``.  It runs
-    where the params lie."""
+    where the params lie; on ``mesh`` (with ``specs``, see
+    :func:`~repro_torch.models.lm.loss_fn`) the params and the batch are
+    a rank's shards."""
 
     def _loss(params, batch):
-        return loss_fn(params, batch, cfg, device=_device_of(params))
+        return loss_fn(params, batch, cfg, device=_device_of(params),
+                       mesh=mesh, specs=specs)
 
     return _loss
 
 
-def make_lane_loss_fn(cfg):
+def make_lane_loss_fn(cfg, *, mesh=None, specs=None):
     """The LM loss in the round step's contract: lane-stacked flat params
     ``{path: [L, ...]}`` (paths as :func:`~repro_torch.kernels.layout
     .flatten_tree` joins them) and a batch ``{k: [L, b, ...]}`` -> per-lane
@@ -52,8 +55,9 @@ def make_lane_loss_fn(cfg):
     slice, so each lane's numbers do not depend on how many lanes share
     the call (the fused and mesh paths run one lane in different company).
     ``unbind`` hands every lane its slices, and its backward stacks the
-    lanes' gradients into one ``[L, ...]`` tensor per leaf."""
-    one = make_loss_fn(cfg)
+    lanes' gradients into one ``[L, ...]`` tensor per leaf.  ``mesh`` and
+    ``specs`` go to :func:`make_loss_fn`."""
+    one = make_loss_fn(cfg, mesh=mesh, specs=specs)
 
     def _lane_loss(params, batch):
         lanes = {k: v.unbind(0) for k, v in params.items()}

@@ -48,17 +48,22 @@ the reference runs it a second time for the cross k/v), and
 ``decode_step`` updates ``cache`` in place (and returns it): the cache
 is the largest buffer of the serve path and is never copied.
 
-**On a mesh.**  ``forward``, ``prefill`` and ``decode_step`` take ``mesh=``
-(a :class:`~repro_torch.launch.mesh.Mesh` of more than one rank) and
-``specs={"params": ..., "cache": ...}`` (the filtered specs of
-:func:`repro_torch.launch.plan.sharding_specs`).  Each rank then holds its
-shard of every parameter, its shard of the batch (split over the batch
-axes) and its shard of the cache, and computes each layer whole: the
-layer's weights and cache are all-gathered over the axes their specs name,
-one layer at a time, and dropped after use; the embedding, head and norms
-are gathered once a call.  MoE layers go through ``cfg.moe_dispatch``,
-which takes the rank's own experts.  The logits are the rank's batch's.
-A mesh of one rank is the path without a mesh.
+**On a mesh.**  ``forward``, ``prefill``, ``decode_step`` and ``loss_fn``
+take ``mesh=`` (a :class:`~repro_torch.launch.mesh.Mesh` of more than one
+rank) and ``specs={"params": ..., "cache": ...}`` (the filtered specs of
+:func:`repro_torch.launch.plan.sharding_specs`; a training step's lane
+specs also name its ``"batch_axes"``).  Each rank then holds its shard of
+every parameter, its shard of the batch (split over the batch axes) and
+its shard of the cache, and computes each layer whole: the layer's weights
+and cache are all-gathered over the axes their specs name, one layer at a
+time, and dropped after use; the embedding, head and norms are gathered
+once a call.  Under ``cfg.remat`` a period's gathers run inside its
+checkpoint, so the backward gathers it again.  The gathers' backward
+follows :func:`~repro_torch.distributed.sharding.gather_leaf`'s training
+rule.  MoE layers go through ``cfg.moe_dispatch``, which takes the rank's
+own experts; without it a training rank gathers the batch's tokens for
+the routing.  The logits are the rank's batch's.  A mesh of one rank is
+the path without a mesh.
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as shardlib
 from repro_torch.models import ssd as ssdlib
 from repro_torch.models.layers import (decode_attention, dense_init,
@@ -372,13 +378,16 @@ _MOE_LEAVES = ("moe_gate", "moe_up", "moe_down")
 @dataclass(frozen=True)
 class _Shard:
     """What a rank of a mesh needs to compute each layer whole: the mesh,
-    the parameter specs of the subtree at hand, the cache specs, and the
-    expert-parallel hook (its expert leaves stay local)."""
+    the parameter specs of the subtree at hand, the cache specs, the
+    expert-parallel hook (its expert leaves stay local), and in a training
+    step the axes its batch is split over (``None`` when serving: see
+    :func:`~repro_torch.distributed.sharding.gather_leaf`)."""
 
     mesh: object
     specs: dict
     cache: dict | None
     dispatch: object = None
+    batch_axes: tuple | None = None
 
     def at(self, *keys) -> "_Shard":
         specs = self.specs
@@ -386,30 +395,41 @@ class _Shard:
             specs = specs[k]
         return replace(self, specs=specs)
 
+    def gather(self, x, spec, *, batch_axes=None):
+        return shardlib.gather_leaf(
+            x, spec, self.mesh,
+            batch_axes=self.batch_axes if batch_axes is None else batch_axes)
+
     def tops(self, params, specs=None) -> dict:
         """``params`` with every leaf outside a ``stack`` gathered whole."""
         specs = self.specs if specs is None else specs
         return {k: v if k == "stack" else
                 self.tops(v, specs[k]) if isinstance(v, dict) else
-                shardlib.gather_leaf(v, specs[k], self.mesh)
+                self.gather(v, specs[k])
                 for k, v in params.items()}
 
     def period(self, stack, key: str, n: int) -> dict:
         """Period ``n``'s leaves of position ``key``, gathered whole; with
-        the hook, its experts as the hook takes them."""
+        the hook, its experts as the hook takes them.  ``stack[key]`` maps
+        names to stacked leaves or to their unbound periods."""
         out = {}
         for name, leaf in stack[key].items():
             spec = self.specs[key][name][1:]
             if self.dispatch is not None and name in _MOE_LEAVES:
                 out[name] = self._experts(leaf[n], spec, name)
+            elif self.dispatch is not None and name == "router" \
+                    and self.batch_axes is not None:
+                # The hook sums the router's cotangent over every axis.
+                out[name] = self.gather(leaf[n], spec, batch_axes=())
             else:
-                out[name] = shardlib.gather_leaf(leaf[n], spec, self.mesh)
+                out[name] = self.gather(leaf[n], spec)
         return out
 
     def _experts(self, x, spec, name: str):
         """This rank's expert shard as ``moe_dispatch`` splits it: experts
         over its model axis, ``D`` over its FSDP axis; resharded where the
-        policy split them otherwise."""
+        policy split them otherwise (serving only: the hook's gradient of
+        a resharded leaf would be another rank's block)."""
         d = self.dispatch
         want = (d.model_axis, d.fsdp_axis, None) if name != "moe_down" \
             else (d.model_axis, None, d.fsdp_axis)
@@ -419,8 +439,40 @@ class _Shard:
                           for a in self.mesh.axis_names})
         if tuple(spec) == want:
             return x
+        if self.batch_axes is not None:
+            raise NotImplementedError(
+                f"training {name} split {spec} through moe_dispatch, which "
+                f"takes {want}: only the plan's own split is trained")
         return shardlib.shard_leaf(shardlib.gather_leaf(x, spec, self.mesh),
                                    want, self.mesh)
+
+    def batch_sum(self, x):
+        """``x`` summed over the batch axes (replicated result)."""
+        for a in self.batch_axes or ():
+            if self.mesh.axis_size(a) > 1:
+                x = collectives.psum(x, self.mesh, a)
+        return x
+
+    def batch_moe(self, h, p, cfg: ArchConfig):
+        """A MoE layer without the hook on a batch split over the batch
+        axes: its tokens gathered, so that it routes the whole batch as
+        the reference does (capacity and the load-balance term are
+        batch-wide), and the rank's own rows of the output kept.  Every
+        rank computes the same aux term, so its gradient is counted once
+        over the batch axes."""
+        axes = tuple(a for a in self.batch_axes
+                     if self.mesh.axis_size(a) > 1)
+        rows = (axes if len(axes) > 1 else axes[0],)
+        out, aux = moe_layer_3d(shardlib.gather_leaf(h, rows, self.mesh),
+                                p["router"], p["moe_gate"], p["moe_up"],
+                                p["moe_down"], top_k=cfg.top_k,
+                                capacity_factor=cfg.capacity_factor,
+                                impl=cfg.moe_impl, ep_shard=cfg.act_shard_moe,
+                                seq_chunk=cfg.moe_seq_chunk, remat=cfg.remat)
+        # aux's value, with 1/n of its gradient on each of the n ranks.
+        n = math.prod(self.mesh.axis_size(a) for a in axes)
+        aux = aux.detach() + (aux - aux.detach()) / n
+        return shardlib.shard_leaf(out, rows, self.mesh), aux
 
     def _cache_spec(self, key: str, name: str) -> tuple:
         """A cache leaf's spec for one period and the rank's own batch."""
@@ -449,8 +501,10 @@ def _shard_of(mesh, specs, cfg: ArchConfig) -> "_Shard | None":
         return None
     if specs is None:
         raise ValueError("a mesh needs specs= (launch.plan.sharding_specs)")
+    batch_axes = specs.get("batch_axes")
     return _Shard(mesh, specs["params"], specs.get("cache"),
-                  cfg.moe_dispatch)
+                  cfg.moe_dispatch,
+                  None if batch_axes is None else tuple(batch_axes))
 
 
 # ---------------------------------------------------------------------------
@@ -535,7 +589,8 @@ def _cross_body(p, x, enc_out, cfg: ArchConfig):
     return _attn_out(p, attn, cfg, prefix="x"), (k, v)
 
 
-def _mlp_body(p, x, cfg: ArchConfig, kind: str, *, norm_key: str = "mlp_norm"):
+def _mlp_body(p, x, cfg: ArchConfig, kind: str, *, norm_key: str = "mlp_norm",
+              shard=None):
     """(MLP output, the MoE load-balance term or None)."""
     h = rms_norm(x, p[norm_key], eps=cfg.norm_eps) if norm_key else x
     if kind == "swiglu":
@@ -557,6 +612,9 @@ def _mlp_body(p, x, cfg: ArchConfig, kind: str, *, norm_key: str = "mlp_norm"):
             return cfg.moe_dispatch(
                 h, p["router"], p["moe_gate"], p["moe_up"], p["moe_down"],
                 top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+        if shard is not None and any(shard.mesh.axis_size(a) > 1
+                                     for a in shard.batch_axes or ()):
+            return shard.batch_moe(h, p, cfg)
         return moe_layer_3d(h, p["router"], p["moe_gate"], p["moe_up"],
                             p["moe_down"], top_k=cfg.top_k,
                             capacity_factor=cfg.capacity_factor,
@@ -574,7 +632,8 @@ def _mamba_body(p, x, cfg: ArchConfig, *, return_state: bool = False):
 
 
 def _apply_block(p, x, cfg: ArchConfig, kind: LayerKind, *, causal: bool,
-                 positions=None, enc_out=None, collect: bool = False):
+                 positions=None, enc_out=None, collect: bool = False,
+                 shard=None):
     """One block; returns (x, its MoE load-balance term or None, what it
     leaves for the cache): ``{"k", "v"}`` of its attention (with
     ``{"xk", "xv"}`` of its cross-attention where it has one and
@@ -585,7 +644,8 @@ def _apply_block(p, x, cfg: ArchConfig, kind: LayerKind, *, causal: bool,
         # command-r: shared norm, attn & mlp in parallel
         attn_out, (k, v) = _attn_body(p, x, cfg, causal=causal,
                                       positions=positions)
-        mlp_out, aux = _mlp_body(p, x, cfg, kind.mlp, norm_key="attn_norm")
+        mlp_out, aux = _mlp_body(p, x, cfg, kind.mlp, norm_key="attn_norm",
+                                 shard=shard)
         x = x + attn_out + mlp_out
         contrib = {"k": k, "v": v}
     else:
@@ -607,7 +667,7 @@ def _apply_block(p, x, cfg: ArchConfig, kind: LayerKind, *, causal: bool,
             x = x + cross_out
             contrib.update(xk=xk, xv=xv)
         if kind.mlp != "none":
-            mlp_out, aux = _mlp_body(p, x, cfg, kind.mlp)
+            mlp_out, aux = _mlp_body(p, x, cfg, kind.mlp, shard=shard)
             x = x + mlp_out
     return x, aux, contrib
 
@@ -639,7 +699,7 @@ def _period_blocks(periods, n: int, x, cfg: ArchConfig, plan, *,
         x, a, contrib = _apply_block(_period(periods, key, n, shard), x,
                                      cfg, kind, causal=causal,
                                      positions=positions, enc_out=enc_out,
-                                     collect=cache is not None)
+                                     collect=cache is not None, shard=shard)
         if a is not None:
             aux = a if aux is None else aux + a
         if cache is None or contrib is None:
@@ -666,24 +726,22 @@ def _run_stack(stack, x, cfg: ArchConfig, plan, *, causal: bool,
     # Each stacked leaf unbound once: the backward of that one view stacks
     # the periods' gradients in a single pass, where indexing ``leaf[n]``
     # per period would add up ``n_periods`` zero-padded full-size
-    # gradients.  A rank's shards are gathered period by period instead.
-    periods = stack if shard is not None else {
-        key: {name: leaf.unbind(0) for name, leaf in p.items()}
-        for key, p in stack.items()}
+    # gradients.  A rank of a mesh gathers its shards period by period,
+    # inside the checkpoint under ``cfg.remat``: the backward gathers the
+    # period again, as FSDP does, so no gathered period outlives its use.
+    periods = {key: {name: leaf.unbind(0) for name, leaf in p.items()}
+               for key, p in stack.items()}
     auxs = []
     for n in range(cfg.n_layers // len(plan)):
-        if shard is not None:
-            x, aux = _period_blocks(periods, n, x, cfg, plan, causal=causal,
-                                    positions=positions, enc_out=enc_out,
-                                    cache=cache, shard=shard)
-        elif cache is None and cfg.remat:
+        if cache is None and cfg.remat:
             x, aux = checkpoint(_period_blocks, periods, n, x, cfg, plan,
                                 causal=causal, positions=positions,
-                                enc_out=enc_out, use_reentrant=False)
+                                enc_out=enc_out, shard=shard,
+                                use_reentrant=False)
         else:
             x, aux = _period_blocks(periods, n, x, cfg, plan, causal=causal,
                                     positions=positions, enc_out=enc_out,
-                                    cache=cache)
+                                    cache=cache, shard=shard)
         if aux is not None:
             auxs.append(aux)
     return x, (torch.stack(auxs).sum() if auxs else 0.0)
@@ -814,7 +872,8 @@ def _chunk_ce(hc, labels, mask, params, cfg: ArchConfig):
     return ((lse - gold) * mask).sum()
 
 
-def loss_fn(params, batch, cfg: ArchConfig, *, device=None):
+def loss_fn(params, batch, cfg: ArchConfig, *, device=None, mesh=None,
+            specs=None):
     """Next-token cross-entropy (f32 scalar), differentiable: the
     counterpart of ``repro.models.lm.loss_fn``.
 
@@ -827,9 +886,20 @@ def loss_fn(params, batch, cfg: ArchConfig, *, device=None):
     (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
     does.  The sum is divided by the masked count of predicted tokens, and
     ``cfg.moe_aux_weight`` times the MoE layers' summed load-balance term
-    is added (0 without MoE)."""
+    is added (0 without MoE).
+
+    On a mesh (see the module's docstring) ``specs`` also names the
+    ``batch_axes`` the batch is split over (the training rule of
+    :func:`~repro_torch.distributed.sharding.gather_leaf`): ``batch`` is
+    the rank's slice, and the CE sum and the token count are summed over
+    those axes, so the loss is the whole batch's on every rank, and its
+    gradient with respect to each of the rank's shards is the whole
+    batch's."""
     device = _on_device(params, device)
-    h, loss_mask, aux = _hidden(params, batch, cfg, device)
+    shard = _shard_of(mesh, specs, cfg)
+    if shard is not None:
+        params = shard.tops(params)
+    h, loss_mask, aux = _hidden(params, batch, cfg, device, shard=shard)
     tokens = torch.as_tensor(batch["tokens"], device=device).long()
     s_tot, s_text = h.shape[1], tokens.shape[1]
     h_pred = h[:, s_tot - s_text:][:, :-1]          # [b, s_text-1, D]
@@ -847,7 +917,10 @@ def loss_fn(params, batch, cfg: ArchConfig, *, device=None):
         total = total + checkpoint(
             _chunk_ce, h_pred[:, c:c + chunk], labels[:, c:c + chunk],
             mask[:, c:c + chunk], params, cfg, use_reentrant=False)
-    return total / torch.clamp(mask.sum(), min=1.0) + cfg.moe_aux_weight * aux
+    count = mask.sum()
+    if shard is not None:
+        total, count = shard.batch_sum(total), shard.batch_sum(count)
+    return total / torch.clamp(count, min=1.0) + cfg.moe_aux_weight * aux
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ rank loads only the port.
 
 from __future__ import annotations
 
-from dataclasses import replace
+import time
+from dataclasses import fields, replace
 
 import torch
 
@@ -18,7 +19,7 @@ from repro_torch.distributed.sharding import (filter_spec, filtered_specs,
                                               make_sharding_rules, shard_leaf,
                                               shard_tree)
 from repro_torch.launch.mesh import axis_sizes
-from repro_torch.launch.plan import cache_specs
+from repro_torch.launch.plan import cache_specs, make_plan
 from repro_torch.models import lm, lm_params_from_numpy
 
 GATE_SPEC = ("model", "data", None)          # [E, D, F]
@@ -115,3 +116,115 @@ def _leaves(tree):
             yield from _leaves(v)
         else:
             yield v
+
+
+def train_plan(mesh_or_axes, arch: str, *, S: int, b: int, knobs: dict,
+               overrides: dict | None = None):
+    """The reference's ``train_4k`` plan of the full ``arch`` on
+    ``mesh_or_axes`` (with the plan ``overrides``), cut to ``S`` steps of
+    ``b`` sequences and to the arch's reduced widths (the plan's regime,
+    hooks and knobs kept, then ``knobs`` set on top)."""
+    full = get_arch(arch)
+    red = full.reduced()
+    dims = {f.name: getattr(red, f.name) for f in fields(red)
+            if getattr(red, f.name) != getattr(full, f.name)
+            and f.name not in ("loss_chunk", "remat")}
+    plan = make_plan(arch, "train_4k", mesh_or_axes, overrides=overrides)
+    return replace(plan, S=S, b=b,
+                   cfg=replace(plan.cfg, **dims, **knobs))
+
+
+def train_rank(mesh, cases: list, probe: dict) -> dict:
+    """Each case's round on ``mesh``: the reduced arch under its plan's
+    regime, the rank's shards of the numpy weights, its block of the
+    batches and masks.  This rank's shards of the new global params, the
+    metrics, the bytes of its parameter shards and K1's folds; the
+    gradients of :func:`_gather_rule` on ``probe``; :func:`_sub_meshes`;
+    and when the rank entered this body.  The cross-worker reduce runs in
+    column chunks of at most 2^16 gathered elements, so that a round takes
+    several."""
+    from repro_torch.fl import round as fl_round
+    from repro_torch.kernels import ops
+    from repro_torch.launch.plan import sharding_specs
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.kernels.layout import flatten_tree, unflatten_tree
+    started = time.time()
+    fl_round.MESH_REDUCE_ELEMS = 1 << 16
+    out = []
+    for case in cases:
+        plan = train_plan(mesh, case["arch"], S=case["S"], b=case["b"],
+                          knobs=case["knobs"],
+                          overrides=case.get("overrides"))
+        specs = sharding_specs(plan, mesh)
+        params = shard_tree(lm_params_from_numpy(case["params"],
+                                                 device="cpu"),
+                            specs["params"], mesh)
+        batches = shard_tree({k: torch.from_numpy(v) for k, v in
+                              case["batches"].items()}, specs["batches"],
+                             mesh)
+        masks = [shard_leaf(torch.from_numpy(case[k]), specs["masks"], mesh)
+                 for k in ("step_mask", "boundary", "weight")]
+        step = make_train_step(plan, mesh=mesh, specs=specs)
+        calls = []
+        real = ops.fedavg_accum
+        ops.fedavg_accum = lambda *a: (calls.append(tuple(a[1].shape)),
+                                       real(*a))[1]
+        try:
+            new, metrics = step(flatten_tree(params), batches, *masks)
+        finally:
+            ops.fedavg_accum = real
+        out.append({
+            "params": {k: v.clone() for k, v in
+                       flatten_tree(unflatten_tree(dict(new))).items()},
+            "metrics": {k: getattr(metrics, k) for k in metrics._fields},
+            "param_bytes": sum(x.numel() * x.element_size()
+                               for x in _leaves(params)),
+            "folds": calls, "regime": (plan.policy, plan.worker_axes,
+                                       plan.batch_axes, plan.W, plan.P),
+            "dispatch": plan.cfg.moe_dispatch is not None})
+    return {"coords": mesh.coords, "started": started, "cases": out,
+            "gather_rule": _gather_rule(mesh, probe),
+            "sub_meshes": _sub_meshes(mesh)}
+
+
+SUB_SHAPES = ((1, 2), (2, 1), (1, 1))
+
+
+def _sub_meshes(mesh) -> dict:
+    """Each of ``SUB_SHAPES`` made on ``mesh``'s ranks by ``sub_mesh``:
+    ``None`` where this rank is left out, else its coords and, per axis, the
+    sum of ``rank + 1`` over its group."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import sub_mesh
+    out = {}
+    for shape in SUB_SHAPES:
+        sub = sub_mesh(mesh, shape)
+        if sub is None:
+            out[shape] = None
+            continue
+        sums = {}
+        for axis in sub.axis_names:
+            t = torch.tensor(float(sub.rank + 1))
+            dist.all_reduce(t, group=sub.groups[axis])
+            sums[axis] = float(t)
+        out[shape] = {"coords": sub.coords, "sums": sums}
+    return out
+
+
+def _gather_rule(mesh, probe: dict) -> dict:
+    """The gradients of ``Σ_rows ((x W) ⊙ v)²`` on this rank: ``x [4, 8]``
+    split over ``data``, ``W [8, 6]`` over ``("data", "model")``, ``v``
+    replicated, each gathered by ``gather_leaf`` under the training rule
+    (``batch_axes=("data",)``) and under the serve convention."""
+    from repro_torch.distributed.sharding import gather_leaf
+    x = shard_leaf(torch.from_numpy(probe["x"]), ("data",), mesh)
+    specs = {"w": ("data", "model"), "v": ()}
+    out = {}
+    for rule, batch_axes in (("train", ("data",)), ("serve", None)):
+        local = {k: shard_leaf(torch.from_numpy(probe[k]), specs[k],
+                               mesh).requires_grad_() for k in specs}
+        w, v = (gather_leaf(local[k], specs[k], mesh, batch_axes=batch_axes)
+                for k in ("w", "v"))
+        (((x @ w) * v) ** 2).sum().backward()
+        out[rule] = {k: t.grad for k, t in local.items()}
+    return out

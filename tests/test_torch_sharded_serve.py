@@ -194,8 +194,10 @@ def test_mesh_pod_counts_a_cell_per_card(tmp_path):
     """A pod serve cell is counted on one card's shards: its record's
     per-card parameter bytes, the collectives the step ran (their wire
     bytes over the NVLink rate are ``collective_s``), per-card ``fits``;
-    a train cell is skipped with its reason; ``--mesh one`` records keep
-    no mesh keys and a zero collective term."""
+    a train cell is counted too (jamba's one period, one local step of
+    the same global batch: its gathers, the re-gathers under remat and
+    the gradient reductions); ``--mesh one``
+    records keep no mesh keys and a zero collective term."""
     rec = dryrun.run_cell("jamba-v0.1-52b", "decode_32k", mesh="pod")
     assert rec["status"] == "ok" and rec["devices"] == 256
     assert rec["moe_dispatch"] and rec["policy"] == "fsdp_tp"
@@ -213,21 +215,48 @@ def test_mesh_pod_counts_a_cell_per_card(tmp_path):
     assert rec["fits"] == (rec["memory_analysis"]["peak_live_bytes"]
                            <= rec["budget_bytes"])
     assert rec["kernels"] == {}              # decode launches no kernel
-    skip = dryrun.run_cell("jamba-v0.1-52b", "train_4k", mesh="pod")
-    assert skip["status"] == "skip" and "sharded training" in skip["reason"]
+    train = dryrun.run_cell("jamba-v0.1-52b", "train_4k", mesh="pod",
+                            overrides={"n_layers": 8, "S": 1, "b": 256})
+    assert train["status"] == "ok" and train["kind"] == "train"
+    assert train["policy"] == "fsdp_tp" and train["moe_dispatch"]
+    assert train["roofline"]["collective_s"] > 0
+    tcoll = train["collectives"]["by_kind"]
+    assert tcoll["all-gather"]["count"] > 0 and tcoll["all-reduce"]["count"] \
+        > 0
     one = dryrun.run_cell("qwen3-0.6b", "decode_32k",
                           overrides={"n_layers": 2})
     assert "mesh" not in one and "collectives" not in one
     assert one["roofline"]["collective_s"] == 0.0
-    for r in (rec, skip, one):
+    for r in (rec, train, one):
         with open(tmp_path / f"{r['arch']}__{r['shape']}__x.json", "w") as f:
             json.dump(r, f)
     table = report.roofline_table(report.load(str(tmp_path)))
     assert "collective_s" in table and "decode_32k @ pod" in table
+    assert "train_4k @ pod" in table
 
 
 def test_train_step_on_a_mesh_is_the_next_slice():
+    """The train step binds to a rank's blocks on a meta (2, 2) mesh: its
+    shards of θ, its workers' ``[W_r, P, S, b_r, s]`` block of the
+    batches and its ``[W_r, P, S]`` masks (qwen3-0.6b ``tp``: one of two
+    workers over ``data``, the whole batch of its lane; qwen3-moe
+    ``fsdp_tp``: the one worker, half its batch over ``data``)."""
+    from repro_torch.distributed.sharding import tree_paths
     mesh = make_mesh((2, 2), ("data", "model"), backend="meta")
-    plan = tplan.make_plan("qwen3-0.6b", "train_4k", mesh)
-    with pytest.raises(NotImplementedError, match="sharded training step"):
-        build_step(plan, "meta", mesh=mesh)
+    for arch, block in (("qwen3-0.6b", (1, 1, 4, 32, 4096)),
+                        ("qwen3-moe-235b-a22b", (1, 1, 8, 16, 4096))):
+        plan = tplan.make_plan(arch, "train_4k", mesh)
+        fn, (params, batches, step_mask, boundary, weight) = build_step(
+            plan, "meta", mesh=mesh)
+        assert callable(fn)
+        specs = dict(tree_paths(tplan.sharding_specs(plan, mesh)["params"]))
+        shapes = dict(tree_paths(tlm.param_shapes(plan.cfg)))
+        assert set(params) == set(specs)
+        for path, leaf in params.items():
+            assert tuple(leaf.shape) == local_shape(shapes[path],
+                                                    specs[path], mesh)
+        assert sum(x.numel() * x.element_size() for x in params.values()) \
+            == tplan.param_bytes_per_card(plan, mesh)
+        assert tuple(batches["tokens"].shape) == block
+        for m in (step_mask, boundary, weight):
+            assert tuple(m.shape) == block[:3]

@@ -1,0 +1,347 @@
+"""The sharded training step: one federated round of one client split over
+a (2, 2) ("data", "model") mesh of 4 gloo ranks on the CPU, against the
+reference's unsharded ``repro.fl.round.make_round_step(make_loss_fn(cfg),
+sgd(0.05, 0.9))`` on the same numpy weights and batches.
+
+Each case is the reference's ``train_4k`` plan of the full arch on that
+mesh, cut to the arch's reduced widths (f32), ``S = 2`` steps of ``b = 4``
+sequences of 16 tokens, two clients a lane (a boundary at step 0 and at
+step 1, integer weights), loss chunks of 8:
+
+* qwen3-0.6b, ``tp``: two workers over ``data`` (``W = 2``, one lane
+  each), each worker's parameters split over ``model``;
+* qwen3-moe-235b-a22b, ``fsdp_tp``: one worker over the whole mesh, its
+  batch split over ``data``, its parameters over ``(data, model)``, its
+  MoE layers through the expert-parallel dispatch (dropless, ``moe_impl
+  ="scatter"``).  The dispatch routes each data shard on its own and
+  averages the shards' load-balance terms (the reference's dispatch does
+  the same), which is not the whole batch's term: against the unsharded
+  round this case sets ``moe_aux_weight = 0``;
+* the same plan without the dispatch (``moe_dispatch=None``): each rank
+  gathers the batch's tokens for the routing, so the load-balance term is
+  the whole batch's and stays on;
+* the same plan with the batch replicated over ``data`` (``batch_axes=
+  ()``), the dispatch and the load-balance term on: ``data`` is then an
+  FSDP axis that splits no data;
+* the same at capacity 0.75, where the 4 experts are offered ~32 slots
+  each against a capacity of 24: the dispatch and the reference's
+  unsharded layer route the same group of tokens (the whole batch, shorter
+  than either's sequence block), so they drop the same ones.
+
+Tolerances: the new global parameters (gathered from the ranks' shards)
+and the round's loss within 1e-5 of the reference's; steps, clients and
+total weight exact.  The ``tp`` round equals the port's own unsharded
+round bitwise (each rank computes its worker's lane with the same
+operations; no sum is re-associated at two lanes), with its cross-worker
+reduce taken in many column chunks.  A loss through
+``gather_leaf`` gives the one-process gradient under the training rule,
+and twice it (``|model|``) under the serve convention's summing gather.
+"""
+
+import math
+import time
+from dataclasses import replace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+jnp = jax.numpy
+
+import _torch_mesh_ranks as ranks  # noqa: E402
+from repro import configs as jconfigs  # noqa: E402
+from repro import core as _jcore  # noqa: E402,F401  (before repro.fl)
+from repro.fl.round import make_round_step as jround_step  # noqa: E402
+from repro.models import make_loss_fn as jmake_loss_fn  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.optim import sgd as jsgd  # noqa: E402
+from repro_torch.distributed.sharding import tree_paths  # noqa: E402
+from repro_torch.fl.round import make_round_step as tround_step  # noqa: E402
+from repro_torch.kernels.layout import flatten_tree  # noqa: E402
+from repro_torch.launch import plan as tplan  # noqa: E402
+from repro_torch.launch.mesh import run_on_mesh  # noqa: E402
+from repro_torch.models import (lm_params_from_numpy,  # noqa: E402
+                                make_lane_loss_fn)
+from repro_torch.optim import sgd as tsgd  # noqa: E402
+
+AXES = {"data": 2, "model": 2}
+S, B, SEQ = 2, 4, 16
+TOL = dict(rtol=1e-5, atol=1e-5)
+MOE = {"loss_chunk": 8, "moe_impl": "scatter", "capacity_factor": 2.0}
+CASES = [
+    ("qwen3-0.6b", {"loss_chunk": 8}, None),
+    ("qwen3-moe-235b-a22b", dict(MOE, moe_aux_weight=0.0), None),
+    ("qwen3-moe-235b-a22b", dict(MOE, moe_dispatch=None), None),
+    ("qwen3-moe-235b-a22b", MOE, {"batch_axes": ()}),
+    ("qwen3-moe-235b-a22b", dict(MOE, capacity_factor=0.75),
+     {"batch_axes": ()}),
+]
+IDS = ["qwen3-tp", "qwen3-moe-fsdp_tp-dispatch",
+       "qwen3-moe-fsdp_tp-gathered-routing",
+       "qwen3-moe-fsdp_tp-batch-replicated",
+       "qwen3-moe-fsdp_tp-drops"]
+# The reference config takes the plan's knobs (not its hooks).
+KNOBS = ("attn_impl", "attn_q_chunk", "attn_repeat_kv", "moe_impl",
+         "moe_seq_chunk", "remat", "loss_chunk", "capacity_factor",
+         "moe_aux_weight")
+
+
+def _plan(i):
+    arch, knobs, overrides = CASES[i]
+    return ranks.train_plan(AXES, arch, S=S, b=B, knobs=knobs,
+                            overrides=overrides)
+
+
+@pytest.fixture(scope="module")
+def cases():
+    """Per case: the numpy weights, batches and masks, and the
+    reference's new params and metrics."""
+    out = []
+    for i, (arch, knobs, overrides) in enumerate(CASES):
+        plan = _plan(i)
+        red = jconfigs.get_arch(arch).reduced()
+        jcfg = replace(red, **{k: getattr(plan.cfg, k) for k in KNOBS})
+        params = jax.tree.map(np.asarray,
+                              jlm.init_params(jax.random.key(i), jcfg))
+        W, P = plan.W, plan.P
+        rng = np.random.default_rng(11 + i)
+        tokens = rng.integers(0, jcfg.vocab_size,
+                              (W, P, S, B, SEQ)).astype(np.int32)
+        step_mask = np.ones((W, P, S), np.float32)
+        boundary = np.ones((W, P, S), np.float32)
+        weight = np.arange(1.0, W * P * S + 1, dtype=np.float32).reshape(
+            W, P, S)
+        jnew, jm = jax.jit(jround_step(jmake_loss_fn(jcfg),
+                                       jsgd(0.05, 0.9)))(
+            jax.tree.map(jnp.asarray, params), {"tokens": jnp.asarray(
+                tokens)}, *(jnp.asarray(a) for a in (step_mask, boundary,
+                                                    weight)))
+        out.append({
+            "arch": arch, "knobs": knobs, "overrides": overrides, "S": S,
+            "b": B, "params": params, "batches": {"tokens": tokens},
+            "step_mask": step_mask, "boundary": boundary, "weight": weight,
+            "ref_params": {k: np.asarray(v) for k, v in flatten_tree(
+                jax.tree.map(np.asarray, jnew)).items()},
+            "ref_metrics": {k: float(getattr(jm, k)) for k in jm._fields}})
+    return out
+
+
+def _probe():
+    rng = np.random.default_rng(5)
+    return {"w": rng.standard_normal((8, 6)).astype(np.float32),
+            "v": rng.standard_normal(6).astype(np.float32),
+            "x": rng.standard_normal((4, 8)).astype(np.float32)}
+
+
+# When run_on_mesh's ``meanwhile`` returned in ``trained``.
+MEANWHILE_DONE = []
+
+
+def _meanwhile():
+    time.sleep(0.5)                     # the ranks are starting meanwhile
+    MEANWHILE_DONE.append(time.time())
+
+
+@pytest.fixture(scope="module")
+def trained(cases):
+    send = [{k: c[k] for k in ("arch", "knobs", "overrides", "S", "b",
+                               "params", "batches", "step_mask", "boundary",
+                               "weight")} for c in cases]
+    res = run_on_mesh(ranks.train_rank, (2, 2), ("data", "model"),
+                      backend="gloo", device="cpu", args=(send, _probe()),
+                      timeout_s=300, meanwhile=_meanwhile)
+    return {r["coords"]: r for r in res}
+
+
+def test_ranks_start_after_meanwhile(trained):
+    """``run_on_mesh(meanwhile=)`` calls it once, and no rank enters its
+    body before it has returned."""
+    assert len(MEANWHILE_DONE) == 1
+    assert all(r["started"] >= MEANWHILE_DONE[0] for r in trained.values())
+
+
+def _axes(entry) -> tuple:
+    return (entry,) if isinstance(entry, str) else (entry or ())
+
+
+def _assemble(trained, i):
+    """The whole new parameters from the ranks' shards under the plan's
+    specs."""
+    specs = dict(tree_paths(tplan.sharding_specs(_plan(i), AXES)["params"]))
+    out = {}
+    for path, spec in specs.items():
+        blocks = {c: r["cases"][i]["params"][path].numpy()
+                  for c, r in trained.items()}
+        local = blocks[(0, 0)]
+        spec = tuple(spec) + (None,) * (local.ndim - len(spec))
+        whole = np.zeros([n * math.prod(AXES[a] for a in _axes(e))
+                          for n, e in zip(local.shape, spec)], local.dtype)
+        for (d, m), x in blocks.items():
+            coords = {"data": d, "model": m}
+            sl = []
+            for n, entry in zip(x.shape, spec):
+                idx = 0
+                for a in _axes(entry):
+                    idx = idx * AXES[a] + coords[a]
+                sl.append(slice(idx * n, (idx + 1) * n))
+            whole[tuple(sl)] = x
+        out[path] = whole
+    return out
+
+
+@pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)
+def test_sharded_round_matches_reference(i, cases, trained):
+    got = _assemble(trained, i)
+    ref = cases[i]["ref_params"]
+    assert set(got) == set(ref)
+    moved = 0.0
+    for k, v in ref.items():
+        np.testing.assert_allclose(got[k], v, err_msg=k, **TOL)
+        moved += float(np.abs(v - np.asarray(flatten_tree(
+            cases[i]["params"])[k])).sum())
+    assert moved > 0
+    want = cases[i]["ref_metrics"]
+    for r in trained.values():
+        m = {k: float(v) for k, v in r["cases"][i]["metrics"].items()}
+        np.testing.assert_allclose(m["loss"], want["loss"], **TOL)
+        for k in ("steps", "clients", "total_weight"):
+            assert m[k] == want[k], k
+
+
+@pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)
+def test_rank_holds_its_shards_and_folds_them(i, trained):
+    """Each rank's parameter bytes are the plan's per-card bytes, and K1
+    folds each dtype group once a local step on the rank's ``[L_r,
+    n_g]`` shard buffer."""
+    plan = _plan(i)
+    per_card = tplan.param_bytes_per_card(plan, AXES)
+    n_local = per_card // 4                       # f32, one group
+    for r in trained.values():
+        c = r["cases"][i]
+        assert c["param_bytes"] == per_card
+        lanes = plan.W * plan.P // math.prod(AXES[a]
+                                             for a in plan.worker_axes)
+        assert c["folds"] == [(lanes, n_local)] * S
+    policy, worker_axes, batch_axes, W, P = trained[(0, 0)]["cases"][i][
+        "regime"]
+    if i == 0:
+        assert (policy, worker_axes, W, P) == ("tp", ("data",), 2, 1)
+        # Split over model, norms replicated.
+        assert tplan.param_bytes(plan.cfg) / 2 <= per_card \
+            < tplan.param_bytes(plan.cfg)
+    else:
+        assert (policy, worker_axes, W, P) == ("fsdp_tp", (), 1, 1)
+        assert batch_axes == (("data",) if i < 3 else ())
+        assert trained[(0, 0)]["cases"][i]["dispatch"] == (i != 2)
+        assert per_card < tplan.param_bytes(plan.cfg) / 2
+
+
+def test_tp_mesh_round_equals_port_round_bitwise(cases, trained):
+    """One thread, as each rank runs (and as fast: the reduced round's
+    small ops contend for this host's cores)."""
+    c = cases[0]
+    plan = _plan(0)
+    params = flatten_tree(lm_params_from_numpy(c["params"], device="cpu"))
+    step = tround_step(make_lane_loss_fn(plan.cfg), tsgd(0.05, 0.9))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        new, m = step(params, {"tokens": torch.from_numpy(c["batches"][
+            "tokens"])}, *(torch.from_numpy(c[k]) for k in ("step_mask",
+                                                           "boundary",
+                                                           "weight")))
+    finally:
+        torch.set_num_threads(threads)
+    got = _assemble(trained, 0)
+    for k, v in new.items():
+        assert np.array_equal(got[k], v.numpy()), k
+    for r in trained.values():
+        for k, v in r["cases"][0]["metrics"].items():
+            assert torch.equal(v, getattr(m, k)), k
+
+
+@pytest.mark.parametrize("rule", ["train", "serve"])
+def test_gather_leaf_gradient_counts_the_batch_once(rule, trained):
+    """``Σ_rows ((x W) ⊙ v)²`` with ``x`` split over ``data``, ``W``
+    over ``(data, model)`` and ``v`` replicated: under the training rule
+    each rank's gradients are its slices of the one-process gradient;
+    the summing gather of the serve path counts the replicated ``model``
+    ranks twice over (and leaves ``v`` the rank's own batch's)."""
+    p = {k: torch.from_numpy(v).requires_grad_() for k, v in
+         _probe().items() if k != "x"}
+    x = torch.from_numpy(_probe()["x"])
+    (((x @ p["w"]) * p["v"]) ** 2).sum().backward()
+    for (d, m), r in trained.items():
+        g = r["gather_rule"][rule]
+        w = p["w"].grad[4 * d:4 * d + 4, 3 * m:3 * m + 3]
+        if rule == "train":
+            torch.testing.assert_close(g["w"], w, rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(g["v"], p["v"].grad, rtol=1e-6,
+                                       atol=1e-6)
+        else:
+            torch.testing.assert_close(g["w"], 2 * w, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", ranks.SUB_SHAPES)
+def test_sub_mesh_lays_out_the_first_ranks(shape, trained):
+    """``launch.mesh.sub_mesh`` on the (2, 2) mesh: its first
+    ``prod(shape)`` ranks, row-major on ``shape``, each axis' group summing
+    over exactly the ranks on its line; the other ranks get ``None``."""
+    n = math.prod(shape)
+    for (d, m), r in trained.items():
+        rank, got = 2 * d + m, r["sub_meshes"][shape]
+        if rank >= n:
+            assert got is None
+            continue
+        coords = tuple(int(c) for c in np.unravel_index(rank, shape))
+        assert got["coords"] == coords
+        for i, axis in enumerate(("data", "model")):
+            line = [int(np.ravel_multi_index(
+                coords[:i] + (j,) + coords[i + 1:], shape))
+                for j in range(shape[i])]
+            assert got["sums"][axis] == sum(q + 1 for q in line), axis
+
+
+@pytest.mark.parametrize("arch,chunk", [("qwen3-moe-235b-a22b", 0),
+                                        ("jamba-v0.1-52b", 2048)])
+def test_dispatch_routes_ep_seq_chunk_blocks(arch, chunk):
+    """The pod train plan's dispatch routes blocks of ``ep_seq_chunk``
+    (the whole sequence below 4,096-wide experts), not the config's
+    ``moe_seq_chunk`` (512) that a MoE layer without it routes: where
+    tokens are dropped the two are different functions, and a one-process
+    round held against the mesh's must route the dispatch's blocks."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((16, 16), ("data", "model"), backend="meta")
+    plan = tplan.make_plan(arch, "train_4k", mesh)
+    assert plan.cfg.moe_dispatch.seq_chunk == tplan.ep_seq_chunk(
+        plan.cfg) == chunk
+    assert plan.cfg.moe_seq_chunk == 512
+
+
+# (arch, overrides, policy, W, dispatch): the reference's three regimes of
+# a train cell at pod, cut in depth.
+REGIMES = [("qwen3-0.6b", {"n_layers": 2}, "tp", 256, False),   # per chip
+           ("internlm2-1.8b", {"n_layers": 2}, "tp", 16, False),
+           ("qwen3-moe-235b-a22b", {"n_layers": 1}, "fsdp_tp", 1, True)]
+
+
+@pytest.mark.parametrize("arch,overrides,policy,W,dispatch", REGIMES,
+                         ids=["per-chip", "tp", "fsdp_tp"])
+def test_mesh_pod_counts_a_train_cell_per_regime(arch, overrides, policy, W,
+                                                 dispatch):
+    """A pod train cell of each regime is counted per card: K1 once a
+    local step per dtype group, the gathers (and, where the batch is
+    split over ``data``, the gradient reductions), a positive
+    ``collective_s``."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell(arch, "train_4k", mesh="pod", overrides=overrides)
+    assert rec["status"] == "ok" and rec["kind"] == "train"
+    assert (rec["policy"], rec["W"], rec["moe_dispatch"]) == (policy, W,
+                                                              dispatch)
+    assert rec["kernels"]["fedavg_accum"]["calls"] == 2 * rec["S"]
+    kinds = rec["collectives"]["by_kind"]
+    assert kinds["all-gather"]["count"] > 0
+    assert ("all-reduce" in kinds) == (rec["batch_axes"] == ["data"])
+    assert rec["roofline"]["collective_s"] > 0
+    assert rec["param_bytes_per_card"] < rec["param_bytes"] / 10
