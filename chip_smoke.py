@@ -522,11 +522,16 @@ HYBRID_PARAMS = 13_267_598_848   # the reference's count at 8 layers
 HYBRID_F32_BATCH = 2
 # The hybrid split over a (data 1, model 2) mesh of 2 gloo ranks sharing the
 # card (NCCL refuses two ranks on one card): each rank holds half of every
-# split leaf under the plan's fsdp_tp specs and 8 of the 16 experts, and
-# computes each layer whole (its weights all-gathered through the host),
-# the MoE layers through the plan's make_ep_dispatch (seq_chunk 2048).  The
-# same prompts as phase_serve_hybrid; MESH_DECODE greedy steps into a cache
-# of phase_serve_hybrid's length (SERVE_MAX_LEN: the decode attention's sums
+# split leaf under the plan's fsdp_tp specs and 8 of the 16 experts.  Its
+# attention (16 of the 32 query heads, 4 of the 8 kv heads: K4 at q [4,
+# 2048, 16, 128]), dense MLPs, embedding and head compute the rank's part,
+# the residual stream split over the sequence between blocks (the plan's
+# sequence parallelism); the Mamba mixers compute whole (their weights
+# all-gathered through the host), the MoE layers through the plan's
+# make_ep_dispatch (seq_chunk 2048).  Each rank's logits are its half of
+# the vocabulary, gathered whole for the checks.  The same prompts as
+# phase_serve_hybrid; MESH_DECODE greedy steps into a cache of
+# phase_serve_hybrid's length (SERVE_MAX_LEN: the decode attention's sums
 # over the cache are then tiled as in the one process); the phase's share
 # of the script's time limit.
 MESH_SHAPE, MESH_AXES = (1, 2), ("data", "model")
@@ -542,25 +547,27 @@ MESH_EP_TOL = dict(rtol=1e-4, atol=1e-5)
 # published widths and dtypes, against the port's one-process round on the
 # same card, the same weights (drawn from TRAIN_SHARDED_SEED) and batches.
 # (a) qwen3-0.6b, tp on (data 2, model 2): two workers over data, each
-#     worker's parameters split over model; bitwise.
+#     worker's layers split over model (8 of the 16 heads, half of each
+#     MLP and of the vocabulary a rank; each split product all-reduced).
 # (b) qwen3-moe-235b-a22b, fsdp_tp on (data 1, model 2): the plan of the
-#     94-layer arch, its config cut to 1 layer (7.47 GB); 64 experts a rank
-#     through the expert-parallel dispatch.  The dispatch routes the whole
-#     sequence at once (the reference's plan: seq_chunk 0 below 4,096-wide
-#     experts) where a MoE layer without it routes blocks of moe_seq_chunk
-#     (512), and with capacity 1.25 the two drop different tokens: the
-#     one-process round routes the dispatch's groups.  Its k-sum over the
-#     ranks is rounded once from f32 where one process sums in bf16, so the
-#     bf16 weights may move by a few ulps: TRAIN_SHARDED_TOL, and the
-#     update TRAIN_SHARDED_UPDATE_RATIO and _RTOL.
-# Each cut S to 2 local steps, one client a lane; (a) b to 2 sequences, (b)
-# to 1: at b = 2 each rank computes all 64 heads' chunked attention whole
-# and peaks at ~38 GB, and two such ranks do not fit the card.
+#     94-layer arch, its config cut to 1 layer (7.47 GB); 32 of the 64
+#     heads and 64 experts a rank (the expert-parallel dispatch), the
+#     stream split over the sequence between blocks.  The dispatch routes
+#     the whole sequence at once (the reference's plan: seq_chunk 0 below
+#     4,096-wide experts) where a MoE layer without it routes blocks of
+#     moe_seq_chunk (512), and with capacity 1.25 the two drop different
+#     tokens: the one-process round routes the dispatch's groups.
+# A row-parallel product and the dispatch's k-sum are summed over the ranks
+# in another order than one process sums them (rounded once from f32 where
+# one process sums in bf16), so the bf16 weights may move by a few ulps:
+# each is held by TRAIN_SHARDED_TOL and the update check
+# (TRAIN_SHARDED_UPDATE_RATIO, _RTOL).
+# Each cut S to 2 local steps, one client a lane, b to 2 sequences.
 TRAIN_SHARDED_RUNS = (
     {"arch": "qwen3-0.6b", "mesh": (2, 2), "S": 2, "b": 2, "n_layers": None,
-     "dispatch": False, "bitwise": True},
-    {"arch": "qwen3-moe-235b-a22b", "mesh": (1, 2), "S": 2, "b": 1,
-     "n_layers": 1, "dispatch": True, "bitwise": False})
+     "dispatch": False},
+    {"arch": "qwen3-moe-235b-a22b", "mesh": (1, 2), "S": 2, "b": 2,
+     "n_layers": 1, "dispatch": True})
 TRAIN_SHARDED_SEED = 27
 TRAIN_SHARDED_TOL = dict(atol=1e-3, rtol=1e-2)
 TRAIN_SHARDED_LOSS_RTOL = 1e-3
@@ -1643,6 +1650,17 @@ def _hybrid_cfg(dtype: str = "bfloat16"):
                    attn_impl="pallas", ssd_impl="pallas", dtype=dtype)
 
 
+def _hybrid_rank_cfg():
+    """The heads one rank of the (1, 2) mesh attends with (phase 14b):
+    half of jamba's query and kv heads, at its head width."""
+    from dataclasses import replace
+    cfg = _hybrid_cfg()
+    m = MESH_SHAPE[1]
+    return replace(cfg, n_heads=cfg.n_heads // m,
+                   n_kv_heads=cfg.n_kv_heads // m,
+                   head_dim=cfg.resolved_head_dim)
+
+
 def _layer_counts(cfg) -> dict:
     """The layers of each kind in ``cfg``'s stack, from its layer plan:
     attention and Mamba-2 mixers, MoE MLPs."""
@@ -2287,6 +2305,7 @@ def _timed_collectives(torch, seconds: list):
     returns the undo."""
     from repro_torch.distributed import collectives as coll
     inner = {name: getattr(coll, name) for name in ("_all_reduce",
+                                                    "_reduce_scatter",
                                                     "_gather")}
 
     def wrap(fn):
@@ -2300,6 +2319,16 @@ def _timed_collectives(torch, seconds: list):
     for name, fn in inner.items():
         setattr(coll, name, wrap(fn))
     return lambda: [setattr(coll, n, f) for n, f in inner.items()]
+
+
+def _wire_by_kind(seen: list) -> dict:
+    """The wire bytes of the collectives ``seen`` (recorded through
+    ``collectives.counting``) by kind: what a rank sends and, on a ring,
+    receives."""
+    out: dict = {}
+    for c in seen:
+        out[c.kind] = out.get(c.kind, 0.0) + c.wire_bytes
+    return out
 
 
 def _ep_weights(torch, dev, gen):
@@ -2324,6 +2353,7 @@ def _mesh_rank(mesh, tokens, n_decode: int) -> dict:
     then the jamba period served from this rank's shards."""
     import torch
     from dataclasses import replace
+    from repro_torch.distributed import collectives as coll
     from repro_torch.distributed.ep_dispatch import make_ep_dispatch
     from repro_torch.distributed.sharding import shard_leaf, tree_paths
     from repro_torch.kernels import flash_attention as fl
@@ -2354,7 +2384,8 @@ def _mesh_rank(mesh, tokens, n_decode: int) -> dict:
     max_len = SERVE_MAX_LEN
     specs = {"params": shard["params"],
              "cache": tplan.cache_specs(cfg, shard["rules"], b, max_len,
-                                        mesh)}
+                                        mesh),
+             "act": shard["act"], "logits": shard["logits"]}
     pspec = dict(tree_paths(shard["params"]))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2375,21 +2406,28 @@ def _mesh_rank(mesh, tokens, n_decode: int) -> dict:
     undo = _timed_collectives(torch, gloo)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
+    wire_prefill, wire_steps = [], []
     with _Kept(torch) as kept:
-        (logits, cache), prefill_s = _sync_s(torch, lambda: lm.prefill(
-            params, {"tokens": toks}, cfg, max_len=max_len, **kw))
+        with coll.counting(wire_prefill.append):
+            (logits, cache), prefill_s = _sync_s(torch, lambda: lm.prefill(
+                params, {"tokens": toks}, cfg, max_len=max_len, **kw))
         launches = ops.launch_counts()
         routes = {"k4": dict(fl.ROUTE_LAUNCHES), "k5": dict(k5.ROUTE_LAUNCHES)}
         prefill_peak = torch.cuda.max_memory_allocated()
         gloo_prefill = gloo[-1]
-        steps, generated, step_s, gloo_steps = [logits], [], [], []
+        # Each rank's slice of the vocabulary, the whole gathered after
+        # the timed call.
+        steps, generated, step_s, gloo_steps = [
+            lm.gather_logits(logits, cfg, **kw)], [], [], []
         for i in range(n_decode):
             nxt = steps[-1][:, :cfg.vocab_size].argmax(-1, keepdim=True)
             generated.append(nxt)
             gloo.append(0.0)
-            (lg, cache), dt = _sync_s(torch, lambda: lm.decode_step(
-                params, cache, nxt, s + i, cfg, **kw))
-            steps.append(lg)
+            wire_steps.append([])
+            with coll.counting(wire_steps[-1].append):
+                (lg, cache), dt = _sync_s(torch, lambda: lm.decode_step(
+                    params, cache, nxt, s + i, cfg, **kw))
+            steps.append(lm.gather_logits(lg, cfg, **kw))
             step_s.append(dt)
             gloo_steps.append(gloo[-1])
     undo()
@@ -2405,6 +2443,9 @@ def _mesh_rank(mesh, tokens, n_decode: int) -> dict:
                        "k5": {k: v - routes["k5"][k]
                               for k, v in k5.ROUTE_LAUNCHES.items()}},
         prefill_ms=prefill_s * 1e3, decode_ms_steps=[x * 1e3 for x in step_s],
+        wire_bytes_prefill=_wire_by_kind(wire_prefill),
+        wire_bytes_steps=[_wire_by_kind(w) for w in wire_steps],
+        local_vocab=logits.shape[-1],
         gloo_ms_prefill=gloo_prefill * 1e3,
         gloo_ms_steps=[x * 1e3 for x in gloo_steps],
         prefill_peak_bytes=prefill_peak,
@@ -2416,10 +2457,14 @@ def _mesh_rank(mesh, tokens, n_decode: int) -> dict:
 
 def _nccl_one_rank(torch, w: dict, want) -> bool:
     """The dispatch on a (1, 1) NCCL mesh (this process, world size 1) on
-    ``w`` against ``want`` (``moe_layer_3d("scatter")``), bitwise."""
+    ``w`` against ``want`` (``moe_layer_3d("scatter")``), bitwise; and the
+    split layers' NCCL collectives (``reduce_scatter`` through
+    ``reduce_scatter_tensor``, ``pmax``), which over one rank return their
+    operand."""
     import datetime
 
     import torch.distributed as dist
+    from repro_torch.distributed import collectives as coll
     from repro_torch.distributed.ep_dispatch import make_ep_dispatch
     from repro_torch.launch.mesh import free_port, make_mesh
     dist.init_process_group(
@@ -2433,7 +2478,10 @@ def _nccl_one_rank(torch, w: dict, want) -> bool:
                                 seq_chunk=2048)
         got = disp(w["x"], w["router"], w["gate"], w["up"], w["down"],
                    top_k=2, capacity_factor=1.25)
-        return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        x = w["x"][:, :64].to(torch.bfloat16)
+        return (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and torch.equal(coll.reduce_scatter(x, mesh, "model", 1), x)
+                and torch.equal(coll.pmax(x, mesh, "model"), x))
     finally:
         dist.destroy_process_group()
 
@@ -2480,13 +2528,17 @@ def phase_serve_hybrid_mesh(torch, ref: dict) -> dict:
               and r["launches_decode"]["ssd"] == 0,
               f"rank {r['coords']}: a kernel launched in decode")
         check(r["finite"], f"rank {r['coords']}: non-finite logits")
+        check(r["local_vocab"] == cfg.padded_vocab // MESH_SHAPE[1],
+              f"rank {r['coords']}'s logits are {r['local_vocab']} columns, "
+              f"not its slice of the vocabulary")
         check(torch.equal(r["logits"], r0["logits"]),
               f"rank {r['coords']}'s logits differ from rank 0's")
         ep_close = torch.allclose(r["ep"]["out"], ep_want[0], **MESH_EP_TOL)
         check(ep_close, f"rank {r['coords']}: the f32 dispatch is "
               f"{_max_err(torch, r['ep']['out'], ep_want[0])} from "
               f"scatter")
-    check(nccl_bitwise, "the (1, 1) NCCL dispatch differs from scatter")
+    check(nccl_bitwise, "the (1, 1) NCCL dispatch differs from scatter, or "
+          "its reduce-scatter or maximum from their operand")
     cmp = _mesh_compare(torch, ref, r0, cfg, n["moe"])
     check(cmp["prefill"]["close"] and cmp["prefill_decode"]["close"],
           f"mesh vs one process: {cmp}")
@@ -2513,6 +2565,7 @@ def phase_serve_hybrid_mesh(torch, ref: dict) -> dict:
            "ranks": [{k: r[k] for k in (
                "coords", "param_bytes", "init_s", "prefill_ms",
                "decode_ms_steps", "gloo_ms_prefill", "gloo_ms_steps",
+               "wire_bytes_prefill", "wire_bytes_steps",
                "prefill_peak_bytes", "peak_bytes", "launches_prefill",
                "launches_decode", "routes_prefill", "routes_decode")}
                for r in res]}
@@ -2571,6 +2624,7 @@ def _train_sharded_rank(mesh, run: dict, ref_path: str) -> dict:
     and their update against the same blocks of the one-process round's
     new parameters (saved at ``ref_path``)."""
     import torch
+    from repro_torch.distributed import collectives as coll
     from repro_torch.distributed.sharding import tree_paths
     from repro_torch.kernels import ops
     from repro_torch.launch import plan as tplan
@@ -2588,7 +2642,9 @@ def _train_sharded_rank(mesh, run: dict, ref_path: str) -> dict:
     undo = _timed_collectives(torch, gloo)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    (new, metrics), round_s = _sync_s(torch, lambda: fn(*args))
+    seen = []
+    with coll.counting(seen.append):
+        (new, metrics), round_s = _sync_s(torch, lambda: fn(*args))
     launches = ops.launch_counts()
     undo()
     theta0 = args[0]
@@ -2601,7 +2657,7 @@ def _train_sharded_rank(mesh, run: dict, ref_path: str) -> dict:
                               for f in theta0.flats.values()),
            "param_bytes_specs": tplan.param_bytes_per_card(plan, mesh),
            "init_s": init_s, "round_ms": round_s * 1e3,
-           "gloo_ms": gloo[-1] * 1e3,
+           "gloo_ms": gloo[-1] * 1e3, "wire_bytes": _wire_by_kind(seen),
            "peak_bytes": torch.cuda.max_memory_allocated(),
            "launches": launches,
            "metrics": {k: getattr(metrics, k) for k in metrics._fields}}
@@ -2796,7 +2852,7 @@ def phase_train_sharded(torch, smi: str) -> dict:
               "loss_chunk": plan.cfg.loss_chunk, "dtype_groups": groups,
               "loss": loss, "loss_one_process": loss_ref,
               "vs_one_process": cmp, "update_vs_one_process": upd,
-              "tolerance": "bitwise" if run["bitwise"] else {
+              "tolerance": {
                   **TRAIN_SHARDED_TOL, "loss_rtol": TRAIN_SHARDED_LOSS_RTOL,
                   "update_ratio": TRAIN_SHARDED_UPDATE_RATIO,
                   "update_rtol": TRAIN_SHARDED_UPDATE_RTOL},
@@ -2805,7 +2861,7 @@ def phase_train_sharded(torch, smi: str) -> dict:
                               "launches": ref_launches},
               "ranks": [{k: r[k] for k in (
                   "coords", "param_bytes", "init_s", "round_ms", "gloo_ms",
-                  "peak_bytes", "launches")} for r in res_i],
+                  "wire_bytes", "peak_bytes", "launches")} for r in res_i],
               "rank_s": max(r["left"] - r["entered"] for r in res_i),
               "one_process_s": ref["one_process_s"], "card": smi})
         want_k1 = groups * plan.S
@@ -2837,16 +2893,11 @@ def phase_train_sharded(torch, smi: str) -> dict:
               and not upd["double"]["close"],
               f"{run['arch']}: the update check cannot tell a missing or "
               f"doubled update: {upd}")
-        if run["bitwise"]:
-            check(cmp["bitwise"] and loss == loss_ref,
-                  f"{run['arch']} mesh vs one process not bitwise: {cmp}, "
-                  f"loss {loss} vs {loss_ref}")
-        else:
-            check(cmp["close"] and upd["mesh"]["close"]
-                  and abs(loss - loss_ref)
-                  <= TRAIN_SHARDED_LOSS_RTOL * abs(loss_ref),
-                  f"{run['arch']} mesh vs one process: {cmp}, update "
-                  f"{upd}, loss {loss} vs {loss_ref}")
+        check(cmp["close"] and upd["mesh"]["close"]
+              and abs(loss - loss_ref) <= TRAIN_SHARDED_LOSS_RTOL
+              * abs(loss_ref),
+              f"{run['arch']} mesh vs one process: {cmp}, update {upd}, "
+              f"loss {loss} vs {loss_ref}")
         launches[run["arch"]] = [r["launches"] for r in res_i]
     phase_s = time.perf_counter() - t_phase
     emit({"phase": "train_sharded_summary", "phase_s": phase_s,
@@ -5298,6 +5349,7 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
     timing4_vlm = phase_timing_k4(torch, name, _vlm_cfg(),
                                   _vlm_positions(_vlm_cfg()))
     timing4_hyb = phase_timing_k4(torch, name, _hybrid_cfg())
+    timing4_rank = phase_timing_k4(torch, name, _hybrid_rank_cfg())
     timing5 = phase_timing_k5(torch, name)
     timing5_hyb = phase_timing_k5(torch, name, SSD_HYBRID)
     clock("check, timing")
@@ -5476,12 +5528,15 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
          "serve_hybrid_shape": {k: timing4_hyb[k] for k in (
              "shape_q", "shape_kv", "ms", "plain_ms", "library_ms",
              "bound_ms", "bound_by")},
+         "serve_hybrid_mesh_rank_shape": {k: timing4_rank[k] for k in (
+             "shape_q", "shape_kv", "ms", "plain_ms", "library_ms",
+             "bound_ms", "bound_by")},
          "launches_dryrun": _dry_launches(dry, "qwen3-0.6b", "prefill_32k",
                                           "flash_attention"),
          "dryrun_32k": dry["kernels"]["flash_attention"],
          "path": "serve (qwen3-0.6b, granite-moe-3b-a800m, internvl2-26b "
                  "and jamba-v0.1-52b prefill, attn_impl='pallas'; jamba's "
-                 "also on each rank of a (1, 2) mesh)"},
+                 "also on each rank of a (1, 2) mesh, at its 16 heads)"},
         {**row("ssd", "ssd.cu", "src/repro/kernels/ssd.py:83",
                ssm["launches"]["ssd"], max(err5.values()), timing5),
          "launches_per_prefill": ssm["launches"]["ssd"],

@@ -75,6 +75,7 @@ import torch
 from repro_torch.core.aggregation import (PartialAggregate, partial_init,
                                           partial_merge, partial_update,
                                           tree_weighted_mean)
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.layout import FlatLayout
 from repro_torch.kernels.ref import fedavg_accum_ref
@@ -147,10 +148,12 @@ def _zero_state(optimizer, flats: dict):
 
 
 def _local_step(loss_fn, optimizer, grad_clip, layout: FlatLayout, theta,
-                opt_state, batch, m):
+                opt_state, batch, m, norm_sq=None):
     """One local SGD/Adam step of every lane: ``theta`` (``{key: [L,
     n_g]}``, one buffer per dtype group) and its optimizer state advance
     where the step mask ``m [L]`` is set; a masked lane keeps both exactly.
+    ``norm_sq(grads)``, where given, is the clip's squared global norm
+    ``[L]`` of the leaves' gradients (a rank of a mesh holds shards).
     Returns ``(theta, opt_state, loss [L])``."""
     L = m.shape[0]
     leaves = {k: v.detach().requires_grad_()
@@ -159,9 +162,11 @@ def _local_step(loss_fn, optimizer, grad_clip, layout: FlatLayout, theta,
         loss = loss_fn(leaves, batch)
         grads = torch.autograd.grad(loss.sum(),
                                     [leaves[k] for k in layout.names])
-    grads = layout.flatten_groups(dict(zip(layout.names, grads)), lead=(L,))
+    grads = dict(zip(layout.names, grads))
+    sq = None if grad_clip is None or norm_sq is None else norm_sq(grads)
+    grads = layout.flatten_groups(grads, lead=(L,))
     if grad_clip is not None:
-        grads, _ = clip_by_global_norm(grads, grad_clip, batch_dims=1)
+        grads, _ = clip_by_global_norm(grads, grad_clip, batch_dims=1, sq=sq)
     updates, new_opt = optimizer.update(grads, opt_state, theta)
     del grads
     mcol = m[:, None]
@@ -175,7 +180,7 @@ def _local_step(loss_fn, optimizer, grad_clip, layout: FlatLayout, theta,
 
 
 def _make_lane_scan(loss_fn, optimizer, *, agg_impl: str = "kernel",
-                    grad_clip: float | None = None):
+                    grad_clip: float | None = None, norm_sq=None):
     """All lanes' sequential client streams: S local steps, folding each
     client into its lane's running partial at its boundary.
 
@@ -197,7 +202,7 @@ def _make_lane_scan(loss_fn, optimizer, *, agg_impl: str = "kernel",
             m, bnd, w = mask[:, s], boundary[:, s], weight[:, s]
             theta, opt_state, loss = _local_step(
                 loss_fn, optimizer, grad_clip, layout, theta, opt_state,
-                {k: v[:, s] for k, v in lane_batches.items()}, m)
+                {k: v[:, s] for k, v in lane_batches.items()}, m, norm_sq)
             # Fold the trained client at its boundary, behind a select that
             # keeps masked/padded steps BITWISE no-ops on the partial (Eq. 1
             # rescales by N/(N+0), which can flip the last bit).  The folded
@@ -233,15 +238,12 @@ def make_round_step(loss_fn, optimizer, *, agg_impl: str = "kernel",
     ``worker_axes``, and ``loss_fn`` the loss of a lane on those shards
     (:func:`repro_torch.models.make_lane_loss_fn` with the lane specs).
     It returns this rank's shards of the new global params and the whole
-    round's metrics.
+    round's metrics.  ``grad_clip`` clips each lane's gradient by its
+    global norm over the ranks' shards (:func:`_mesh_norm_sq`).
     """
     if mesh is not None and mesh.size > 1:
-        if grad_clip is not None:
-            raise NotImplementedError(
-                "gradient clipping on a mesh needs the global norm over "
-                "the ranks' shards, which is not ported")
         return _make_mesh_round_step(loss_fn, optimizer, agg_impl, mesh,
-                                     worker_axes, specs)
+                                     worker_axes, specs, grad_clip)
     lane_scan = _make_lane_scan(loss_fn, optimizer, agg_impl=agg_impl,
                                 grad_clip=grad_clip)
 
@@ -265,14 +267,44 @@ def make_round_step(loss_fn, optimizer, *, agg_impl: str = "kernel",
 MESH_REDUCE_ELEMS = 1 << 26
 
 
+def _mesh_norm_sq(mesh, lane_specs: dict):
+    """The squared global norm ``[L]`` of a lane's gradients from a rank's
+    shards (``{path: [L, ...]}`` under ``lane_specs``): each leaf's sum of
+    squares, summed over the axes that split it and counted once over
+    those that replicate it (there every rank holds the whole gradient),
+    as ``clip_by_global_norm`` over the whole leaves.  The leaves that one
+    set of axes splits are summed together and reduced once."""
+    from repro_torch.distributed.sharding import _entry_axes
+
+    def norm_sq(grads: dict):
+        parts: dict = {}
+        for path, g in grads.items():
+            axes = tuple(a for e in lane_specs[path] for a in _entry_axes(e)
+                         if mesh.axis_size(a) > 1)
+            s = g.float().square().sum(dim=tuple(range(1, g.ndim)))
+            parts[axes] = s if axes not in parts else parts[axes] + s
+        total = None
+        for axes in sorted(parts):
+            s = parts[axes]
+            for a in axes:
+                s = collectives.psum(s, mesh, a)
+            total = s if total is None else total + s
+        return total
+
+    return norm_sq
+
+
 def _make_mesh_round_step(loss_fn, optimizer, agg_impl, mesh, worker_axes,
-                          specs):
+                          specs, grad_clip=None):
     """:func:`make_round_step` on one rank of ``mesh``."""
     from repro_torch.distributed.sharding import (gather_leaf, shard_leaf,
                                                   split_axes, tree_paths)
-    worker_step = make_worker_round_step(loss_fn, optimizer,
-                                         agg_impl=agg_impl)
     axes = tuple(a for a in worker_axes if mesh.axis_size(a) > 1)
+    lane_specs = {path: split_axes(spec, axes)[0]
+                  for path, spec in tree_paths(specs or {})}
+    worker_step = make_worker_round_step(
+        loss_fn, optimizer, agg_impl=agg_impl, grad_clip=grad_clip,
+        norm_sq=_mesh_norm_sq(mesh, lane_specs))
     # Worker axes that also split a leaf: a lane holds that leaf gathered
     # over them (the per-chip workers hold whole clients).
     split = {path: split_axes(spec, axes)[1]
@@ -332,7 +364,7 @@ def _scan_lanes(lane_scan, layout, gflats, batches, step_mask, boundary,
 
 
 def make_worker_round_step(loss_fn, optimizer, *, agg_impl: str = "kernel",
-                           grad_clip: float | None = None):
+                           grad_clip: float | None = None, norm_sq=None):
     """One FL worker's half of the round (the mesh path): the lane loop
     over that worker's ``[W_k, P, S, ...]`` block, returning its
     *unreduced* lane partials.
@@ -344,9 +376,10 @@ def make_worker_round_step(loss_fn, optimizer, *, agg_impl: str = "kernel",
     are the fused step's: the lane loop is shared, and on the card the
     batched GEMMs give every lane the same bits for any lane count from 2
     up (on an H100; ``chip_smoke.py``'s decomposition phase checks it).
+    ``norm_sq``: see :func:`_local_step`.
     """
     lane_scan = _make_lane_scan(loss_fn, optimizer, agg_impl=agg_impl,
-                                grad_clip=grad_clip)
+                                grad_clip=grad_clip, norm_sq=norm_sq)
 
     @torch.no_grad()
     def worker_step(global_params, batches, step_mask, boundary, weight):

@@ -22,11 +22,16 @@ reference's production mesh, (16, 16) ("data", "model") or (2, 16, 16)
 mesh (workers, FSDP/TP policy, the expert-parallel dispatch), one card's
 shards of the parameters and its block of the inputs (a serve cell's
 batch and cache, a train cell's workers' batches), the step of one rank —
-each layer gathered whole, under remat gathered again in the backward —
-and the collectives it runs (a train cell's forward gathers, re-gathers,
-gradient reductions and the cross-worker reduce of the lane partials),
-their ring wire bytes turned into the roofline's ``collective_s``;
-``fits`` is judged per card.  ``--mesh one``, the default, counts one card
+where ``model`` is no worker axis its layers split over ``model`` (the
+rank's heads, MLP columns, experts' ``F`` and vocabulary; the residual
+stream over the sequence under the large archs' sequence parallelism),
+each split layer's weights gathered only over the FSDP axes, while the
+Mamba mixers, the dispatch's MoE layers and cross-attention gather their
+layers whole, under remat again in the backward — and the collectives it
+runs (the gathers, the split products' all-reduces or reduce-scatters and
+the sequence gathers, the gradient reductions, the cross-worker reduce of
+the lane partials), their ring wire bytes turned into the roofline's
+``collective_s``; ``fits`` is judged per card.  ``--mesh one``, the default, counts one card
 holding everything, as before.
 
 Usage:

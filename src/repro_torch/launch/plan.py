@@ -18,10 +18,17 @@ reference decides from its mesh's axis sizes:
 
 Given only axis sizes (a dict, or nothing: one card) the hooks stay unset,
 so the one-card dry-run counts what it counted before.  The reference's
-other hooks (``act_shard``, ``act_gather``, ``act_shard_logits``,
-``act_shard_moe``) are ``with_sharding_constraint``s: they change no
-value, only XLA's layout, and stay unset here (ROADMAP, the ``act_*``
-layouts).
+layout hooks ``act_shard``, ``act_gather`` and ``act_shard_logits`` are
+``with_sharding_constraint``s that make XLA split a client's layers over
+``model``; the port computes that split itself
+(:mod:`repro_torch.models.lm`), and :func:`sharding_specs` hands it the
+layouts as spec entries: ``"act"`` (the residual stream between blocks,
+``(batch_axes, seq_axes, None)``) and ``"logits"`` (split over the
+vocabulary on ``model``, where the reference installs
+``act_shard_logits``: ``"model"`` is not a worker axis).  ``act_gather``
+is the split blocks' entry.  ``act_shard_moe``, a constraint on the
+expert buffers, is not ported: experts split over ``model`` through
+``moe_dispatch`` (ROADMAP).
 
 :func:`sharding_specs` gives the filtered specs of the parameters and of
 each input of the planned step on a mesh; ``input_specs`` gives meta
@@ -328,12 +335,15 @@ def cache_specs(cfg: ArchConfig, rules: dict, batch: int, max_len: int,
     return filtered_specs(rules["kv"].tree_specs(cache), cache, mesh)
 
 
-def lane_specs(specs: dict, worker_axes) -> dict:
+def lane_specs(specs: dict, worker_axes, seq_axes=()) -> dict:
     """What a lane of a training rank computes on: ``{"params": specs,
-    "batch_axes": axes}``, each parameter's spec without the worker axes
-    (a lane's client is replicated over them) and the axes the rank's
-    batch is split over, as the filtered spec of ``specs["batches"]``
-    gives them (an axis that does not divide ``b`` splits nothing)."""
+    "batch_axes": axes, "act": ..., ["logits": ...]}``, each parameter's
+    spec without the worker axes (a lane's client is replicated over them),
+    the axes the rank's batch is split over, as the filtered spec of
+    ``specs["batches"]`` gives them (an axis that does not divide ``b``
+    splits nothing), the residual stream's layout ``(batch, seq, None)``
+    and, where ``model`` is no worker axis, the logits' ``(batch, None,
+    "model")``: the layers are split over ``model``."""
     from repro_torch.distributed.sharding import split_axes
 
     def strip(tree):
@@ -344,7 +354,17 @@ def lane_specs(specs: dict, worker_axes) -> dict:
     entry = specs["batches"]["tokens"][3]
     batch_axes = () if entry is None else (
         entry if isinstance(entry, tuple) else (entry,))
-    return {"params": strip(specs["params"]), "batch_axes": batch_axes}
+    out = {"params": strip(specs["params"]), "batch_axes": batch_axes,
+           "act": (entry, _entry(seq_axes), None)}
+    if "model" not in worker_axes:
+        out["logits"] = (entry, None, "model")
+    return out
+
+
+def _entry(axes):
+    """A spec entry naming ``axes``: None, one name or a tuple."""
+    axes = tuple(axes or ())
+    return None if not axes else axes[0] if len(axes) == 1 else axes
 
 
 def sharding_specs(plan: Plan, mesh) -> dict:
@@ -353,8 +373,12 @@ def sharding_specs(plan: Plan, mesh) -> dict:
     reference's ``sharding_specs``, as spec tuples where it gives
     ``NamedSharding``s: ``rules``, ``params_shapes``; a train cell's
     ``batches`` and ``masks`` (and its ``lane``: :func:`lane_specs`); a
-    prefill's ``batch`` and ``cache``; a decode's ``cache``, ``tokens``
-    and ``logits``."""
+    prefill's ``batch``, a decode's ``tokens``, and both their ``cache``,
+    ``logits`` (``[b, padded_vocab]``, the vocabulary over ``model``) and
+    ``act`` (the residual stream ``[b, s, d_model]``: the batch over the
+    batch axes, the sequence over the plan's ``seq_axes``; the model
+    filters it on the stream's shape, so a decode's one position splits
+    nothing)."""
     from repro_torch.distributed.sharding import filter_spec
     rules = make_sharding_rules(plan.policy, mesh, fl_axes=plan.worker_axes)
     shapes = lm.param_shapes(plan.cfg)
@@ -374,15 +398,15 @@ def sharding_specs(plan: Plan, mesh) -> dict:
         out["batches"] = {k: lead(v, (fl, None, None, ba))
                           for k, v in specs["batches"].items()}
         out["masks"] = (fl, None, None)
-        out["lane"] = lane_specs(out, plan.worker_axes)
-    elif plan.kind == "prefill":
+        out["lane"] = lane_specs(out, plan.worker_axes, plan.seq_axes)
+        return out
+    out["cache"] = cache_specs(plan.cfg, rules, plan.b, plan.seq_len, mesh)
+    if plan.kind == "prefill":
         out["batch"] = {k: lead(v, (ba,)) for k, v in specs["batch"].items()}
-        out["cache"] = cache_specs(plan.cfg, rules, plan.b, plan.seq_len,
-                                   mesh)
     else:
-        out["cache"] = cache_specs(plan.cfg, rules, plan.b, plan.seq_len,
-                                   mesh)
         out["tokens"] = filter_spec((ba, None), (plan.b, 1), ax)
-        out["logits"] = filter_spec((ba, "model"),
-                                    (plan.b, plan.cfg.padded_vocab), ax)
+    out["act"] = (filter_spec((ba,), (plan.b,), ax)[0],
+                  _entry(plan.seq_axes), None)
+    out["logits"] = filter_spec((ba, "model"),
+                                (plan.b, plan.cfg.padded_vocab), ax)
     return out

@@ -47,17 +47,18 @@ CLIENT_MOMENTUM = 0.9
 
 
 def make_train_step(plan: Plan, *, agg_impl: str = "kernel", mesh=None,
-                    specs=None):
+                    specs=None, grad_clip: float | None = None):
     """The round step; its folds go through K1 (the plain version on CPU
     tensors, the kernel's work on meta ones).  With ``mesh`` (and the
     plan's ``specs`` on it, :func:`~repro_torch.launch.plan
-    .sharding_specs`) the round of one rank."""
+    .sharding_specs`) the round of one rank.  ``grad_clip``: the clients'
+    gradient clip (``make_round_step``'s)."""
     if mesh is None or mesh.size == 1:
         mesh = specs = None
     return make_round_step(
         make_lane_loss_fn(plan.cfg, mesh=mesh, specs=specs and specs["lane"]),
         sgd(CLIENT_LR, momentum=CLIENT_MOMENTUM), agg_impl=agg_impl,
-        mesh=mesh, worker_axes=plan.worker_axes,
+        grad_clip=grad_clip, mesh=mesh, worker_axes=plan.worker_axes,
         specs=specs and specs["params"])
 
 

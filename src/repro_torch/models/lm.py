@@ -50,20 +50,53 @@ is the largest buffer of the serve path and is never copied.
 
 **On a mesh.**  ``forward``, ``prefill``, ``decode_step`` and ``loss_fn``
 take ``mesh=`` (a :class:`~repro_torch.launch.mesh.Mesh` of more than one
-rank) and ``specs={"params": ..., "cache": ...}`` (the filtered specs of
-:func:`repro_torch.launch.plan.sharding_specs`; a training step's lane
-specs also name its ``"batch_axes"``).  Each rank then holds its shard of
-every parameter, its shard of the batch (split over the batch axes) and
-its shard of the cache, and computes each layer whole: the layer's weights
-and cache are all-gathered over the axes their specs name, one layer at a
-time, and dropped after use; the embedding, head and norms are gathered
-once a call.  Under ``cfg.remat`` a period's gathers run inside its
-checkpoint, so the backward gathers it again.  The gathers' backward
-follows :func:`~repro_torch.distributed.sharding.gather_leaf`'s training
-rule.  MoE layers go through ``cfg.moe_dispatch``, which takes the rank's
-own experts; without it a training rank gathers the batch's tokens for
-the routing.  The logits are the rank's batch's.  A mesh of one rank is
-the path without a mesh.
+rank) and ``specs`` (the filtered specs of
+:func:`repro_torch.launch.plan.sharding_specs`: ``"params"``, a serve
+step's ``"cache"``, and the layouts ``"act"`` and ``"logits"``; a training
+step's lane specs also name its ``"batch_axes"``).  Each rank holds its
+shard of every parameter, its shard of the batch (split over the batch
+axes) and its shard of the cache.  Where the specs carry a ``"logits"``
+layout (``model`` is no worker axis) the layers are split over ``model``
+as Megatron splits them, which is what the reference's layout hooks make
+XLA do:
+
+* attention computes the rank's ``n_heads / |model|`` query heads and their
+  kv heads (``wq``/``wk``/``wv`` by column, ``wo`` by row; where
+  ``n_kv_heads`` does not divide, ``wk``/``wv`` whole and the kv heads its
+  query heads need picked), the dense MLPs the rank's columns of ``d_ff``,
+  a MoE layer without the dispatch the rank's slice of each expert's
+  ``F``, and the embedding, head and cross-entropy the rank's rows of the
+  vocabulary; each row-parallel product is summed over ``model``;
+* between blocks the residual stream has the ``"act"`` layout: under
+  ``seq_axes = ("model",)`` (sequence parallelism, the large archs) each
+  rank holds its block of the sequence, a split block gathers the
+  sequence at its entry and reduce-scatters its output over it; else the
+  stream is whole on every rank and the output is all-reduced;
+* the Mamba mixer, MoE layers through ``cfg.moe_dispatch`` (which take the
+  rank's own experts) and cross-attention are computed whole, as on one
+  card, from their layers' weights all-gathered over every axis their
+  specs name, one layer at a time; under sequence parallelism on the
+  stream gathered over the sequence, the rank's block kept after;
+* ``forward``, ``prefill`` and ``decode_step`` return the rank's slice of
+  the padded vocabulary (pad columns at -1e30); :func:`gather_logits`
+  puts the whole back.  The logits are the rank's batch's.
+
+A rank whose layers are not split (the per-chip workers: ``model`` is a
+worker axis) computes every layer whole.  Under ``cfg.remat`` a period's
+gathers run inside its checkpoint, so the backward gathers it again.
+
+**Gradients.**  A training rank's batch is split over the batch axes.  A
+leaf gathered over an axis sums its gradient over it where that axis
+splits the data the leaf is used on (the batch axes, and ``model`` where
+the leaf is used on the rank's block of the sequence or its part of a
+split product: the norms and output biases under sequence parallelism,
+qk-norm, a kv projection taken whole, the router of a split MoE), as
+:func:`~repro_torch.distributed.sharding.gather_leaf`'s training rule
+does; over any other axis each rank's cotangent already is the whole
+gradient.  The split leaves are never gathered over ``model``: each rank's
+cotangent is exactly its own block's gradient.  Without the dispatch a
+training rank gathers the batch's tokens for a MoE layer's routing.  A
+mesh of one rank is the path without a mesh.
 """
 
 from __future__ import annotations
@@ -84,8 +117,8 @@ from repro_torch.models.layers import (decode_attention, dense_init,
                                        norm_init, rms_norm, rope, swiglu)
 
 __all__ = ["init_params", "param_shapes", "leaf_dtype", "forward", "loss_fn",
-           "init_cache", "prefill", "decode_step", "layer_plan", "LayerKind",
-           "param_count", "require_ported"]
+           "init_cache", "prefill", "decode_step", "gather_logits",
+           "layer_plan", "LayerKind", "param_count", "require_ported"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -132,6 +165,12 @@ def layer_plan(cfg: ArchConfig, *, decoder: bool = True) -> list[LayerKind]:
         cross = decoder and cfg.enc_layers > 0 and mixer == "attn"
         plan.append(LayerKind(mixer=mixer, mlp=mlp, cross=cross))
     return plan
+
+
+def _parallel(cfg: ArchConfig, kind: LayerKind) -> bool:
+    """Whether a block runs its attention and MLP in parallel on one norm
+    (command-r)."""
+    return cfg.parallel_block and kind.mixer == "attn" and kind.mlp != "none"
 
 
 def require_ported(cfg: ArchConfig) -> list[LayerKind]:
@@ -375,19 +414,46 @@ def _on_device(params, device) -> torch.device:
 _MOE_LEAVES = ("moe_gate", "moe_up", "moe_down")
 
 
+# Leaves a split block keeps as the rank's block over ``model``, by the dim
+# of a period's leaf that is split: the attention's columns (q, and k/v
+# where the kv heads divide) and rows; the dense MLPs' columns and rows; a
+# MoE layer's F.
+_ATTN_SPLIT = {"wq": 1, "wo": 0, "bq": 0}
+_KV_SPLIT = {"wk": 1, "wv": 1, "bk": 0, "bv": 0}
+_MLP_SPLIT = {"w_gate": 1, "w_up": 1, "w_down": 0, "b_up": 0}
+_MOE_SPLIT = {"moe_gate": 2, "moe_up": 2, "moe_down": 1}
+
+
 @dataclass(frozen=True)
 class _Shard:
-    """What a rank of a mesh needs to compute each layer whole: the mesh,
-    the parameter specs of the subtree at hand, the cache specs, the
-    expert-parallel hook (its expert leaves stay local), and in a training
-    step the axes its batch is split over (``None`` when serving: see
-    :func:`~repro_torch.distributed.sharding.gather_leaf`)."""
+    """A rank's view of a client split over a mesh: the mesh, the parameter
+    specs of the subtree at hand, the cache specs, the expert-parallel hook
+    (its expert leaves stay local), in a training step the axes its batch
+    is split over (``None`` when serving: see
+    :func:`~repro_torch.distributed.sharding.gather_leaf`), and the split
+    over ``model`` (see the module's docstring): ``tp`` the axis the
+    layers are split over (None: every layer whole), ``vocab`` whether the
+    embedding and head are split over the vocabulary, ``sp`` whether the
+    plan splits the residual stream over the sequence, and ``seq`` whether
+    this call's stream is split (its length divides)."""
 
     mesh: object
     specs: dict
     cache: dict | None
     dispatch: object = None
     batch_axes: tuple | None = None
+    tp: str | None = None
+    vocab: bool = False
+    sp: bool = False
+    seq: bool = False
+
+    @property
+    def m(self) -> int:
+        return self.mesh.axis_size(self.tp) if self.tp else 1
+
+    @property
+    def r(self) -> int:
+        return self.mesh.axis_index(self.tp) if self.tp else 0
 
     def at(self, *keys) -> "_Shard":
         specs = self.specs
@@ -395,36 +461,210 @@ class _Shard:
             specs = specs[k]
         return replace(self, specs=specs)
 
+    def for_length(self, s: int) -> "_Shard":
+        """This shard for a stream of ``s`` positions: split over the
+        sequence where the plan asks and ``s`` divides."""
+        return replace(self, seq=self.sp and s % self.m == 0)
+
     def gather(self, x, spec, *, batch_axes=None):
         return shardlib.gather_leaf(
             x, spec, self.mesh,
             batch_axes=self.batch_axes if batch_axes is None else batch_axes)
 
-    def tops(self, params, specs=None) -> dict:
-        """``params`` with every leaf outside a ``stack`` gathered whole."""
-        specs = self.specs if specs is None else specs
-        return {k: v if k == "stack" else
-                self.tops(v, specs[k]) if isinstance(v, dict) else
-                self.gather(v, specs[k])
-                for k, v in params.items()}
+    def _plus_tp(self):
+        """A training rank's batch axes and ``tp``: the axes over which a
+        leaf used on the rank's part of a split computation sums its
+        gradient (None when serving)."""
+        if self.batch_axes is None:
+            return None
+        return tuple(self.batch_axes) + (self.tp,)
 
-    def period(self, stack, key: str, n: int) -> dict:
-        """Period ``n``'s leaves of position ``key``, gathered whole; with
-        the hook, its experts as the hook takes them.  ``stack[key]`` maps
-        names to stacked leaves or to their unbound periods."""
+    def local(self, x, spec, dim: int):
+        """The rank's block over ``tp`` along ``dim`` of a leaf, gathered
+        over its other axes.  Where the spec does not split ``dim`` over
+        ``tp`` alone (an axis it does not divide, or another dim) the leaf
+        is gathered whole and sliced: its gradient then sums over ``tp``
+        (the other ranks' blocks are zero in this rank's)."""
+        if shardlib._entry_axes(spec[dim]) == (self.tp,):
+            return self.gather(x, tuple(None if i == dim else e
+                                        for i, e in enumerate(spec)))
+        whole = self.gather(x, spec, batch_axes=self._plus_tp())
+        n = whole.shape[dim] // self.m
+        # A block of its own: the whole leaf is freed here.
+        return whole.narrow(dim, self.r * n, n).contiguous()
+
+    def tops(self, params, specs=None) -> dict:
+        """``params`` with every leaf outside a ``stack`` gathered whole;
+        the embedding and head the rank's rows of the vocabulary where it
+        is split.  The encoder's stream is never split over the
+        sequence."""
+        specs = self.specs if specs is None else specs
+        enc = replace(self, vocab=False, seq=False)
+        out = {}
+        for k, v in params.items():
+            if k == "stack":
+                out[k] = v
+            elif isinstance(v, dict):
+                out[k] = enc.tops(v, specs[k])
+            elif self.vocab and k in ("embed", "lm_head"):
+                out[k] = self.local(v, specs[k], 0 if k == "embed" else 1)
+            elif self.seq and k == "final_norm":
+                out[k] = self.gather(v, specs[k], batch_axes=self._plus_tp())
+            else:
+                out[k] = self.gather(v, specs[k])
+        return out
+
+    # -- the split over ``tp`` ---------------------------------------------
+    def attn_split(self, cfg: ArchConfig, kind: LayerKind) -> bool:
+        """Whether this block's attention is split over ``tp`` (its heads
+        divide; in a parallel block, with its MLP)."""
+        if self.tp is None or kind.mixer != "attn" \
+                or cfg.n_heads % self.m:
+            return False
+        return not _parallel(cfg, kind) or self._mlp_divides(cfg, kind)
+
+    def mlp_split(self, cfg: ArchConfig, kind: LayerKind) -> bool:
+        """Whether this block's MLP is split over ``tp``: a dense MLP whose
+        ``d_ff`` divides, or a MoE layer without the dispatch whose
+        experts' ``F`` does (in a parallel block, with its attention)."""
+        if self.tp is None or not self._mlp_divides(cfg, kind):
+            return False
+        return not _parallel(cfg, kind) or cfg.n_heads % self.m == 0
+
+    def _mlp_divides(self, cfg: ArchConfig, kind: LayerKind) -> bool:
+        if kind.mlp in ("swiglu", "gelu", "relu2"):
+            return cfg.d_ff % self.m == 0
+        return kind.mlp == "moe" and self.dispatch is None \
+            and cfg.moe_d_ff % self.m == 0
+
+    def kv_split(self, cfg: ArchConfig) -> bool:
+        return cfg.n_kv_heads % self.m == 0
+
+    def _split_leaves(self, cfg: ArchConfig, kind: LayerKind):
+        """``({name: split dim}, names whose gradient sums over tp)`` of a
+        period of this kind."""
+        split, summed = {}, set()
+        if self.attn_split(cfg, kind):
+            split.update(_ATTN_SPLIT)
+            summed |= {"q_norm", "k_norm"}
+            if self.kv_split(cfg):
+                split.update(_KV_SPLIT)
+            else:
+                summed |= set(_KV_SPLIT)
+            if self.seq:
+                summed |= {"attn_norm", "bo"}
+        if self.mlp_split(cfg, kind):
+            if kind.mlp == "moe":
+                split.update(_MOE_SPLIT)
+                summed.add("router")
+            else:
+                split.update(_MLP_SPLIT)
+            if self.seq:
+                summed |= {"mlp_norm", "b_down"}
+        return split, summed
+
+    def period(self, stack, key: str, n: int, cfg: ArchConfig,
+               kind: LayerKind) -> dict:
+        """Period ``n``'s leaves of position ``key``: those of a split
+        block the rank's blocks, the others gathered whole; with the hook,
+        its experts as the hook takes them.  ``stack[key]`` maps names to
+        stacked leaves or to their unbound periods."""
+        split, summed = self._split_leaves(cfg, kind)
         out = {}
         for name, leaf in stack[key].items():
             spec = self.specs[key][name][1:]
-            if self.dispatch is not None and name in _MOE_LEAVES:
+            if name in split:
+                out[name] = self.local(leaf[n], spec, split[name])
+            elif self.dispatch is not None and name in _MOE_LEAVES:
                 out[name] = self._experts(leaf[n], spec, name)
             elif self.dispatch is not None and name == "router" \
                     and self.batch_axes is not None:
                 # The hook sums the router's cotangent over every axis.
                 out[name] = self.gather(leaf[n], spec, batch_axes=())
+            elif name in summed:
+                out[name] = self.gather(leaf[n], spec,
+                                        batch_axes=self._plus_tp())
             else:
                 out[name] = self.gather(leaf[n], spec)
         return out
 
+    def enter(self, h):
+        """A split block's input: gathered over the sequence (its backward
+        a reduce-scatter), or the stream itself with Megatron's "f"."""
+        if self.seq:
+            return collectives.all_gather(h, self.mesh, self.tp, dim=1)
+        return collectives.sum_grad(h, self.mesh, (self.tp,))
+
+    def leave(self, y):
+        """A split block's output, the ranks' partial products summed:
+        reduce-scattered over the sequence, or all-reduced (Megatron's
+        "g")."""
+        if self.seq:
+            return collectives.reduce_scatter(y, self.mesh, self.tp, dim=1)
+        return collectives.psum(y, self.mesh, self.tp)
+
+    def whole_in(self, x):
+        """A block computed whole: the stream gathered over the sequence,
+        each rank's cotangent of it the whole gradient."""
+        if self.seq:
+            return collectives.all_gather(x, self.mesh, self.tp, dim=1,
+                                          sum_grad=False)
+        return x
+
+    def whole_out(self, y):
+        """A whole block's output, the rank's block of the sequence."""
+        if self.seq:
+            return collectives.split(y, self.mesh, self.tp, dim=1)
+        return y
+
+    def head_in(self, h):
+        """The final hidden states, whole over the sequence, as the head
+        takes them: a split head's partial products count each rank's
+        cotangent."""
+        if self.tp is None:
+            return h
+        if self.seq:
+            return collectives.all_gather(h, self.mesh, self.tp, dim=1,
+                                          sum_grad=self.vocab)
+        if self.vocab:
+            return collectives.sum_grad(h, self.mesh, (self.tp,))
+        return h
+
+    def last(self, h):
+        """The last position's hidden state ``[b, 1, D]``: under sequence
+        parallelism it lies on the last rank, and is summed over ``tp``
+        from there."""
+        if not self.seq:
+            return h[:, -1:]
+        return collectives.psum(h[:, -1:] * float(self.r == self.m - 1),
+                                self.mesh, self.tp)
+
+    def kv_heads(self, k, cfg: ArchConfig):
+        """From k (or v) of every kv head ``[b, t, n_kv_heads, hd]``, the
+        heads this rank's query heads attend to: its block where the kv
+        heads divide, else each of its query heads' kv head (the plan's
+        ``attn_repeat_kv`` repeat, taken for the rank's heads only)."""
+        if self.kv_split(cfg):
+            n = cfg.n_kv_heads // self.m
+            return k.narrow(2, self.r * n, n)
+        hq = cfg.n_heads // self.m
+        group = cfg.n_heads // cfg.n_kv_heads
+        idx = (self.r * hq + torch.arange(hq, device=k.device)) // group
+        return k.index_select(2, idx)
+
+    def all_heads(self, k, cfg: ArchConfig):
+        """A split attention's k or v ``[b, t, heads, hd]`` with every kv
+        head, as the cache holds them."""
+        if not self.kv_split(cfg):
+            return k
+        return collectives.all_gather(k, self.mesh, self.tp, dim=2)
+
+    def split_aux(self, aux):
+        """A split MoE layer's load-balance term: every rank computes the
+        same value; its gradient is counted once over ``tp``."""
+        return aux.detach() + (aux - aux.detach()) / self.m
+
+    # -- the rest ------------------------------------------------------------
     def _experts(self, x, spec, name: str):
         """This rank's expert shard as ``moe_dispatch`` splits it: experts
         over its model axis, ``D`` over its FSDP axis; resharded where the
@@ -445,6 +685,9 @@ class _Shard:
                 f"takes {want}: only the plan's own split is trained")
         return shardlib.shard_leaf(shardlib.gather_leaf(x, spec, self.mesh),
                                    want, self.mesh)
+
+    def batch_split(self) -> bool:
+        return any(self.mesh.axis_size(a) > 1 for a in self.batch_axes or ())
 
     def batch_sum(self, x):
         """``x`` summed over the batch axes (replicated result)."""
@@ -496,21 +739,49 @@ class _Shard:
 
 
 def _shard_of(mesh, specs, cfg: ArchConfig) -> "_Shard | None":
-    """The rank's view for ``mesh`` (None without one, or with one rank)."""
+    """The rank's view for ``mesh`` (None without one, or with one rank):
+    the layers split over ``model`` where ``specs`` carry a ``"logits"``
+    layout and ``model`` has several ranks, the vocabulary too where that
+    layout splits it and the padded vocabulary divides, the stream over
+    the sequence where the ``"act"`` layout names ``model``."""
     if mesh is None or mesh.size == 1:
         return None
     if specs is None:
         raise ValueError("a mesh needs specs= (launch.plan.sharding_specs)")
     batch_axes = specs.get("batch_axes")
+    tp = "model" if "logits" in specs and "model" in mesh.axis_names \
+        and mesh.axis_size("model") > 1 else None
+    seq_axes = shardlib._entry_axes(specs["act"][1]) if "act" in specs else ()
+    if seq_axes and seq_axes != (tp,):
+        raise NotImplementedError(
+            f"the stream split over {seq_axes}: only over the layers' "
+            f"model axis ({tp}) is ported")
+    m = mesh.axis_size(tp) if tp else 1
+    vocab = tp is not None and tp in shardlib._entry_axes(specs["logits"][-1]) \
+        and cfg.padded_vocab % m == 0
     return _Shard(mesh, specs["params"], specs.get("cache"),
                   cfg.moe_dispatch,
-                  None if batch_axes is None else tuple(batch_axes))
+                  None if batch_axes is None else tuple(batch_axes),
+                  tp=tp, vocab=vocab, sp=bool(seq_axes))
+
+
+def gather_logits(logits, cfg: ArchConfig, *, mesh=None, specs=None):
+    """The whole (padded) vocabulary's logits from a rank's slice, as
+    :func:`forward`, :func:`prefill` and :func:`decode_step` return it on
+    a mesh whose ``"logits"`` layout splits the vocabulary (gathered over
+    ``model`` along the last dim); ``logits`` itself elsewhere."""
+    shard = _shard_of(mesh, specs, cfg)
+    if shard is None or not shard.vocab:
+        return logits
+    return collectives.all_gather(logits, mesh, shard.tp, dim=logits.ndim - 1)
 
 
 # ---------------------------------------------------------------------------
 # block bodies
 # ---------------------------------------------------------------------------
 def _project_qkv(p, h, cfg: ArchConfig):
+    """q, k, v ``[b, s, heads, hd]`` of ``h``: as many heads as the
+    projections hold (a rank of a split attention holds its own)."""
     hd = cfg.resolved_head_dim
     b, s, _ = h.shape
     q = h @ p["wq"]
@@ -520,40 +791,64 @@ def _project_qkv(p, h, cfg: ArchConfig):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
     return q, k, v
 
 
-def _attn_out(p, attn, cfg: ArchConfig, *, prefix: str = ""):
+def _attn_out(p, attn, cfg: ArchConfig, *, prefix: str = "",
+              bias: bool = True):
     """The output projection of self-attention, or with ``prefix="x"`` of
-    cross-attention."""
+    cross-attention; ``bias=False`` leaves the bias out (a split
+    attention adds it after the sum over ranks)."""
     b, s = attn.shape[:2]
-    out = attn.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim) \
-        @ p[prefix + "wo"]
-    if cfg.use_bias:
+    out = attn.reshape(b, s, -1) @ p[prefix + "wo"]
+    if cfg.use_bias and bias:
         out = out + p[prefix + "bo"]
     return out
+
+
+def _attn_core(p, h, cfg: ArchConfig, *, causal: bool, positions=None,
+               shard=None):
+    """Full-sequence attention of the normed ``h``: (its output projection
+    without the bias, (k, v)).  With ``shard`` (a split attention) the
+    rank's heads: its kv heads picked where ``wk``/``wv`` are whole, and
+    the output a partial sum."""
+    q, k, v = _project_qkv(p, h, cfg)
+    if cfg.rope:
+        if positions is None:
+            positions = torch.arange(h.shape[1], device=h.device)[None, :]
+        q = rope(q, positions, theta=cfg.rope_theta)
+        k = rope(k, positions, theta=cfg.rope_theta)
+    kq, vq = k, v
+    if shard is not None and not shard.kv_split(cfg):
+        kq, vq = shard.kv_heads(k, cfg), shard.kv_heads(v, cfg)
+    attn = gqa_attention(q, kq, vq, causal=causal, impl=cfg.attn_impl,
+                         q_chunk=cfg.attn_q_chunk,
+                         repeat_kv=cfg.attn_repeat_kv)
+    return _attn_out(p, attn, cfg, bias=False), (k, v)
 
 
 def _attn_body(p, x, cfg: ArchConfig, *, causal: bool, positions=None,
                norm_key: str = "attn_norm"):
     """Full-sequence attention sub-block (forward / prefill)."""
     h = rms_norm(x, p[norm_key], eps=cfg.norm_eps)
-    q, k, v = _project_qkv(p, h, cfg)
-    if cfg.rope:
-        if positions is None:
-            positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        q = rope(q, positions, theta=cfg.rope_theta)
-        k = rope(k, positions, theta=cfg.rope_theta)
-    attn = gqa_attention(q, k, v, causal=causal, impl=cfg.attn_impl,
-                         q_chunk=cfg.attn_q_chunk,
-                         repeat_kv=cfg.attn_repeat_kv)
-    return _attn_out(p, attn, cfg), (k, v)
+    out, kv = _attn_core(p, h, cfg, causal=causal, positions=positions)
+    return _bias(out, p, cfg, "bo"), kv
+
+
+def _bias(y, p, cfg: ArchConfig, *names):
+    """``y`` plus the biases ``names`` of ``p`` where the config has
+    biases and ``p`` holds them."""
+    if cfg.use_bias:
+        for name in names:
+            if name in p:
+                y = y + p[name]
+    return y
 
 
 def _cross_query(p, x, cfg: ArchConfig):
@@ -593,27 +888,31 @@ def _mlp_body(p, x, cfg: ArchConfig, kind: str, *, norm_key: str = "mlp_norm",
               shard=None):
     """(MLP output, the MoE load-balance term or None)."""
     h = rms_norm(x, p[norm_key], eps=cfg.norm_eps) if norm_key else x
+    if kind == "moe" and cfg.moe_dispatch is not None:  # expert-parallel
+        return cfg.moe_dispatch(
+            h, p["router"], p["moe_gate"], p["moe_up"], p["moe_down"],
+            top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    out, aux = _mlp_core(p, h, cfg, kind, shard=shard)
+    return _bias(out, p, cfg, "b_down"), aux
+
+
+def _mlp_core(p, h, cfg: ArchConfig, kind: str, *, shard=None):
+    """The MLP of the normed ``h`` without its output bias: (output, the
+    MoE load-balance term or None).  A split MLP's weights are the rank's
+    columns (or each expert's ``F`` slice), and its output a partial
+    sum."""
     if kind == "swiglu":
         return swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), None
     if kind == "gelu":
-        bias = cfg.use_bias
-        return gelu_mlp(h, p["w_up"], p["b_up"] if bias else None,
-                        p["w_down"], p["b_down"] if bias else None), None
+        return gelu_mlp(h, p["w_up"], p["b_up"] if cfg.use_bias else None,
+                        p["w_down"], None), None
     if kind == "relu2":
         z = h @ p["w_up"]
         if cfg.use_bias:
             z = z + p["b_up"]
-        out = torch.relu(z).square() @ p["w_down"]
-        if cfg.use_bias:
-            out = out + p["b_down"]
-        return out, None
+        return torch.relu(z).square() @ p["w_down"], None
     if kind == "moe":
-        if cfg.moe_dispatch is not None:    # expert-parallel over a mesh
-            return cfg.moe_dispatch(
-                h, p["router"], p["moe_gate"], p["moe_up"], p["moe_down"],
-                top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
-        if shard is not None and any(shard.mesh.axis_size(a) > 1
-                                     for a in shard.batch_axes or ()):
+        if shard is not None and shard.batch_split():
             return shard.batch_moe(h, p, cfg)
         return moe_layer_3d(h, p["router"], p["moe_gate"], p["moe_up"],
                             p["moe_down"], top_k=cfg.top_k,
@@ -621,6 +920,13 @@ def _mlp_body(p, x, cfg: ArchConfig, kind: str, *, norm_key: str = "mlp_norm",
                             impl=cfg.moe_impl, ep_shard=cfg.act_shard_moe,
                             seq_chunk=cfg.moe_seq_chunk, remat=cfg.remat)
     raise ValueError(kind)
+
+
+def _mlp_split(p, h, cfg: ArchConfig, kind: str, shard):
+    """A split MLP on the entered ``h``: (partial output, the MoE
+    load-balance term with its gradient counted once over the ranks)."""
+    out, aux = _mlp_core(p, h, cfg, kind, shard=shard)
+    return out, (None if aux is None else shard.split_aux(aux))
 
 
 def _mamba_body(p, x, cfg: ArchConfig, *, return_state: bool = False):
@@ -638,49 +944,89 @@ def _apply_block(p, x, cfg: ArchConfig, kind: LayerKind, *, causal: bool,
     leaves for the cache): ``{"k", "v"}`` of its attention (with
     ``{"xk", "xv"}`` of its cross-attention where it has one and
     ``enc_out`` is given), or with ``collect`` ``{"conv", "ssm"}`` of its
-    Mamba mixer, or None."""
+    Mamba mixer, or None.
+
+    On a rank whose layers are split over ``shard.tp``, ``x`` is its
+    residual stream (its block of the sequence under sequence
+    parallelism); a split sub-block enters by :meth:`_Shard.enter` and
+    sums its partial output by :meth:`_Shard.leave`, its output biases
+    added after; the others are computed whole (:meth:`_Shard.whole_in`,
+    :meth:`_Shard.whole_out`).  The k/v left for a cache have every kv
+    head."""
+    split = shard is not None and shard.tp is not None
+    attn = split and shard.attn_split(cfg, kind)
+    mlp = split and shard.mlp_split(cfg, kind)
+    whole_in = shard.whole_in if split else (lambda t: t)
+    whole_out = shard.whole_out if split else (lambda t: t)
     contrib, aux = None, None
-    if cfg.parallel_block and kind.mixer == "attn" and kind.mlp != "none":
+
+    def split_attn(h):
+        """The split attention's partial output, and its k/v (of every kv
+        head where a cache takes them)."""
+        out, (k, v) = _attn_core(p, h, cfg, causal=causal,
+                                 positions=positions, shard=shard)
+        if collect:
+            k, v = shard.all_heads(k, cfg), shard.all_heads(v, cfg)
+        return out, {"k": k, "v": v}
+
+    if _parallel(cfg, kind):
         # command-r: shared norm, attn & mlp in parallel
-        attn_out, (k, v) = _attn_body(p, x, cfg, causal=causal,
+        if attn:                            # and the MLP: split together
+            h = shard.enter(rms_norm(x, p["attn_norm"], eps=cfg.norm_eps))
+            out, contrib = split_attn(h)
+            mlp_out, aux = _mlp_split(p, h, cfg, kind.mlp, shard)
+            return (x + _bias(shard.leave(out + mlp_out), p, cfg, "bo",
+                              "b_down"), aux, contrib)
+        xf = whole_in(x)
+        attn_out, (k, v) = _attn_body(p, xf, cfg, causal=causal,
                                       positions=positions)
-        mlp_out, aux = _mlp_body(p, x, cfg, kind.mlp, norm_key="attn_norm",
+        mlp_out, aux = _mlp_body(p, xf, cfg, kind.mlp, norm_key="attn_norm",
                                  shard=shard)
-        x = x + attn_out + mlp_out
+        return (x + whole_out(attn_out) + whole_out(mlp_out), aux,
+                {"k": k, "v": v})
+    if kind.mixer == "attn" and attn:
+        h = shard.enter(rms_norm(x, p["attn_norm"], eps=cfg.norm_eps))
+        out, contrib = split_attn(h)
+        x = x + _bias(shard.leave(out), p, cfg, "bo")
+    elif kind.mixer == "attn":
+        attn_out, (k, v) = _attn_body(p, whole_in(x), cfg, causal=causal,
+                                      positions=positions)
+        x = x + whole_out(attn_out)
         contrib = {"k": k, "v": v}
-    else:
-        if kind.mixer == "attn":
-            attn_out, (k, v) = _attn_body(p, x, cfg, causal=causal,
-                                          positions=positions)
-            x = x + attn_out
-            contrib = {"k": k, "v": v}
-        elif kind.mixer == "mamba":
-            if collect:
-                y, (conv_tail, ssm_state) = _mamba_body(p, x, cfg,
-                                                        return_state=True)
-                contrib = {"conv": conv_tail, "ssm": ssm_state}
-            else:
-                y = _mamba_body(p, x, cfg)
-            x = x + y
-        if kind.cross and enc_out is not None:
-            cross_out, (xk, xv) = _cross_body(p, x, enc_out, cfg)
-            x = x + cross_out
-            contrib.update(xk=xk, xv=xv)
-        if kind.mlp != "none":
-            mlp_out, aux = _mlp_body(p, x, cfg, kind.mlp, shard=shard)
-            x = x + mlp_out
+    elif kind.mixer == "mamba":
+        xf = whole_in(x)
+        if collect:
+            y, (conv_tail, ssm_state) = _mamba_body(p, xf, cfg,
+                                                    return_state=True)
+            contrib = {"conv": conv_tail, "ssm": ssm_state}
+        else:
+            y = _mamba_body(p, xf, cfg)
+        x = x + whole_out(y)
+    if kind.cross and enc_out is not None:
+        cross_out, (xk, xv) = _cross_body(p, whole_in(x), enc_out, cfg)
+        x = x + whole_out(cross_out)
+        contrib.update(xk=xk, xv=xv)
+    if kind.mlp != "none" and mlp:
+        h = shard.enter(rms_norm(x, p["mlp_norm"], eps=cfg.norm_eps))
+        mlp_out, aux = _mlp_split(p, h, cfg, kind.mlp, shard)
+        x = x + _bias(shard.leave(mlp_out), p, cfg, "b_down")
+    elif kind.mlp != "none":
+        mlp_out, aux = _mlp_body(p, whole_in(x), cfg, kind.mlp, shard=shard)
+        x = x + whole_out(mlp_out)
     return x, aux, contrib
 
 
 # ---------------------------------------------------------------------------
 # stacks
 # ---------------------------------------------------------------------------
-def _period(stack: dict, key: str, n: int, shard=None) -> dict:
+def _period(stack: dict, key: str, n: int, shard=None, cfg=None,
+            kind=None) -> dict:
     """Period ``n``'s parameters of position ``key`` (views, no copies):
     ``stack[key]`` maps names to stacked leaves or to their unbound
-    periods.  With ``shard``, gathered whole from the rank's shards."""
+    periods.  With ``shard``, from the rank's shards
+    (:meth:`_Shard.period`, for a block of ``kind``)."""
     if shard is not None:
-        return shard.period(stack, key, n)
+        return shard.period(stack, key, n, cfg, kind)
     return {name: leaf[n] for name, leaf in stack[key].items()}
 
 
@@ -696,7 +1042,8 @@ def _period_blocks(periods, n: int, x, cfg: ArchConfig, plan, *,
     aux = None
     for i, kind in enumerate(plan):
         key = f"p{i}"
-        x, a, contrib = _apply_block(_period(periods, key, n, shard), x,
+        x, a, contrib = _apply_block(_period(periods, key, n, shard, cfg,
+                                             kind), x,
                                      cfg, kind, causal=causal,
                                      positions=positions, enc_out=enc_out,
                                      collect=cache is not None, shard=shard)
@@ -747,14 +1094,37 @@ def _run_stack(stack, x, cfg: ArchConfig, plan, *, causal: bool,
     return x, (torch.stack(auxs).sum() if auxs else 0.0)
 
 
-def _embed_inputs(params, batch, cfg: ArchConfig, device):
+def _embed_tokens(params, tokens, cfg: ArchConfig, shard=None):
+    """The embedding rows of ``tokens``.  Where the vocabulary is split
+    over ``shard.tp``, each rank looks up its rows (zero for the other
+    tokens) and the ranks' rows are summed: all-reduced, or with
+    ``to_seq`` reduce-scattered over the sequence."""
+    table = params["embed"]
+    if shard is None or not shard.vocab:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens - shard.r * n
+    mine = (local >= 0) & (local < n)
+    return table[local.clamp(0, n - 1)] * mine[..., None].to(table.dtype)
+
+
+def _embed_inputs(params, batch, cfg: ArchConfig, device, shard=None):
     """tokens (+ the patch stub) -> (x [b,s,D], loss_mask [b,s], positions
     [1,s]): patch embeddings projected by ``patch_proj`` go in front of
-    the text, with a loss mask of 0; learned positions count them."""
+    the text, with a loss mask of 0; learned positions count them.  On a
+    rank whose stream is split over the sequence, ``x`` is its block."""
     tokens = torch.as_tensor(batch["tokens"], device=device).long()
-    x = params["embed"][tokens]                     # [b, s_text, D]
+    x = _embed_tokens(params, tokens, cfg, shard)   # [b, s_text, D]
+    patches = cfg.frontend == "patch" and "patch_embed" in batch
+    # Under sequence parallelism a vocabulary-split lookup is summed
+    # straight into the rank's block where nothing is added to it whole.
+    to_seq = shard is not None and shard.seq and not patches \
+        and not cfg.learned_pos
+    if shard is not None and shard.vocab:
+        x = (collectives.reduce_scatter(x, shard.mesh, shard.tp, dim=1)
+             if to_seq else collectives.psum(x, shard.mesh, shard.tp))
     loss_mask = torch.ones(tokens.shape, dtype=torch.float32, device=device)
-    if cfg.frontend == "patch" and "patch_embed" in batch:
+    if patches:
         patches = torch.as_tensor(batch["patch_embed"], device=device).to(
             x.dtype) @ params["patch_proj"]
         x = torch.cat([patches, x], dim=1)
@@ -763,7 +1133,9 @@ def _embed_inputs(params, batch, cfg: ArchConfig, device):
                                            device=device), loss_mask], dim=1)
     if cfg.learned_pos:
         x = x + params["pos_embed"][:x.shape[1]][None]
-    positions = torch.arange(x.shape[1], device=device)[None, :]
+    positions = torch.arange(loss_mask.shape[1], device=device)[None, :]
+    if shard is not None and shard.seq and not (to_seq and shard.vocab):
+        x = shard.whole_out(x)
     return x, loss_mask, positions
 
 
@@ -778,7 +1150,8 @@ def _run_encoder(params, batch, cfg: ArchConfig, device, shard=None):
     x = frames + enc["pos_embed"][:frames.shape[1]][None]
     x, _ = _run_stack(enc["stack"], x, enc_cfg,
                       layer_plan(enc_cfg, decoder=False), causal=False,
-                      shard=shard and shard.at("enc", "stack"))
+                      shard=shard and replace(shard.at("enc", "stack"),
+                                              seq=False))
     return rms_norm(x, enc["final_norm"], eps=cfg.norm_eps)
 
 
@@ -828,9 +1201,11 @@ def _hidden(params, batch, cfg: ArchConfig, device, *, cache=None,
             shard=None):
     """(final-normed hidden states, the loss mask, the MoE load-balance
     term); with ``shard``, every ``stack`` of ``params`` holds a rank's
-    shards (the rest gathered by :meth:`_Shard.tops`)."""
+    shards (the rest from :meth:`_Shard.tops`), and the hidden states are
+    the rank's block of the sequence where its stream is split."""
     plan = require_ported(cfg)
-    x, loss_mask, positions = _embed_inputs(params, batch, cfg, device)
+    x, loss_mask, positions = _embed_inputs(params, batch, cfg, device,
+                                            shard)
     enc_out = None
     if cfg.enc_layers > 0:
         enc_out = _run_encoder(params, batch, cfg, device, shard)
@@ -841,11 +1216,29 @@ def _hidden(params, batch, cfg: ArchConfig, device, *, cache=None,
     return h, loss_mask, aux
 
 
-def _mask_vocab_pad(logits, cfg: ArchConfig):
+def _mask_vocab_pad(logits, cfg: ArchConfig, shard=None):
+    """The pad columns of the vocabulary at -1e30; ``logits`` are a rank's
+    slice of it where ``shard`` splits it (masked by global column)."""
     if cfg.padded_vocab == cfg.vocab_size:
         return logits
-    cols = torch.arange(cfg.padded_vocab, device=logits.device)
+    n = logits.shape[-1]
+    lo = shard.r * n if shard is not None and shard.vocab else 0
+    cols = lo + torch.arange(n, device=logits.device)
     return torch.where(cols < cfg.vocab_size, logits, -1e30)
+
+
+def _seq_len(batch, cfg: ArchConfig) -> int:
+    """The positions of a batch: its tokens and patches."""
+    s = batch["tokens"].shape[1]
+    if cfg.frontend == "patch" and "patch_embed" in batch:
+        s += batch["patch_embed"].shape[1]
+    return s
+
+
+def _entry_shard(mesh, specs, cfg: ArchConfig, s: int):
+    """:func:`_shard_of` for a call over ``s`` positions."""
+    shard = _shard_of(mesh, specs, cfg)
+    return shard if shard is None else shard.for_length(s)
 
 
 @torch.no_grad()
@@ -853,22 +1246,42 @@ def forward(params, batch, cfg: ArchConfig, *, device=None, mesh=None,
             specs=None):
     """Full-sequence f32 logits ``[b, s, vocab_size]`` (pad columns sliced
     off); ``s`` counts the patch positions too.  ``mesh``/``specs``: see
-    the module's docstring."""
+    the module's docstring; where ``specs["logits"]`` splits the
+    vocabulary, the rank's slice of the padded vocabulary with pad columns
+    at -1e30 (``gather_logits(...)[..., :vocab_size]`` is the whole)."""
     device = _on_device(params, device)
-    shard = _shard_of(mesh, specs, cfg)
+    shard = _entry_shard(mesh, specs, cfg, _seq_len(batch, cfg))
     if shard is not None:
         params = shard.tops(params)
     h, _, _ = _hidden(params, batch, cfg, device, shard=shard)
+    if shard is not None and shard.vocab:
+        return _mask_vocab_pad(_lm_head(params, shard.head_in(h), cfg), cfg,
+                               shard)
+    if shard is not None:
+        h = shard.head_in(h)
     return _lm_head(params, h, cfg)[..., :cfg.vocab_size]
 
 
-def _chunk_ce(hc, labels, mask, params, cfg: ArchConfig):
+def _chunk_ce(hc, labels, mask, params, cfg: ArchConfig, shard=None):
     """Summed masked CE of one sequence chunk: ``hc [b, c, D]``, labels and
     mask ``[b, c]``.  The vocab pad is masked to -1e30 before the
-    log-sum-exp, as in the reference."""
-    logits = _mask_vocab_pad(_lm_head(params, hc, cfg), cfg)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None])[..., 0]
+    log-sum-exp, as in the reference.  Where ``shard`` splits the
+    vocabulary the CE is vocab-parallel: each rank's logits are its slice,
+    their maximum and sum of exponentials are reduced over the ranks, and
+    the gold logit comes from the rank that holds it."""
+    logits = _mask_vocab_pad(_lm_head(params, hc, cfg), cfg, shard)
+    if shard is None or not shard.vocab:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[..., None])[..., 0]
+        return ((lse - gold) * mask).sum()
+    mesh, tp, n = shard.mesh, shard.tp, logits.shape[-1]
+    top = collectives.pmax(logits.amax(dim=-1), mesh, tp)
+    lse = top + torch.log(collectives.psum(
+        torch.exp(logits - top[..., None]).sum(dim=-1), mesh, tp))
+    local = labels - shard.r * n
+    mine = (local >= 0) & (local < n)
+    gold = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = collectives.psum(gold * mine, mesh, tp)
     return ((lse - gold) * mask).sum()
 
 
@@ -896,10 +1309,12 @@ def loss_fn(params, batch, cfg: ArchConfig, *, device=None, mesh=None,
     gradient with respect to each of the rank's shards is the whole
     batch's."""
     device = _on_device(params, device)
-    shard = _shard_of(mesh, specs, cfg)
+    shard = _entry_shard(mesh, specs, cfg, _seq_len(batch, cfg))
     if shard is not None:
         params = shard.tops(params)
     h, loss_mask, aux = _hidden(params, batch, cfg, device, shard=shard)
+    if shard is not None:
+        h = shard.head_in(h)
     tokens = torch.as_tensor(batch["tokens"], device=device).long()
     s_tot, s_text = h.shape[1], tokens.shape[1]
     h_pred = h[:, s_tot - s_text:][:, :-1]          # [b, s_text-1, D]
@@ -916,7 +1331,7 @@ def loss_fn(params, batch, cfg: ArchConfig, *, device=None, mesh=None,
     for c in range(0, n + pad, chunk):
         total = total + checkpoint(
             _chunk_ce, h_pred[:, c:c + chunk], labels[:, c:c + chunk],
-            mask[:, c:c + chunk], params, cfg, use_reentrant=False)
+            mask[:, c:c + chunk], params, cfg, shard, use_reentrant=False)
     count = mask.sum()
     if shard is not None:
         total, count = shard.batch_sum(total), shard.batch_sum(count)
@@ -978,12 +1393,12 @@ def prefill(params, batch, cfg: ArchConfig, *, max_len: int | None = None,
     encoder output, and each Mamba block's conv tail and SSM state after
     the prompt, so :func:`decode_step` continues at ``pos = s``.  On a
     mesh the cache is the rank's shard under ``specs["cache"]`` (the
-    specs of the whole batch's cache of ``max_len``)."""
+    specs of the whole batch's cache of ``max_len``), and the logits are
+    the rank's slice of the vocabulary where ``specs["logits"]`` splits
+    it (:func:`gather_logits`)."""
     device = _on_device(params, device)
-    shard = _shard_of(mesh, specs, cfg)
-    b, s = batch["tokens"].shape
-    if cfg.frontend == "patch" and "patch_embed" in batch:
-        s += batch["patch_embed"].shape[1]
+    b, s = batch["tokens"].shape[0], _seq_len(batch, cfg)
+    shard = _entry_shard(mesh, specs, cfg, s)
     enc_len = batch["frames"].shape[1] if cfg.enc_layers > 0 else 0
     if shard is None:
         cache = _new_cache(cfg, b, max_len or s, enc_len, device)
@@ -991,8 +1406,9 @@ def prefill(params, batch, cfg: ArchConfig, *, max_len: int | None = None,
         params = shard.tops(params)
         cache = _local_cache(cfg, b, max_len or s, enc_len, device, shard)
     h, _, _ = _hidden(params, batch, cfg, device, cache=cache, shard=shard)
-    logits = _lm_head(params, h[:, -1:, :], cfg)[:, 0]
-    return _mask_vocab_pad(logits, cfg), cache
+    h = h[:, -1:] if shard is None else shard.last(h)
+    logits = _lm_head(params, h, cfg)[:, 0]
+    return _mask_vocab_pad(logits, cfg, shard), cache
 
 
 def _local_cache(cfg: ArchConfig, b: int, max_len: int, enc_len: int,
@@ -1008,9 +1424,13 @@ def _local_cache(cfg: ArchConfig, b: int, max_len: int, enc_len: int,
         for key, block in whole.items()}
 
 
-def _decode_attn_block(p, x_t, c, n: int, cfg: ArchConfig, pos: int):
+def _decode_attn_block(p, x_t, c, n: int, cfg: ArchConfig, pos: int,
+                       shard=None):
     """x_t [b,1,D]; writes this token's k/v into slot ``pos`` of period
-    ``n`` of ``c`` and attends over slots ``<= pos``."""
+    ``n`` of ``c`` and attends over slots ``<= pos``.  With ``shard`` (a
+    split attention) the rank's heads: the new k/v of every kv head go
+    into the cache, the rank's kv heads of it are attended to, and the
+    output projection is a partial sum without its bias."""
     h = rms_norm(x_t, p["attn_norm"], eps=cfg.norm_eps)
     q, k, v = _project_qkv(p, h, cfg)
     if cfg.rope:
@@ -1018,10 +1438,15 @@ def _decode_attn_block(p, x_t, c, n: int, cfg: ArchConfig, pos: int):
         q = rope(q, posb, theta=cfg.rope_theta)
         k = rope(k, posb, theta=cfg.rope_theta)
     kc, vc = c["k"][n], c["v"][n]
+    if shard is not None:
+        k, v = shard.all_heads(k, cfg), shard.all_heads(v, cfg)
     kc[:, pos:pos + 1] = k
     vc[:, pos:pos + 1] = v
+    if shard is not None:
+        kc, vc = shard.kv_heads(kc, cfg), shard.kv_heads(vc, cfg)
     mask = (torch.arange(kc.shape[1], device=x_t.device) <= pos).float()
-    return _attn_out(p, decode_attention(q, kc, vc, mask), cfg)
+    return _attn_out(p, decode_attention(q, kc, vc, mask), cfg,
+                     bias=shard is None)
 
 
 def _decode_cross_block(p, x_t, c, n: int, cfg: ArchConfig):
@@ -1052,17 +1477,20 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *, device=None,
     columns at -1e30, cache) — the same cache object, updated in place.
     MoE layers run dropless here: ``b`` tokens at ``capacity_factor =
     n_experts / top_k`` give every expert room for all of them.  On a
-    mesh, ``cache`` is the rank's shard from :func:`prefill`."""
+    mesh, ``cache`` is the rank's shard from :func:`prefill`, and the
+    logits are as :func:`prefill`'s."""
     device = _on_device(params, device)
     plan = require_ported(cfg)
     if cfg.moe:
         cfg = replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
-    shard = _shard_of(mesh, specs, cfg)
+    shard = _entry_shard(mesh, specs, cfg, 1)
     if shard is not None:
         params = shard.tops(params)
     pos = int(pos)
     tokens = torch.as_tensor(tokens, device=device).long()
-    x = params["embed"][tokens]                     # [b,1,D]
+    x = _embed_tokens(params, tokens, cfg, shard)   # [b,1,D]
+    if shard is not None and shard.vocab:
+        x = collectives.psum(x, shard.mesh, shard.tp)
     if cfg.learned_pos:
         x = x + params["pos_embed"][pos:pos + 1][None]
     stack = params["stack"]
@@ -1070,33 +1498,54 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *, device=None,
     for n in range(cfg.n_layers // len(plan)):
         for i, kind in enumerate(plan):
             key = f"p{i}"
-            p = _period(stack, key, n, sh)
+            p = _period(stack, key, n, sh, cfg, kind)
             c, m = cache.get(key), n
             if sh is not None and c is not None:
                 # The period's cache gathered whole, written back after.
                 c = {name: sh.cache_read(cache, key, name, n)[None]
                      for name in c}
                 m = 0
-            if cfg.parallel_block and kind.mixer == "attn" \
-                    and kind.mlp != "none":
-                attn_out = _decode_attn_block(p, x, c, m, cfg, pos)
-                mlp_out, _ = _mlp_body(p, x, cfg, kind.mlp,
-                                       norm_key="attn_norm")
-                x = x + attn_out + mlp_out
-            else:
-                if kind.mixer == "attn":
-                    x = x + _decode_attn_block(p, x, c, m, cfg, pos)
-                elif kind.mixer == "mamba":
-                    x = x + _decode_mamba_block(p, x, c, m, cfg)
-                if kind.cross:
-                    x = x + _decode_cross_block(p, x, c, m, cfg)
-                if kind.mlp != "none":
-                    x = x + _mlp_body(p, x, cfg, kind.mlp)[0]
+            x = _decode_block(p, x, c, m, cfg, pos, kind, sh)
             if sh is not None and c is not None:
                 _write_back(sh, cache, key, n, c, kind, pos)
     h = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
     logits = _lm_head(params, h, cfg)[:, 0]
-    return _mask_vocab_pad(logits, cfg), cache
+    return _mask_vocab_pad(logits, cfg, shard), cache
+
+
+def _decode_block(p, x, c, n: int, cfg: ArchConfig, pos: int,
+                  kind: LayerKind, shard=None):
+    """One block of a decode step.  On a rank whose layers are split over
+    ``shard.tp`` (one position: Megatron without sequence parallelism)
+    each split product is all-reduced; the other sub-blocks run whole."""
+    split = shard is not None and shard.tp is not None
+    attn = split and shard.attn_split(cfg, kind)
+    mlp = split and shard.mlp_split(cfg, kind)
+    if _parallel(cfg, kind):
+        if not attn:
+            attn_out = _decode_attn_block(p, x, c, n, cfg, pos)
+            return x + attn_out + _mlp_body(p, x, cfg, kind.mlp,
+                                            norm_key="attn_norm")[0]
+        out = _decode_attn_block(p, x, c, n, cfg, pos, shard)
+        h = rms_norm(x, p["attn_norm"], eps=cfg.norm_eps)
+        out = out + _mlp_split(p, h, cfg, kind.mlp, shard)[0]
+        return x + _bias(shard.leave(out), p, cfg, "bo", "b_down")
+    if kind.mixer == "attn" and attn:
+        out = _decode_attn_block(p, x, c, n, cfg, pos, shard)
+        x = x + _bias(shard.leave(out), p, cfg, "bo")
+    elif kind.mixer == "attn":
+        x = x + _decode_attn_block(p, x, c, n, cfg, pos)
+    elif kind.mixer == "mamba":
+        x = x + _decode_mamba_block(p, x, c, n, cfg)
+    if kind.cross:
+        x = x + _decode_cross_block(p, x, c, n, cfg)
+    if kind.mlp != "none" and mlp:
+        h = rms_norm(x, p["mlp_norm"], eps=cfg.norm_eps)
+        x = x + _bias(shard.leave(_mlp_split(p, h, cfg, kind.mlp, shard)[0]),
+                      p, cfg, "b_down")
+    elif kind.mlp != "none":
+        x = x + _mlp_body(p, x, cfg, kind.mlp)[0]
+    return x
 
 
 def _write_back(shard: _Shard, cache, key: str, n: int, c: dict,

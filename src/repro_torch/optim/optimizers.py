@@ -31,15 +31,17 @@ def apply_updates(params: dict, updates: dict) -> dict:
     return {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
 
 
-def clip_by_global_norm(grads: dict, max_norm: float, *, batch_dims: int = 0):
+def clip_by_global_norm(grads: dict, max_norm: float, *, batch_dims: int = 0,
+                        sq=None):
     """Scale ``grads`` so their global L2 norm is at most ``max_norm``.
 
     ``batch_dims`` leading dims index independent clients (the round's lane
     dim): each gets its own norm, as the reference computes it under vmap.
+    ``sq``, where given, is the squared norm ``[batch...]`` taken
+    elsewhere (a rank of a mesh holds a shard of the gradients).
     Returns ``(clipped, gnorm)`` with ``gnorm`` of shape ``[batch...]``.
     """
-    sq = None
-    for k in sorted(grads):
+    for k in sorted(grads) if sq is None else ():
         g = grads[k].float()
         s = g.square().sum(dim=tuple(range(batch_dims, g.ndim)))
         sq = s if sq is None else sq + s

@@ -70,44 +70,75 @@ def _collectives(mesh) -> dict:
             "gather": g.detach(), "gather_grad": z.grad}
 
 
-def serve_rank(mesh, cases: list) -> dict:
-    """Each case's reduced arch split over ``mesh`` under ``fsdp_tp``, its
-    MoE layers through ``make_ep_dispatch``: this rank's prefill logits,
-    its decode-step logits, its ``forward`` logits and the bytes of its
-    parameter shards."""
+def serve_specs(cfg, mesh, policy: str, b: int, max_len: int, *,
+                seq: bool = True) -> dict:
+    """A serve step's specs for ``cfg`` on ``mesh`` under ``policy``, as
+    ``launch.plan.sharding_specs`` gives them for a prefill: the filtered
+    parameter and cache specs, the residual stream split over ``data``
+    and (with ``seq``) the sequence over ``model``, and the logits over
+    the vocabulary."""
+    ax = axis_sizes(mesh)
+    rules = make_sharding_rules(policy, mesh, fl_axes=())
+    shapes = lm.param_shapes(cfg)
+    batch = filter_spec(("data",), (b,), ax)[0]
+    return {"params": filtered_specs(rules["params"].tree_specs(shapes),
+                                     shapes, mesh),
+            "cache": cache_specs(cfg, rules, b, max_len, mesh),
+            "act": (batch, "model" if seq else None, None),
+            "logits": filter_spec((batch, "model"), (b, cfg.padded_vocab),
+                                  ax)}
+
+
+def serve_rank(mesh, cases: list) -> list:
+    """Each case's reduced arch split over its mesh (the first ranks of
+    ``mesh``, ``launch.mesh.sub_mesh``) under its policy, its MoE layers
+    through ``make_ep_dispatch`` where it says so: this rank's prefill
+    logits and decode-step logits (the whole vocabulary gathered), its
+    ``forward`` logits, the bytes of its parameter shards and its
+    collectives by kind and axis; None on a rank a case leaves out."""
+    from repro_torch.launch.mesh import sub_mesh
     out = []
     for case in cases:
-        cfg = replace(get_arch(case["arch"]).reduced(), **case["cfg"])
-        tokens = torch.from_numpy(case["tokens"])
-        s, max_len = case["prompt"], tokens.shape[1]
-        rules = make_sharding_rules("fsdp_tp", mesh, fl_axes=())
-        shapes = lm.param_shapes(cfg)
-        specs = {"params": filtered_specs(
-                     rules["params"].tree_specs(shapes), shapes, mesh),
-                 "cache": cache_specs(cfg, rules, tokens.shape[0], max_len,
-                                      mesh)}
+        sub = sub_mesh(mesh, case["mesh"])
+        out.append(None if sub is None else _serve_case(sub, case))
+    return out
+
+
+def _serve_case(mesh, case: dict) -> dict:
+    cfg = replace(get_arch(case["arch"]).reduced(), **case["cfg"])
+    tokens = torch.from_numpy(case["tokens"])
+    s, max_len = case["prompt"], tokens.shape[1]
+    specs = serve_specs(cfg, mesh, case["policy"], tokens.shape[0], max_len,
+                        seq=case["seq"])
+    if case["dispatch"]:
         cfg = replace(cfg, moe_dispatch=make_ep_dispatch(
             mesh, batch_axes=("data",), fsdp_axis="data",
             seq_chunk=case.get("seq_chunk", 0)))
-        local = shard_tree(lm_params_from_numpy(case["params"], device="cpu"),
-                           specs["params"], mesh)
-        toks = shard_leaf(tokens, filter_spec(("data", None), tokens.shape,
-                                              axis_sizes(mesh)), mesh)
-        kw = dict(device="cpu", mesh=mesh, specs=specs)
+    local = shard_tree(lm_params_from_numpy(case["params"], device="cpu"),
+                       specs["params"], mesh)
+    toks = shard_leaf(tokens, filter_spec(("data", None), tokens.shape,
+                                          axis_sizes(mesh)), mesh)
+    kw = dict(device="cpu", mesh=mesh, specs=specs)
+    seen = []
+    with coll.counting(seen.append):
         logits, cache = lm.prefill(local, {"tokens": toks[:, :s]}, cfg,
                                    max_len=max_len, **kw)
-        steps = [logits]
+        steps = [lm.gather_logits(logits, cfg, mesh=mesh, specs=specs)]
         for i in range(max_len - s):
             logits, cache = lm.decode_step(local, cache,
                                            toks[:, s + i:s + i + 1], s + i,
                                            cfg, **kw)
-            steps.append(logits)
-        out.append({
+            steps.append(lm.gather_logits(logits, cfg, mesh=mesh,
+                                          specs=specs))
+        fwd = lm.forward(local, {"tokens": toks}, cfg, **kw)
+    return {"coords": mesh.coords,
             "steps": torch.stack(steps, dim=1),
-            "forward": lm.forward(local, {"tokens": toks}, cfg, **kw),
+            "forward": lm.gather_logits(fwd, cfg, mesh=mesh,
+                                        specs=specs)[..., :cfg.vocab_size],
+            "local_vocab": fwd.shape[-1],
+            "collectives": sorted({(c.kind, c.axis) for c in seen}),
             "param_bytes": sum(x.numel() * x.element_size()
-                               for x in _leaves(local))})
-    return {"coords": mesh.coords, "cases": out}
+                               for x in _leaves(local))}
 
 
 def _leaves(tree):
@@ -131,13 +162,14 @@ def train_plan(mesh_or_axes, arch: str, *, S: int, b: int, knobs: dict,
             and f.name not in ("loss_chunk", "remat")}
     plan = make_plan(arch, "train_4k", mesh_or_axes, overrides=overrides)
     return replace(plan, S=S, b=b,
-                   cfg=replace(plan.cfg, **dims, **knobs))
+                   cfg=replace(plan.cfg, **{**dims, **knobs}))
 
 
 def train_rank(mesh, cases: list, probe: dict) -> dict:
-    """Each case's round on ``mesh``: the reduced arch under its plan's
-    regime, the rank's shards of the numpy weights, its block of the
-    batches and masks.  This rank's shards of the new global params, the
+    """Each case's round on its mesh (the first ranks of ``mesh``,
+    ``launch.mesh.sub_mesh``; None on a rank it leaves out): the reduced
+    arch under its plan's regime, the rank's shards of the numpy weights,
+    its block of the batches and masks, the case's gradient clip.  This rank's shards of the new global params, the
     metrics, the bytes of its parameter shards and K1's folds; the
     gradients of :func:`_gather_rule` on ``probe``; :func:`_sub_meshes`;
     and when the rank entered this body.  The cross-worker reduce runs in
@@ -148,10 +180,16 @@ def train_rank(mesh, cases: list, probe: dict) -> dict:
     from repro_torch.launch.plan import sharding_specs
     from repro_torch.launch.steps import make_train_step
     from repro_torch.kernels.layout import flatten_tree, unflatten_tree
+    from repro_torch.launch.mesh import sub_mesh
     started = time.time()
     fl_round.MESH_REDUCE_ELEMS = 1 << 16
     out = []
+    full = mesh
     for case in cases:
+        mesh = sub_mesh(full, case["mesh"])
+        if mesh is None:
+            out.append(None)
+            continue
         plan = train_plan(mesh, case["arch"], S=case["S"], b=case["b"],
                           knobs=case["knobs"],
                           overrides=case.get("overrides"))
@@ -164,7 +202,8 @@ def train_rank(mesh, cases: list, probe: dict) -> dict:
                              mesh)
         masks = [shard_leaf(torch.from_numpy(case[k]), specs["masks"], mesh)
                  for k in ("step_mask", "boundary", "weight")]
-        step = make_train_step(plan, mesh=mesh, specs=specs)
+        step = make_train_step(plan, mesh=mesh, specs=specs,
+                               grad_clip=case.get("grad_clip"))
         calls = []
         real = ops.fedavg_accum
         ops.fedavg_accum = lambda *a: (calls.append(tuple(a[1].shape)),
@@ -181,10 +220,11 @@ def train_rank(mesh, cases: list, probe: dict) -> dict:
                                for x in _leaves(params)),
             "folds": calls, "regime": (plan.policy, plan.worker_axes,
                                        plan.batch_axes, plan.W, plan.P),
-            "dispatch": plan.cfg.moe_dispatch is not None})
-    return {"coords": mesh.coords, "started": started, "cases": out,
-            "gather_rule": _gather_rule(mesh, probe),
-            "sub_meshes": _sub_meshes(mesh)}
+            "dispatch": plan.cfg.moe_dispatch is not None,
+            "coords": mesh.coords})
+    return {"coords": full.coords, "started": started, "cases": out,
+            "gather_rule": _gather_rule(full, probe),
+            "sub_meshes": _sub_meshes(full)}
 
 
 SUB_SHAPES = ((1, 2), (2, 1), (1, 1))

@@ -1,15 +1,26 @@
-"""The sharded serve path: one client split over a (2, 2) ("data",
-"model") mesh of 4 gloo ranks on the CPU, against the reference's
+"""The sharded serve path: one client split over a mesh of gloo ranks on
+the CPU ((2, 2) or (1, 2) ("data", "model"), the (1, 2) meshes the first
+ranks of the (2, 2), ``launch.mesh.sub_mesh``), against the reference's
 unsharded ``prefill``/``decode_step``/``forward`` on the same numpy
 weights; and the dry-run per card of the reference's production meshes.
 
 * Reduced jamba-v0.1-52b (hybrid: attention, Mamba-2, MoE) and reduced
   qwen3-moe-235b-a22b (4 experts, 2 kv heads), f32, policy ``fsdp_tp``,
   MoE through ``make_ep_dispatch``, dropless (``capacity_factor = E / k``,
-  so local routing is global routing): 4 sequences of 12 prompt tokens and
-  2 decode steps, each rank holding its shards of the weights, its 2
-  sequences and its shard of the cache.  Logits within 1e-5 of the
-  reference's; each rank's parameter bytes those of the specs.
+  so local routing is global routing), the residual stream split over the
+  sequence on ``model`` (the large archs' plan); on both meshes.
+* Reduced qwen3-0.6b under ``tp`` (the stream whole, each split product
+  all-reduced) with 1 kv head (``n_kv_heads % |model| != 0``: each rank
+  takes its query heads' kv head from the whole ``wk``/``wv``), and with a
+  vocabulary of 250 padded to 256 (the vocabulary-split head masks the pad
+  by global column); reduced granite-moe-3b-a800m under ``tp``, each
+  expert's ``F`` split over ``model`` (no dispatch).
+* 4 sequences of 12 prompt tokens and 2 decode steps, each rank holding
+  its shards of the weights, its sequences and its shard of the cache;
+  attention, MLPs, embedding and head split over ``model`` (each rank's
+  logits its slice of the vocabulary, gathered by ``lm.gather_logits``).
+  Logits within 1e-5 of the reference's; each rank's parameter bytes those
+  of the specs.
 * ``--mesh pod``/``multipod``: one card's parameter bytes for one serve
   cell per family equal the reference's ``NamedSharding.shard_shape``
   arithmetic on its (16, 16) and (2, 16, 16) meshes (a subprocess with
@@ -41,7 +52,27 @@ from repro_torch.launch.mesh import make_mesh, run_on_mesh  # noqa: E402
 from repro_torch.launch.steps import build_step  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 
-ARCHS = ["jamba-v0.1-52b", "qwen3-moe-235b-a22b"]
+# (id, arch, mesh, policy, the stream split over the sequence, the
+# dispatch, config overrides on top of the reduced arch)
+CASES = [
+    ("jamba-fsdp_tp", "jamba-v0.1-52b", (2, 2), "fsdp_tp", True, True, {}),
+    ("qwen3-moe-fsdp_tp", "qwen3-moe-235b-a22b", (2, 2), "fsdp_tp", True,
+     True, {}),
+    ("jamba-fsdp_tp-1x2", "jamba-v0.1-52b", (1, 2), "fsdp_tp", True, True,
+     {}),
+    ("qwen3-moe-fsdp_tp-1x2", "qwen3-moe-235b-a22b", (1, 2), "fsdp_tp", True,
+     True, {}),
+    ("qwen3-tp-kv1", "qwen3-0.6b", (2, 2), "tp", False, False,
+     {"n_kv_heads": 1}),
+    ("qwen3-fsdp_tp-kv1-1x2", "qwen3-0.6b", (1, 2), "fsdp_tp", True, False,
+     {"n_kv_heads": 1}),
+    ("qwen3-tp-vocab250", "qwen3-0.6b", (2, 2), "tp", False, False,
+     {"vocab_size": 250}),
+    ("granite-moe-tp", "granite-moe-3b-a800m", (2, 2), "tp", False, False,
+     {}),
+]
+IDS = [c[0] for c in CASES]
+ARCHS = [c[1] for c in CASES]
 TOL = dict(rtol=1e-5, atol=1e-5)
 PROMPT, TOTAL = 12, 14
 # One serve cell per family.
@@ -78,19 +109,22 @@ print(json.dumps(out))
 """
 
 
-def _cfg_kw(arch):
-    base = jconfigs.get_arch(arch).reduced()
-    return {"capacity_factor": base.n_experts / base.top_k,
-            "moe_impl": "scatter"}
+def _cfg_kw(i):
+    base = replace(jconfigs.get_arch(ARCHS[i]).reduced(), **CASES[i][6])
+    kw = dict(CASES[i][6])
+    if base.moe:
+        kw.update(capacity_factor=base.n_experts / base.top_k,
+                  moe_impl="scatter")
+    return kw
 
 
 @pytest.fixture(scope="module")
 def cases():
-    """Per arch: the reference's weights (numpy), tokens, and its logits of
+    """Per case: the reference's weights (numpy), tokens, and its logits of
     prefill + decode and of forward."""
     out = []
     for i, arch in enumerate(ARCHS):
-        kw = _cfg_kw(arch)
+        kw = _cfg_kw(i)
         jcfg = replace(jconfigs.get_arch(arch).reduced(), **kw)
         params = jlm.init_params(jax.random.key(i), jcfg)
         toks = np.random.default_rng(7 + i).integers(
@@ -103,7 +137,9 @@ def cases():
                 toks[:, t:t + 1]), jnp.int32(t), jcfg)
             steps.append(np.asarray(logits))
         fwd = jlm.forward(params, {"tokens": jnp.asarray(toks)}, jcfg)
-        out.append({"arch": arch, "cfg": kw,
+        _, _, mesh, policy, seq, dispatch, _ = CASES[i]
+        out.append({"arch": arch, "cfg": kw, "mesh": mesh, "policy": policy,
+                    "seq": seq, "dispatch": dispatch,
                     "params": jax.tree.map(np.asarray, params),
                     "tokens": toks, "prompt": PROMPT,
                     "ref_steps": np.stack(steps, axis=1),
@@ -113,23 +149,27 @@ def cases():
 
 @pytest.fixture(scope="module")
 def served(cases):
-    send = [{k: c[k] for k in ("arch", "cfg", "params", "tokens", "prompt")}
+    send = [{k: c[k] for k in ("arch", "cfg", "mesh", "policy", "seq",
+                               "dispatch", "params", "tokens", "prompt")}
             for c in cases]
     res = run_on_mesh(ranks.serve_rank, (2, 2), ("data", "model"),
                       backend="gloo", device="cpu", args=(send,),
                       timeout_s=300)
-    return {r["coords"]: r["cases"] for r in res}
+    return [[r[i] for r in res if r[i] is not None]
+            for i in range(len(CASES))]
 
 
 def _batch(served, i, key):
     """The whole batch's logits: data shards in order, each model rank's
     copy equal."""
-    for (d, m), c in served.items():
-        assert torch.equal(c[i][key], served[(d, 0)][i][key])
-    return np.concatenate([served[(d, 0)][i][key].numpy() for d in range(2)])
+    ranks_ = {r["coords"]: r for r in served[i]}
+    for (d, m), r in ranks_.items():
+        assert torch.equal(r[key], ranks_[(d, 0)][key])
+    return np.concatenate([ranks_[(d, 0)][key].numpy()
+                           for d in range(CASES[i][2][0])])
 
 
-@pytest.mark.parametrize("i", range(len(ARCHS)), ids=ARCHS)
+@pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)
 def test_sharded_prefill_decode_match_reference(i, cases, served):
     got = _batch(served, i, "steps")
     ref = cases[i]["ref_steps"]
@@ -137,19 +177,21 @@ def test_sharded_prefill_decode_match_reference(i, cases, served):
     np.testing.assert_allclose(got, ref, **TOL)
 
 
-@pytest.mark.parametrize("i", range(len(ARCHS)), ids=ARCHS)
+@pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)
 def test_sharded_forward_matches_reference(i, cases, served):
     np.testing.assert_allclose(_batch(served, i, "forward"),
                                cases[i]["ref_forward"], **TOL)
 
 
-@pytest.mark.parametrize("i", range(len(ARCHS)), ids=ARCHS)
+@pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)
 def test_rank_parameter_bytes_are_the_specs(i, cases, served):
     """Each rank holds exactly its shards: the bytes the filtered specs
-    give, under a quarter of the whole plus the replicated leaves."""
-    cfg = replace(tget(ARCHS[i]).reduced(), **cases[i]["cfg"])
-    ax = {"data": 2, "model": 2}
-    rules = make_sharding_rules("fsdp_tp", ax, fl_axes=())
+    give; under ``fsdp_tp`` on (2, 2), under a quarter of the whole plus
+    the replicated leaves."""
+    _, arch, mesh, policy, _, _, _ = CASES[i]
+    cfg = replace(tget(arch).reduced(), **cases[i]["cfg"])
+    ax = dict(zip(("data", "model"), mesh))
+    rules = make_sharding_rules(policy, ax, fl_axes=())
     shapes = tlm.param_shapes(cfg)
     specs = dict(tree_paths(filtered_specs(rules["params"].tree_specs(
         shapes), shapes, ax)))
@@ -157,9 +199,26 @@ def test_rank_parameter_bytes_are_the_specs(i, cases, served):
                * torch.empty((), dtype=dtype).element_size()
                for path, shape, dtype in tplan.param_leaves(cfg))
     whole = tplan.param_bytes(cfg)
-    for c in served.values():
-        assert c[i]["param_bytes"] == want
-    assert whole / 4 <= want < whole / 2
+    assert len(served[i]) == int(np.prod(mesh))
+    for r in served[i]:
+        assert r["param_bytes"] == want
+    assert whole / np.prod(mesh) <= want < whole
+    if (policy, mesh) == ("fsdp_tp", (2, 2)):
+        assert want < whole / 2
+
+
+@pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)
+def test_each_rank_computes_its_vocabulary_slice(i, served):
+    """Each rank's ``forward`` returns its slice of the padded vocabulary
+    (the whole back through ``lm.gather_logits``); the split products are
+    summed over ``model`` (all-reduced under ``tp``, reduce-scattered over
+    the sequence under sequence parallelism)."""
+    _, arch, mesh, policy, seq, _, kw = CASES[i]
+    cfg = replace(tget(arch).reduced(), **kw)
+    for r in served[i]:
+        assert r["local_vocab"] == cfg.padded_vocab // mesh[1]
+        assert ("all-reduce", "model") in r["collectives"]
+        assert (("reduce-scatter", "model") in r["collectives"]) == seq
 
 
 @pytest.fixture(scope="module")
@@ -209,7 +268,10 @@ def test_mesh_pod_counts_a_cell_per_card(tmp_path):
     assert rec["param_bytes_per_card"] < rec["param_bytes"] / 100
     coll = rec["collectives"]
     assert coll["by_kind"]["all-gather"]["count"] > 0
-    assert coll["by_kind"]["all-reduce"]["count"] == 2 * 16   # MoE layers
+    # The 16 MoE layers' dispatch (over model, and the aux term over
+    # data), and the split products' sums over model: 4 attention layers,
+    # 16 dense MLPs, the embedding.
+    assert coll["by_kind"]["all-reduce"]["count"] == 2 * 16 + 4 + 16 + 1
     assert rec["roofline"]["collective_s"] == pytest.approx(
         coll["wire_bytes_ici"] / rec["hw"]["link_bw"])
     assert rec["fits"] == (rec["memory_analysis"]["peak_live_bytes"]

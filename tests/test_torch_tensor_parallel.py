@@ -1,0 +1,111 @@
+"""The tensor-parallel split on a meta mesh: what each rank of a
+(2, 2) ("data", "model") mesh moves in one training round of the
+reference's ``train_4k`` plan, counted by ``distributed.collectives``
+(nothing computed), and the layouts the plan hands the model.
+
+* ``tp`` (qwen3-0.6b, granite-moe-3b-a800m; 2 layers): every layer is
+  split over ``model``, so no dense weight, expert or embedding row is
+  all-gathered over ``model`` — nothing is, and the split products are
+  all-reduced over it;
+* ``fsdp_tp`` with sequence parallelism (qwen3-moe-235b-a22b, 1 layer):
+  everything all-gathered over ``model`` is the residual stream of the
+  rank's sequences (a block's entry, the MoE dispatch's, the head's), the
+  split products are reduce-scattered over the sequence;
+* the collectives' own records: a reduce-scatter's payload and ring wire
+  bytes, ``split`` moving nothing forward.
+
+The values of the split path are held to the reference in
+``test_torch_sharded_serve.py`` and ``test_torch_sharded_train.py``.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.distributed import collectives as coll  # noqa: E402
+from repro_torch.launch import plan as tplan  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.steps import build_step  # noqa: E402
+
+AXES = ("data", "model")
+
+
+def _round_collectives(arch, n_layers):
+    """The plan of ``arch``'s train_4k cell on a meta (2, 2) mesh, its
+    config cut to ``n_layers``: (the plan, every collective one rank's
+    round records)."""
+    mesh = make_mesh((2, 2), AXES, backend="meta")
+    plan = tplan.make_plan(arch, "train_4k", mesh,
+                           overrides={"n_layers": n_layers})
+    fn, args = build_step(plan, "meta", mesh=mesh)
+    seen = []
+    with coll.counting(seen.append):
+        fn(*args)
+    return plan, seen
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-3b-a800m"])
+def test_tp_round_gathers_nothing_over_model(arch):
+    plan, seen = _round_collectives(arch, 2)
+    assert plan.policy == "tp" and plan.worker_axes == ("data",)
+    kinds = {(c.kind, c.axis) for c in seen}
+    assert ("all-gather", "model") not in kinds
+    assert ("all-reduce", "model") in kinds
+    assert ("reduce-scatter", "model") not in kinds
+
+
+def test_sequence_parallel_round_gathers_only_the_stream_over_model():
+    plan, seen = _round_collectives("qwen3-moe-235b-a22b", 1)
+    assert plan.policy == "fsdp_tp" and plan.seq_axes == ("model",)
+    cfg = plan.cfg
+    b_rank = plan.b // 2                    # the batch over data
+    stream = b_rank * plan.seq_len * cfg.d_model * 2        # bf16
+    over_model = [c for c in seen if c.axis == "model"]
+    gathers = [c.bytes for c in over_model if c.kind == "all-gather"]
+    assert gathers and set(gathers) == {stream}
+    scatters = [c.bytes for c in over_model if c.kind == "reduce-scatter"]
+    assert stream in scatters
+    # The head's vocabulary-parallel CE: maxima and sums over model.
+    assert any(c.kind == "all-reduce" for c in over_model)
+
+
+def test_reduce_scatter_and_split_record_the_ring():
+    mesh = make_mesh((2, 4), AXES, backend="meta")
+    x = torch.empty(3, 8, 5, device="meta")
+    seen = []
+    with coll.counting(seen.append):
+        y = coll.reduce_scatter(x, mesh, "model", dim=1)
+        z = coll.split(x, mesh, "model", dim=1)
+    assert tuple(y.shape) == tuple(z.shape) == (3, 2, 5)
+    (c,) = seen                              # split sends nothing
+    assert (c.kind, c.axis, c.group_size) == ("reduce-scatter", "model", 4)
+    assert c.bytes == 3 * 8 * 5 * 4
+    assert c.wire_bytes == c.bytes * 3 / 4
+
+
+@pytest.mark.parametrize("arch,shape,seq", [
+    ("jamba-v0.1-52b", "prefill_32k", "model"),
+    ("qwen3-0.6b", "decode_32k", None),
+    ("qwen3-moe-235b-a22b", "train_4k", "model"),
+    ("internlm2-1.8b", "train_4k", None),
+    ("qwen3-0.6b", "train_4k", None)])
+def test_plan_hands_the_model_its_layouts(arch, shape, seq):
+    """The residual stream's layout (batch over the batch axes, the
+    sequence over the plan's ``seq_axes``) and the logits' (the vocabulary
+    over ``model``), as the reference's ``act_shard`` and
+    ``act_shard_logits``; a train cell's in its lane specs, without the
+    logits' where ``model`` is a worker axis (qwen3-0.6b's per-chip
+    workers: nothing is split)."""
+    mesh = {"data": 16, "model": 16}
+    plan = tplan.make_plan(arch, shape, mesh)
+    specs = tplan.sharding_specs(plan, mesh)
+    if plan.kind == "train":
+        specs = specs["lane"]
+        assert ("logits" in specs) == ("model" not in plan.worker_axes)
+        assert specs.get("logits", (None, None, "model"))[-1] == "model"
+    else:
+        assert specs["logits"] == (specs["act"][0], "model")
+        assert specs["act"][0] == ("data" if plan.b > 1 else None)
+    assert specs["act"][1] == seq
+    assert get_arch(arch).padded_vocab % 16 == 0
