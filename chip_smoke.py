@@ -29,7 +29,8 @@ Phases, one JSON object per line on stdout:
              case on the route its dtype and head dim name, and a
              misaligned bf16 input must raise;
              K5, y and the final state, over the reference's sweep in f32
-             and bf16, at the mamba2 and jamba serve shapes in f32 and
+             and bf16, at the mamba2 and jamba serve shapes and at a
+             (1, 2) mesh rank's share of jamba's heads in f32 and
              bf16 and a 1,000-row prompt, and on its wgmma route's bf16 cases (p 64:
              chunks shorter than 128, GQA groups, n 16 and 40, a prompt
              shorter than a chunk), each case on the route its dtype and
@@ -40,7 +41,8 @@ Phases, one JSON object per line on stdout:
              serve shapes (qwen3: 16 heads of 128; granite-moe: 24 of 64,
              group 3; internvl2: 48 of 128 over 2,304 positions, group
              6; jamba: 32 of 128, group 4); K5 at mamba2's (80 heads,
-             state 128) and jamba's (128 heads, state 16);
+             state 128), jamba's (128 heads, state 16) and a (1, 2) mesh
+             rank's (64 of jamba's heads);
 5. main    — ``build_engine(task="sr")`` at the published SR widths on
              ``cuda``: rounds at pipeline depth 1 and again at depth 0 from
              the same seed, with the launch counts zeroed just before each
@@ -135,7 +137,13 @@ Phases, one JSON object per line on stdout:
              (into a cache of phase 14's length, ``SERVE_MAX_LEN``),
              the launch counts zeroed just before and read just after: K4
              once and K5 7 times a prefill on each rank, all wgmma, neither
-             in decode; logits and tokens against phase 14's run (a routed
+             in decode, K5 at the rank's 64 heads (each Mamba mixer split
+             by heads); each decode step's all-gathers over model no
+             larger than one token's packed in-projection or query heads
+             (no weight, no cache leaf: each rank attends over its half of
+             the cache's slots, the flash-decode combine); each rank's
+             counted wire bytes by collective kind beside its gloo time;
+             logits and tokens against phase 14's run (a routed
              pass of it) at ``MOE_BF16_TOL`` (prefill) and
              ``HYBRID_DECODE_BF16_TOL`` (prefill + decode) on the tokens
              whose routes and kept slots agree in both runs; each rank's
@@ -330,7 +338,8 @@ Phases, one JSON object per line on stdout:
    task, FedMedian, resume and cache paths beside the main ones, K1 timed
    at the tasks' lane buffers, K4's launches on the MoE, VLM and hybrid
    serve paths and its timing at those shapes, K5's on the hybrid path and
-   its timing at jamba's shape, K1's, K4's and K5's dry-run launches),
+   its timing at jamba's shape and a mesh rank's, K1's, K4's and K5's
+   dry-run launches),
    then the card line and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -416,6 +425,8 @@ SSD_RAGGED = (1, RAGGED_PROMPT, 80, 64, 1, 128, 128)
 # jamba-v0.1-52b's serve shape: 128 heads of 64 (d_inner 8,192), one
 # group, state 16: the smallest state K5's wgmma route takes.
 SSD_HYBRID = (SERVE_BATCH, SERVE_PROMPT, 128, 64, 1, 16, 128)
+# The same on one rank of phase 14b's (1, 2) mesh: its 64 heads.
+SSD_HYBRID_RANK = (SERVE_BATCH, SERVE_PROMPT, 64, 64, 1, 16, 128)
 # K5's wgmma route (bf16 at p 64) beyond those: a chunk of 32 padded to 128
 # rows, GQA groups with n 64, a prompt shorter than one chunk, jamba's n 16,
 # and n 40 (zero-padded to 64 columns) at chunk 16.
@@ -526,14 +537,15 @@ HYBRID_F32_BATCH = 2
 # attention (16 of the 32 query heads, 4 of the 8 kv heads: K4 at q [4,
 # 2048, 16, 128]), dense MLPs, embedding and head compute the rank's part,
 # the residual stream split over the sequence between blocks (the plan's
-# sequence parallelism); the Mamba mixers compute whole (their weights
-# all-gathered through the host), the MoE layers through the plan's
+# sequence parallelism); each Mamba mixer its 64 of the 128 heads (K5 at
+# x [4, 2048, 64, 64]: SSD_HYBRID_RANK) after one all-gather of the packed
+# in-projection's columns, the MoE layers through the plan's
 # make_ep_dispatch (seq_chunk 2048).  Each rank's logits are its half of
 # the vocabulary, gathered whole for the checks.  The same prompts as
 # phase_serve_hybrid; MESH_DECODE greedy steps into a cache of
-# phase_serve_hybrid's length (SERVE_MAX_LEN: the decode attention's sums
-# over the cache are then tiled as in the one process); the phase's share
-# of the script's time limit.
+# phase_serve_hybrid's length (SERVE_MAX_LEN), each rank holding half its
+# slots and attending over them (the flash-decode combine); the phase's
+# share of the script's time limit.
 MESH_SHAPE, MESH_AXES = (1, 2), ("data", "model")
 MESH_DECODE = 4
 MESH_TIMEOUT_S = 300
@@ -1368,7 +1380,9 @@ def phase_check_k5(torch) -> dict:
               (SSD_SERVE, torch.bfloat16, True),
               (SSD_RAGGED, torch.bfloat16, True),
               (SSD_HYBRID, torch.float32, True),
-              (SSD_HYBRID, torch.bfloat16, True)]
+              (SSD_HYBRID, torch.bfloat16, True),
+              (SSD_HYBRID_RANK, torch.float32, True),
+              (SSD_HYBRID_RANK, torch.bfloat16, True)]
     cases += [(shape, torch.bfloat16, True) for shape in SSD_WGMMA]
     errs = {"float32": 0.0, "bfloat16": 0.0, "state": 0.0}
     magnitude = {"float32": 0.0, "bfloat16": 0.0, "state": 0.0}
@@ -2404,6 +2418,14 @@ def _mesh_rank(mesh, tokens, n_decode: int) -> dict:
     lm.prefill(params, {"tokens": toks[:, :128]}, cfg, max_len=144, **kw)
     gloo = [0.0]
     undo = _timed_collectives(torch, gloo)
+    # The shapes K5 is called at (read, nothing changed).
+    ssd_shapes, real_ssd = [], ops.ssd
+
+    def ssd_spy(*a, **k):
+        ssd_shapes.append(tuple(a[0].shape))
+        return real_ssd(*a, **k)
+
+    ops.ssd = ssd_spy
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     wire_prefill, wire_steps = [], []
@@ -2431,6 +2453,7 @@ def _mesh_rank(mesh, tokens, n_decode: int) -> dict:
             step_s.append(dt)
             gloo_steps.append(gloo[-1])
     undo()
+    ops.ssd = real_ssd
     after = ops.launch_counts()
     out.update(
         logits=torch.stack([_vocab(x, cfg) for x in steps], dim=1),
@@ -2445,6 +2468,11 @@ def _mesh_rank(mesh, tokens, n_decode: int) -> dict:
         prefill_ms=prefill_s * 1e3, decode_ms_steps=[x * 1e3 for x in step_s],
         wire_bytes_prefill=_wire_by_kind(wire_prefill),
         wire_bytes_steps=[_wire_by_kind(w) for w in wire_steps],
+        collectives_steps=[len(w) for w in wire_steps],
+        gather_model_max_steps=[max([c.bytes for c in w if (
+            c.kind, c.axis) == ("all-gather", "model")], default=0)
+            for w in wire_steps],
+        ssd_shapes=sorted(set(ssd_shapes)),
         local_vocab=logits.shape[-1],
         gloo_ms_prefill=gloo_prefill * 1e3,
         gloo_ms_steps=[x * 1e3 for x in gloo_steps],
@@ -2511,7 +2539,22 @@ def phase_serve_hybrid_mesh(torch, ref: dict) -> dict:
                       timeout_s=MESH_TIMEOUT_S)
     n = _layer_counts(cfg)
     r0 = res[0]
+    m = MESH_SHAPE[1]
+    # One token's packed in-projection or its query heads, bf16: no weight
+    # and no cache leaf is all-gathered over model in a decode step.
+    in_width = 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state \
+        + cfg.ssm_heads
+    gather_bound = SERVE_BATCH * max(
+        in_width, cfg.n_heads * cfg.resolved_head_dim) * 2
+    rank_x = (SERVE_BATCH, SERVE_PROMPT, cfg.ssm_heads // m, cfg.ssm_head_dim)
     for r in res:
+        check(r["ssd_shapes"] == [rank_x],
+              f"rank {r['coords']}: K5 ran at {r['ssd_shapes']}, not at the "
+              f"rank's heads {rank_x}")
+        check(0 < max(r["gather_model_max_steps"]) <= gather_bound,
+              f"rank {r['coords']}: a decode step all-gathered "
+              f"{r['gather_model_max_steps']} bytes over model, past one "
+              f"token's projections ({gather_bound})")
         check(r["param_bytes"] == r["param_bytes_specs"],
               f"rank {r['coords']}: {r['param_bytes']} parameter bytes, "
               f"the specs give {r['param_bytes_specs']}")
@@ -2562,10 +2605,12 @@ def phase_serve_hybrid_mesh(torch, ref: dict) -> dict:
                       "aux": [float(r["ep"]["aux"]) for r in res],
                       "aux_one_process": ep_want[1]},
            "nccl_1x1_bitwise": nccl_bitwise, "phase_s": phase_s,
+           "decode_gather_bound_bytes": gather_bound,
            "ranks": [{k: r[k] for k in (
                "coords", "param_bytes", "init_s", "prefill_ms",
                "decode_ms_steps", "gloo_ms_prefill", "gloo_ms_steps",
                "wire_bytes_prefill", "wire_bytes_steps",
+               "collectives_steps", "gather_model_max_steps", "ssd_shapes",
                "prefill_peak_bytes", "peak_bytes", "launches_prefill",
                "launches_decode", "routes_prefill", "routes_decode")}
                for r in res]}
@@ -5352,6 +5397,7 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
     timing4_rank = phase_timing_k4(torch, name, _hybrid_rank_cfg())
     timing5 = phase_timing_k5(torch, name)
     timing5_hyb = phase_timing_k5(torch, name, SSD_HYBRID)
+    timing5_rank = phase_timing_k5(torch, name, SSD_HYBRID_RANK)
     clock("check, timing")
     launches, steps, res = phase_main(torch, args.rounds)
     mesh_launches, mesh_res = phase_mesh(torch, MESH_ROUNDS)
@@ -5550,12 +5596,15 @@ def _phases(torch, args, smi, sass, sass5, pool, pending) -> int:
          "serve_hybrid_shape": {k: timing5_hyb[k] for k in (
              "shape", "ms", "plain_ms", "library_ms", "bound_ms",
              "bound_by")},
+         "serve_hybrid_mesh_rank_shape": {k: timing5_rank[k] for k in (
+             "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_by")},
          "launches_dryrun": _dry_launches(dry, "mamba2-2.7b", "prefill_32k",
                                           "ssd"),
          "dryrun_32k": dry["kernels"]["ssd"],
          "path": "serve SSM and hybrid (mamba2-2.7b and jamba-v0.1-52b "
                  "prefill, ssd_impl='pallas'; jamba's also on each rank of "
-                 "a (1, 2) mesh)"}]})
+                 "a (1, 2) mesh, at its 64 heads)"}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -226,6 +226,49 @@ def decode_attention(q, k_cache, v_cache, kv_len_mask):
     return out.reshape(b, 1, hq, hd)
 
 
+def decode_attention_partial(q, k_cache, v_cache, kv_len_mask):
+    """:func:`decode_attention` over one block of the cache's slots, before
+    its softmax is normalised: ``(m [b, Hq], l [b, Hq], o [b, Hq, hd])``,
+    all f32 — per query head the largest score ``m``, ``l = Σ exp(s - m)``
+    and the unnormalised output ``o = Σ exp(s - m) v`` over the block's
+    valid slots.  A block with no valid slot has ``m = finfo.min`` and
+    ``l = o = 0``, so it adds nothing to :func:`combine_decode_partials`.
+    The scores are taken as :func:`decode_attention` takes them."""
+    b, _, hq, hd = q.shape
+    hkv = k_cache.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, hd)
+    scale = 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k_cache).float() * scale
+    low = torch.finfo(scores.dtype).min
+    if kv_len_mask is not None:
+        mk = kv_len_mask if kv_len_mask.ndim == 2 else kv_len_mask[None, :]
+        valid = (mk > 0)[:, None, None, :]
+        scores = torch.where(valid, scores, low)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    if kv_len_mask is not None:
+        p = torch.where(valid, p, 0.0)
+    o = torch.einsum("bkgt,btkd->bkgd", p, v_cache.float())
+    return (m.reshape(b, hq), p.sum(dim=-1).reshape(b, hq),
+            o.reshape(b, hq, hd))
+
+
+def combine_decode_partials(m, l, o, *, pmax=None, psum=None):
+    """The flash-decode combine of :func:`decode_attention_partial`'s
+    blocks: ``M = pmax(m)``, ``o = psum(exp(m - M) o) / psum(exp(m - M)
+    l)`` in f32, ``[b, 1, Hq, hd]``.  ``pmax``/``psum`` reduce over the
+    ranks that hold the blocks (the identity for one block); a block with
+    no valid slot (``m = finfo.min``) adds exactly 0."""
+    top = m if pmax is None else pmax(m)
+    w = torch.exp(m - top)                          # [b, Hq]; 0 where empty
+    both = torch.cat([o * w[..., None], (l * w)[..., None]], dim=-1)
+    if psum is not None:
+        both = psum(both)
+    out = both[..., :-1] / both[..., -1:]
+    return out[:, None]
+
+
 # --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------

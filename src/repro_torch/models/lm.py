@@ -72,11 +72,23 @@ XLA do:
   rank holds its block of the sequence, a split block gathers the
   sequence at its entry and reduce-scatters its output over it; else the
   stream is whole on every rank and the output is all-reduced;
-* the Mamba mixer, MoE layers through ``cfg.moe_dispatch`` (which take the
-  rank's own experts) and cross-attention are computed whole, as on one
-  card, from their layers' weights all-gathered over every axis their
-  specs name, one layer at a time; under sequence parallelism on the
-  stream gathered over the sequence, the rank's block kept after;
+* the Mamba-2 mixer computes the rank's ``H / |model|`` heads where they,
+  its packed in-projection's columns and its conv channels divide: the
+  rank's column block of the in-projection is all-gathered into the whole
+  projection, the conv, SSD and gated norm (its sum of squares summed over
+  ``model``) run on the rank's heads and ``mamba_out``'s rows give a
+  partial sum (:class:`~repro_torch.models.ssd.HeadSplit`);
+* MoE layers through ``cfg.moe_dispatch`` (which take the rank's own
+  experts), cross-attention, and a layer whose heads do not divide are
+  computed whole, as on one card, from their layers' weights all-gathered
+  over every axis their specs name, one layer at a time; under sequence
+  parallelism on the stream gathered over the sequence, the rank's block
+  kept after;
+* ``decode_step`` reads and writes the rank's own cache shards: where the
+  cache's slots are split over ``model``, each rank attends over its own
+  and the ranks' partial softmaxes are combined (flash-decode); a split
+  Mamba mixer advances its heads' SSM state and its block of the conv
+  window;
 * ``forward``, ``prefill`` and ``decode_step`` return the rank's slice of
   the padded vocabulary (pad columns at -1e30); :func:`gather_logits`
   puts the whole back.  The logits are the rank's batch's.
@@ -90,7 +102,8 @@ leaf gathered over an axis sums its gradient over it where that axis
 splits the data the leaf is used on (the batch axes, and ``model`` where
 the leaf is used on the rank's block of the sequence or its part of a
 split product: the norms and output biases under sequence parallelism,
-qk-norm, a kv projection taken whole, the router of a split MoE), as
+qk-norm, a kv projection taken whole, the router of a split MoE, a split
+Mamba mixer's ``mamba_conv`` and ``mamba_gnorm``), as
 :func:`~repro_torch.distributed.sharding.gather_leaf`'s training rule
 does; over any other axis each rank's cotangent already is the whole
 gradient.  The split leaves are never gathered over ``model``: each rank's
@@ -112,7 +125,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as shardlib
 from repro_torch.models import ssd as ssdlib
-from repro_torch.models.layers import (decode_attention, dense_init,
+from repro_torch.models.layers import (combine_decode_partials,
+                                       decode_attention,
+                                       decode_attention_partial, dense_init,
                                        gelu_mlp, gqa_attention, moe_layer_3d,
                                        norm_init, rms_norm, rope, swiglu)
 
@@ -422,6 +437,8 @@ _ATTN_SPLIT = {"wq": 1, "wo": 0, "bq": 0}
 _KV_SPLIT = {"wk": 1, "wv": 1, "bk": 0, "bv": 0}
 _MLP_SPLIT = {"w_gate": 1, "w_up": 1, "w_down": 0, "b_up": 0}
 _MOE_SPLIT = {"moe_gate": 2, "moe_up": 2, "moe_down": 1}
+_MAMBA_SPLIT = {"mamba_in": 1, "mamba_out": 0, "mamba_A": 0,
+                "mamba_dt_bias": 0, "mamba_D": 0}
 
 
 @dataclass(frozen=True)
@@ -540,6 +557,36 @@ class _Shard:
     def kv_split(self, cfg: ArchConfig) -> bool:
         return cfg.n_kv_heads % self.m == 0
 
+    def mamba_split(self, cfg: ArchConfig, kind: LayerKind) -> bool:
+        """Whether this block's Mamba-2 mixer is split over ``tp`` by heads:
+        its heads, the in-projection's columns and the conv channels
+        divide (so the plan's specs split ``mamba_in``'s columns over
+        ``tp`` alone), and each rank's heads read whole groups of ``B``/
+        ``C`` or lie in one group."""
+        if self.tp is None or kind.mixer != "mamba":
+            return False
+        h, g, m = cfg.ssm_heads, cfg.ssm_groups, self.m
+        width = 2 * cfg.d_inner + 2 * g * cfg.ssm_state + h
+        conv = cfg.d_inner + 2 * g * cfg.ssm_state
+        hl, hpg = h // m, h // g
+        return h % m == 0 and width % m == 0 and conv % m == 0 \
+            and (hl % hpg == 0 or hpg % hl == 0)
+
+    def heads(self) -> "ssdlib.HeadSplit":
+        """The rank's share of a split Mamba-2 mixer: the ranks' column
+        blocks gathered over ``tp`` (the backward a reduce-scatter), the
+        gated norm's sums of squares totalled over ``tp`` with their
+        gradient summed (each rank's total feeds only its own heads, so a
+        plain :func:`~repro_torch.distributed.collectives.psum`, whose
+        backward passes the cotangent through, would drop the other
+        ranks' parts of it)."""
+        mesh, tp = self.mesh, self.tp
+        return ssdlib.HeadSplit(
+            self.r, self.m,
+            lambda t: collectives.all_gather(t, mesh, tp, dim=t.ndim - 1),
+            lambda t: collectives.sum_grad(collectives.psum(t, mesh, tp),
+                                           mesh, (tp,)))
+
     def _split_leaves(self, cfg: ArchConfig, kind: LayerKind):
         """``({name: split dim}, names whose gradient sums over tp)`` of a
         period of this kind."""
@@ -561,15 +608,24 @@ class _Shard:
                 split.update(_MLP_SPLIT)
             if self.seq:
                 summed |= {"mlp_norm", "b_down"}
+        if self.mamba_split(cfg, kind):
+            split.update(_MAMBA_SPLIT)
+            summed |= {"mamba_conv", "mamba_gnorm"}
+            if self.seq:
+                summed.add("mamba_norm")
         return split, summed
 
     def period(self, stack, key: str, n: int, cfg: ArchConfig,
-               kind: LayerKind) -> dict:
+               kind: LayerKind, *, decode: bool = False) -> dict:
         """Period ``n``'s leaves of position ``key``: those of a split
         block the rank's blocks, the others gathered whole; with the hook,
         its experts as the hook takes them.  ``stack[key]`` maps names to
-        stacked leaves or to their unbound periods."""
+        stacked leaves or to their unbound periods.  A decode step's split
+        Mamba mixer takes the rank's block of ``mamba_conv``'s channels,
+        those of its block of the conv window."""
         split, summed = self._split_leaves(cfg, kind)
+        if decode and "mamba_in" in split:
+            split["mamba_conv"] = 1
         out = {}
         for name, leaf in stack[key].items():
             spec = self.specs[key][name][1:]
@@ -723,19 +779,64 @@ class _Shard:
         spec[0] = None
         return tuple(spec)
 
-    def cache_read(self, cache, key: str, name: str, n: int):
-        """Period ``n``'s cache leaf, gathered whole (over the rank's
-        batch)."""
-        return shardlib.gather_leaf(cache[key][name][n],
-                                    self._cache_spec(key, name), self.mesh)
+    def _cache_axes(self, key: str, name: str, dim: int) -> tuple:
+        return shardlib._entry_axes(self._cache_spec(key, name)[dim])
 
-    def cache_write(self, cache, key: str, name: str, n: int, val,
+    def in_place(self, cfg: ArchConfig, kind: LayerKind, key: str) -> bool:
+        """Whether a decode step reads and writes period position ``key``'s
+        cache in the rank's own shards: an attention block's slots (and its
+        cross-attention's frames) whole or split over ``tp``, a split
+        Mamba mixer's blocks of the conv channels and SSM heads (the
+        specs must split them over ``tp``).  Else the period's cache is
+        gathered whole and written back after."""
+        if self.tp is None:
+            return False
+        if kind.mixer == "mamba":
+            if not self.mamba_split(cfg, kind):
+                return False
+            if any(self._cache_axes(key, name, d) != (self.tp,)
+                   for name, d in (("conv", 2), ("ssm", 1))):
+                raise ValueError(
+                    f"{key}: a Mamba mixer split over {self.tp} needs the "
+                    f"cache specs to split its conv channels and SSM heads "
+                    f"over {self.tp}")
+            return True
+        return all(self._cache_axes(key, name, 1) in ((), (self.tp,))
+                   for name in self.cache[key])
+
+    def slots_split(self, key: str, name: str) -> bool:
+        """Whether the slots of the cache leaf ``name`` are split over
+        ``tp``."""
+        return self._cache_axes(key, name, 1) == (self.tp,)
+
+    def combine(self, part, *, own_heads: bool):
+        """The flash-decode combine over ``tp`` of the ranks' partial
+        softmaxes ``part`` (:func:`~repro_torch.models.layers
+        .decode_attention_partial` over each rank's slots, every query
+        head): the maxima and the weighted outputs and sums all-reduced,
+        of which the rank keeps its own query heads with ``own_heads``."""
+        mesh, tp = self.mesh, self.tp
+        out = combine_decode_partials(
+            *part, pmax=lambda t: collectives.pmax(t, mesh, tp),
+            psum=lambda t: collectives.psum(t, mesh, tp))
+        if not own_heads:
+            return out
+        n = out.shape[2] // self.m
+        return out.narrow(2, self.r * n, n)
+
+    def cache_read(self, c: dict, key: str, name: str, n: int):
+        """Period ``n``'s leaf ``name`` of ``c`` (the cache of position
+        ``key``), gathered whole (over the rank's batch)."""
+        return shardlib.gather_leaf(c[name][n], self._cache_spec(key, name),
+                                    self.mesh)
+
+    def cache_write(self, c: dict, key: str, name: str, n: int, val,
                     start: int = 0) -> None:
         """Write ``val`` (whole but along dim 1 of the period, where it
-        starts at ``start``) into the rank's slice of period ``n``."""
-        shardlib.write_local(cache[key][name][n], val,
-                             self._cache_spec(key, name), self.mesh,
-                             start=start)
+        starts at ``start``) into the rank's slice of period ``n`` of
+        ``c``, the cache of position ``key``."""
+        shardlib.write_local(c[name][n], val, self._cache_spec(key, name),
+                             self.mesh, start=start)
 
 
 def _shard_of(mesh, specs, cfg: ArchConfig) -> "_Shard | None":
@@ -929,12 +1030,18 @@ def _mlp_split(p, h, cfg: ArchConfig, kind: str, shard):
     return out, (None if aux is None else shard.split_aux(aux))
 
 
-def _mamba_body(p, x, cfg: ArchConfig, *, return_state: bool = False):
+def _mamba_body(p, x, cfg: ArchConfig, *, return_state: bool = False,
+                shard=None):
+    """The Mamba-2 sub-block of the normed ``x``; with ``shard`` (a split
+    mixer, ``x`` entered) the rank's heads and a partial output."""
     h = rms_norm(x, p["mamba_norm"], eps=cfg.norm_eps)
+    if shard is not None:
+        h = shard.enter(h)
     return ssdlib.mamba2_mixer(
         p, h, head_dim=cfg.ssm_head_dim, n_groups=cfg.ssm_groups,
         d_state=cfg.ssm_state, chunk=cfg.ssd_chunk, impl=cfg.ssd_impl,
-        return_state=return_state)
+        return_state=return_state,
+        split=None if shard is None else shard.heads())
 
 
 def _apply_block(p, x, cfg: ArchConfig, kind: LayerKind, *, causal: bool,
@@ -952,10 +1059,12 @@ def _apply_block(p, x, cfg: ArchConfig, kind: LayerKind, *, causal: bool,
     sums its partial output by :meth:`_Shard.leave`, its output biases
     added after; the others are computed whole (:meth:`_Shard.whole_in`,
     :meth:`_Shard.whole_out`).  The k/v left for a cache have every kv
-    head."""
+    head; a split Mamba mixer's conv tail has every channel, its SSM
+    state the rank's heads."""
     split = shard is not None and shard.tp is not None
     attn = split and shard.attn_split(cfg, kind)
     mlp = split and shard.mlp_split(cfg, kind)
+    mamba = split and shard.mamba_split(cfg, kind)
     whole_in = shard.whole_in if split else (lambda t: t)
     whole_out = shard.whole_out if split else (lambda t: t)
     contrib, aux = None, None
@@ -994,14 +1103,14 @@ def _apply_block(p, x, cfg: ArchConfig, kind: LayerKind, *, causal: bool,
         x = x + whole_out(attn_out)
         contrib = {"k": k, "v": v}
     elif kind.mixer == "mamba":
-        xf = whole_in(x)
+        # A split mixer enters and leaves as a split attention does.
+        xf, out = (x, shard.leave) if mamba else (whole_in(x), whole_out)
+        y = _mamba_body(p, xf, cfg, return_state=collect,
+                        shard=shard if mamba else None)
         if collect:
-            y, (conv_tail, ssm_state) = _mamba_body(p, xf, cfg,
-                                                    return_state=True)
+            y, (conv_tail, ssm_state) = y
             contrib = {"conv": conv_tail, "ssm": ssm_state}
-        else:
-            y = _mamba_body(p, xf, cfg)
-        x = x + whole_out(y)
+        x = x + out(y)
     if kind.cross and enc_out is not None:
         cross_out, (xk, xv) = _cross_body(p, whole_in(x), enc_out, cfg)
         x = x + whole_out(cross_out)
@@ -1020,13 +1129,13 @@ def _apply_block(p, x, cfg: ArchConfig, kind: LayerKind, *, causal: bool,
 # stacks
 # ---------------------------------------------------------------------------
 def _period(stack: dict, key: str, n: int, shard=None, cfg=None,
-            kind=None) -> dict:
+            kind=None, *, decode: bool = False) -> dict:
     """Period ``n``'s parameters of position ``key`` (views, no copies):
     ``stack[key]`` maps names to stacked leaves or to their unbound
     periods.  With ``shard``, from the rank's shards
     (:meth:`_Shard.period`, for a block of ``kind``)."""
     if shard is not None:
-        return shard.period(stack, key, n, cfg, kind)
+        return shard.period(stack, key, n, cfg, kind, decode=decode)
     return {name: leaf[n] for name, leaf in stack[key].items()}
 
 
@@ -1053,7 +1162,10 @@ def _period_blocks(periods, n: int, x, cfg: ArchConfig, plan, *,
             continue
         for name, val in contrib.items():
             if shard is not None:
-                shard.cache_write(cache, key, name, n, val)
+                # A split mixer's state is its heads'; the rest is whole.
+                start = shard.r * val.shape[1] if name == "ssm" \
+                    and shard.mamba_split(cfg, kind) else 0
+                shard.cache_write(cache[key], key, name, n, val, start)
             elif name in ("k", "v"):
                 cache[key][name][n, :, :s] = val
             else:
@@ -1425,47 +1537,78 @@ def _local_cache(cfg: ArchConfig, b: int, max_len: int, enc_len: int,
 
 
 def _decode_attn_block(p, x_t, c, n: int, cfg: ArchConfig, pos: int,
-                       shard=None):
+                       shard=None, *, split: bool = False, key=None):
     """x_t [b,1,D]; writes this token's k/v into slot ``pos`` of period
-    ``n`` of ``c`` and attends over slots ``<= pos``.  With ``shard`` (a
-    split attention) the rank's heads: the new k/v of every kv head go
-    into the cache, the rank's kv heads of it are attended to, and the
-    output projection is a partial sum without its bias."""
+    ``n`` of ``c`` and attends over slots ``<= pos``.  With ``split`` (a
+    split attention of ``shard``) the rank's heads: the new k/v of every kv
+    head go into the cache, and the output projection is a partial sum
+    without its bias.
+
+    With ``key``, ``c`` is the rank's own cache of period position ``key``:
+    the new k/v are written by the rank that holds slot ``pos``, and where
+    the slots are split over ``shard.tp`` each rank attends over its own
+    (the query gathered to every head) and the ranks' partial softmaxes
+    are combined (flash-decode, :meth:`_Shard.combine`).  Else ``c`` is
+    the whole cache, and a split attention reads its kv heads of it."""
     h = rms_norm(x_t, p["attn_norm"], eps=cfg.norm_eps)
     q, k, v = _project_qkv(p, h, cfg)
     if cfg.rope:
         posb = torch.full((x_t.shape[0], 1), pos, device=x_t.device)
         q = rope(q, posb, theta=cfg.rope_theta)
         k = rope(k, posb, theta=cfg.rope_theta)
-    kc, vc = c["k"][n], c["v"][n]
-    if shard is not None:
+    if split:
         k, v = shard.all_heads(k, cfg), shard.all_heads(v, cfg)
-    kc[:, pos:pos + 1] = k
-    vc[:, pos:pos + 1] = v
-    if shard is not None:
-        kc, vc = shard.kv_heads(kc, cfg), shard.kv_heads(vc, cfg)
-    mask = (torch.arange(kc.shape[1], device=x_t.device) <= pos).float()
-    return _attn_out(p, decode_attention(q, kc, vc, mask), cfg,
-                     bias=shard is None)
+    kc, vc = c["k"][n], c["v"][n]
+    if key is None:
+        kc[:, pos:pos + 1] = k
+        vc[:, pos:pos + 1] = v
+    else:
+        shard.cache_write(c, key, "k", n, k, start=pos)
+        shard.cache_write(c, key, "v", n, v, start=pos)
+    if key is not None and shard.slots_split(key, "k"):
+        if split:
+            q = collectives.all_gather(q, shard.mesh, shard.tp, dim=2)
+        lo = shard.r * kc.shape[1]
+        mask = (lo + torch.arange(kc.shape[1], device=x_t.device)
+                <= pos).float()
+        attn = shard.combine(decode_attention_partial(q, kc, vc, mask),
+                             own_heads=split).to(q.dtype)
+    else:
+        if split:
+            kc, vc = shard.kv_heads(kc, cfg), shard.kv_heads(vc, cfg)
+        mask = (torch.arange(kc.shape[1], device=x_t.device) <= pos).float()
+        attn = decode_attention(q, kc, vc, mask)
+    return _attn_out(p, attn, cfg, bias=not split)
 
 
-def _decode_cross_block(p, x_t, c, n: int, cfg: ArchConfig):
-    """x_t [b,1,D]; attends to period ``n``'s cached encoder k/v."""
-    return _attn_out(p, decode_attention(_cross_query(p, x_t, cfg),
-                                         c["xk"][n], c["xv"][n], None),
-                     cfg, prefix="x")
+def _decode_cross_block(p, x_t, c, n: int, cfg: ArchConfig, shard=None,
+                        key=None):
+    """x_t [b,1,D]; attends to period ``n``'s cached encoder k/v: with
+    ``key`` (see :func:`_decode_attn_block`) where the frames are split
+    over ``shard.tp``, over the rank's frames and combined."""
+    q = _cross_query(p, x_t, cfg)
+    if key is not None and shard.slots_split(key, "xk"):
+        part = decode_attention_partial(q, c["xk"][n], c["xv"][n], None)
+        attn = shard.combine(part, own_heads=False).to(q.dtype)
+    else:
+        attn = decode_attention(q, c["xk"][n], c["xv"][n], None)
+    return _attn_out(p, attn, cfg, prefix="x")
 
 
-def _decode_mamba_block(p, x_t, c, n: int, cfg: ArchConfig):
+def _decode_mamba_block(p, x_t, c, n: int, cfg: ArchConfig, shard=None):
     """x_t [b,1,D]; advances period ``n``'s conv window and SSM state in
-    ``c`` by this token, in place."""
+    ``c`` by this token, in place.  With ``shard`` (a split mixer, ``c``
+    the rank's own cache: its block of the conv channels and its heads'
+    states) the rank's heads, and a partial output."""
     h = rms_norm(x_t, p["mamba_norm"], eps=cfg.norm_eps)
+    conv, ssm = c["conv"][n], c["ssm"][n]
+    split = None if shard is None else shard.heads()
     y, mc = ssdlib.mamba2_decode_step(
-        p, h[:, 0], ssdlib.MambaCache(conv=c["conv"][n], ssm=c["ssm"][n]),
+        p, h[:, 0], ssdlib.MambaCache(conv=conv, ssm=ssm),
         head_dim=cfg.ssm_head_dim, n_groups=cfg.ssm_groups,
-        d_state=cfg.ssm_state)
-    c["conv"][n].copy_(mc.conv)
-    c["ssm"][n].copy_(mc.ssm)
+        d_state=cfg.ssm_state, split=split)
+    conv.copy_(mc.conv)
+    ssm.copy_(mc.ssm)
     return y[:, None, :]
 
 
@@ -1498,47 +1641,54 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *, device=None,
     for n in range(cfg.n_layers // len(plan)):
         for i, kind in enumerate(plan):
             key = f"p{i}"
-            p = _period(stack, key, n, sh, cfg, kind)
-            c, m = cache.get(key), n
+            p = _period(stack, key, n, sh, cfg, kind, decode=True)
+            c, m, at = cache.get(key), n, None
             if sh is not None and c is not None:
-                # The period's cache gathered whole, written back after.
-                c = {name: sh.cache_read(cache, key, name, n)[None]
-                     for name in c}
-                m = 0
-            x = _decode_block(p, x, c, m, cfg, pos, kind, sh)
-            if sh is not None and c is not None:
-                _write_back(sh, cache, key, n, c, kind, pos)
+                if sh.in_place(cfg, kind, key):
+                    at = key
+                else:
+                    # The period's cache gathered whole, written back
+                    # after.
+                    c = {name: sh.cache_read(c, key, name, n)[None]
+                         for name in c}
+                    m = 0
+            x = _decode_block(p, x, c, m, cfg, pos, kind, sh, at)
+            if at is None and sh is not None and c is not None:
+                _write_back(sh, cache[key], key, n, c, kind, pos)
     h = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
     logits = _lm_head(params, h, cfg)[:, 0]
     return _mask_vocab_pad(logits, cfg, shard), cache
 
 
 def _decode_block(p, x, c, n: int, cfg: ArchConfig, pos: int,
-                  kind: LayerKind, shard=None):
+                  kind: LayerKind, shard=None, key=None):
     """One block of a decode step.  On a rank whose layers are split over
     ``shard.tp`` (one position: Megatron without sequence parallelism)
-    each split product is all-reduced; the other sub-blocks run whole."""
+    each split product is all-reduced; the other sub-blocks run whole.
+    ``key``: ``c`` is the rank's own cache of that period position (see
+    :func:`_decode_attn_block`), else the whole cache."""
     split = shard is not None and shard.tp is not None
     attn = split and shard.attn_split(cfg, kind)
     mlp = split and shard.mlp_split(cfg, kind)
     if _parallel(cfg, kind):
+        out = _decode_attn_block(p, x, c, n, cfg, pos, shard, split=attn,
+                                 key=key)
         if not attn:
-            attn_out = _decode_attn_block(p, x, c, n, cfg, pos)
-            return x + attn_out + _mlp_body(p, x, cfg, kind.mlp,
-                                            norm_key="attn_norm")[0]
-        out = _decode_attn_block(p, x, c, n, cfg, pos, shard)
+            return x + out + _mlp_body(p, x, cfg, kind.mlp,
+                                       norm_key="attn_norm")[0]
         h = rms_norm(x, p["attn_norm"], eps=cfg.norm_eps)
         out = out + _mlp_split(p, h, cfg, kind.mlp, shard)[0]
         return x + _bias(shard.leave(out), p, cfg, "bo", "b_down")
-    if kind.mixer == "attn" and attn:
-        out = _decode_attn_block(p, x, c, n, cfg, pos, shard)
-        x = x + _bias(shard.leave(out), p, cfg, "bo")
-    elif kind.mixer == "attn":
-        x = x + _decode_attn_block(p, x, c, n, cfg, pos)
+    if kind.mixer == "attn":
+        out = _decode_attn_block(p, x, c, n, cfg, pos, shard, split=attn,
+                                 key=key)
+        x = x + (_bias(shard.leave(out), p, cfg, "bo") if attn else out)
+    elif kind.mixer == "mamba" and key is not None:    # a split mixer
+        x = x + shard.leave(_decode_mamba_block(p, x, c, n, cfg, shard))
     elif kind.mixer == "mamba":
         x = x + _decode_mamba_block(p, x, c, n, cfg)
     if kind.cross:
-        x = x + _decode_cross_block(p, x, c, n, cfg)
+        x = x + _decode_cross_block(p, x, c, n, cfg, shard, key)
     if kind.mlp != "none" and mlp:
         h = rms_norm(x, p["mlp_norm"], eps=cfg.norm_eps)
         x = x + _bias(shard.leave(_mlp_split(p, h, cfg, kind.mlp, shard)[0]),
@@ -1548,15 +1698,15 @@ def _decode_block(p, x, c, n: int, cfg: ArchConfig, pos: int,
     return x
 
 
-def _write_back(shard: _Shard, cache, key: str, n: int, c: dict,
+def _write_back(shard: _Shard, local: dict, key: str, n: int, c: dict,
                 kind: LayerKind, pos: int) -> None:
     """What a decode step changed in period ``n``'s gathered cache ``c``,
-    into the rank's slices: the new token's k/v slot, the Mamba conv window
-    and SSM state."""
+    into the rank's slices ``local`` (its cache of position ``key``): the
+    new token's k/v slot, the Mamba conv window and SSM state."""
     if kind.mixer == "attn":
         for name in ("k", "v"):
-            shard.cache_write(cache, key, name, n, c[name][0][:, pos:pos + 1],
+            shard.cache_write(local, key, name, n, c[name][0][:, pos:pos + 1],
                               start=pos)
     elif kind.mixer == "mamba":
         for name in ("conv", "ssm"):
-            shard.cache_write(cache, key, name, n, c[name][0])
+            shard.cache_write(local, key, name, n, c[name][0])

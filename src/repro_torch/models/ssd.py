@@ -29,7 +29,7 @@ dtypes: f32 math where it computes in f32, ``x.dtype`` elsewhere.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -39,7 +39,7 @@ from repro_torch import resolve_device
 __all__ = [
     "ssd_recurrent", "ssd_chunked", "ssd_decode_step",
     "mamba2_mixer", "mamba2_init_cache", "mamba2_decode_step", "MambaCache",
-    "mamba_param_shapes",
+    "mamba_param_shapes", "HeadSplit",
 ]
 
 
@@ -54,11 +54,19 @@ def _softplus(x):
     return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _gated_norm(y, z, scale, dtype):
+def _gated_norm(y, z, scale, dtype, split=None):
     """Mamba-2's gated RMSNorm: ``norm(y * silu(z)) * scale``, the product
-    in ``y``'s dtype, the norm in f32, the result in ``dtype``."""
+    in ``y``'s dtype, the norm in f32, the result in ``dtype``.  With
+    ``split`` the channels are a rank's share of ``d_inner``: the mean
+    square is over all of them (the ranks' sums of squares summed by
+    ``split.total``), the scale the rank's slice."""
     yf = (y * F.silu(z)).float()
-    var = yf.square().mean(dim=-1, keepdim=True)
+    if split is None:
+        var = yf.square().mean(dim=-1, keepdim=True)
+    else:
+        var = split.total(yf.square().sum(dim=-1, keepdim=True)) \
+            / (yf.shape[-1] * split.m)
+        scale = scale.narrow(0, split.r * yf.shape[-1], yf.shape[-1])
     return (yf * torch.rsqrt(var + 1e-6) * scale.float()).to(dtype)
 
 
@@ -223,9 +231,56 @@ def _causal_conv(xBC, w):
     return F.silu(out)
 
 
+class HeadSplit(NamedTuple):
+    """Rank ``r`` of ``m`` of a mixer split over its heads: the rank
+    computes heads ``r·h/m … (r+1)·h/m`` and holds their blocks of the
+    parameters (``mamba_in``'s ``r``-th block of columns, their rows of
+    ``mamba_out``, their ``A``/``dt_bias``/``D``).  ``gather`` concatenates
+    the ranks' blocks of a tensor's last dim in rank order (its gradient
+    summed over the ranks and split back); ``total`` sums a tensor over the
+    ranks (its gradient summed over the ranks as well: each rank's result
+    feeds only that rank's heads)."""
+
+    r: int
+    m: int
+    gather: Callable
+    total: Callable
+
+
+def _kept_channels(split: HeadSplit, d_inner: int, n_groups: int,
+                   d_state: int, h: int):
+    """The channels of ``[x | B | C]`` the rank's heads read, as
+    ``(start, length)`` runs (its heads' block of ``x``; of ``B`` and ``C``
+    the groups those heads read), and that number of groups."""
+    hl, hpg = h // split.m, _heads_to_groups(h, n_groups)
+    g0 = split.r * hl // hpg
+    ng = ((split.r + 1) * hl - 1) // hpg + 1 - g0
+    dl, gn = d_inner // split.m, n_groups * d_state
+    return ((split.r * dl, dl), (d_inner + g0 * d_state, ng * d_state),
+            (d_inner + gn + g0 * d_state, ng * d_state)), ng
+
+
+def _take(t, runs):
+    """The channels ``runs`` (see :func:`_kept_channels`) of ``t``'s last
+    dim, in order."""
+    return torch.cat([t.narrow(-1, a, n) for a, n in runs], dim=-1)
+
+
+def _rank_share(split, z, xbc, dt, d_inner, n_groups, d_state, h):
+    """The rank's share of the whole projection's ``z``, ``xBC`` (the kept
+    channels) and ``dt``: ``(z, xBC, dt, its heads, its groups, the
+    runs)``; all of it without ``split``."""
+    if split is None:
+        return z, xbc, dt, h, n_groups, None
+    runs, ng = _kept_channels(split, d_inner, n_groups, d_state, h)
+    hl = h // split.m
+    return (z.narrow(-1, *runs[0]), _take(xbc, runs),
+            dt.narrow(-1, split.r * hl, hl), hl, ng, runs)
+
+
 def mamba2_mixer(p, x, *, head_dim: int, n_groups: int, d_state: int,
                  chunk: int = 128, impl: str = "chunked",
-                 return_state: bool = False):
+                 return_state: bool = False, split: HeadSplit | None = None):
     """Full Mamba-2 block body (pre-norm residual added by the caller).
 
     p: dict with keys from :func:`mamba_param_shapes`; x ``[b,s,D]``.
@@ -233,18 +288,32 @@ def mamba2_mixer(p, x, *, head_dim: int, n_groups: int, d_state: int,
     ``return_state`` also returns ``(conv_tail, ssm_state)`` so prefill can
     seed the decode cache; under ``"pallas"`` the state is K5's own, not a
     second pass through :func:`ssd_chunked` as in the reference.
+
+    With ``split`` (:class:`HeadSplit`) ``p`` holds the rank's blocks and
+    ``mamba_conv``, ``mamba_gnorm`` whole: the rank's block of the
+    in-projection's columns is gathered into the whole projection, the
+    conv runs over the channels its heads read, the SSD over its heads,
+    the gated norm over all of ``d_inner`` (its sum of squares totalled
+    over the ranks), and the output is the rank's partial product (summed
+    over the ranks by the caller); the conv tail is every channel's, the
+    SSM state the rank's heads'.
     """
     b, s, _ = x.shape
-    d_inner = p["mamba_out"].shape[0]
+    d_inner = p["mamba_out"].shape[0] * (1 if split is None else split.m)
     h = d_inner // head_dim
     proj = x @ p["mamba_in"]                                   # [b,s,2di+2gn+h]
+    if split is not None:
+        proj = split.gather(proj)
     z, xBC_pre, dt = _split_in_proj(proj, d_inner, n_groups, d_state, h)
-    xBC = _causal_conv(xBC_pre, p["mamba_conv"])
-    xs, B, C = torch.split(xBC, [d_inner, n_groups * d_state,
-                                 n_groups * d_state], dim=-1)
-    xs = xs.reshape(b, s, h, head_dim)
-    B = B.reshape(b, s, n_groups, d_state)
-    C = C.reshape(b, s, n_groups, d_state)
+    z, xbc, dt, hl, ng, runs = _rank_share(split, z, xBC_pre, dt, d_inner,
+                                           n_groups, d_state, h)
+    w = p["mamba_conv"] if runs is None else _take(p["mamba_conv"], runs)
+    xBC = _causal_conv(xbc, w)
+    xs, B, C = torch.split(xBC, [hl * head_dim, ng * d_state,
+                                 ng * d_state], dim=-1)
+    xs = xs.reshape(b, s, hl, head_dim)
+    B = B.reshape(b, s, ng, d_state)
+    C = C.reshape(b, s, ng, d_state)
     dt = _softplus(dt.float() + p["mamba_dt_bias"].float())
     args = (xs, dt, p["mamba_A"], B, C, p["mamba_D"])
     state = None
@@ -258,8 +327,9 @@ def mamba2_mixer(p, x, *, head_dim: int, n_groups: int, d_state: int,
         y, state = ssd_chunked(*args, chunk=chunk, return_state=True)
     else:
         raise ValueError(f"unknown ssd impl {impl!r}")
-    y = y.reshape(b, s, d_inner)
-    out = _gated_norm(y, z, p["mamba_gnorm"], x.dtype) @ p["mamba_out"]
+    y = y.reshape(b, s, hl * head_dim)
+    out = _gated_norm(y, z, p["mamba_gnorm"], x.dtype, split) \
+        @ p["mamba_out"]
     if return_state:
         k = p["mamba_conv"].shape[0]
         # rolling conv window tail: last (k-1) *pre-conv* rows, zero-padded
@@ -285,28 +355,43 @@ def mamba2_init_cache(batch: int, *, d_inner: int, head_dim: int,
 
 
 def mamba2_decode_step(p, x_t, cache: MambaCache, *, head_dim: int,
-                       n_groups: int, d_state: int):
+                       n_groups: int, d_state: int,
+                       split: HeadSplit | None = None):
     """One-token mixer step.  x_t ``[b,D]``; returns ``(y_t [b,D],
     new_cache)``.  The conv of the window is taken in f32, as the
-    reference's decode takes it."""
+    reference's decode takes it.
+
+    With ``split`` (see :func:`mamba2_mixer`) ``cache.conv`` and
+    ``p["mamba_conv"]`` are the rank's ``r``-th block of the conv channels
+    and ``cache.ssm`` its heads: the conv runs over that block (it is
+    depthwise) and every channel's output is gathered; the new cache is
+    the rank's blocks."""
     b, _ = x_t.shape
-    d_inner = p["mamba_out"].shape[0]
+    d_inner = p["mamba_out"].shape[0] * (1 if split is None else split.m)
     h = d_inner // head_dim
     proj = x_t @ p["mamba_in"]
+    if split is not None:
+        proj = split.gather(proj)
     z, xBC, dt = _split_in_proj(proj, d_inner, n_groups, d_state, h)
     w = p["mamba_conv"]                                        # [k, c]
+    if split is not None:
+        xBC = xBC.narrow(-1, split.r * w.shape[1], w.shape[1])
     window = torch.cat([cache.conv, xBC[:, None, :]], dim=1)   # [b,k,c]
     conv_out = F.silu(torch.einsum("bkc,kc->bc", window.float(),
                                    w.float())).to(x_t.dtype)
     new_conv = window[:, 1:, :]
-    xs, B, C = torch.split(conv_out, [d_inner, n_groups * d_state,
-                                      n_groups * d_state], dim=-1)
-    xs = xs.reshape(b, h, head_dim)
-    B = B.reshape(b, n_groups, d_state)
-    C = C.reshape(b, n_groups, d_state)
+    if split is not None:
+        conv_out = split.gather(conv_out)
+    z, conv_out, dt, hl, ng, _ = _rank_share(split, z, conv_out, dt,
+                                             d_inner, n_groups, d_state, h)
+    xs, B, C = torch.split(conv_out, [hl * head_dim, ng * d_state,
+                                      ng * d_state], dim=-1)
+    xs = xs.reshape(b, hl, head_dim)
+    B = B.reshape(b, ng, d_state)
+    C = C.reshape(b, ng, d_state)
     dt = _softplus(dt.float() + p["mamba_dt_bias"].float())
     y, new_ssm = ssd_decode_step(cache.ssm, xs, dt, p["mamba_A"], B, C,
                                  p["mamba_D"])
-    y = y.reshape(b, d_inner)
-    yn = _gated_norm(y, z, p["mamba_gnorm"], x_t.dtype)
+    y = y.reshape(b, hl * head_dim)
+    yn = _gated_norm(y, z, p["mamba_gnorm"], x_t.dtype, split)
     return yn @ p["mamba_out"], MambaCache(conv=new_conv, ssm=new_ssm)

@@ -107,7 +107,8 @@ def serve_rank(mesh, cases: list) -> list:
 def _serve_case(mesh, case: dict) -> dict:
     cfg = replace(get_arch(case["arch"]).reduced(), **case["cfg"])
     tokens = torch.from_numpy(case["tokens"])
-    s, max_len = case["prompt"], tokens.shape[1]
+    s, total = case["prompt"], tokens.shape[1]
+    max_len = case.get("max_len", total)
     specs = serve_specs(cfg, mesh, case["policy"], tokens.shape[0], max_len,
                         seq=case["seq"])
     if case["dispatch"]:
@@ -116,29 +117,41 @@ def _serve_case(mesh, case: dict) -> dict:
             seq_chunk=case.get("seq_chunk", 0)))
     local = shard_tree(lm_params_from_numpy(case["params"], device="cpu"),
                        specs["params"], mesh)
-    toks = shard_leaf(tokens, filter_spec(("data", None), tokens.shape,
-                                          axis_sizes(mesh)), mesh)
+    rows = filter_spec(("data", None), tokens.shape, axis_sizes(mesh))
+    toks = shard_leaf(tokens, rows, mesh)
+    extra = {k: shard_leaf(torch.from_numpy(v), rows, mesh)
+             for k, v in case.get("extra", {}).items()}
     kw = dict(device="cpu", mesh=mesh, specs=specs)
     seen = []
     with coll.counting(seen.append):
-        logits, cache = lm.prefill(local, {"tokens": toks[:, :s]}, cfg,
-                                   max_len=max_len, **kw)
+        logits, cache = lm.prefill(local, {"tokens": toks[:, :s], **extra},
+                                   cfg, max_len=max_len, **kw)
         steps = [lm.gather_logits(logits, cfg, mesh=mesh, specs=specs)]
-        for i in range(max_len - s):
+        for i in range(total - s):
             logits, cache = lm.decode_step(local, cache,
                                            toks[:, s + i:s + i + 1], s + i,
                                            cfg, **kw)
             steps.append(lm.gather_logits(logits, cfg, mesh=mesh,
                                           specs=specs))
-        fwd = lm.forward(local, {"tokens": toks}, cfg, **kw)
+        fwd = lm.forward(local, {"tokens": toks, **extra}, cfg, **kw)
     return {"coords": mesh.coords,
             "steps": torch.stack(steps, dim=1),
             "forward": lm.gather_logits(fwd, cfg, mesh=mesh,
                                         specs=specs)[..., :cfg.vocab_size],
             "local_vocab": fwd.shape[-1],
+            "slots_held": _slots_held(cache),
             "collectives": sorted({(c.kind, c.axis) for c in seen}),
             "param_bytes": sum(x.numel() * x.element_size()
                                for x in _leaves(local))}
+
+
+def _slots_held(cache) -> int | None:
+    """The slots of the first attention cache leaf this rank holds that a
+    prefill or decode step wrote (None without attention)."""
+    for block in cache.values():
+        if "k" in block:
+            return int((block["k"].abs().sum(dim=(0, 1, 3, 4)) > 0).sum())
+    return None
 
 
 def _leaves(tree):
@@ -165,14 +178,48 @@ def train_plan(mesh_or_axes, arch: str, *, S: int, b: int, knobs: dict,
                    cfg=replace(plan.cfg, **{**dims, **knobs}))
 
 
-def train_rank(mesh, cases: list, probe: dict) -> dict:
+def mamba_grads(mesh, cases: list) -> list | None:
+    """Each case's loss on the (1, 2) sub-mesh of ``mesh`` (None on the
+    ranks it leaves out): the reduced arch under its ``train_4k`` plan's
+    lane specs (its Mamba mixers split over ``model`` by heads), this
+    rank's shards of the numpy weights, the whole batch; the loss and its
+    gradient with respect to this rank's shard of every leaf."""
+    from repro_torch.distributed.sharding import tree_paths
+    from repro_torch.launch.mesh import sub_mesh
+    from repro_torch.launch.plan import sharding_specs
+    sub = sub_mesh(mesh, (1, 2))
+    if sub is None:
+        return None
+    out = []
+    for case in cases:
+        plan = train_plan(sub, case["arch"], S=1, b=case["tokens"].shape[0],
+                          knobs=case["knobs"])
+        lane = sharding_specs(plan, sub)["lane"]
+        params = shard_tree(lm_params_from_numpy(case["params"],
+                                                 device="cpu"),
+                            lane["params"], sub)
+        leaves = dict(tree_paths(params))
+        for leaf in leaves.values():
+            leaf.requires_grad_()
+        loss = lm.loss_fn(params, {"tokens": torch.from_numpy(
+            case["tokens"])}, plan.cfg, device="cpu", mesh=sub, specs=lane)
+        loss.backward()
+        out.append({"loss": loss.detach(),
+                    "grads": {k: v.grad for k, v in leaves.items()},
+                    "coords": sub.coords})
+    return out
+
+
+def train_rank(mesh, cases: list, probe: dict,
+               grad_cases: list = ()) -> dict:
     """Each case's round on its mesh (the first ranks of ``mesh``,
     ``launch.mesh.sub_mesh``; None on a rank it leaves out): the reduced
     arch under its plan's regime, the rank's shards of the numpy weights,
     its block of the batches and masks, the case's gradient clip.  This rank's shards of the new global params, the
     metrics, the bytes of its parameter shards and K1's folds; the
     gradients of :func:`_gather_rule` on ``probe``; :func:`_sub_meshes`;
-    and when the rank entered this body.  The cross-worker reduce runs in
+    :func:`mamba_grads` of ``grad_cases``; and when the rank entered this
+    body.  The cross-worker reduce runs in
     column chunks of at most 2^16 gathered elements, so that a round takes
     several."""
     from repro_torch.fl import round as fl_round
@@ -224,7 +271,8 @@ def train_rank(mesh, cases: list, probe: dict) -> dict:
             "coords": mesh.coords})
     return {"coords": full.coords, "started": started, "cases": out,
             "gather_rule": _gather_rule(full, probe),
-            "sub_meshes": _sub_meshes(full)}
+            "sub_meshes": _sub_meshes(full),
+            "mamba_grads": mamba_grads(full, list(grad_cases))}
 
 
 SUB_SHAPES = ((1, 2), (2, 1), (1, 1))

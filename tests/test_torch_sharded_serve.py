@@ -15,10 +15,20 @@ weights; and the dry-run per card of the reference's production meshes.
   vocabulary of 250 padded to 256 (the vocabulary-split head masks the pad
   by global column); reduced granite-moe-3b-a800m under ``tp``, each
   expert's ``F`` split over ``model`` (no dispatch).
+* Reduced mamba2-2.7b under ``tp`` on (2, 2) and under ``fsdp_tp`` (the
+  stream split over the sequence) on (1, 2), and with 2 groups of ``B``/
+  ``C`` on (1, 2) (each rank's heads read one group): every Mamba mixer
+  split by heads.  Reduced jamba with one Mamba head (``ssm_head_dim``
+  128: the mixer computed whole), and with a cache of twice the sequence,
+  so that every position lies in rank 0's slots and rank 1's are masked
+  in every decode step; reduced whisper-base under ``tp`` (its cross-
+  attention's frames split over ``model``, the flash-decode combine).
 * 4 sequences of 12 prompt tokens and 2 decode steps, each rank holding
   its shards of the weights, its sequences and its shard of the cache;
-  attention, MLPs, embedding and head split over ``model`` (each rank's
-  logits its slice of the vocabulary, gathered by ``lm.gather_logits``).
+  attention, MLPs, Mamba mixers, embedding and head split over ``model``
+  (each rank's logits its slice of the vocabulary, gathered by
+  ``lm.gather_logits``), a decode step attending over the rank's slots of
+  the cache.
   Logits within 1e-5 of the reference's; each rank's parameter bytes those
   of the specs.
 * ``--mesh pod``/``multipod``: one card's parameter bytes for one serve
@@ -70,7 +80,23 @@ CASES = [
      {"vocab_size": 250}),
     ("granite-moe-tp", "granite-moe-3b-a800m", (2, 2), "tp", False, False,
      {}),
+    ("mamba2-tp", "mamba2-2.7b", (2, 2), "tp", False, False, {}),
+    ("mamba2-fsdp_tp-1x2", "mamba2-2.7b", (1, 2), "fsdp_tp", True, False,
+     {}),
+    ("mamba2-tp-2groups-1x2", "mamba2-2.7b", (1, 2), "tp", False, False,
+     {"ssm_groups": 2}),
+    ("jamba-fsdp_tp-1x2-mamba-whole", "jamba-v0.1-52b", (1, 2), "fsdp_tp",
+     True, True, {"ssm_head_dim": 128}),
+    ("jamba-fsdp_tp-1x2-rank0-slots", "jamba-v0.1-52b", (1, 2), "fsdp_tp",
+     True, True, {}),
+    ("whisper-tp", "whisper-base", (2, 2), "tp", False, False, {}),
 ]
+# A cache longer than the prompt and its decode steps, so that every
+# position lies in rank 0's slots and rank 1's are all masked: the weights,
+# tokens and reference logits of the case named (masked slots add exactly
+# 0 to the reference's softmax, so its logits do not depend on the cache's
+# length).
+LONG_CACHE = {"jamba-fsdp_tp-1x2-rank0-slots": ("jamba-fsdp_tp-1x2", 28)}
 IDS = [c[0] for c in CASES]
 ARCHS = [c[1] for c in CASES]
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -124,24 +150,36 @@ def cases():
     prefill + decode and of forward."""
     out = []
     for i, arch in enumerate(ARCHS):
+        if IDS[i] in LONG_CACHE:
+            same, max_len = LONG_CACHE[IDS[i]]
+            assert CASES[i][1:] == CASES[IDS.index(same)][1:]
+            out.append(dict(out[IDS.index(same)], max_len=max_len))
+            continue
         kw = _cfg_kw(i)
         jcfg = replace(jconfigs.get_arch(arch).reduced(), **kw)
         params = jlm.init_params(jax.random.key(i), jcfg)
-        toks = np.random.default_rng(7 + i).integers(
-            0, jcfg.vocab_size, (4, TOTAL)).astype(np.int32)
+        rng = np.random.default_rng(7 + i)
+        toks = rng.integers(0, jcfg.vocab_size, (4, TOTAL)).astype(np.int32)
+        extra = {}
+        if jcfg.frontend == "audio":            # whisper's frame stub
+            extra["frames"] = rng.standard_normal(
+                (4, jcfg.frontend_len, jcfg.d_model)).astype(np.float32)
+        jextra = {k: jnp.asarray(v) for k, v in extra.items()}
         logits, cache = jlm.prefill(params, {"tokens": jnp.asarray(
-            toks[:, :PROMPT])}, jcfg, max_len=TOTAL)
+            toks[:, :PROMPT]), **jextra}, jcfg, max_len=TOTAL)
         steps = [np.asarray(logits)]
         for t in range(PROMPT, TOTAL):
             logits, cache = jlm.decode_step(params, cache, jnp.asarray(
                 toks[:, t:t + 1]), jnp.int32(t), jcfg)
             steps.append(np.asarray(logits))
-        fwd = jlm.forward(params, {"tokens": jnp.asarray(toks)}, jcfg)
+        fwd = jlm.forward(params, {"tokens": jnp.asarray(toks), **jextra},
+                          jcfg)
         _, _, mesh, policy, seq, dispatch, _ = CASES[i]
         out.append({"arch": arch, "cfg": kw, "mesh": mesh, "policy": policy,
                     "seq": seq, "dispatch": dispatch,
                     "params": jax.tree.map(np.asarray, params),
-                    "tokens": toks, "prompt": PROMPT,
+                    "tokens": toks, "prompt": PROMPT, "max_len": TOTAL,
+                    "extra": extra,
                     "ref_steps": np.stack(steps, axis=1),
                     "ref_forward": np.asarray(fwd)})
     return out
@@ -150,7 +188,8 @@ def cases():
 @pytest.fixture(scope="module")
 def served(cases):
     send = [{k: c[k] for k in ("arch", "cfg", "mesh", "policy", "seq",
-                               "dispatch", "params", "tokens", "prompt")}
+                               "dispatch", "params", "tokens", "prompt",
+                               "max_len", "extra")}
             for c in cases]
     res = run_on_mesh(ranks.serve_rank, (2, 2), ("data", "model"),
                       backend="gloo", device="cpu", args=(send,),
@@ -221,6 +260,18 @@ def test_each_rank_computes_its_vocabulary_slice(i, served):
         assert (("reduce-scatter", "model") in r["collectives"]) == seq
 
 
+def test_decode_slots_lie_where_the_cache_splits_them(served):
+    """Each rank holds the written slots of its block of the cache: on
+    (1, 2) with a cache of the prompt and its steps each rank half of
+    them, and with one of twice that length all on rank 0 (rank 1's block
+    fully masked in every decode step's attention)."""
+    for case, want in (("jamba-fsdp_tp-1x2", {(0, 0): 7, (0, 1): 7}),
+                       ("jamba-fsdp_tp-1x2-rank0-slots",
+                        {(0, 0): TOTAL, (0, 1): 0})):
+        got = {r["coords"]: r["slots_held"] for r in served[IDS.index(case)]}
+        assert got == want, case
+
+
 @pytest.fixture(scope="module")
 def reference_card_bytes():
     env = dict(os.environ,
@@ -270,8 +321,11 @@ def test_mesh_pod_counts_a_cell_per_card(tmp_path):
     assert coll["by_kind"]["all-gather"]["count"] > 0
     # The 16 MoE layers' dispatch (over model, and the aux term over
     # data), and the split products' sums over model: 4 attention layers,
-    # 16 dense MLPs, the embedding.
-    assert coll["by_kind"]["all-reduce"]["count"] == 2 * 16 + 4 + 16 + 1
+    # 16 dense MLPs, the embedding, 28 Mamba mixers (each with its gated
+    # norm's sum of squares); the 4 attention layers' flash-decode combine
+    # (a maximum and a sum each).
+    assert coll["by_kind"]["all-reduce"]["count"] == \
+        2 * 16 + 4 + 16 + 1 + 2 * 28 + 2 * 4
     assert rec["roofline"]["collective_s"] == pytest.approx(
         coll["wire_bytes_ici"] / rec["hw"]["link_bw"])
     assert rec["fits"] == (rec["memory_analysis"]["peak_live_bytes"]

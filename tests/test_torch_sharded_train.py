@@ -103,7 +103,17 @@ CASES = [
     ("qwen3-tp-clip", "qwen3-0.6b", {"loss_chunk": 8}, None, (2, 2), CLIP),
     ("qwen3-moe-fsdp_tp-clip", "qwen3-moe-235b-a22b",
      dict(MOE, moe_aux_weight=0.0), None, (2, 2), CLIP),
+    ("mamba2-tp", "mamba2-2.7b", {"loss_chunk": 8}, None, (2, 2), None),
+    ("jamba-fsdp_tp-gathered-routing", "jamba-v0.1-52b",
+     dict(MOE, moe_dispatch=None), None, (2, 2), None),
 ]
+# The Mamba gradient probe: (arch, knobs) on (1, 2), the mixers split by
+# heads with the stream whole (mamba2, ``tp``) and split over the
+# sequence (jamba, ``fsdp_tp``).
+GRAD_CASES = [("mamba2-2.7b", {"loss_chunk": 8}),
+              ("jamba-v0.1-52b", dict(MOE, moe_dispatch=None))]
+MAMBA_LEAVES = ("mamba_norm", "mamba_in", "mamba_conv", "mamba_A",
+                "mamba_dt_bias", "mamba_D", "mamba_gnorm", "mamba_out")
 IDS = [c[0] for c in CASES]
 # The reference config takes the plan's knobs (not its hooks) and the
 # cases' widths.
@@ -157,6 +167,23 @@ def cases():
     return out
 
 
+def _grad_cases():
+    """Per gradient case: the numpy weights of the reduced arch and 4
+    sequences of 16 tokens."""
+    out = []
+    for i, (arch, knobs) in enumerate(GRAD_CASES):
+        plan = ranks.train_plan(AXES, arch, S=1, b=B, knobs=knobs)
+        red = jconfigs.get_arch(arch).reduced()
+        jcfg = replace(red, **{k: getattr(plan.cfg, k) for k in KNOBS})
+        params = jax.tree.map(np.asarray,
+                              jlm.init_params(jax.random.key(40 + i), jcfg))
+        tokens = np.random.default_rng(40 + i).integers(
+            0, jcfg.vocab_size, (B, SEQ)).astype(np.int32)
+        out.append({"arch": arch, "knobs": knobs, "params": params,
+                    "tokens": tokens})
+    return out
+
+
 def _probe():
     rng = np.random.default_rng(5)
     return {"w": rng.standard_normal((8, 6)).astype(np.float32),
@@ -180,7 +207,8 @@ def trained(cases):
                                "step_mask", "boundary", "weight")}
             for c in cases]
     res = run_on_mesh(ranks.train_rank, (2, 2), ("data", "model"),
-                      backend="gloo", device="cpu", args=(send, _probe()),
+                      backend="gloo", device="cpu",
+                      args=(send, _probe(), _grad_cases()),
                       timeout_s=300, meanwhile=_meanwhile)
     return {r["coords"]: r for r in res}
 
@@ -425,3 +453,50 @@ def test_mesh_pod_counts_a_train_cell_per_regime(arch, overrides, policy, W,
     assert ("reduce-scatter" in kinds) == (policy == "fsdp_tp" or whole_kv)
     assert rec["roofline"]["collective_s"] > 0
     assert rec["param_bytes_per_card"] < rec["param_bytes"] / 10
+
+
+@pytest.mark.parametrize("g", range(len(GRAD_CASES)),
+                         ids=[a for a, _ in GRAD_CASES])
+def test_split_mamba_gradients_match_one_process(g, trained):
+    """Every Mamba leaf's gradient on 2 ranks, assembled from the ranks'
+    shards (a leaf the specs split over ``model`` from its blocks, a
+    replicated one equal on both), within 1e-5 of the port's one-process
+    gradient; the loss too.  The gated norm's sum of squares feeds each
+    rank's own heads, so its all-reduce must sum the gradient as well: a
+    ``psum`` whose backward passes the cotangent through gives each rank
+    only its own heads' part of it, and ``mamba_in``, ``mamba_conv``,
+    ``A``, ``dt_bias`` and ``D`` off by far more than this tolerance."""
+    from repro_torch.launch.plan import sharding_specs
+    case = _grad_cases()[g]
+    arch, knobs = GRAD_CASES[g]
+    plan = ranks.train_plan({"data": 1, "model": 2}, arch, S=1, b=B,
+                            knobs=knobs)
+    specs = dict(tree_paths(sharding_specs(plan, {"data": 1, "model": 2})[
+        "lane"]["params"]))
+    params = lm_params_from_numpy(case["params"], device="cpu")
+    leaves = dict(tree_paths(params))
+    for leaf in leaves.values():
+        leaf.requires_grad_()
+    from repro_torch.models import lm as tlm
+    loss = tlm.loss_fn(params, {"tokens": torch.from_numpy(case["tokens"])},
+                       plan.cfg, device="cpu")
+    loss.backward()
+    got = {r["coords"]: r["mamba_grads"][g] for r in trained.values()
+           if r["mamba_grads"] is not None}
+    assert sorted(got) == [(0, 0), (0, 1)]
+    mamba = [k for k in leaves if "/mamba_" in k]
+    assert {k.rsplit("/", 1)[1] for k in mamba} == set(MAMBA_LEAVES)
+    for k in mamba:
+        want = leaves[k].grad
+        spec = tuple(specs[k]) + (None,) * (want.ndim - len(specs[k]))
+        dims = [d for d, e in enumerate(spec) if "model" in _axes(e)]
+        blocks = [got[(0, m)]["grads"][k] for m in (0, 1)]
+        whole = torch.cat(blocks, dim=dims[0]) if dims else blocks[0]
+        if not dims:
+            np.testing.assert_allclose(blocks[1].numpy(), blocks[0].numpy(),
+                                       err_msg=k, **TOL)
+        np.testing.assert_allclose(whole.numpy(), want.numpy(), err_msg=k,
+                                   **TOL)
+    for r in got.values():
+        np.testing.assert_allclose(float(r["loss"]), float(loss.detach()),
+                                   **TOL)

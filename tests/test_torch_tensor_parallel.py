@@ -12,11 +12,20 @@ reference's ``train_4k`` plan, counted by ``distributed.collectives``
   rank's sequences (a block's entry, the MoE dispatch's, the head's), the
   split products are reduce-scattered over the sequence;
 * the collectives' own records: a reduce-scatter's payload and ring wire
-  bytes, ``split`` moving nothing forward.
+  bytes, ``split`` moving nothing forward;
+* mamba2-2.7b ``tp`` (2 layers): each Mamba mixer is split by heads, so
+  neither ``mamba_in`` nor ``mamba_out`` is all-gathered over ``model`` —
+  only the in-projection's activations and ``mamba_conv`` are;
+* jamba-v0.1-52b's decode step (one 8-layer period at its published
+  widths on a meta (1, 2) mesh, 4 sequences): no weight and no cache leaf
+  is all-gathered over ``model``, nothing larger than one token's packed
+  in-projection or its query heads.
 
 The values of the split path are held to the reference in
 ``test_torch_sharded_serve.py`` and ``test_torch_sharded_train.py``.
 """
+
+from dataclasses import replace
 
 import pytest
 
@@ -24,9 +33,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.distributed import collectives as coll  # noqa: E402
+from repro_torch.distributed.sharding import shard_tree  # noqa: E402
 from repro_torch.launch import plan as tplan  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.steps import build_step  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 
 AXES = ("data", "model")
 
@@ -109,3 +120,61 @@ def test_plan_hands_the_model_its_layouts(arch, shape, seq):
         assert specs["act"][0] == ("data" if plan.b > 1 else None)
     assert specs["act"][1] == seq
     assert get_arch(arch).padded_vocab % 16 == 0
+
+
+def _in_width(cfg) -> int:
+    """The packed ``[z | x | B | C | dt]`` in-projection's columns."""
+    return 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state \
+        + cfg.ssm_heads
+
+
+def test_mamba_tp_round_gathers_no_mamba_weight_over_model():
+    plan, seen = _round_collectives("mamba2-2.7b", 2)
+    assert plan.policy == "tp" and plan.worker_axes == ("data",)
+    cfg = plan.cfg
+    nbytes = 2                                          # bf16
+    mamba_in = cfg.d_model * _in_width(cfg) * nbytes
+    mamba_out = cfg.d_inner * cfg.d_model * nbytes
+    conv = cfg.ssm_conv * (cfg.d_inner + 2 * cfg.ssm_groups
+                           * cfg.ssm_state) * nbytes
+    proj = plan.b * plan.seq_len * _in_width(cfg) * nbytes
+    gathers = {c.bytes for c in seen
+               if (c.kind, c.axis) == ("all-gather", "model")}
+    assert gathers == {proj, conv}
+    assert mamba_in not in gathers and mamba_out not in gathers
+    # Each mixer's gated norm: its sum of squares, f32, all-reduced.
+    assert any(c.kind == "all-reduce" and c.axis == "model"
+               and c.bytes == plan.b * plan.seq_len * 4 for c in seen)
+
+
+def test_jamba_decode_step_gathers_no_weight_and_no_cache_over_model():
+    mesh = make_mesh((1, 2), AXES, backend="meta")
+    cfg = replace(get_arch("jamba-v0.1-52b"), n_layers=8)
+    plan = tplan.make_plan(cfg, "decode_32k", mesh)
+    cfg = replace(cfg, moe_dispatch=plan.cfg.moe_dispatch)
+    specs = tplan.sharding_specs(plan, mesh)
+    b, s, max_len = 4, 16, 64
+    kw = {"mesh": mesh, "device": "meta",
+          "specs": {k: specs[k] for k in ("params", "act", "logits")}}
+    kw["specs"]["cache"] = tplan.cache_specs(cfg, specs["rules"], b,
+                                             max_len, mesh)
+    params = shard_tree(tplan.meta_params(cfg), specs["params"], mesh)
+    tokens = torch.zeros(b, s, dtype=torch.long, device="meta")
+    _, cache = lm.prefill(params, {"tokens": tokens}, cfg, max_len=max_len,
+                          **kw)
+    seen = []
+    with coll.counting(seen.append):
+        lm.decode_step(params, cache, tokens[:, :1], s, cfg, **kw)
+    gathers = [c.bytes for c in seen
+               if (c.kind, c.axis) == ("all-gather", "model")]
+    bound = b * max(_in_width(cfg), cfg.n_heads * cfg.resolved_head_dim) * 2
+    assert gathers and max(gathers) == b * _in_width(cfg) * 2 <= bound
+    # The 7 Mamba layers' projections and conv outputs, the attention
+    # layer's query heads and its new token's k and v.
+    assert len(gathers) == 7 + 7 + 1 + 2
+    # The attention layer's combine: a maximum and a sum over model.
+    hq = cfg.n_heads
+    assert sum(c.kind == "all-reduce" and c.axis == "model"
+               and c.bytes in (b * hq * 4, b * hq * (cfg.resolved_head_dim
+                                                     + 1) * 4)
+               for c in seen) == 2
