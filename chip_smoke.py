@@ -154,12 +154,18 @@ Phases, one JSON object per line on stdout:
 14c. train sharded — the sharded training step: one federated round of
              the reference's train_4k plan on a mesh of gloo ranks sharing
              the card, at the published widths and dtypes, cut to 2 local
-             steps of 2 sequences of 4,096 tokens, one client a lane
+             steps of 2 sequences ((a): 1) of 4,096 tokens, one client a
+             lane
              (``TRAIN_SHARDED_RUNS``): (a) qwen3-0.6b, ``tp`` on (data 2,
              model 2), two workers over data; (b) qwen3-moe-235b-a22b's
              plan for its 94 layers, the config cut to 1 layer,
              ``fsdp_tp`` on (data 1, model 2), 64 experts a rank through
-             the expert-parallel dispatch.  Each rank draws its shards as
+             the expert-parallel dispatch; (c) the same plan without the
+             dispatch (the multipod regime's MoE layer): each rank routes
+             every token and computes its 64 experts' block of the
+             expert buffers (the ``act_shard_moe`` split), no expert
+             leaf all-gathered over model (judged by the collectives'
+             payload shapes).  Each rank draws its shards as
              one process draws the whole (``launch.steps.build_step`` with
              ``mesh=``); the launch counts zeroed just before the round and
              read just after: K1 2 × S times on every rank (once a local
@@ -167,7 +173,7 @@ Phases, one JSON object per line on stdout:
              parameter bytes those of the plan; the new global parameters
              (each rank's blocks) and the metrics against the one-process
              round on the same card, weights and batches (run while the
-             ranks start, then freed): (a) bitwise, (b) the weights at
+             ranks start, then freed): (a)-(c) the weights at
              ``TRAIN_SHARDED_TOL`` and each leaf's update (θ_new - θ_0)
              against the one-process update: its norm ratio within
              ``TRAIN_SHARDED_UPDATE_RATIO``, its relative difference at
@@ -194,7 +200,8 @@ Phases, one JSON object per line on stdout:
 17. train LM — federated LM training through the CLI,
              ``main(["--arch", A, "--preset", "fl100m", ...])`` for
              qwen3-0.6b, mamba2-2.7b, granite-moe-3b-a800m,
-             whisper-base and internvl2-26b (2 rounds each; granite: 12
+             whisper-base and internvl2-26b (2 rounds each, at most
+             ``LM_STEPS_CAP`` = 4 local steps a client; granite: 12
              layers of 4 experts top-2, 2,048 wide, 269,998,848 params,
              the einsum dispatch; whisper: 2 encoder layers over 16
              frames, cross-attention, 256 learned positions; internvl2: 16
@@ -569,17 +576,27 @@ MESH_EP_TOL = dict(rtol=1e-4, atol=1e-5)
 #     4,096-wide experts) where a MoE layer without it routes blocks of
 #     moe_seq_chunk (512), and with capacity 1.25 the two drop different
 #     tokens: the one-process round routes the dispatch's groups.
+# (c) the same plan without the dispatch, as the reference's multipod plan
+#     trains this arch (workers over pod: no dispatch): the plan's
+#     act_shard_moe split, each rank routing every token in moe_seq_chunk
+#     (512) blocks, as the one-process round does, and computing its 64
+#     experts' [64, C, D] buffers from its experts gathered over data only
+#     (none here: data 1); the ranks' contributions reduce-scattered over
+#     the sequence.
 # A row-parallel product and the dispatch's k-sum are summed over the ranks
 # in another order than one process sums them (rounded once from f32 where
 # one process sums in bf16), so the bf16 weights may move by a few ulps:
 # each is held by TRAIN_SHARDED_TOL and the update check
 # (TRAIN_SHARDED_UPDATE_RATIO, _RTOL).
-# Each cut S to 2 local steps, one client a lane, b to 2 sequences.
+# Each cut S to 2 local steps, one client a lane, b to 2 sequences ((a) to
+# 1: the script's time on a slow host).
 TRAIN_SHARDED_RUNS = (
-    {"arch": "qwen3-0.6b", "mesh": (2, 2), "S": 2, "b": 2, "n_layers": None,
+    {"arch": "qwen3-0.6b", "mesh": (2, 2), "S": 2, "b": 1, "n_layers": None,
      "dispatch": False},
     {"arch": "qwen3-moe-235b-a22b", "mesh": (1, 2), "S": 2, "b": 2,
-     "n_layers": 1, "dispatch": True})
+     "n_layers": 1, "dispatch": True},
+    {"arch": "qwen3-moe-235b-a22b", "mesh": (1, 2), "S": 2, "b": 2,
+     "n_layers": 1, "dispatch": False})
 TRAIN_SHARDED_SEED = 27
 TRAIN_SHARDED_TOL = dict(atol=1e-3, rtol=1e-2)
 TRAIN_SHARDED_LOSS_RTOL = 1e-3
@@ -611,8 +628,12 @@ BREAKDOWN_RTOL = 0.01
 # published widths through the same builder at the fl100m preset's "lm"
 # batches of 8 x 256 tokens, cohort 4 on 1 worker x 2 lanes, 4 local steps
 # a client: 2 clients a lane fill the S = 8 bucket with no padded step.
+# Through the CLI each client takes at most LM_STEPS_CAP local steps (the
+# CLI's default is 8): the phases' depth is cut so that the script stays
+# inside its time limit on a host ~1.3x slower than the usual one.
 LM_TRAIN = (("qwen3-0.6b", 2), ("mamba2-2.7b", 2), (MOE_ARCH, 2),
             (AUDIO_ARCH, 2), (VLM_ARCH, 2))
+LM_STEPS_CAP = 4
 LM_MESH_ARGS = ["--workers", "4", "--mesh-workers", "2", "--combine-mode",
                 "tree", "--combine-compress", "int8"]
 LM_MESH_ROUNDS = 2
@@ -2345,6 +2366,31 @@ def _wire_by_kind(seen: list) -> dict:
     return out
 
 
+def _wire_by_kind_axis(seen: list) -> dict:
+    """:func:`_wire_by_kind` by ``kind/axis``."""
+    out: dict = {}
+    for c in seen:
+        key = f"{c.kind}/{c.axis}"
+        out[key] = out.get(key, 0.0) + c.wire_bytes
+    return out
+
+
+def _expert_gathers(seen: list, cfg, mesh) -> list:
+    """The all-gathers over ``model`` among ``seen`` whose payload has the
+    shape of a MoE layer's expert leaf, whole or in part (``[e, d, F]`` or
+    ``[e, F, d]`` with every expert or the rank's, ``D`` whole or over
+    ``data``): ``(shape, bytes)`` of each."""
+    if not cfg.moe:
+        return []
+    E, D, Fm = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    es = {E, E // mesh.axis_size("model")}
+    ds = {D, D // mesh.axis_size("data")}
+    shapes = {s for e in es for d in ds for s in ((e, d, Fm), (e, Fm, d))}
+    return [(list(c.shape), c.bytes) for c in seen
+            if (c.kind, c.axis) == ("all-gather", "model")
+            and tuple(c.shape) in shapes]
+
+
 def _ep_weights(torch, dev, gen):
     """One jamba MoE layer in f32 (router ``[4096, 16]``, experts ``[16,
     4096, 14336]``) and its tokens, drawn on the card from ``gen`` leaf by
@@ -2627,13 +2673,16 @@ def _sharded_train_plan(run: dict, axes):
     round), its config cut to ``run["n_layers"]`` and its round to
     ``run["S"]`` steps of ``run["b"]`` sequences (``TRAIN_SHARDED_RUNS``).
     Where the mesh's MoE layers go through the dispatch, the one-process
-    round's route the dispatch's groups of tokens (``ep_seq_chunk``)."""
+    round's route the dispatch's groups of tokens (``ep_seq_chunk``);
+    without ``run["dispatch"]`` the plan's dispatch is dropped."""
     from dataclasses import replace
     from repro_torch.launch import plan as tplan
     plan = tplan.make_plan(run["arch"], "train_4k", axes)
     cfg = plan.cfg if run["n_layers"] is None else replace(
         plan.cfg, n_layers=run["n_layers"])
-    if run["dispatch"] and cfg.moe_dispatch is None:
+    if not run["dispatch"]:
+        cfg = replace(cfg, moe_dispatch=None)
+    elif cfg.moe_dispatch is None:
         cfg = replace(cfg, moe_seq_chunk=tplan.ep_seq_chunk(cfg))
     return replace(plan, S=run["S"], b=run["b"], cfg=cfg)
 
@@ -2697,12 +2746,16 @@ def _train_sharded_rank(mesh, run: dict, ref_path: str) -> dict:
            "P": plan.P, "worker_axes": list(plan.worker_axes),
            "batch_axes": list(plan.batch_axes),
            "dispatch": plan.cfg.moe_dispatch is not None,
+           "expert_split": plan.cfg.act_shard_moe is not None,
            "groups": len(theta0.flats),
            "param_bytes": sum(f.numel() * f.element_size()
                               for f in theta0.flats.values()),
            "param_bytes_specs": tplan.param_bytes_per_card(plan, mesh),
            "init_s": init_s, "round_ms": round_s * 1e3,
-           "gloo_ms": gloo[-1] * 1e3, "wire_bytes": _wire_by_kind(seen),
+           "gloo_ms": gloo[-1] * 1e3, "gloo_share": gloo[-1] / round_s,
+           "wire_bytes": _wire_by_kind(seen),
+           "wire_bytes_axis": _wire_by_kind_axis(seen),
+           "expert_gathers_model": _expert_gathers(seen, plan.cfg, mesh),
            "peak_bytes": torch.cuda.max_memory_allocated(),
            "launches": launches,
            "metrics": {k: getattr(metrics, k) for k in metrics._fields}}
@@ -2904,9 +2957,12 @@ def phase_train_sharded(torch, smi: str) -> dict:
               "one_process": {"round_ms": ref["ref_s"] * 1e3,
                               "peak_bytes": ref["peak"],
                               "launches": ref_launches},
+              "expert_split": r0["expert_split"],
               "ranks": [{k: r[k] for k in (
                   "coords", "param_bytes", "init_s", "round_ms", "gloo_ms",
-                  "wire_bytes", "peak_bytes", "launches")} for r in res_i],
+                  "gloo_share", "wire_bytes", "wire_bytes_axis",
+                  "expert_gathers_model", "peak_bytes", "launches")}
+                  for r in res_i],
               "rank_s": max(r["left"] - r["entered"] for r in res_i),
               "one_process_s": ref["one_process_s"], "card": smi})
         want_k1 = groups * plan.S
@@ -2920,6 +2976,12 @@ def phase_train_sharded(torch, smi: str) -> dict:
                   f"gives {r['param_bytes_specs']}")
             check(r["dispatch"] == run["dispatch"],
                   f"{tag}: the dispatch {'not ' * run['dispatch']}used")
+            check(r["expert_split"] == bool(plan.cfg.moe),
+                  f"{tag}: the plan's act_shard_moe split "
+                  f"{'not ' * bool(plan.cfg.moe)}set")
+            check(not r["expert_gathers_model"],
+                  f"{tag}: expert leaves all-gathered over model: "
+                  f"{r['expert_gathers_model']}")
             check(r["launches"]["fedavg_accum"] == want_k1
                   and sum(r["launches"].values()) == want_k1,
                   f"{tag}: launched {r['launches']}, K1 {want_k1} times "
@@ -2943,7 +3005,9 @@ def phase_train_sharded(torch, smi: str) -> dict:
               * abs(loss_ref),
               f"{run['arch']} mesh vs one process: {cmp}, update {upd}, "
               f"loss {loss} vs {loss_ref}")
-        launches[run["arch"]] = [r["launches"] for r in res_i]
+        name = run["arch"] if run["dispatch"] or not plan.cfg.moe \
+            else f"{run['arch']} no dispatch"
+        launches[name] = [r["launches"] for r in res_i]
     phase_s = time.perf_counter() - t_phase
     emit({"phase": "train_sharded_summary", "phase_s": phase_s,
           "mesh_s": mesh_s, "references_s": sum(r["one_process_s"]
@@ -3688,7 +3752,8 @@ def phase_train_lm(torch) -> dict:
     from repro_torch.launch.train import build_engine, lm_config
     out = {}
     for arch, rounds in LM_TRAIN:
-        argv = ["--arch", arch, "--preset", "fl100m", "--rounds", str(rounds)]
+        argv = ["--arch", arch, "--preset", "fl100m", "--rounds", str(rounds),
+                "--steps-cap", str(LM_STEPS_CAP)]
         runs = {}
         for depth in (1, 0):
             _, hist, launches, peak = _lm_cli(torch, argv, depth)
@@ -3747,7 +3812,8 @@ def phase_train_lm_mesh(torch) -> dict:
     worker-program step."""
     from repro_torch.launch.train import lm_config
     argv = (["--arch", SERVE_ARCH, "--preset", "fl100m", "--rounds",
-             str(LM_MESH_ROUNDS)] + LM_MESH_ARGS)
+             str(LM_MESH_ROUNDS), "--steps-cap", str(LM_STEPS_CAP)]
+            + LM_MESH_ARGS)
     shapes = _lm_shapes(lm_config(SERVE_ARCH, "fl100m")[0])
     payload = sum(math.prod(s) for s in shapes.values()) + 4 * len(shapes) \
         + 8                                  # int8 body, scales, 2 scalars

@@ -77,13 +77,15 @@ __all__ = ["psum", "pmean", "pmax", "all_gather", "reduce_scatter", "split",
 @dataclass(frozen=True)
 class Collective:
     """One collective a meta mesh recorded: its kind, the axis, the group
-    size, the payload bytes and the wire bytes each rank sends."""
+    size, the payload bytes, the wire bytes each rank sends and the
+    payload's shape (an all-gather's result, a reduction's operand)."""
 
     kind: str
     axis: str
     group_size: int
     bytes: int
     wire_bytes: float
+    shape: tuple = ()
 
 
 # The receivers :func:`counting` made active, innermost last.  A process
@@ -114,10 +116,10 @@ def wire_bytes(kind: str, nbytes: int, g: int) -> float:
     return nbytes * (g - 1) / g
 
 
-def _record(kind: str, axis: str, g: int, nbytes: int) -> None:
+def _record(kind: str, axis: str, g: int, nbytes: int, shape=()) -> None:
     if _SINKS:
         _SINKS[-1](Collective(kind, axis, g, nbytes,
-                              wire_bytes(kind, nbytes, g)))
+                              wire_bytes(kind, nbytes, g), tuple(shape)))
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -138,7 +140,7 @@ def _host(shape, dtype, device) -> torch.Tensor:
 def _all_reduce(x: torch.Tensor, mesh, axis: str, op: str = "sum"
                 ) -> torch.Tensor:
     """The sum (or ``op="max"``) of ``x`` over ``axis`` (a new tensor)."""
-    _record("all-reduce", axis, mesh.axis_size(axis), _nbytes(x))
+    _record("all-reduce", axis, mesh.axis_size(axis), _nbytes(x), x.shape)
     if mesh.meta:
         return torch.empty_like(x)
     return _reduce(x, mesh, axis, op)
@@ -167,7 +169,7 @@ def _reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int
     tensor of its own).  gloo has no reduce-scatter: there it is an
     all-reduce and a slice."""
     g = mesh.axis_size(axis)
-    _record("reduce-scatter", axis, g, _nbytes(x))
+    _record("reduce-scatter", axis, g, _nbytes(x), x.shape)
     n = x.shape[dim] // g
     if mesh.meta:
         shape = list(x.shape)
@@ -187,10 +189,10 @@ def _reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int
 def _gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     """The ranks' ``x`` along ``axis`` concatenated on ``dim``."""
     g = mesh.axis_size(axis)
-    _record("all-gather", axis, g, _nbytes(x) * g)
+    shape = list(x.shape)
+    shape[dim] *= g
+    _record("all-gather", axis, g, _nbytes(x) * g, shape)
     if mesh.meta:
-        shape = list(x.shape)
-        shape[dim] *= g
         return x.new_empty(shape)
     import torch.distributed as dist
     group = mesh.groups[axis]

@@ -21,7 +21,9 @@ with one entry per dim — a mesh axis name, a tuple of names, or ``None`` —
 exactly a ``PartitionSpec``'s entries.  :func:`filter_spec` drops an axis
 from a dim it does not divide; :func:`shard_tree` gives a rank its slice
 of every leaf (the reference's ``named_shardings`` + ``device_put``) and
-:func:`gather_leaf` puts a leaf back together.
+:func:`gather_leaf` puts a leaf back together.  :class:`ExpertSplit` is
+the reference's ``act_shard_moe`` layout of a MoE layer's ``[E, C, ...]``
+expert buffers, as a rank computes its block of them.
 
 **Shard maps.**  A *shard* is the FL mesh path's unit of program dispatch
 and device placement: workers map to shards by ``wid % n_shards``, so a
@@ -43,7 +45,8 @@ from repro_torch.distributed import collectives
 __all__ = ["ShardingRules", "make_sharding_rules", "spec_for_tree",
            "filter_spec", "filtered_specs", "local_shape", "global_shape",
            "shard_leaf", "shard_tree", "gather_leaf", "split_axes",
-           "write_local", "tree_paths", "WorkerShardMap", "HostShardMap"]
+           "write_local", "tree_paths", "ExpertSplit", "WorkerShardMap",
+           "HostShardMap"]
 
 
 @dataclass(frozen=True)
@@ -335,6 +338,36 @@ def filter_spec(spec, shape, ax: dict) -> tuple:
         out.append(tuple(keep) if len(keep) > 1 else (keep[0] if keep
                                                       else None))
     return tuple(out)
+
+
+@dataclass(frozen=True, eq=False)
+class ExpertSplit:
+    """The ``act_shard_moe`` hook (the reference's ``_mk_moe_shard``): a MoE
+    layer's ``[E, C, ...]`` expert buffers split over ``axis`` of ``mesh``
+    — by experts where ``E`` divides the axis, else by capacity where
+    ``C`` does, else not at all.  A rank computes its block of the buffers
+    (:func:`~repro_torch.models.layers._moe_dispatch`) where the reference
+    constrains XLA's layout of them."""
+
+    mesh: object
+    axis: str = "model"
+
+    @property
+    def m(self) -> int:
+        return self.mesh.axis_size(self.axis)
+
+    @property
+    def r(self) -> int:
+        return self.mesh.axis_index(self.axis)
+
+    def dim(self, E: int, C: int) -> int | None:
+        """The buffers' dim split over the axis: 0 (experts), 1 (capacity)
+        or None."""
+        if E % self.m == 0:
+            return 0
+        if C % self.m == 0:
+            return 1
+        return None
 
 
 def filtered_specs(spec_tree, shape_tree, mesh) -> dict:

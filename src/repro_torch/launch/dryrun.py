@@ -23,11 +23,13 @@ mesh (workers, FSDP/TP policy, the expert-parallel dispatch), one card's
 shards of the parameters and its block of the inputs (a serve cell's
 batch and cache, a train cell's workers' batches), the step of one rank —
 where ``model`` is no worker axis its layers split over ``model`` (the
-rank's heads, MLP columns, experts' ``F`` and vocabulary; the residual
-stream over the sequence under the large archs' sequence parallelism),
-each split layer's weights gathered only over the FSDP axes, while the
-Mamba mixers, the dispatch's MoE layers and cross-attention gather their
-layers whole, under remat again in the backward — and the collectives it
+rank's heads, MLP columns, Mamba heads, vocabulary, and a MoE layer's
+experts — through the dispatch, or the ``act_shard_moe`` split without it
+— or under ``tp`` each expert's ``F``; the residual stream over the
+sequence under the large archs' sequence parallelism), each split layer's
+weights gathered only over the FSDP axes, while a layer that does not
+divide and cross-attention gather their layers whole, under remat again
+in the backward — and the collectives it
 runs (the gathers, the split products' all-reduces or reduce-scatters and
 the sequence gathers, the gradient reductions, the cross-worker reduce of
 the lane partials), their ring wire bytes turned into the roofline's
@@ -230,7 +232,8 @@ def _run_mesh_cell(arch: str, shape: str, mesh_kind: str,
                                      cost.collectives.values()),
                         "wire_bytes_ici": cost.wire_bytes_ici,
                         "wire_bytes_dcn": cost.wire_bytes_dcn,
-                        "by_kind": cost.collectives},
+                        "by_kind": cost.collectives,
+                        "by_kind_axis": cost.collectives_by_axis},
         "model_flops_total": mf, "model_flops_per_device": mf / n_dev,
         "useful_ratio": (mf / n_dev) / flops if flops else 0.0,
         "roofline": terms, "hw": {"name": spec.name,

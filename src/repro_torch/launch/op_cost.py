@@ -22,7 +22,8 @@ counts on a laptop) or on real ones.  Its rules are ``hlo_cost.py``'s:
   meta branch) adds its work from :mod:`repro_torch.kernels.work`;
 * each collective a meta mesh runs (:mod:`repro_torch.distributed
   .collectives`) adds its count, payload and ring wire bytes per rank
-  (``collectives``; ``wire_bytes_ici`` inside a pod, ``wire_bytes_dcn``
+  (``collectives`` by kind, ``collectives_by_axis`` by ``kind/axis`` with
+  its largest payload; ``wire_bytes_ici`` inside a pod, ``wire_bytes_dcn``
   over the ``pod`` axis), and the buffer it returns counts as live;
 * ``peak_live_bytes`` — the step's arguments plus the most bytes of
   storages it allocated that were alive at once, tracked at allocation and
@@ -118,6 +119,7 @@ class OpCost:
     by_op: dict = field(default_factory=dict)    # op -> count/flops/bytes
     kernels: dict = field(default_factory=dict)  # kernel -> calls/flops/bytes
     collectives: dict = field(default_factory=dict)  # kind -> count/bytes/wire
+    collectives_by_axis: dict = field(default_factory=dict)  # + max_bytes
     wire_bytes_ici: float = 0.0                  # per rank, inside a pod
     wire_bytes_dcn: float = 0.0                  # per rank, over "pod"
 
@@ -196,6 +198,13 @@ class _Counter(TorchDispatchMode):
         row["count"] += 1
         row["bytes"] += c.bytes
         row["wire_bytes"] += c.wire_bytes
+        row = self.cost.collectives_by_axis.setdefault(
+            f"{c.kind}/{c.axis}", {"count": 0, "bytes": 0, "wire_bytes": 0.0,
+                                   "max_bytes": 0})
+        row["count"] += 1
+        row["bytes"] += c.bytes
+        row["wire_bytes"] += c.wire_bytes
+        row["max_bytes"] = max(row["max_bytes"], c.bytes)
         if c.axis == "pod":
             self.cost.wire_bytes_dcn += c.wire_bytes
         else:

@@ -11,10 +11,14 @@ reference decides from its mesh's axis sizes:
   ``"fsdp_tp"`` for the archs above :data:`LARGE_PARAM_BYTES`;
 * the implementation knobs (attention, MoE dispatch, remat, loss chunk,
   SSD chunk, learned-position table) the reference sizes from napkin math;
-* given a :class:`~repro_torch.launch.mesh.Mesh`, the expert-parallel
-  ``moe_dispatch`` hook (:func:`~repro_torch.distributed.ep_dispatch
-  .make_ep_dispatch`) exactly where the reference sets it: large MoE archs
-  whose expert count divides the model axis, outside a vmapped train cell.
+* given a :class:`~repro_torch.launch.mesh.Mesh`, the MoE hooks exactly
+  where the reference sets them: ``act_shard_moe`` for every MoE arch (an
+  :class:`~repro_torch.distributed.sharding.ExpertSplit` over ``model``:
+  a MoE layer that the dispatch does not take computes the rank's block
+  of its expert buffers), and the expert-parallel ``moe_dispatch``
+  (:func:`~repro_torch.distributed.ep_dispatch.make_ep_dispatch`) for
+  large MoE archs whose expert count divides the model axis, outside a
+  vmapped train cell (it takes precedence where both are set).
 
 Given only axis sizes (a dict, or nothing: one card) the hooks stay unset,
 so the one-card dry-run counts what it counted before.  The reference's
@@ -26,9 +30,7 @@ layouts as spec entries: ``"act"`` (the residual stream between blocks,
 ``(batch_axes, seq_axes, None)``) and ``"logits"`` (split over the
 vocabulary on ``model``, where the reference installs
 ``act_shard_logits``: ``"model"`` is not a worker axis).  ``act_gather``
-is the split blocks' entry.  ``act_shard_moe``, a constraint on the
-expert buffers, is not ported: experts split over ``model`` through
-``moe_dispatch`` (ROADMAP).
+is the split blocks' entry.
 
 :func:`sharding_specs` gives the filtered specs of the parameters and of
 each input of the planned step on a mesh; ``input_specs`` gives meta
@@ -45,7 +47,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from repro_torch.configs import SHAPES, ArchConfig, get_arch
-from repro_torch.distributed.sharding import (filtered_specs,
+from repro_torch.distributed.sharding import (ExpertSplit, filtered_specs,
                                               make_sharding_rules)
 from repro_torch.launch.mesh import Mesh, axis_sizes
 from repro_torch.models import lm
@@ -134,7 +136,7 @@ class Plan:
     seq_axes: tuple            # activation sequence sharding (SP)
     seq_len: int
     global_batch: int
-    cfg: ArchConfig            # knobs (+ moe_dispatch on a mesh) injected
+    cfg: ArchConfig            # knobs (+ the MoE hooks on a mesh) injected
     large: bool
 
     @property
@@ -261,6 +263,8 @@ def make_plan(arch: str | ArchConfig, shape_name: str,
             raise ValueError(f"override does not factor {gb}: "
                              f"{W}·{Pl}·{S}·{b}")
     hooks = {}
+    if mesh is not None and cfg.moe:
+        hooks["act_shard_moe"] = ExpertSplit(mesh, "model")
     n_model = ax.get("model", 1)
     vmapped_train = shape.kind == "train" and not (W == 1 and Pl == 1)
     if mesh is not None and cfg.moe and large \

@@ -250,8 +250,8 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
     ``drift_threshold``, ``adapt_interval``, ``adapt_granularity``, ...)
     and the device cache's (``device_cache_batches``,
     ``device_cache_bytes``, ``cache_affinity``).  Refuses a
-    config that sets the multi-card ``moe_dispatch`` hook (ROADMAP M15c),
-    and a CUDA ``device`` without a card, before any work.
+    config whose layers do not make whole periods, and a CUDA ``device``
+    without a card, before any work.
     """
     strat = strategy_from_name(strategy)
     # The open-world sampler streams from a hash-derived registry: the base
@@ -263,7 +263,7 @@ def build_engine(*, task: str | None = None, arch: str | None = None,
     if lm_cfg is None and arch is not None:
         lm_cfg = lm_config(arch, preset)[0]
     if lm_cfg is not None:
-        lm.require_ported(lm_cfg)
+        lm.layer_plan(lm_cfg)
         seq_len = PRESETS[preset]["seq_len"]
         batch_size = PRESETS[preset]["batch_size"]
     else:

@@ -388,14 +388,17 @@ def _moe_dispatch(x, router_w, moe_gate, moe_up, moe_down, *, top_k: int,
     Returns ``(out [T, D] in x.dtype, aux f32)``, aux the Switch
     load-balance term ``E · Σ_e density_e · mean_t(probs_e)``, density from
     each token's first choice.
+
+    ``ep_shard`` (an :class:`~repro_torch.distributed.sharding.ExpertSplit`,
+    the ``act_shard_moe`` hook): under ``"scatter"`` the rank routes every
+    token and computes only its block of the buffers — its experts'
+    ``[E/m, C, D]`` (``moe_*`` whole, or already the rank's ``E/m``
+    experts), or its ``C/m`` capacity rows of every expert — and ``out``
+    is its contribution to each token's output: the sum over the split's
+    axis is the output.  Where neither divides, rank 0 contributes the
+    whole output and the others zero.  ``"einsum"`` ignores the hook, as
+    the reference does.
     """
-    if ep_shard is not None:
-        raise NotImplementedError(
-            "ep_shard: the act_shard_moe layout hook (an XLA sharding "
-            "constraint on the [E, C, ...] buffers) is not ported: the port "
-            "splits experts over a mesh with moe_dispatch "
-            "(distributed/ep_dispatch.py) instead (ROADMAP, the act_* "
-            "layouts)")
     E = router_w.shape[-1]
     probs, gate_vals, gate_idx, C, pos_in_expert = _route(
         x, router_w, top_k=top_k, capacity_factor=capacity_factor)
@@ -412,6 +415,9 @@ def _moe_dispatch(x, router_w, moe_gate, moe_up, moe_down, *, top_k: int,
         h = h * torch.einsum("ecd,edf->ecf", expert_in, moe_up)
         expert_out = torch.einsum("ecf,efd->ecd", h, moe_down)  # [E, C, D]
         out = torch.einsum("tkec,ecd->td", combine, expert_out)
+    elif impl == "scatter" and ep_shard is not None:
+        out = _scatter_block(x, gate_vals, gate_idx, pos_in_expert, C,
+                             moe_gate, moe_up, moe_down, ep_shard)
     elif impl == "scatter":
         out = _scatter_experts(x, gate_vals, gate_idx, pos_in_expert, C,
                                moe_gate, moe_up, moe_down)
@@ -442,13 +448,38 @@ def _route(x, router_w, *, top_k: int, capacity_factor: float):
     return probs, gate_vals, gate_idx, C, counts * flat_onehot - 1
 
 
+def _scatter_block(x, gate_vals, gate_idx, pos_in_expert, C, moe_gate,
+                   moe_up, moe_down, split):
+    """The rank's block of the ``"scatter"`` buffers under the
+    :class:`~repro_torch.distributed.sharding.ExpertSplit` ``split``, and
+    its contribution to ``[T, D]`` (see :func:`_moe_dispatch`)."""
+    E = pos_in_expert.shape[1]
+    r, m = split.r, split.m
+    dim = split.dim(E, C)
+    if dim == 0:
+        n = E // m
+        if moe_gate.shape[0] == E and n < E:
+            moe_gate, moe_up, moe_down = (w.narrow(0, r * n, n) for w in
+                                          (moe_gate, moe_up, moe_down))
+        return _scatter_experts(x, gate_vals, gate_idx, pos_in_expert, C,
+                                moe_gate, moe_up, moe_down, e0=r * n)
+    out = _scatter_experts(x, gate_vals, gate_idx, pos_in_expert, C,
+                           moe_gate, moe_up, moe_down,
+                           rows=None if dim is None else (r, m))
+    # Kept in the graph on every rank: each rank's backward runs the same
+    # collectives.
+    return out if dim == 1 else out * float(r == 0)
+
+
 def _scatter_experts(x, gate_vals, gate_idx, pos_in_expert, C, moe_gate,
-                     moe_up, moe_down, *, e0: int = 0):
+                     moe_up, moe_down, *, e0: int = 0, rows=None):
     """The ``"scatter"`` dispatch's buffers, expert products and combine
     for the experts ``e0 .. e0 + E_loc - 1`` that ``moe_gate`` ``[E_loc, D,
-    F]`` holds (all of them unless ``E_loc`` is fewer than the router's):
-    each kept slot of those experts gets a buffer row; the other slots
-    read a zero row and add nothing.  Returns ``[T, D]`` in ``x.dtype``."""
+    F]`` holds (all of them unless ``E_loc`` is fewer than the router's),
+    and with ``rows = (r, m)`` for block ``r`` of ``m`` of each expert's
+    ``C`` capacity rows only: each kept slot of those experts and rows gets
+    a buffer row; the other slots read a zero row and add nothing.
+    Returns ``[T, D]`` in ``x.dtype``."""
     T, D = x.shape
     top_k = gate_idx.shape[1]
     E_loc = moe_gate.shape[0]
@@ -458,6 +489,11 @@ def _scatter_experts(x, gate_vals, gate_idx, pos_in_expert, C, moe_gate,
     if E_loc < pos_in_expert.shape[1]:
         ok = ok & (flat_expert >= e0) & (flat_expert < e0 + E_loc)
         flat_expert = flat_expert - e0
+    if rows is not None and rows[1] > 1:
+        C = C // rows[1]
+        c0 = rows[0] * C
+        ok = ok & (flat_pos >= c0) & (flat_pos < c0 + C)
+        flat_pos = flat_pos - c0
     slot = torch.where(ok, flat_expert * C + flat_pos, E_loc * C)
     # The reference scatter-adds the tokens into [E*C + 1, D], every
     # dropped slot onto the overflow row E*C.  Each kept slot has a row of

@@ -64,9 +64,15 @@ XLA do:
   kv heads (``wq``/``wk``/``wv`` by column, ``wo`` by row; where
   ``n_kv_heads`` does not divide, ``wk``/``wv`` whole and the kv heads its
   query heads need picked), the dense MLPs the rank's columns of ``d_ff``,
-  a MoE layer without the dispatch the rank's slice of each expert's
-  ``F``, and the embedding, head and cross-entropy the rank's rows of the
-  vocabulary; each row-parallel product is summed over ``model``;
+  a MoE layer without the dispatch its block of the expert buffers where
+  the config carries the ``act_shard_moe`` split (every token routed on
+  every rank; the rank's ``E / |model|`` experts, gathered over the FSDP
+  axis only, or where the experts do not divide the rank's block of each
+  expert's capacity rows), else (the ``tp`` policy, whose specs split each
+  expert's ``F``) the rank's slice of each expert's ``F``, and the
+  embedding, head and cross-entropy the rank's rows of the vocabulary;
+  each row-parallel product (and each rank's contribution to a MoE
+  layer's output) is summed over ``model``;
 * between blocks the residual stream has the ``"act"`` layout: under
   ``seq_axes = ("model",)`` (sequence parallelism, the large archs) each
   rank holds its block of the sequence, a split block gathers the
@@ -102,8 +108,9 @@ leaf gathered over an axis sums its gradient over it where that axis
 splits the data the leaf is used on (the batch axes, and ``model`` where
 the leaf is used on the rank's block of the sequence or its part of a
 split product: the norms and output biases under sequence parallelism,
-qk-norm, a kv projection taken whole, the router of a split MoE, a split
-Mamba mixer's ``mamba_conv`` and ``mamba_gnorm``), as
+qk-norm, a kv projection taken whole, the router of a split MoE, the
+experts a MoE layer split by capacity takes whole, a split Mamba mixer's
+``mamba_conv`` and ``mamba_gnorm``), as
 :func:`~repro_torch.distributed.sharding.gather_leaf`'s training rule
 does; over any other axis each rank's cotangent already is the whole
 gradient.  The split leaves are never gathered over ``model``: each rank's
@@ -133,7 +140,7 @@ from repro_torch.models.layers import (combine_decode_partials,
 
 __all__ = ["init_params", "param_shapes", "leaf_dtype", "forward", "loss_fn",
            "init_cache", "prefill", "decode_step", "gather_logits",
-           "layer_plan", "LayerKind", "param_count", "require_ported"]
+           "layer_plan", "LayerKind", "param_count"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -186,18 +193,6 @@ def _parallel(cfg: ArchConfig, kind: LayerKind) -> bool:
     """Whether a block runs its attention and MLP in parallel on one norm
     (command-r)."""
     return cfg.parallel_block and kind.mixer == "attn" and kind.mlp != "none"
-
-
-def require_ported(cfg: ArchConfig) -> list[LayerKind]:
-    """The layer plan, or ``NotImplementedError`` where ``cfg`` sets the
-    ``act_shard_moe`` layout hook, which the port does not apply (ROADMAP,
-    the ``act_*`` layouts)."""
-    if cfg.act_shard_moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: act_shard_moe, an XLA layout constraint on the "
-            f"expert buffers, is not ported; split experts over a mesh with "
-            f"moe_dispatch (ROADMAP, the act_* layouts)")
-    return layer_plan(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -335,7 +330,7 @@ def param_shapes(cfg: ArchConfig) -> dict:
     decoder positions."""
     shapes = {
         "embed": (cfg.padded_vocab, cfg.d_model),
-        "stack": _stack_shapes(cfg, require_ported(cfg)),
+        "stack": _stack_shapes(cfg, layer_plan(cfg)),
         "final_norm": (cfg.d_model,),
     }
     if not cfg.tie_embeddings:
@@ -432,11 +427,12 @@ _MOE_LEAVES = ("moe_gate", "moe_up", "moe_down")
 # Leaves a split block keeps as the rank's block over ``model``, by the dim
 # of a period's leaf that is split: the attention's columns (q, and k/v
 # where the kv heads divide) and rows; the dense MLPs' columns and rows; a
-# MoE layer's F.
+# MoE layer's F, or under the experts split its experts.
 _ATTN_SPLIT = {"wq": 1, "wo": 0, "bq": 0}
 _KV_SPLIT = {"wk": 1, "wv": 1, "bk": 0, "bv": 0}
 _MLP_SPLIT = {"w_gate": 1, "w_up": 1, "w_down": 0, "b_up": 0}
 _MOE_SPLIT = {"moe_gate": 2, "moe_up": 2, "moe_down": 1}
+_MOE_EXPERTS = {"moe_gate": 0, "moe_up": 0, "moe_down": 0}
 _MAMBA_SPLIT = {"mamba_in": 1, "mamba_out": 0, "mamba_A": 0,
                 "mamba_dt_bias": 0, "mamba_D": 0}
 
@@ -451,8 +447,10 @@ class _Shard:
     over ``model`` (see the module's docstring): ``tp`` the axis the
     layers are split over (None: every layer whole), ``vocab`` whether the
     embedding and head are split over the vocabulary, ``sp`` whether the
-    plan splits the residual stream over the sequence, and ``seq`` whether
-    this call's stream is split (its length divides)."""
+    plan splits the residual stream over the sequence, ``seq`` whether
+    this call's stream is split (its length divides), and ``experts`` the
+    ``act_shard_moe`` split of the MoE layers' expert buffers over ``tp``
+    (None: each expert's ``F`` split where it divides)."""
 
     mesh: object
     specs: dict
@@ -463,6 +461,7 @@ class _Shard:
     vocab: bool = False
     sp: bool = False
     seq: bool = False
+    experts: object = None
 
     @property
     def m(self) -> int:
@@ -542,8 +541,9 @@ class _Shard:
 
     def mlp_split(self, cfg: ArchConfig, kind: LayerKind) -> bool:
         """Whether this block's MLP is split over ``tp``: a dense MLP whose
-        ``d_ff`` divides, or a MoE layer without the dispatch whose
-        experts' ``F`` does (in a parallel block, with its attention)."""
+        ``d_ff`` divides, or a MoE layer without the dispatch under the
+        experts split or whose experts' ``F`` divides (in a parallel block,
+        with its attention)."""
         if self.tp is None or not self._mlp_divides(cfg, kind):
             return False
         return not _parallel(cfg, kind) or cfg.n_heads % self.m == 0
@@ -552,7 +552,7 @@ class _Shard:
         if kind.mlp in ("swiglu", "gelu", "relu2"):
             return cfg.d_ff % self.m == 0
         return kind.mlp == "moe" and self.dispatch is None \
-            and cfg.moe_d_ff % self.m == 0
+            and (self.experts is not None or cfg.moe_d_ff % self.m == 0)
 
     def kv_split(self, cfg: ArchConfig) -> bool:
         return cfg.n_kv_heads % self.m == 0
@@ -602,8 +602,13 @@ class _Shard:
                 summed |= {"attn_norm", "bo"}
         if self.mlp_split(cfg, kind):
             if kind.mlp == "moe":
-                split.update(_MOE_SPLIT)
                 summed.add("router")
+                if self.experts is None:
+                    split.update(_MOE_SPLIT)
+                elif cfg.n_experts % self.m == 0:
+                    split.update(_MOE_EXPERTS)
+                else:       # whole: each rank its capacity rows (or rank 0)
+                    summed |= set(_MOE_LEAVES)
             else:
                 split.update(_MLP_SPLIT)
             if self.seq:
@@ -752,13 +757,13 @@ class _Shard:
                 x = collectives.psum(x, self.mesh, a)
         return x
 
-    def batch_moe(self, h, p, cfg: ArchConfig):
+    def batch_moe(self, h, p, cfg: ArchConfig, experts=None):
         """A MoE layer without the hook on a batch split over the batch
         axes: its tokens gathered, so that it routes the whole batch as
         the reference does (capacity and the load-balance term are
-        batch-wide), and the rank's own rows of the output kept.  Every
-        rank computes the same aux term, so its gradient is counted once
-        over the batch axes."""
+        batch-wide), and the rank's own rows of the output kept (with
+        ``experts``, of its contribution).  Every rank computes the same
+        aux term, so its gradient is counted once over the batch axes."""
         axes = tuple(a for a in self.batch_axes
                      if self.mesh.axis_size(a) > 1)
         rows = (axes if len(axes) > 1 else axes[0],)
@@ -766,7 +771,7 @@ class _Shard:
                                 p["router"], p["moe_gate"], p["moe_up"],
                                 p["moe_down"], top_k=cfg.top_k,
                                 capacity_factor=cfg.capacity_factor,
-                                impl=cfg.moe_impl, ep_shard=cfg.act_shard_moe,
+                                impl=cfg.moe_impl, ep_shard=experts,
                                 seq_chunk=cfg.moe_seq_chunk, remat=cfg.remat)
         # aux's value, with 1/n of its gradient on each of the n ranks.
         n = math.prod(self.mesh.axis_size(a) for a in axes)
@@ -860,10 +865,24 @@ def _shard_of(mesh, specs, cfg: ArchConfig) -> "_Shard | None":
     m = mesh.axis_size(tp) if tp else 1
     vocab = tp is not None and tp in shardlib._entry_axes(specs["logits"][-1]) \
         and cfg.padded_vocab % m == 0
+    experts = None
+    if tp is not None and cfg.act_shard_moe is not None \
+            and cfg.moe_dispatch is None and cfg.moe_impl == "scatter" \
+            and not _experts_f_split(specs["params"], tp):
+        experts = shardlib.ExpertSplit(mesh, tp)
     return _Shard(mesh, specs["params"], specs.get("cache"),
                   cfg.moe_dispatch,
                   None if batch_axes is None else tuple(batch_axes),
-                  tp=tp, vocab=vocab, sp=bool(seq_axes))
+                  tp=tp, vocab=vocab, sp=bool(seq_axes), experts=experts)
+
+
+def _experts_f_split(specs, tp: str) -> bool:
+    """Whether the parameter ``specs`` split the experts' ``F`` over ``tp``
+    (the ``tp`` policy), which the MoE layers then keep."""
+    for p in specs.get("stack", {}).values():
+        if "moe_gate" in p:
+            return tp in shardlib._entry_axes(p["moe_gate"][3])
+    return False
 
 
 def gather_logits(logits, cfg: ArchConfig, *, mesh=None, specs=None):
@@ -997,11 +1016,12 @@ def _mlp_body(p, x, cfg: ArchConfig, kind: str, *, norm_key: str = "mlp_norm",
     return _bias(out, p, cfg, "b_down"), aux
 
 
-def _mlp_core(p, h, cfg: ArchConfig, kind: str, *, shard=None):
+def _mlp_core(p, h, cfg: ArchConfig, kind: str, *, shard=None,
+              experts=None):
     """The MLP of the normed ``h`` without its output bias: (output, the
     MoE load-balance term or None).  A split MLP's weights are the rank's
-    columns (or each expert's ``F`` slice), and its output a partial
-    sum."""
+    columns (or each expert's ``F`` slice, or under the ``experts`` split
+    the rank's experts or all of them), and its output a partial sum."""
     if kind == "swiglu":
         return swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), None
     if kind == "gelu":
@@ -1014,11 +1034,11 @@ def _mlp_core(p, h, cfg: ArchConfig, kind: str, *, shard=None):
         return torch.relu(z).square() @ p["w_down"], None
     if kind == "moe":
         if shard is not None and shard.batch_split():
-            return shard.batch_moe(h, p, cfg)
+            return shard.batch_moe(h, p, cfg, experts)
         return moe_layer_3d(h, p["router"], p["moe_gate"], p["moe_up"],
                             p["moe_down"], top_k=cfg.top_k,
                             capacity_factor=cfg.capacity_factor,
-                            impl=cfg.moe_impl, ep_shard=cfg.act_shard_moe,
+                            impl=cfg.moe_impl, ep_shard=experts,
                             seq_chunk=cfg.moe_seq_chunk, remat=cfg.remat)
     raise ValueError(kind)
 
@@ -1026,7 +1046,7 @@ def _mlp_core(p, h, cfg: ArchConfig, kind: str, *, shard=None):
 def _mlp_split(p, h, cfg: ArchConfig, kind: str, shard):
     """A split MLP on the entered ``h``: (partial output, the MoE
     load-balance term with its gradient counted once over the ranks)."""
-    out, aux = _mlp_core(p, h, cfg, kind, shard=shard)
+    out, aux = _mlp_core(p, h, cfg, kind, shard=shard, experts=shard.experts)
     return out, (None if aux is None else shard.split_aux(aux))
 
 
@@ -1315,7 +1335,7 @@ def _hidden(params, batch, cfg: ArchConfig, device, *, cache=None,
     term); with ``shard``, every ``stack`` of ``params`` holds a rank's
     shards (the rest from :meth:`_Shard.tops`), and the hidden states are
     the rank's block of the sequence where its stream is split."""
-    plan = require_ported(cfg)
+    plan = layer_plan(cfg)
     x, loss_mask, positions = _embed_inputs(params, batch, cfg, device,
                                             shard)
     enc_out = None
@@ -1469,7 +1489,7 @@ def _new_cache(cfg: ArchConfig, batch: int, max_len: int, enc_len: int,
                device):
     """:func:`init_cache` with the cross k/v sized for ``enc_len`` encoder
     frames."""
-    plan = require_ported(cfg)
+    plan = layer_plan(cfg)
     n_periods = cfg.n_layers // len(plan)
     hd = cfg.resolved_head_dim
     dtype = _DTYPES[cfg.dtype]
@@ -1623,7 +1643,7 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *, device=None,
     mesh, ``cache`` is the rank's shard from :func:`prefill`, and the
     logits are as :func:`prefill`'s."""
     device = _on_device(params, device)
-    plan = require_ported(cfg)
+    plan = layer_plan(cfg)
     if cfg.moe:
         cfg = replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
     shard = _entry_shard(mesh, specs, cfg, 1)

@@ -15,7 +15,8 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.ep_dispatch import make_ep_dispatch
-from repro_torch.distributed.sharding import (filter_spec, filtered_specs,
+from repro_torch.distributed.sharding import (ExpertSplit, filter_spec,
+                                              filtered_specs,
                                               make_sharding_rules, shard_leaf,
                                               shard_tree)
 from repro_torch.launch.mesh import axis_sizes
@@ -115,6 +116,8 @@ def _serve_case(mesh, case: dict) -> dict:
         cfg = replace(cfg, moe_dispatch=make_ep_dispatch(
             mesh, batch_axes=("data",), fsdp_axis="data",
             seq_chunk=case.get("seq_chunk", 0)))
+    if case.get("expert_split"):
+        cfg = replace(cfg, act_shard_moe=ExpertSplit(mesh))
     local = shard_tree(lm_params_from_numpy(case["params"], device="cpu"),
                        specs["params"], mesh)
     rows = filter_spec(("data", None), tokens.shape, axis_sizes(mesh))
@@ -227,13 +230,17 @@ def train_rank(mesh, cases: list, probe: dict,
     from repro_torch.launch.plan import sharding_specs
     from repro_torch.launch.steps import make_train_step
     from repro_torch.kernels.layout import flatten_tree, unflatten_tree
-    from repro_torch.launch.mesh import sub_mesh
+    from repro_torch.launch.mesh import make_mesh, sub_mesh
     started = time.time()
     fl_round.MESH_REDUCE_ELEMS = 1 << 16
     out = []
     full = mesh
     for case in cases:
-        mesh = sub_mesh(full, case["mesh"])
+        if case["axes"] == full.axis_names:
+            mesh = sub_mesh(full, case["mesh"])
+        else:               # all the ranks, laid out over other axes
+            mesh = make_mesh(case["mesh"], case["axes"],
+                             backend=full.backend, device=full.device)
         if mesh is None:
             out.append(None)
             continue
@@ -268,6 +275,7 @@ def train_rank(mesh, cases: list, probe: dict,
             "folds": calls, "regime": (plan.policy, plan.worker_axes,
                                        plan.batch_axes, plan.W, plan.P),
             "dispatch": plan.cfg.moe_dispatch is not None,
+            "expert_split": plan.cfg.act_shard_moe is not None,
             "coords": mesh.coords})
     return {"coords": full.coords, "started": started, "cases": out,
             "gather_rule": _gather_rule(full, probe),

@@ -42,6 +42,7 @@ from repro.models.papertasks import TASK_MODELS as JTASKS  # noqa: E402
 from repro.optim import sgd as jsgd  # noqa: E402
 from repro_torch.configs import get_arch as tget  # noqa: E402
 from repro_torch.core.concurrency import DeviceSpec  # noqa: E402
+from repro_torch.distributed.sharding import ExpertSplit  # noqa: E402
 from repro_torch.fl import round as tround  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import work  # noqa: E402
@@ -73,15 +74,22 @@ def _tmesh(axes):
 
 
 def _same_plan(jp, tp):
-    """The same plan, the ``act_*`` layout hooks unset; where the port set
-    ``moe_dispatch`` (given a mesh), the reference set it too, with the
-    same FSDP axis."""
+    """The same plan, the XLA layout hooks ``act_shard``, ``act_gather``
+    and ``act_shard_logits`` unset (the specs' ``"act"``/``"logits"``
+    layouts carry them); where the port set ``act_shard_moe`` (given a
+    mesh) the reference set it too, as an ``ExpertSplit`` over ``model``;
+    where the port set ``moe_dispatch``, the reference set it too, with
+    the same FSDP axis."""
     for f in dataclasses.fields(jp):
         if f.name != "cfg":
             assert getattr(tp, f.name) == getattr(jp, f.name), f.name
     assert _knobs(tp.cfg) == _knobs(jp.cfg)
     assert all(getattr(tp.cfg, h) is getattr(tget(tp.arch), h)
-               for h in HOOKS - {"moe_dispatch"})  # act_* hooks stay unset
+               for h in HOOKS - {"moe_dispatch", "act_shard_moe"})
+    if tp.cfg.act_shard_moe is not None:
+        assert jp.cfg.act_shard_moe is not None
+        assert isinstance(tp.cfg.act_shard_moe, ExpertSplit)
+        assert tp.cfg.act_shard_moe.axis == "model"
     if tp.cfg.moe_dispatch is not None:
         assert jp.cfg.moe_dispatch is not None
         assert tp.cfg.moe_dispatch.fsdp_axis == (
@@ -106,10 +114,13 @@ def test_plan_matches_reference_on_every_cell(arch, axes):
         tp = tplan.make_plan(arch, shape, _tmesh(axes))
         _same_plan(jp, tp)
         assert (tp.cfg.moe_dispatch is None) == (jp.cfg.moe_dispatch is None)
+        assert (tp.cfg.act_shard_moe is None) == \
+            (jp.cfg.act_shard_moe is None)
         # On axis sizes alone (the one-card dry-run) no hook is set.
         flat = tplan.make_plan(arch, shape, axes)
         _same_plan(jp, flat)
         assert flat.cfg.moe_dispatch is None
+        assert flat.cfg.act_shard_moe is None
 
 
 def test_plan_overrides_match_reference():

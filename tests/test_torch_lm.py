@@ -683,20 +683,36 @@ def test_frontend_init_params_have_the_reference_layout(name):
 
 def test_moe_dispatch_hook_still_raises():
     """The MoE layers call ``moe_dispatch`` where it is set, so a hook that
-    raises raises from the model; the one refusal left is the
-    ``act_shard_moe`` layout hook."""
+    raises raises from the model; nothing is refused: a config carrying
+    the ``act_shard_moe`` split (as the plan sets it on a mesh) builds and
+    runs on a one-rank mesh, its logits bitwise those without it."""
+    from repro_torch.distributed.sharding import ExpertSplit
+    from repro_torch.launch import plan as tplan
+    from repro_torch.launch.mesh import make_mesh
+
     def hook(*a, **k):
         raise NotImplementedError("moe_dispatch reached")
 
-    cfg = replace(tconfigs.get_arch("granite-moe-3b-a800m").reduced(),
-                  moe_dispatch=hook)
+    base = replace(tconfigs.get_arch("granite-moe-3b-a800m").reduced(),
+                   moe_impl="scatter")
+    cfg = replace(base, moe_dispatch=hook)
     params = tlm.init_params(0, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="moe_dispatch reached"):
         tlm.forward(params, {"tokens": np.zeros((1, 4), np.int32)}, cfg,
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="act_shard_moe"):
-        tlm.init_params(0, replace(cfg, act_shard_moe=lambda t: t),
-                        device="cpu")
+    mesh = make_mesh((1, 1), ("data", "model"), backend="meta",
+                     device="cpu")
+    split = replace(base, act_shard_moe=ExpertSplit(mesh))
+    params = tlm.init_params(0, split, device="cpu")
+    plan = tplan.make_plan(split, "prefill_32k", mesh)
+    assert isinstance(plan.cfg.act_shard_moe, ExpertSplit)
+    specs = tplan.sharding_specs(plan, mesh)
+    toks = {"tokens": _tokens(base)}
+    want = tlm.forward(params, toks, base, device="cpu")
+    got = tlm.forward(params, toks, split, device="cpu", mesh=mesh,
+                      specs={k: specs[k] for k in ("params", "act",
+                                                   "logits")})
+    assert torch.equal(got, want)
 
 
 def test_entry_points_run_on_the_card_by_default():

@@ -17,6 +17,9 @@ top-2, experts 64 wide).  Tolerances, and why:
   to bf16 at the same places, but a sum in another order moves a value to
   the neighbouring bf16 number now and then: atol 2e-2 + rtol 2e-2 on
   outputs of magnitude ~1 (one bf16 step is 2^-8 relative);
+* the ``act_shard_moe`` split's ranks' contributions summed, against the
+  port's unsplit layer: rtol 1e-6, atol 1e-6 (the same products, each
+  token's ``k`` terms summed in another order);
 * inside the port, prefill + decode against a teacher-forced forward,
   dropless (``capacity_factor = n_experts / top_k``, as
   ``tests/test_archs.py:80``): rtol 1e-5, atol 1e-5.
@@ -40,6 +43,8 @@ from repro.models import layers as jlayers  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import models as tmodels  # noqa: E402
+from repro_torch.distributed.sharding import ExpertSplit  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 
@@ -160,19 +165,29 @@ def test_duplicate_router_columns_route_as_the_reference(impl):
     np.testing.assert_allclose(float(ta), float(ja), rtol=1e-6)
 
 
+def _rank_split(m: int, r: int = 0):
+    """The ``act_shard_moe`` split over ``model`` as rank ``r`` of a (1,
+    ``m``) mesh sees it (a counting mesh on the CPU: no process group)."""
+    return ExpertSplit(Mesh((1, m), ("data", "model"), "meta",
+                            torch.device("cpu"), rank=r))
+
+
 def test_expert_parallel_hooks_raise():
-    """``ep_shard`` (the ``act_shard_moe`` layout hook, not ported) still
-    raises, at the dispatch and at the model; ``moe_dispatch`` runs: every
-    MoE layer of a reduced granite-moe goes through it, and a hook that
-    dispatches as ``moe_impl`` would gives the plain path's logits."""
+    """``ep_shard`` (the ``act_shard_moe`` hook) on a one-rank split is the
+    plain call, bitwise, under both impls, and a config carrying it builds
+    and runs; ``moe_dispatch`` runs: every MoE layer of a reduced
+    granite-moe goes through it, and a hook that dispatches as
+    ``moe_impl`` would gives the plain path's logits."""
     x, rw, g, u, d = (torch.from_numpy(a) for a in _moe_inputs())
-    with pytest.raises(NotImplementedError, match="ep_shard"):
-        tlayers._moe_dispatch(x, rw, g, u, d, top_k=K, ep_shard=lambda t: t)
+    for impl in ("einsum", "scatter"):
+        want = tlayers._moe_dispatch(x, rw, g, u, d, top_k=K, impl=impl)
+        got = tlayers._moe_dispatch(x, rw, g, u, d, top_k=K, impl=impl,
+                                    ep_shard=_rank_split(1))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     base = replace(tconfigs.get_arch("granite-moe-3b-a800m").reduced(),
                    moe_impl="scatter")
-    with pytest.raises(NotImplementedError, match="act_shard_moe"):
-        tlm.init_params(0, replace(base, act_shard_moe=lambda t: t),
-                        device="cpu")
+    tlm.init_params(0, replace(base, act_shard_moe=_rank_split(1)),
+                    device="cpu")
     calls = []
 
     def hook(h, router, gate, up, down, *, top_k, capacity_factor):
@@ -189,6 +204,69 @@ def test_expert_parallel_hooks_raise():
                       device="cpu")
     assert calls == [(2, 14, base.d_model)] * base.n_layers
     assert torch.equal(got, want)
+
+
+# (E, m, capacity factor, the buffers' split): C = int(cf·k·T/E).
+SPLITS = [(8, 2, 1.25, 0), (8, 4, 1.25, 0), (6, 4, 1.0, 1),
+          (6, 4, 1.25, None)]
+
+
+@pytest.mark.parametrize("E_,m,cf,dim", SPLITS,
+                         ids=["experts-2", "experts-4", "capacity-4",
+                              "neither-4"])
+def test_expert_split_contributions_sum_to_the_layer(E_, m, cf, dim):
+    """Under the ``act_shard_moe`` split each of ``m`` ranks routes every
+    token and computes its block of the ``"scatter"`` buffers — its
+    ``E/m`` experts (from the whole weights or from its own block), or
+    its ``C/m`` capacity rows of every expert, or (neither divides) rank 0
+    the whole layer: the ranks' contributions sum to the reference's
+    output (within 1e-5) and to the port's own unsplit layer, outputs and
+    gradients (within 1e-6: each token's ``k`` terms are the same
+    products, summed in another order where ``k`` > 2 ranks hold them);
+    every rank's aux term is the whole layer's."""
+    rng = np.random.default_rng(3)
+    n = lambda shape, s: rng.standard_normal(shape,  # noqa: E731
+                                             dtype=np.float32) * s
+    arrays = (n((T, D), 1.0), n((D, E_), 0.3), n((E_, D, F), 0.2),
+              n((E_, D, F), 0.2), n((E_, F, D), 0.2))
+    C = int(cf * K * T / E_)
+    assert ExpertSplit.dim(_rank_split(m), E_, C) == dim
+    idx = np.asarray(jax.lax.top_k(jax.nn.softmax(
+        jnp.asarray(arrays[0]) @ jnp.asarray(arrays[1]), -1), K)[1])
+    assert (np.bincount(idx.ravel(), minlength=E_) > C).any()    # drops
+    cot = torch.from_numpy(n((T, D), 1.0))
+
+    def run(split, weights=None):
+        ins = [torch.from_numpy(a).requires_grad_() for a in arrays]
+        w = ins[2:] if weights is None else weights(ins[2:])
+        out, aux = tlayers._moe_dispatch(ins[0], ins[1], *w, top_k=K,
+                                         capacity_factor=cf,
+                                         impl="scatter", ep_shard=split)
+        (out * cot).sum().backward()
+        return out.detach(), aux.detach(), [t.grad for t in ins]
+
+    want, want_aux, want_g = run(None)
+    jo, ja = jlayers._moe_dispatch(*map(jnp.asarray, arrays), top_k=K,
+                                   capacity_factor=cf, impl="scatter")
+    for own in ([False, True] if dim == 0 else [False]):
+        outs, grads = [], []
+        for r in range(m):
+            sl = (lambda w, r=r: [t[r * E_ // m:(r + 1) * E_ // m]
+                                  for t in w]) if own else None
+            o, a, gr = run(_rank_split(m, r), sl)
+            assert torch.equal(a, want_aux)
+            outs.append(o)
+            grads.append(gr)
+        got = sum(outs)
+        tol = dict(rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(got, want, **tol)
+        np.testing.assert_allclose(_np(got), _np(jo), **TOL)
+        np.testing.assert_allclose(float(want_aux), float(ja), rtol=1e-6)
+        for j in range(5):
+            torch.testing.assert_close(sum(g[j] for g in grads), want_g[j],
+                                       **tol)
+        if dim is None:             # rank 0 the whole layer, the rest zero
+            assert all(not o.any() for o in outs[1:])
 
 
 # -- moe_layer, moe_layer_3d ------------------------------------------------------

@@ -23,6 +23,10 @@ weights; and the dry-run per card of the reference's production meshes.
   so that every position lies in rank 0's slots and rank 1's are masked
   in every decode step; reduced whisper-base under ``tp`` (its cross-
   attention's frames split over ``model``, the flash-decode combine).
+* Reduced qwen3-moe under ``fsdp_tp`` on (1, 2) without the dispatch,
+  its config carrying the ``act_shard_moe`` split as the plan sets it:
+  each rank routes every token and computes its 2 of the 4 experts, the
+  ranks' contributions reduce-scattered over the sequence.
 * 4 sequences of 12 prompt tokens and 2 decode steps, each rank holding
   its shards of the weights, its sequences and its shard of the cache;
   attention, MLPs, Mamba mixers, embedding and head split over ``model``
@@ -90,7 +94,11 @@ CASES = [
     ("jamba-fsdp_tp-1x2-rank0-slots", "jamba-v0.1-52b", (1, 2), "fsdp_tp",
      True, True, {}),
     ("whisper-tp", "whisper-base", (2, 2), "tp", False, False, {}),
+    ("qwen3-moe-fsdp_tp-1x2-expert-split", "qwen3-moe-235b-a22b", (1, 2),
+     "fsdp_tp", True, False, {}),
 ]
+# The cases whose config carries the act_shard_moe split.
+EXPERT_SPLIT = {"qwen3-moe-fsdp_tp-1x2-expert-split"}
 # A cache longer than the prompt and its decode steps, so that every
 # position lies in rank 0's slots and rank 1's are all masked: the weights,
 # tokens and reference logits of the case named (masked slots add exactly
@@ -177,6 +185,7 @@ def cases():
         _, _, mesh, policy, seq, dispatch, _ = CASES[i]
         out.append({"arch": arch, "cfg": kw, "mesh": mesh, "policy": policy,
                     "seq": seq, "dispatch": dispatch,
+                    "expert_split": IDS[i] in EXPERT_SPLIT,
                     "params": jax.tree.map(np.asarray, params),
                     "tokens": toks, "prompt": PROMPT, "max_len": TOTAL,
                     "extra": extra,
@@ -188,7 +197,8 @@ def cases():
 @pytest.fixture(scope="module")
 def served(cases):
     send = [{k: c[k] for k in ("arch", "cfg", "mesh", "policy", "seq",
-                               "dispatch", "params", "tokens", "prompt",
+                               "dispatch", "expert_split", "params",
+                               "tokens", "prompt",
                                "max_len", "extra")}
             for c in cases]
     res = run_on_mesh(ranks.serve_rank, (2, 2), ("data", "model"),

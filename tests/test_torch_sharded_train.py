@@ -1,6 +1,7 @@
 """The sharded training step: one federated round of one client split over
 a mesh of gloo ranks on the CPU ((2, 2) ("data", "model"), or the first
-ranks of it laid out as (2, 1), ``launch.mesh.sub_mesh``), against the
+ranks of it laid out as (2, 1) or (1, 2), ``launch.mesh.sub_mesh``, or
+all four as (2, 1, 2) ("pod", "data", "model")), against the
 reference's unsharded ``repro.fl.round.make_round_step(make_loss_fn(cfg),
 sgd(0.05, 0.9))`` on the same numpy weights and batches.
 
@@ -27,9 +28,16 @@ step 1, integer weights), loss chunks of 8:
   does the same), which is not the whole batch's term: against the
   unsharded round this case sets ``moe_aux_weight = 0``;
 * the same plan without the dispatch (``moe_dispatch=None``): each rank
-  gathers the batch's tokens for the routing and computes its ``F`` slice
-  of every expert, so the load-balance term is the whole batch's and
-  stays on;
+  gathers the batch's tokens for the routing and, under the plan's
+  ``act_shard_moe`` split, computes its 2 of the 4 experts (gathered over
+  ``data`` only), the ranks' contributions summed over ``model``, so the
+  load-balance term is the whole batch's and stays on; the same with 3
+  experts at capacity 1.5 (64 rows an expert: each rank its 32 rows of
+  every expert) and, on (1, 2), at capacity 2.0 (85 rows: neither divides,
+  rank 0 computes the layer);
+* the reference's multipod regime: the same arch's ``train_4k`` plan on
+  (2, 1, 2) ("pod", "data", "model"), two workers over ``pod`` (so no
+  dispatch), each split over ``model`` under the ``act_shard_moe`` split;
 * the same plan with the batch replicated over ``data`` (``batch_axes=
   ()``), the dispatch and the load-balance term on: ``data`` is then an
   FSDP axis that splits no data;
@@ -106,7 +114,15 @@ CASES = [
     ("mamba2-tp", "mamba2-2.7b", {"loss_chunk": 8}, None, (2, 2), None),
     ("jamba-fsdp_tp-gathered-routing", "jamba-v0.1-52b",
      dict(MOE, moe_dispatch=None), None, (2, 2), None),
+    ("qwen3-moe-multipod-gathered-routing", "qwen3-moe-235b-a22b", MOE,
+     None, (2, 1, 2), None),
+    ("qwen3-moe-fsdp_tp-gathered-routing-capacity", "qwen3-moe-235b-a22b",
+     dict(MOE, moe_dispatch=None, n_experts=3, capacity_factor=1.5), None,
+     (2, 2), None),
+    ("qwen3-moe-fsdp_tp-gathered-routing-whole-1x2", "qwen3-moe-235b-a22b",
+     dict(MOE, moe_dispatch=None, n_experts=3), None, (1, 2), None),
 ]
+MESH_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 # The Mamba gradient probe: (arch, knobs) on (1, 2), the mixers split by
 # heads with the stream whole (mamba2, ``tp``) and split over the
 # sequence (jamba, ``fsdp_tp``).
@@ -119,11 +135,11 @@ IDS = [c[0] for c in CASES]
 # cases' widths.
 KNOBS = ("attn_impl", "attn_q_chunk", "attn_repeat_kv", "moe_impl",
          "moe_seq_chunk", "remat", "loss_chunk", "capacity_factor",
-         "moe_aux_weight", "n_kv_heads", "vocab_size")
+         "moe_aux_weight", "n_kv_heads", "vocab_size", "n_experts")
 
 
 def _axes_of(i):
-    return dict(zip(("data", "model"), CASES[i][4]))
+    return dict(zip(MESH_AXES[len(CASES[i][4])], CASES[i][4]))
 
 
 def _plan(i):
@@ -158,7 +174,8 @@ def cases():
                                                     weight)))
         out.append({
             "arch": arch, "knobs": knobs, "overrides": overrides,
-            "mesh": mesh, "grad_clip": clip, "S": S,
+            "mesh": mesh, "axes": MESH_AXES[len(mesh)], "grad_clip": clip,
+            "S": S,
             "b": B, "params": params, "batches": {"tokens": tokens},
             "step_mask": step_mask, "boundary": boundary, "weight": weight,
             "ref_params": {k: np.asarray(v) for k, v in flatten_tree(
@@ -202,7 +219,7 @@ def _meanwhile():
 
 @pytest.fixture(scope="module")
 def trained(cases):
-    send = [{k: c[k] for k in ("arch", "knobs", "overrides", "mesh",
+    send = [{k: c[k] for k in ("arch", "knobs", "overrides", "mesh", "axes",
                                "grad_clip", "S", "b", "params", "batches",
                                "step_mask", "boundary", "weight")}
             for c in cases]
@@ -239,12 +256,12 @@ def _assemble(trained, i):
     out = {}
     for path, spec in specs.items():
         blocks = {c: r["params"][path].numpy() for c, r in ranks_.items()}
-        local = blocks[(0, 0)]
+        local = blocks[min(blocks)]
         spec = tuple(spec) + (None,) * (local.ndim - len(spec))
         whole = np.zeros([n * math.prod(axes[a] for a in _axes(e))
                           for n, e in zip(local.shape, spec)], local.dtype)
-        for (d, m), x in blocks.items():
-            coords = {"data": d, "model": m}
+        for c, x in blocks.items():
+            coords = dict(zip(axes, c))
             sl = []
             for n, entry in zip(x.shape, spec):
                 idx = 0
@@ -291,17 +308,23 @@ def test_rank_holds_its_shards_and_folds_them(i, trained):
         lanes = plan.W * plan.P // math.prod(axes[a]
                                              for a in plan.worker_axes)
         assert c["folds"] == [(lanes, n_local)] * S
-    policy, worker_axes, batch_axes, W, P = ranks_[(0, 0)]["regime"]
+    first = ranks_[min(ranks_)]
+    policy, worker_axes, batch_axes, W, P = first["regime"]
     if policy == "tp":
         assert (worker_axes, W, P) == (("data",), 2, 1)
         # Split over model (where it has two ranks), norms replicated.
         assert tplan.param_bytes(plan.cfg) / axes["model"] <= per_card \
             <= tplan.param_bytes(plan.cfg)
     else:
-        assert (policy, worker_axes, W, P) == ("fsdp_tp", (), 1, 1)
+        pods = axes.get("pod", 1)
+        assert (policy, W, P) == ("fsdp_tp", pods, 1)
+        assert worker_axes == (("pod",) if pods > 1 else ())
         assert batch_axes == (("data",) if CASES[i][3] is None else ())
-        assert ranks_[(0, 0)]["dispatch"] == ("gathered" not in IDS[i])
-        assert per_card < tplan.param_bytes(plan.cfg) / 2
+        assert first["dispatch"] == ("gathered" not in IDS[i])
+        # The plan sets act_shard_moe for every MoE arch on a mesh.
+        assert first["expert_split"]
+        assert per_card < tplan.param_bytes(plan.cfg) / (
+            2 if axes["data"] > 1 else 1)
 
 
 def _port_round(c, plan):
@@ -420,25 +443,34 @@ def test_dispatch_routes_ep_seq_chunk_blocks(arch, chunk):
     assert plan.cfg.moe_seq_chunk == 512
 
 
-# (arch, overrides, policy, W, dispatch): the reference's three regimes of
-# a train cell at pod, cut in depth.
-REGIMES = [("qwen3-0.6b", {"n_layers": 2}, "tp", 256, False),   # per chip
-           ("internlm2-1.8b", {"n_layers": 2}, "tp", 16, False),
-           ("qwen3-moe-235b-a22b", {"n_layers": 1}, "fsdp_tp", 1, True)]
+# (arch, overrides, policy, W, dispatch, mesh): the reference's three
+# regimes of a train cell at pod, and its multipod MoE regime (workers over
+# pod, no dispatch), cut in depth.
+REGIMES = [("qwen3-0.6b", {"n_layers": 2}, "tp", 256, False, "pod"),
+           ("internlm2-1.8b", {"n_layers": 2}, "tp", 16, False, "pod"),
+           ("qwen3-moe-235b-a22b", {"n_layers": 1}, "fsdp_tp", 1, True,
+            "pod"),
+           ("qwen3-moe-235b-a22b", {"n_layers": 1}, "fsdp_tp", 2, False,
+            "multipod")]
 
 
-@pytest.mark.parametrize("arch,overrides,policy,W,dispatch", REGIMES,
-                         ids=["per-chip", "tp", "fsdp_tp"])
+@pytest.mark.parametrize("arch,overrides,policy,W,dispatch,mesh", REGIMES,
+                         ids=["per-chip", "tp", "fsdp_tp",
+                              "fsdp_tp-multipod"])
 def test_mesh_pod_counts_a_train_cell_per_regime(arch, overrides, policy, W,
-                                                 dispatch):
+                                                 dispatch, mesh):
     """A pod train cell of each regime is counted per card: K1 once a
     local step per dtype group, the gathers, a positive ``collective_s``;
     where ``model`` is no worker axis the split layers' sums over it
     (all-reduces, and under sequence parallelism reduce-scatters, which
     are also the FSDP gathers' gradient reductions over ``data``, and a
-    whole kv projection's over ``model``)."""
+    whole kv projection's over ``model``).  At multipod, without the
+    dispatch, the ``act_shard_moe`` split keeps each rank's experts: the
+    largest payload all-gathered over ``model`` is the residual stream of
+    the rank's sequences (an expert leaf gathered over ``model`` would be
+    48 times that)."""
     from repro_torch.launch import dryrun
-    rec = dryrun.run_cell(arch, "train_4k", mesh="pod", overrides=overrides)
+    rec = dryrun.run_cell(arch, "train_4k", mesh=mesh, overrides=overrides)
     assert rec["status"] == "ok" and rec["kind"] == "train"
     assert (rec["policy"], rec["W"], rec["moe_dispatch"]) == (policy, W,
                                                               dispatch)
@@ -453,6 +485,12 @@ def test_mesh_pod_counts_a_train_cell_per_regime(arch, overrides, policy, W,
     assert ("reduce-scatter" in kinds) == (policy == "fsdp_tp" or whole_kv)
     assert rec["roofline"]["collective_s"] > 0
     assert rec["param_bytes_per_card"] < rec["param_bytes"] / 10
+    if policy == "fsdp_tp":
+        cfg = get_arch(arch)
+        axes = rec["axes"]
+        stream = rec["b"] // axes["data"] * 4096 * cfg.d_model * 2
+        by_axis = rec["collectives"]["by_kind_axis"]
+        assert by_axis["all-gather/model"]["max_bytes"] == stream
 
 
 @pytest.mark.parametrize("g", range(len(GRAD_CASES)),

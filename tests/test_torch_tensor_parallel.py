@@ -11,6 +11,10 @@ reference's ``train_4k`` plan, counted by ``distributed.collectives``
   everything all-gathered over ``model`` is the residual stream of the
   rank's sequences (a block's entry, the MoE dispatch's, the head's), the
   split products are reduce-scattered over the sequence;
+* ``fsdp_tp`` without the dispatch (qwen3-moe-235b-a22b, 1 layer, and
+  jamba-v0.1-52b, one 8-layer period; a round and a prefill): under the
+  plan's ``act_shard_moe`` split no expert leaf is all-gathered over
+  ``model`` — each rank gathers its own experts over ``data`` only;
 * the collectives' own records: a reduce-scatter's payload and ring wire
   bytes, ``split`` moving nothing forward;
 * mamba2-2.7b ``tp`` (2 layers): each Mamba mixer is split by heads, so
@@ -81,6 +85,53 @@ def test_sequence_parallel_round_gathers_only_the_stream_over_model():
     assert any(c.kind == "all-reduce" for c in over_model)
 
 
+def _expert_shapes(cfg, e, d):
+    """The shapes an expert leaf of a period takes with ``e`` experts and
+    ``d`` rows of ``D``: ``moe_gate``/``moe_up`` ``[e, d, F]``, ``moe_down``
+    ``[e, F, d]``."""
+    return {(e, d, cfg.moe_d_ff), (e, cfg.moe_d_ff, d)}
+
+
+@pytest.mark.parametrize("arch,n_layers", [("qwen3-moe-235b-a22b", 1),
+                                           ("jamba-v0.1-52b", 8)])
+@pytest.mark.parametrize("step", ["round", "prefill"])
+def test_fsdp_tp_without_dispatch_gathers_no_expert_over_model(arch,
+                                                               n_layers,
+                                                               step):
+    """No all-gather over ``model`` carries an expert leaf, whole or in
+    part (judged by the payloads' shapes); each rank gathers its own
+    ``E/2`` experts over ``data``."""
+    mesh = make_mesh((2, 2), AXES, backend="meta")
+    shape = "train_4k" if step == "round" else "prefill_32k"
+    plan = tplan.make_plan(arch, shape, mesh,
+                           overrides={"n_layers": n_layers})
+    cfg = replace(plan.cfg, moe_dispatch=None)
+    assert cfg.act_shard_moe is not None and plan.policy == "fsdp_tp"
+    seen = []
+    if step == "round":
+        fn, args = build_step(replace(plan, S=1, b=2, cfg=cfg), "meta",
+                              mesh=mesh)
+        with coll.counting(seen.append):
+            fn(*args)
+    else:
+        specs = tplan.sharding_specs(plan, mesh)
+        kw = {k: specs[k] for k in ("params", "act", "logits")}
+        kw["cache"] = tplan.cache_specs(cfg, specs["rules"], 4, 1024, mesh)
+        params = shard_tree(tplan.meta_params(cfg), specs["params"], mesh)
+        # The rank's 2 of 4 sequences.
+        tokens = torch.zeros(2, 1024, dtype=torch.long, device="meta")
+        with coll.counting(seen.append):
+            lm.prefill(params, {"tokens": tokens}, cfg, max_len=1024,
+                       mesh=mesh, device="meta", specs=kw)
+    E, D = cfg.n_experts, cfg.d_model
+    experts = set().union(*(_expert_shapes(cfg, e, d) for e in (E, E // 2)
+                            for d in (D, D // 2)))
+    gathers = [(c.axis, c.shape) for c in seen if c.kind == "all-gather"]
+    assert not [g for g in gathers if g[0] == "model" and g[1] in experts]
+    own = _expert_shapes(cfg, E // 2, D)
+    assert {g[1] for g in gathers if g[0] == "data"} >= own
+
+
 def test_reduce_scatter_and_split_record_the_ring():
     mesh = make_mesh((2, 4), AXES, backend="meta")
     x = torch.empty(3, 8, 5, device="meta")
@@ -91,6 +142,7 @@ def test_reduce_scatter_and_split_record_the_ring():
     assert tuple(y.shape) == tuple(z.shape) == (3, 2, 5)
     (c,) = seen                              # split sends nothing
     assert (c.kind, c.axis, c.group_size) == ("reduce-scatter", "model", 4)
+    assert c.shape == (3, 8, 5)
     assert c.bytes == 3 * 8 * 5 * 4
     assert c.wire_bytes == c.bytes * 3 / 4
 

@@ -2,8 +2,11 @@
 a meta mesh (nothing computed, a few seconds on the host), by collective
 kind and axis: phase 14b's jamba period on (1, 2) — a prefill of 4 x 2,048
 tokens into a cache of 2,064 slots and one decode step — and phase 14c's
-rounds of 2 local steps: qwen3-0.6b ``tp`` on (2, 2) at b = 2 and one layer
-of qwen3-moe-235b-a22b ``fsdp_tp`` on (1, 2) at ``--moe-b`` sequences.
+rounds of 2 local steps: (a) qwen3-0.6b ``tp`` on (2, 2) at b = 1, and one
+layer of qwen3-moe-235b-a22b ``fsdp_tp`` on (1, 2) at ``--moe-b``
+sequences (b) through the expert-parallel dispatch and (c) without it
+(the ``act_shard_moe`` split on a tree that has it, else each expert's
+``F`` split).
 
 The bytes are the ring formulas of ``distributed.collectives`` on each
 payload in its dtype (gloo sends a reduction's bf16 payload in f32).  Run
@@ -68,11 +71,14 @@ def serve_hybrid_mesh() -> dict:
     return {"prefill": _counted(prefill), "decode_step": _counted(decode)}
 
 
-def train_round(arch: str, shape, b: int, n_layers) -> dict:
+def train_round(arch: str, shape, b: int, n_layers,
+                dispatch: bool = True) -> dict:
     mesh = make_mesh(shape, AXES, backend="meta")
     plan = tplan.make_plan(arch, "train_4k", mesh)
     cfg = plan.cfg if n_layers is None else replace(plan.cfg,
                                                     n_layers=n_layers)
+    if not dispatch:
+        cfg = replace(cfg, moe_dispatch=None)
     fn, args = build_step(replace(plan, S=2, b=b, cfg=cfg), "meta",
                           mesh=mesh)
     return _counted(lambda: fn(*args))
@@ -86,9 +92,12 @@ def main(argv=None) -> None:
     print(json.dumps({
         "serve_hybrid_mesh": serve_hybrid_mesh(),
         "train_sharded": {
-            "qwen3-0.6b": train_round("qwen3-0.6b", (2, 2), 2, None),
+            "qwen3-0.6b": train_round("qwen3-0.6b", (2, 2), 1, None),
             "qwen3-moe-235b-a22b": train_round("qwen3-moe-235b-a22b",
-                                               (1, 2), args.moe_b, 1)}},
+                                               (1, 2), args.moe_b, 1),
+            "qwen3-moe-235b-a22b no dispatch": train_round(
+                "qwen3-moe-235b-a22b", (1, 2), args.moe_b, 1,
+                dispatch=False)}},
         indent=1))
 
 
